@@ -2,14 +2,21 @@
 
     python3 chip_smoke.py
 
-Builds kernel K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu) from the
-sources, holds it against its plain PyTorch version on the card, builds the
-standalone world on the card, checks one control step on the card against
-the same step on the CPU, and drives the flagship goal-seek (K=1000 x H=100,
-(-45, -40) -> (45, 40) on the 150 m crater map with the 750-obstacle
-costmap). Each phase prints one line; any failure raises and the exit code
-is not 0. The last two lines are the kernel table and the result, as JSON.
-Needs one CUDA card; without one it exits with code 1 and prints no result.
+Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu) and K2
+(csrc/edt_minplus.cu) from the sources, one nvcc each, started together;
+holds each against its plain PyTorch version on the card (K1 within 5e-4,
+K2 bit-equal); builds the standalone world on the card (its costmap through
+K2); checks one control step on the card against the same step on the CPU;
+drives the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on
+the 150 m crater map with the 750-obstacle costmap); and runs the thesis
+2D-vs-3D evaluation protocol at full width (K=1000 x H=100, 1500^2 DEM and
+1500^2 costmap, one run per arm, at most EVAL_MAX_LOOPS loops), with the
+eager 2D rollout that bounds its 2D arm timed alone. Each path runs with the
+kernels' launch
+counts set to 0 just before it and read just after. Each phase prints one
+line; any failure raises and the exit code is not 0. The last two lines are
+the kernel table and the result, as JSON. Needs one CUDA card; without one
+it exits with code 1 and prints no result.
 """
 
 from __future__ import annotations
@@ -19,10 +26,15 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 K, H, DT = 1000, 100, 0.045
 START, GOAL, HEADING = (-45.0, -40.0), (45.0, 40.0), (1.0, 0.5, 0.0)
 REPS = 7
+# Control-loop cap of each evaluation run, below the protocol's 3500: the 2D
+# arm's eager rollout_2d is host-bound, ~140 ms per loop at K=1000 x H=100
+# on an H100 80GB HBM3 at 700 W, so 700 loops keep the phase near 100 s.
+EVAL_MAX_LOOPS = 700
 
 
 def cuda_ms(torch, fn, reps=REPS, inner=1):
@@ -46,6 +58,10 @@ def phase(label, **fields):
     print(json.dumps({"phase": label, **fields}), flush=True)
 
 
+def ptxas_lines(built):
+    return [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
+
+
 def main() -> int:
     import torch
 
@@ -63,14 +79,28 @@ def main() -> int:
         mppi_step,
     )
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
-    from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_25d, start_heading
-    from husky_rover_mppi_isaacsim_torch.ops.edt import edt_exact_sq
+    from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
+    from husky_rover_mppi_isaacsim_torch.mppi.rollout import (
+        rollout_2d,
+        rollout_25d,
+        start_heading,
+    )
+    from husky_rover_mppi_isaacsim_torch.ops.edt import (
+        edt_exact_sq,
+        edt_exact_sq_plain,
+        minplus_envelope,
+        normalize_minmax,
+        row_distances_sq,
+    )
+    from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.terrain import (
         STANDALONE_CRATER_BUMPS,
+        costmap_750,
         crater_surface,
         generate_obstacles,
         rasterize_obstacles,
+        thesis_statistics_terrain,
     )
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
@@ -87,12 +117,14 @@ def main() -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1 from the sources
+    # 2. build K1 and K2 from the sources, one nvcc each, started together
     t0 = time.perf_counter()
-    built = rollout_25d_cuda.load()
-    ptxas = [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
-    phase("build", kernel="rollout25d_f32", seconds=round(time.perf_counter() - t0, 3),
-          nvcc_seconds=round(built.seconds, 3), library=built.path.name, ptxas=ptxas)
+    with ThreadPoolExecutor(2) as pool:
+        builds = list(pool.map(lambda w: w.load(), (rollout_25d_cuda, edt_minplus_cuda)))
+    seconds = round(time.perf_counter() - t0, 3)
+    for name, built in zip(("rollout25d_f32", "edt_minplus_f32"), builds):
+        phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
+              library=built.path.name, ptxas=ptxas_lines(built))
 
     # 3. K1 against its plain version on the card: the flagship DEM and shapes
     hw = 75.0
@@ -135,22 +167,79 @@ def main() -> int:
         if k == K and wheels:
             k1_ms, plain_ms = t_k1, t_plain
 
-    # 4. the standalone world, built on the card; its EDT against the CPU's
+    # the eager plain 2D rollout of the evaluation's 2D arm, at its shape
+    lin = torch.rand((K, H), generator=gen, device=cuda) * 2.0
+    ang = torch.rand((K, H), generator=gen, device=cuda) * 2.0 - 1.0
+    phase("rollout_2d_plain", K=K, H=H,
+          ms=cuda_ms(torch, lambda: rollout_2d(hf, pos, heading, lin, ang, DT)))
+
+    # 4. K2 against its plain version on the card, bit for bit: the
+    #    standalone and thesis occupancies, a random non-square map, and an
+    #    obstacle-free map (the _BIG sentinel)
+    def occupancy(size):
+        raster = rasterize_obstacles(generate_obstacles(), half_width=75.0, size=size,
+                                     robot_radius=0.3)
+        return torch.from_numpy(raster == 0)
+
+    rand_occ = torch.rand((187, 875), generator=gen, device=cuda) < 0.02
+    maps = {"standalone_750": occupancy(750).to(cuda), "thesis_1500": occupancy(1500).to(cuda),
+            "random_187x875": rand_occ, "free_750": torch.zeros((750, 750), dtype=torch.bool,
+                                                                device=cuda)}
+    k2_ms, k2_plain_ms, k2_err = None, None, 0.0
+    for name, occ in maps.items():
+        got, want = edt_exact_sq(occ), edt_exact_sq_plain(occ)
+        equal = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        g2 = row_distances_sq(occ)
+        out = torch.empty_like(g2)
+        t_k2 = cuda_ms(torch, lambda: edt_minplus_cuda.launch(g2, out))
+        t_plain = cuda_ms(torch, lambda: minplus_envelope(g2))
+        phase("k2_vs_plain", map=name, shape=list(occ.shape), bit_equal=equal, max_abs_err=err,
+              k2_ms=t_k2, plain_ms=t_plain)
+        if not equal:
+            raise RuntimeError(f"K2 disagrees with its plain version on {name}")
+        k2_err = max(k2_err, err)
+        if name == "thesis_1500":
+            k2_ms, k2_plain_ms = t_k2, t_plain
+
+    # 5. the standalone world, built on the card through K2; its EDT against
+    #    the CPU's plain one; the costmap builds at 750^2 and 1500^2 with K2
+    #    and with the plain envelope on the card
+    edt_minplus_cuda.launches = 0
     t0 = time.perf_counter()
     hf, cm, hw = build_standalone_world({}, device=cuda)
     torch.cuda.synchronize()
     world_s = time.perf_counter() - t0
-    occupied = torch.from_numpy(rasterize_obstacles(generate_obstacles(), half_width=hw,
-                                                    size=750, robot_radius=0.3) == 0)
+    world_k2 = edt_minplus_cuda.launches
+    occupied = occupancy(750)
     edt_equal = torch.equal(edt_exact_sq(occupied.to(cuda)).cpu(), edt_exact_sq(occupied))
     finite = bool(torch.isfinite(hf.z).all() and torch.isfinite(cm.cost).all())
+
+    def costmap_seconds(size, plain):
+        t0 = time.perf_counter()
+        if plain:  # distance_costmap's steps, with the plain envelope
+            occ = occupancy(size).to(cuda)
+            d = torch.sqrt(edt_exact_sq_plain(occ))
+            (1.0 - normalize_minmax(d)) ** 20.0
+        else:
+            costmap_750(size=size, device=cuda)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    costmap_s = {f"{size}": {"k2": [], "plain": []} for size in (750, 1500)}
+    for size in (750, 1500):
+        for kind in ("plain", "k2", "k2", "plain"):
+            costmap_s[f"{size}"][kind].append(costmap_seconds(size, kind == "plain"))
     phase("world", dem=list(hf.z.shape), costmap=list(cm.cost.shape), seconds=round(world_s, 3),
-          edt_card_equals_cpu=edt_equal, finite=finite,
-          cost_min=cm.cost.min().item(), cost_max=cm.cost.max().item())
+          k2_launches=world_k2, edt_card_equals_cpu=edt_equal, finite=finite,
+          cost_min=cm.cost.min().item(), cost_max=cm.cost.max().item(),
+          costmap_build_s=costmap_s)
     if not (edt_equal and finite):
         raise RuntimeError("world build on the card is wrong")
+    if world_k2 != 1:
+        raise RuntimeError(f"the world build launched K2 {world_k2} times, not once")
 
-    # 5. one control step: on the card (K1, no host sync) and on the CPU
+    # 6. one control step: on the card (K1, no host sync) and on the CPU
     #    (plain), same noise
     cfg = MPPIConfig(num_samples=K, horizon=H)
     noise = torch.randn((2, K, H), generator=torch.Generator().manual_seed(1))
@@ -185,13 +274,13 @@ def main() -> int:
     if not ok:
         raise RuntimeError("the control step on the card disagrees with the CPU's")
 
-    # 6. the flagship goal-seek, through K1
+    # 7. the flagship goal-seek, through K1
     robot = RobotState.create(*START, HEADING, device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
     goal = torch.tensor(GOAL, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(42)
     torch.cuda.synchronize()
-    rollout_25d_cuda.launches = 0
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
     t0 = time.perf_counter()
     res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=3500)
     loops = int(res.loops)
@@ -212,11 +301,57 @@ def main() -> int:
     if launches != 2 * res.steps or launches == 0:
         raise RuntimeError(f"K1 ran {launches} times for {res.steps} control steps")
 
+    # 8. the thesis statistics DEM, built twice on the card: bit-equal
+    t0 = time.perf_counter()
+    dems = [thesis_statistics_terrain(device=cuda) for _ in range(2)]
+    torch.cuda.synchronize()
+    dem_equal = torch.equal(*dems)
+    phase("thesis_world", dem=list(dems[0].shape), seconds_two_builds=time.perf_counter() - t0,
+          bit_equal=dem_equal, finite=bool(torch.isfinite(dems[0]).all()),
+          z_min=dems[0].min().item(), z_max=dems[0].max().item())
+    if not dem_equal:
+        raise RuntimeError("two builds of the thesis DEM on the card differ")
+    del dems
+
+    # 9. the thesis 2D-vs-3D evaluation protocol at full width: K1 for the 3D
+    #    arm's samples and both arms' optimal rollouts, K2 for the costmap
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    t0 = time.perf_counter()
+    table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
+                                           max_loops=EVAL_MAX_LOOPS, half_width=75.0,
+                                           device=cuda)
+    eval_s = time.perf_counter() - t0
+    eval_k1, eval_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+    arms = table["per_k"][K]["arms"]
+    for proj, arm in arms.items():
+        loops = arm["mean_loops"] * table["config"]["runs_per_arm"]
+        phase("evaluation", arm=proj, K=K, H=H, dem=[1500, 1500], costmap=[1500, 1500],
+              max_loops=EVAL_MAX_LOOPS,
+              reached=table["config"]["runs_per_arm"] - arm["failed"],
+              completed=arm["completed"], collided=arm["collided"], failed=arm["failed"],
+              mean_loops=arm["mean_loops"], steps=arm["steps"], finite=arm["finite"],
+              wall_s=arm["wall_s"], ms_per_loop=1e3 * arm["wall_s"] / max(loops, 1))
+    want_k1 = 2 * arms["3d"]["steps"] + arms["2d"]["steps"]
+    phase("evaluation_launches", k1_launches=eval_k1, k1_expected=want_k1,
+          k2_launches=eval_k2, seconds=eval_s, critics=table["per_k"][K]["critics"])
+    if not all(arm["finite"] for arm in arms.values()):
+        raise RuntimeError("the evaluation recorded a non-finite trace")
+    if eval_k2 == 0:
+        raise RuntimeError("the evaluation's costmap build never launched K2")
+    if eval_k1 != want_k1:
+        raise RuntimeError(f"K1 ran {eval_k1} times in the evaluation, not {want_k1}")
+
     print(json.dumps({"kernels": [{
         "name": "rollout_25d", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/rollout.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/rollout_pallas.py:57",
         "launches": launches, "max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms,
+    }, {
+        "name": "edt_minplus", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/edt_minplus.cu",
+        "replaces": "husky_rover_mppi_isaacsim_tpu/ops/edt_pallas.py:31",
+        "launches": eval_k2, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -8,11 +8,13 @@ layout mirrors the JAX package's:
 - ``core``      — heightfield geometry: corner gathers, bilinear height, quad
                   normals, tangent projection, Rodrigues heading updates.
 - ``dynamics``  — Husky skid-steer wheel-lag model and diff-drive map.
-- ``mppi``      — sampling, 2.5D/2D rollouts, critics, the control step and
-                  the goal-seek loops.
-- ``ops``       — kernels and the ops behind them: the CUDA rollout (K1)
-                  with its build, and the exact EDT.
-- ``terrain``   — crater surface and the 750-obstacle costmap.
+- ``mppi``      — sampling, 2.5D/2D rollouts, critics, the control step,
+                  the goal-seek loops and the 2D-vs-3D evaluation.
+- ``ops``       — kernels and the ops behind them: the CUDA rollout (K1),
+                  the exact EDT with its CUDA min-plus envelope (K2), and
+                  their build.
+- ``terrain``   — crater surface, the 750-obstacle costmap, and the
+                  small-scale procedural terrain (base noise + craters).
 - ``convert``   — JAX-side state (as numpy) into this package's objects.
 - ``cli``       — ``python -m husky_rover_mppi_isaacsim_torch.cli``.
 """

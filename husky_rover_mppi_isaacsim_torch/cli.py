@@ -1,15 +1,19 @@
-"""Command-line entry of the PyTorch port: the standalone goal-seek.
+"""Command-line entry of the PyTorch port: the standalone goal-seek and the
+2D-vs-3D evaluation.
 
 Usage (dotted ``key=value`` overrides, the keys and defaults of the JAX
-package's ``run_standalone``)::
+package's ``run_standalone`` and ``run_evaluation``)::
 
     python -m husky_rover_mppi_isaacsim_torch.cli mode=standalone \\
         start.x=-45 start.y=-40 goal.x=45 goal.y=40 mppi.num_samples=1000
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=evaluation \\
+        evaluation.protocol=thesis evaluation.ks=[1000] evaluation.runs_per_arm=8
 
-Builds the 150 m crater DEM and the 750-obstacle exact-EDT costmap on the
-device (the card when one is present, else the CPU), runs
-:func:`goal_seek` and prints one JSON line. Only ``mode=standalone`` is
-ported; the YAML tree under ``cfg/`` is not read.
+``device=`` names the torch device, ``cuda`` by default: a run that asks for
+the card where there is none raises; the CPU runs only with ``device=cpu``.
+Each mode prints one JSON line that names the device. The YAML tree under
+``cfg/`` is not read; the evaluation keys and defaults are those of
+``cfg/mode/evaluation.yaml``.
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ import time
 import torch
 
 from .core.heightfield import HeightField
+from .mppi import evaluation
 from .mppi.controller import (
     NESTED_CONFIG,
     ControllerState,
@@ -61,18 +66,32 @@ def mppi_config(d) -> MPPIConfig:
     return MPPIConfig(**d)
 
 
-def run_standalone(tree: dict) -> dict:
-    """Goal-seek on the standalone world; the JAX ``run_standalone``'s keys
-    (``mppi``, ``world``, ``start``, ``goal``, ``seed``, ``max_loops``). The
-    run is on the card when there is one, else on the CPU; the result names
-    the device beside ``wall_s``."""
-    use_full_fp32_matmul()
-    dtype = torch.float32
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
-    cfg = mppi_config(tree.get("mppi"))
+def run_device(tree: dict) -> torch.device:
+    """The ``device`` key (default ``cuda``). Raises when it names a CUDA
+    device and there is none: nothing falls back to the CPU."""
+    device = torch.device(str(tree.get("device", "cuda")))
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={device} asked for, but no CUDA device is present; "
+                           "pass device=cpu to run on the CPU")
+    return device
+
+
+def world_tree(tree: dict) -> dict:
+    """The world section: ``environment.world`` with ``world.*`` on top."""
     world = dict((tree.get("environment") or {}).get("world") or {})
     world.update(tree.get("world") or {})
-    hf, cm, _ = build_standalone_world(world, dtype, device)
+    return world
+
+
+def run_standalone(tree: dict) -> dict:
+    """Goal-seek on the standalone world; the JAX ``run_standalone``'s keys
+    (``mppi``, ``world``, ``start``, ``goal``, ``seed``, ``max_loops``) and
+    ``device``. The result names the device beside ``wall_s``."""
+    use_full_fp32_matmul()
+    dtype = torch.float32
+    device = run_device(tree)
+    cfg = mppi_config(tree.get("mppi"))
+    hf, cm, _ = build_standalone_world(world_tree(tree), dtype, device)
     start = tree.get("start", {"x": -60.0, "y": -60.0})
     goal_d = tree.get("goal", {"x": 65.0, "y": 60.0})
     goal = torch.tensor([goal_d["x"], goal_d["y"]], dtype=dtype, device=device)
@@ -96,7 +115,58 @@ def run_standalone(tree: dict) -> dict:
     }
 
 
+def run_evaluation(tree: dict) -> dict:
+    """The thesis's 2D-vs-3D projection experiment; the JAX
+    ``run_evaluation``'s keys without ``gather_engine`` (the rollout engine
+    follows the device), plus ``device``. ``evaluation.protocol=thesis``
+    runs the thesis statistics protocol and refuses ``runs_per_arm <= 5``
+    (its drop-5-greatest trim); ``episode`` (the default) the episode-total
+    comparison on the crater map."""
+    use_full_fp32_matmul()
+    ev = tree.get("evaluation") or {}
+    world = world_tree(tree)
+    ks = tuple(int(k) for k in ev.get("ks", (350, 500, 1000)))
+    thesis = str(ev.get("protocol", "episode")) == "thesis"
+    runs_per_arm = int(ev.get("runs_per_arm", 64 if thesis else 8))
+    if thesis and runs_per_arm <= 5:
+        raise SystemExit("evaluation.runs_per_arm must exceed the thesis protocol's "
+                         f"drop-5-greatest trim (got {runs_per_arm})")
+    device = run_device(tree)
+    if thesis:
+        table = evaluation.run_thesis_protocol_experiment(
+            ks=ks, runs_per_arm=runs_per_arm,
+            horizon=int(ev.get("horizon", 100)),
+            max_loops=int(ev.get("max_loops", 3500)),
+            half_width=float(world.get("half_width", 75.0)),
+            seed=int(tree.get("seed", 42)),
+            slope_weight=float(ev.get("slope_weight", 35.5)),
+            sigma_base=float(ev.get("sigma_base", 0.3)),
+            terrain_seed=int(ev.get("terrain_seed", 42)),
+            slope_critic=str(ev.get("slope_critic", "body")),
+            terrain_z_scale=float(ev.get("terrain_z_scale", 1.0)),
+            device=device,
+        )
+    else:
+        table = evaluation.run_2d_vs_3d_experiment(
+            ks=ks, runs_per_arm=runs_per_arm,
+            horizon=int(ev.get("horizon", 100)),
+            max_loops=int(ev.get("max_loops", 1500)),
+            half_width=float(world.get("half_width", 75.0)),
+            grid_size=int(world.get("grid_size", 1500)),
+            costmap_size=int(world.get("costmap_size", 750)),
+            seed=int(tree.get("seed", 42)),
+            span_fraction=float(ev.get("span_fraction", 0.8)),
+            device=device,
+        )
+    return {"mode": "evaluation", **table, "device": str(device)}
+
+
+MODES = {"standalone": run_standalone, "evaluation": run_evaluation}
+
+
 def _parse_value(s: str):
+    if s.startswith("[") and s.endswith("]"):  # a list: [350,500,1000]
+        return [_parse_value(v.strip()) for v in s[1:-1].split(",") if v.strip()]
     low = s.lower()
     if low in ("true", "false"):
         return low == "true"
@@ -126,10 +196,10 @@ def parse_overrides(argv) -> dict:
 def main(argv=None) -> int:
     tree = parse_overrides(sys.argv[1:] if argv is None else argv)
     mode = tree.get("mode", "standalone")
-    if mode != "standalone":
-        print(f"mode {mode!r} is not ported; only 'standalone' runs", file=sys.stderr)
+    if mode not in MODES:
+        print(f"mode {mode!r} is not ported; {sorted(MODES)} run", file=sys.stderr)
         return 2
-    print(json.dumps(run_standalone(tree)))
+    print(json.dumps(MODES[mode](tree)))
     return 0
 
 

@@ -15,6 +15,8 @@ import torch
 from .core.heightfield import HeightField
 from .mppi.controller import NESTED_CONFIG, ControllerState, MPPIConfig, RobotState
 from .mppi.critics import Costmap
+from .mppi.evaluation import TrajectoryLog
+from .terrain.craters import CraterField, CraterProfiles
 
 
 def _tensor(a):
@@ -56,3 +58,20 @@ def config_from_jax(cfg) -> MPPIConfig:
         v = getattr(cfg, f.name)
         kw[f.name] = NESTED_CONFIG[f.name](*v) if f.name in NESTED_CONFIG else v
     return MPPIConfig(**kw)
+
+
+def crater_profiles_from_numpy(deformation, marks, height) -> CraterProfiles:
+    """CraterProfiles from the JAX one's tables, in their order."""
+    return CraterProfiles(*(_tensor(a) for a in (deformation, marks, height)))
+
+
+def crater_field_from_numpy(*fields) -> CraterField:
+    """CraterField from the JAX one's nine arrays, in their order."""
+    return CraterField(*(_tensor(a) for a in fields))
+
+
+def trajectory_log_from_jax(log) -> TrajectoryLog:
+    """This package's TrajectoryLog from the JAX one, read by field name."""
+    return TrajectoryLog(step=int(log.step), trajectory=np.array(log.trajectory),
+                         linear_velocities=np.array(log.linear_velocities),
+                         start=tuple(log.start), goal=tuple(log.goal))

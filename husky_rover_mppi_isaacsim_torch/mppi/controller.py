@@ -84,17 +84,20 @@ class RobotState(NamedTuple):
     right_wheel_speed: Tensor # ()
 
     @classmethod
-    def create(cls, x, y, heading, dtype=torch.float32, device=None) -> "RobotState":
-        """At rest at ``(x, y)``, heading normalized."""
+    def create(cls, x, y, heading, dtype=torch.float32, device=None,
+               wheel_speed: float = 0.0) -> "RobotState":
+        """At ``(x, y)``, heading normalized, both wheels at ``wheel_speed``
+        (the thesis protocol starts rolling at 1 m/s, MPPI_OO_current.py
+        Robot init)."""
         heading = torch.as_tensor(heading, dtype=dtype, device=device)
         heading = heading / torch.linalg.norm(heading)
-        zero = lambda: torch.zeros((), dtype=dtype, device=device)  # noqa: E731
+        full = lambda v: torch.full((), v, dtype=dtype, device=device)  # noqa: E731
         return cls(
             position=torch.tensor([x, y], dtype=dtype, device=device),
-            z=zero(),
+            z=full(0.0),
             heading=heading,
-            left_wheel_speed=zero(),
-            right_wheel_speed=zero(),
+            left_wheel_speed=full(wheel_speed),
+            right_wheel_speed=full(wheel_speed),
         )
 
 

@@ -75,6 +75,12 @@ def _pair_slope(points: Tensor) -> Tensor:
     return (1.0 + 5.0 * torch.abs(dz / (d + eps))) ** 2
 
 
+def avoid_slope_critic(trajectory: Tensor) -> Tensor:
+    """Body-frame slope critic (critics_warp.py:130-166), which the offline
+    rescorers of :mod:`.evaluation` use."""
+    return torch.sum(_pair_slope(trajectory), dim=-1)
+
+
 def avoid_slope_wheels_critic(left_wheel: Tensor, right_wheel: Tensor) -> Tensor:
     """Per-pair max of left/right wheel-track slopes (critics_warp.py:168-218)."""
     return torch.sum(torch.maximum(_pair_slope(left_wheel), _pair_slope(right_wheel)),

@@ -1,11 +1,17 @@
-"""Exact Euclidean distance transform for costmap construction, in plain torch.
+"""Exact Euclidean distance transform for costmap construction.
 
 Counterpart of ``edt_exact_sq``, ``edt_exact``, ``normalize_minmax`` and
 ``distance_costmap`` in ``husky_rover_mppi_isaacsim_tpu/ops/edt.py``: exact
-1D row distances by two cummin passes, then the column lower envelope
-``D2[y, x] = min_y' (y - y')^2 + g2[y', x]`` evaluated in row blocks. All in
-float32 with the ``_BIG`` sentinel held in float32; squared distances of a
-map with obstacles are integers, exact in float32.
+1D row distances by two cummin passes (stage 1, plain torch on every
+device), then the column lower envelope
+``D2[y, x] = min_y' (y - y')^2 + g2[y', x]`` (stage 2). All in float32 with
+the ``_BIG`` sentinel held in float32; squared distances of a map with
+obstacles are integers, exact in float32.
+
+Stage 2 follows the device: :func:`edt_exact_sq` sends CUDA tensors through
+kernel K2 (:mod:`.edt_cuda`) and CPU tensors through the plain row blocks of
+:func:`minplus_envelope`. :func:`edt_exact_sq_plain` runs the plain blocks on
+either device, for the comparisons with K2.
 """
 
 from __future__ import annotations
@@ -28,17 +34,36 @@ def _row_distances(occupied: Tensor) -> Tensor:
     return torch.minimum(fwd, bwd)
 
 
-def edt_exact_sq(occupied: Tensor) -> Tensor:
-    """Exact squared L2 EDT of a boolean grid (True = obstacle), in pixels^2."""
-    rows = occupied.shape[-2]
+def row_distances_sq(occupied: Tensor) -> Tensor:
+    """Stage 1: squared per-row distances, clamped to the ``_BIG`` sentinel."""
     g = _row_distances(occupied)
-    g2 = torch.clamp(g * g, max=_BIG)
-    ys = torch.arange(rows, dtype=torch.float32, device=occupied.device)
+    return torch.clamp(g * g, max=_BIG)
+
+
+def minplus_envelope(g2: Tensor) -> Tensor:
+    """Stage 2 in plain torch, the plain version of kernel K2:
+    ``min_y' (y - y')^2 + g2[y', x]`` over ``_ROW_BLOCK``-row blocks."""
+    rows = g2.shape[-2]
+    ys = torch.arange(rows, dtype=torch.float32, device=g2.device)
     out = []
     for y0 in range(0, rows, _ROW_BLOCK):
         off = (ys[y0:y0 + _ROW_BLOCK, None] - ys[None, :]) ** 2   # (b, rows)
         out.append(torch.amin(off[:, :, None] + g2[None, :, :], dim=1))
     return torch.cat(out, dim=0)
+
+
+def edt_exact_sq_plain(occupied: Tensor) -> Tensor:
+    """Exact squared L2 EDT of a boolean grid (True = obstacle), in pixels^2,
+    with the plain envelope on the grid's device."""
+    return minplus_envelope(row_distances_sq(occupied))
+
+
+def edt_exact_sq(occupied: Tensor) -> Tensor:
+    """Exact squared L2 EDT of a boolean grid (True = obstacle), in pixels^2:
+    K2 on a CUDA grid, the plain envelope on a CPU grid."""
+    from .edt_cuda import edt_minplus_cuda  # edt_cuda imports this module
+
+    return edt_minplus_cuda(row_distances_sq(occupied))
 
 
 def edt_exact(occupied: Tensor) -> Tensor:

@@ -1,4 +1,5 @@
-"""Standalone world: crater surface and the 750-obstacle costmap."""
+"""Worlds: the standalone crater surface and 750-obstacle costmap, and the
+small-scale procedural terrain of the thesis statistics protocol."""
 
 from .costmap import (
     as_costmap,
@@ -7,4 +8,5 @@ from .costmap import (
     generate_obstacles,
     rasterize_obstacles,
 )
+from .smallscale import thesis_statistics_terrain
 from .surface import STANDALONE_CRATER_BUMPS, bump_surface, crater_surface

@@ -3,8 +3,10 @@
 Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/costmap.py``:
 :func:`generate_obstacles` and :func:`rasterize_obstacles` are numpy copies
 of the JAX package's (whose module imports jax), and the costmap comes from
-the exact EDT (:mod:`..ops.edt`) on the requested device. The cv2-chamfer
-variant (``use_exact_edt=False`` there) is not ported.
+the exact EDT (:mod:`..ops.edt`) on the requested device: on the card its
+envelope is kernel K2. :func:`costmap_750` takes any ``size``: 750 for the
+standalone world, 1500 (0.1 m/px) for the thesis statistics protocol. The
+cv2-chamfer variant (``use_exact_edt=False`` there) is not ported.
 """
 
 from __future__ import annotations

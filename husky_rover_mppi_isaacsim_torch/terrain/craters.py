@@ -1,0 +1,251 @@
+"""Procedural craters: baked profile tables, per-crater metadata and the
+block renderer.
+
+Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/craters.py``
+(crater_generation.py, crater_distribution.py), with the same analytic
+substitutions (rotation applied to coordinates, analytic ``sat_gaussian``
+normalization, synthetic half-profiles for the missing profile pickle).
+The profile tables and the metadata are drawn on the host with numpy and
+scipy in the JAX package's draw order, so one seed gives both packages the
+same craters.
+
+:func:`render_crater_block` renders the craters as fixed-size patches in
+chunks (plain torch on the tables' device) and stamps them into the raster
+one by one, in crater order, with in-place slice adds. The order is fixed,
+so two builds of one DEM are bit-equal on the card too; a scatter with
+``index_put_(accumulate=True)`` would add with float atomics in no fixed
+order. Placement is computed on the host from the metadata.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import numpy as np
+import torch
+from torch import Tensor
+
+TABLE_SIZE = 256
+
+
+class CraterProfiles(NamedTuple):
+    """Baked profile tables, all ``(num_profiles, TABLE_SIZE)``."""
+
+    deformation: Tensor  # angular deformation factor over theta in [0, 1)
+    marks: Tensor        # angular marks amplitude over theta in [0, 1)
+    height: Tensor       # radial half-profile over r/R in [0, 1]
+
+
+class CraterField(NamedTuple):
+    """Struct-of-arrays crater metadata (utils.py:89-97 CraterMetadata),
+    padded to a fixed capacity with ``mask``."""
+
+    coordinates: Tensor      # (C, 2) meters
+    radius: Tensor           # (C,)
+    deformation_id: Tensor   # (C,) int32
+    marks_id: Tensor         # (C,) int32
+    marks_intensity: Tensor  # (C,)
+    profile_id: Tensor       # (C,) int32
+    xy_factor: Tensor        # (C,) x deformation factor (y factor is 1)
+    rotation: Tensor         # (C,) degrees
+    mask: Tensor             # (C,) bool
+
+
+def _closed_spline_table(rng: np.random.Generator, low: float, high: float,
+                         num_knots: int) -> np.ndarray:
+    """Periodic-ish cubic spline through U(low, high) knots with clamped end
+    slopes (crater_distribution.py:386-409), baked to a dense table."""
+    from scipy.interpolate import CubicSpline
+
+    knots = rng.uniform(low, high, num_knots)
+    knots = np.concatenate([knots, [knots[0]]])
+    x = np.linspace(0, 1, knots.shape[0])
+    spline = CubicSpline(x, knots, bc_type=((1, 0.0), (1, 0.0)))
+    return spline(np.linspace(0, 1, TABLE_SIZE))
+
+
+def _synthetic_half_profile(rng: np.random.Generator) -> np.ndarray:
+    """Synthetic lunar crater half-profile h(r/R) in units of the radius:
+    parabolic bowl, raised rim, exponentially decaying ejecta, h(1) = 0."""
+    x = np.linspace(0, 1, TABLE_SIZE)
+    depth = rng.uniform(0.15, 0.35)
+    rim_height = rng.uniform(0.02, 0.08)
+    rim_pos = rng.uniform(0.55, 0.75)
+    decay = rng.uniform(8.0, 16.0)
+    bowl = -depth + (depth + rim_height) * (x / rim_pos) ** 2
+    tail_len = max(1.0 - rim_pos, 1e-6)
+    frac = (x - rim_pos) / tail_len
+    taper = np.exp(-decay * frac) - np.exp(-decay)
+    taper /= 1.0 - np.exp(-decay)
+    ejecta = rim_height * taper
+    h = np.where(x <= rim_pos, bowl, ejecta)
+    # gentle smoothing of the rim kink
+    kernel = np.array([0.25, 0.5, 0.25])
+    h = np.convolve(np.pad(h, 1, mode="edge"), kernel, mode="valid")
+    h[-1] = 0.0
+    return h
+
+
+def build_profiles(num_profiles: int = 100, seed: int = 42, dtype=torch.float32,
+                   device=None) -> CraterProfiles:
+    """Bake the three profile families (CraterMetadataGenerator.build,
+    crater_distribution.py:341-396)."""
+    rng = np.random.default_rng(seed)
+    deform = np.stack([_closed_spline_table(rng, 0.95, 1.0, 9) for _ in range(num_profiles)])
+    marks = np.stack([_closed_spline_table(rng, 0.0, 0.01, 45) for _ in range(num_profiles)])
+    height = np.stack([_synthetic_half_profile(rng) for _ in range(num_profiles)])
+    return CraterProfiles(*(torch.as_tensor(t, dtype=dtype, device=device)
+                            for t in (deform, marks, height)))
+
+
+def randomize_metadata(
+    rng: np.random.Generator, coordinates: np.ndarray, radius: np.ndarray,
+    num_profiles: int, capacity: int, min_xy_ratio: float = 0.85,
+    max_xy_ratio: float = 1.0,
+) -> CraterField:
+    """Metadata randomization in the reference's per-attribute draw order
+    (crater_distribution.py:427-451: deformation id, marks id, intensity,
+    profile id, xy ratio, rotation), padded to ``capacity``. A field of
+    float32 / int32 / bool CPU tensors."""
+    dtype = np.float32
+    n = coordinates.shape[0]
+    if n > capacity:
+        raise ValueError(f"{n} craters exceed the capacity {capacity}")
+    field = CraterField(
+        coordinates=np.zeros((capacity, 2), dtype),
+        radius=np.zeros((capacity,), dtype),
+        deformation_id=np.zeros((capacity,), np.int32),
+        marks_id=np.zeros((capacity,), np.int32),
+        marks_intensity=np.zeros((capacity,), dtype),
+        profile_id=np.zeros((capacity,), np.int32),
+        xy_factor=np.ones((capacity,), dtype),
+        rotation=np.zeros((capacity,), dtype),
+        mask=np.zeros((capacity,), bool),
+    )
+    field.coordinates[:n] = coordinates
+    field.radius[:n] = radius
+    field.deformation_id[:n] = rng.integers(0, num_profiles, n)
+    field.marks_id[:n] = rng.integers(0, num_profiles, n)
+    field.marks_intensity[:n] = rng.uniform(0, 1, n)
+    field.profile_id[:n] = rng.integers(0, num_profiles, n)
+    field.xy_factor[:n] = rng.uniform(min_xy_ratio, max_xy_ratio, n)
+    field.rotation[:n] = rng.uniform(0, 360, n).astype(np.int64)
+    field.mask[:n] = True
+    return CraterField(*(torch.from_numpy(f) for f in field))
+
+
+def _table_lookup(table: Tensor, ids: Tensor, x: Tensor) -> Tensor:
+    """Linear interpolation into per-crater rows of a baked table.
+    ``ids``: (C,) row per crater; ``x``: (C, ...) in [0, 1]."""
+    pos = torch.clamp(x, 0.0, 1.0) * (TABLE_SIZE - 1)
+    i0 = torch.floor(pos).to(torch.int64)
+    i1 = torch.clamp(i0 + 1, max=TABLE_SIZE - 1)
+    frac = pos - i0
+    base = ids.to(torch.int64).reshape(ids.shape + (1,) * (x.ndim - 1)) * TABLE_SIZE
+    v0 = torch.take(table, base + i0)
+    v1 = torch.take(table, base + i1)
+    return v0 * (1.0 - frac) + v1 * frac
+
+
+def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: float,
+                    z_scale: float, patch_px: int) -> Tensor:
+    """Every crater of ``field`` in its own ``(patch_px, patch_px)`` patch
+    centered on the crater, ``(C, patch_px, patch_px)`` float32
+    (centered_distance_matrix + apply_profile, crater_generation.py:77-167).
+    Divisions by a variable are by tensors: on the card a division by a
+    Python float becomes a multiply by its reciprocal."""
+    dev = profiles.height.device
+    rows = torch.arange(patch_px, dtype=torch.float32, device=dev) - patch_px // 2
+    u = rows[None, :, None]  # (1, P, 1) x offset in px
+    v = rows[None, None, :]  # (1, 1, P) y offset in px
+
+    res = torch.full((), resolution, dtype=torch.float32, device=dev)
+    half_px = torch.floor(field.radius / res)[:, None, None]
+    ang = torch.deg2rad(field.rotation)[:, None, None]
+    ca, sa = torch.cos(ang), torch.sin(ang)
+    ur = ca * u + sa * v
+    vr = -sa * u + ca * v
+
+    inside_square = torch.maximum(torch.abs(u), torch.abs(v)) <= half_px
+    inside_rot = torch.maximum(torch.abs(ur), torch.abs(vr)) <= half_px
+
+    # XLA compiles the JAX package's division by the constant 2 pi into a
+    # multiply by its float32 reciprocal; so does this line
+    theta = torch.atan2(ur, vr) * (1.0 / (2.0 * np.pi)) + 0.5
+    fac = _table_lookup(profiles.deformation, field.deformation_id, theta)
+    marks = (_table_lookup(profiles.marks, field.marks_id, theta)
+             * half_px * field.marks_intensity[:, None, None])
+
+    m = torch.sqrt((vr / field.xy_factor[:, None, None]) ** 2 + ur ** 2) * fac
+
+    # saturated-gaussian marks envelope (analytic normalization)
+    mu1, mu2 = 0.15 * half_px, 0.45 * half_px
+    std = torch.clamp(0.05 * half_px, min=1e-6)
+    sat = torch.where(
+        m < mu1, torch.exp(-0.5 * ((m - mu1) / std) ** 2),
+        torch.where(m > mu2, torch.exp(-0.5 * ((m - mu2) / std) ** 2), torch.ones_like(m)))
+    m = m + marks * sat
+    m = torch.where(inside_rot, m, half_px)
+    m = torch.minimum(m, half_px)
+
+    h = (_table_lookup(profiles.height, field.profile_id, m / torch.clamp(half_px, min=1.0))
+         * field.radius[:, None, None] * z_scale)
+    keep = inside_square & field.mask[:, None, None]
+    return torch.where(keep, h, torch.zeros_like(h))
+
+
+def render_crater_block(
+    profiles: CraterProfiles, field: CraterField, block_origin, resolution: float,
+    z_scale: float, block_px: int, pad_px: int, patch_px: int = 128, chunk: int = 256,
+) -> Tensor:
+    """Render all craters of ``field`` into one ``(block_px, block_px)``
+    float32 block raster on the tables' device (CraterBuilder.
+    generate_craters, crater_generation.py:182-221); row = x, col = y.
+
+    Placement truncates like the reference (:169-176) and is computed on the
+    host in float32. The raster carries a patch-sized guard band, so a patch
+    that overhangs the padded block is cut off, not moved; a crater whose
+    patch leaves the guard band too is clamped into it, as in the JAX
+    package. Masked craters are skipped (they render as zeros there)."""
+    dev = profiles.height.device
+    size_px = block_px + 2 * pad_px
+    guard = patch_px
+    hi = size_px + 2 * guard - patch_px
+
+    coords = field.coordinates.cpu().numpy().astype(np.float32)
+    origin = np.asarray(block_origin, np.float32)
+    res = np.float32(resolution)
+    cpx = np.floor((coords[:, 0] - origin[0]) / res)
+    cpy = np.floor((coords[:, 1] - origin[1]) / res)
+    row0 = np.clip((cpx + pad_px - patch_px // 2).astype(np.int32) + guard, 0, hi)
+    col0 = np.clip((cpy + pad_px - patch_px // 2).astype(np.int32) + guard, 0, hi)
+    mask = field.mask.cpu().numpy()
+
+    buf = torch.zeros((size_px + 2 * guard,) * 2, dtype=torch.float32, device=dev)
+    for s in range(0, mask.shape[0], chunk):
+        live = np.flatnonzero(mask[s:s + chunk])
+        if live.size == 0:
+            continue
+        sub = CraterField(*(f[s:s + chunk].to(dev) for f in field))
+        patches = _render_patches(profiles, sub, resolution, z_scale, patch_px)
+        for i in live.tolist():
+            r, c = int(row0[s + i]), int(col0[s + i])
+            buf[r:r + patch_px, c:c + patch_px] += patches[i]
+    dem = buf[guard:guard + size_px, guard:guard + size_px]
+    return dem[pad_px:size_px - pad_px, pad_px:size_px - pad_px]
+
+
+@dataclasses.dataclass
+class CraterSamplerConf:
+    """Crater distribution tiers (CraterDynamicDistributionConf defaults:
+    densities [0.025, 0.05, 0.5], radii [[1.5, 2.5], [0.75, 1.5],
+    [0.25, 0.5]])."""
+
+    densities: tuple = (0.025, 0.05, 0.5)
+    radius_ranges: tuple = ((1.5, 2.5), (0.75, 1.5), (0.25, 0.5))
+    num_repeat: int = 1
+    num_profiles: int = 100
+    min_xy_ratio: float = 0.85
+    max_xy_ratio: float = 1.0
+    seed: int = 42

@@ -1,0 +1,173 @@
+"""Hardcore Poisson point process for crater placement, on the host in numpy.
+
+Numpy copies of ``BoundingBox``, ``sample_poisson``, ``hardcore_rejection``,
+``reject_inside_previous`` and ``hardcore_poisson`` in
+``husky_rover_mppi_isaacsim_tpu/terrain/point_process.py`` (whose module
+imports jax), with the same draw order (DynamicDistribute,
+crater_distribution.py:46-289), so one ``np.random.Generator`` gives both
+packages the same points. The fixed-capacity device variants are not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import numpy as np
+
+
+@dataclasses.dataclass
+class BoundingBox:
+    """Region in meters (utils.py:23-30)."""
+
+    x_min: float = 0.0
+    x_max: float = 0.0
+    y_min: float = 0.0
+    y_max: float = 0.0
+
+    @property
+    def area(self) -> float:
+        return (self.x_max - self.x_min) * (self.y_max - self.y_min)
+
+
+def sample_poisson(rng: np.random.Generator, region: BoundingBox, density: float,
+                   r_minmax: Tuple[float, float]):
+    """Poisson point count + uniform radii/coords, reference draw order
+    (crater_distribution.py:63-86: count, radii, x, y)."""
+    num = rng.poisson(region.area * density)
+    radius = rng.uniform(r_minmax[0], r_minmax[1], num)
+    x = rng.uniform(region.x_min, region.x_max, num)
+    y = rng.uniform(region.y_min, region.y_max, num)
+    return np.stack([x, y]).T, radius
+
+
+def _cell_groups(coords: np.ndarray, cell: float):
+    """Spatial binning: (sorted point order, group slices, lookup
+    ``(gx, gy) -> (start, stop)`` into the sorted order)."""
+    g = np.floor(coords / cell).astype(np.int64)
+    gx, gy = g[:, 0], g[:, 1]
+    span = gy.max() - gy.min() + 1 if gy.size else 1
+    key = (gx - gx.min()) * span + (gy - gy.min())
+    order = np.argsort(key, kind="stable")
+    sorted_key = key[order]
+    uniq, starts = np.unique(sorted_key, return_index=True)
+    stops = np.append(starts[1:], sorted_key.size)
+    lookup = {}
+    base_x, base_y = gx.min(), gy.min()
+    for u, s, e in zip(uniq, starts, stops):
+        lookup[(u // span + base_x, u % span + base_y)] = (s, e)
+    return order, list(zip(uniq, starts, stops)), lookup
+
+
+def _neighbor_indices(lookup, order, cx: int, cy: int):
+    """Point indices (original numbering) in the 3x3 cell neighborhood."""
+    out = []
+    for dx in (-1, 0, 1):
+        for dy in (-1, 0, 1):
+            se = lookup.get((cx + dx, cy + dy))
+            if se is not None:
+                out.append(order[se[0]:se[1]])
+    return np.concatenate(out) if out else np.empty(0, np.int64)
+
+
+def hardcore_rejection(rng: np.random.Generator, coords: np.ndarray, radius: np.ndarray):
+    """Age-mark hardcore thinning (crater_distribution.py:87-110): a point
+    survives if it is older (smaller mark) than every point inside its
+    radius. Dense for small draws, grid-binned (cell = max radius, 3x3
+    neighborhoods) above 768 points; both keep the same set."""
+    mark_age = rng.uniform(0, 1, coords.shape[0])
+    n = coords.shape[0]
+    if n == 0:
+        return coords, radius
+    if n <= 768:
+        dist = np.linalg.norm(coords[:, None, :] - coords[None, :, :], axis=-1)
+        in_disk = (dist < radius[:, None]) & (dist > 0)
+        neighbor_min = np.where(in_disk, mark_age[None, :], np.inf).min(axis=1)
+        keep = mark_age < neighbor_min
+        return coords[keep], radius[keep]
+    cell = float(max(radius.max(), 1e-6))
+    order, groups, lookup = _cell_groups(coords, cell)
+    keep = np.ones(n, dtype=bool)
+    g = np.floor(coords / cell).astype(np.int64)
+    span = g[:, 1].max() - g[:, 1].min() + 1
+    base_x, base_y = g[:, 0].min(), g[:, 1].min()
+    for u, s, e in groups:
+        idx = order[s:e]
+        cx, cy = u // span + base_x, u % span + base_y
+        cand = _neighbor_indices(lookup, order, cx, cy)
+        d = np.linalg.norm(coords[idx][:, None, :] - coords[cand][None, :, :], axis=-1)
+        in_disk = (d < radius[idx][:, None]) & (d > 0)
+        nmin = np.where(in_disk, mark_age[cand][None, :], np.inf).min(axis=1)
+        keep[idx] = mark_age[idx] < nmin
+    return coords[keep], radius[keep]
+
+
+def reject_inside_previous(coords: np.ndarray, radius: np.ndarray,
+                           prev: Tuple[np.ndarray, np.ndarray] | None):
+    """Drop new points inside previously placed disks
+    (crater_distribution.py:112-135); dense for small products, grid-binned
+    over the previous disks above."""
+    if prev is None or prev[0].shape[0] == 0:
+        return coords, radius
+    n_prev, n_new = prev[0].shape[0], coords.shape[0]
+    if n_prev * n_new <= 1 << 22:
+        keep = np.ones(n_new, dtype=bool)
+        chunk = 4096
+        for s in range(0, n_prev, chunk):
+            pc = prev[0][s:s + chunk]
+            pr = prev[1][s:s + chunk]
+            dist = np.linalg.norm(pc[:, None, :] - coords[None, :, :], axis=-1)
+            keep &= ~np.any((dist < pr[:, None]) & (dist > 0), axis=0)
+        return coords[keep], radius[keep]
+    cell = float(max(prev[1].max(), 1e-6))
+    order, _, lookup = _cell_groups(prev[0], cell)
+    keep = np.ones(n_new, dtype=bool)
+    gnew = np.floor(coords / cell).astype(np.int64)
+    order_new, groups_new, _ = _cell_groups(coords, cell)
+    span = gnew[:, 1].max() - gnew[:, 1].min() + 1 if n_new else 1
+    base_x, base_y = gnew[:, 0].min(), gnew[:, 1].min()
+    for u, s, e in groups_new:
+        idx = order_new[s:e]
+        cx, cy = u // span + base_x, u % span + base_y
+        cand = _neighbor_indices(lookup, order, cx, cy)
+        if cand.size == 0:
+            continue
+        d = np.linalg.norm(coords[idx][:, None, :] - prev[0][cand][None, :, :], axis=-1)
+        hit = np.any((d < prev[1][cand][None, :]) & (d > 0), axis=1)
+        keep[idx] &= ~hit
+    return coords[keep], radius[keep]
+
+
+def hardcore_poisson(rng: np.random.Generator, region: BoundingBox, densities,
+                     radius_ranges, prev: Tuple[np.ndarray, np.ndarray] | None = None,
+                     num_repeat: int = 1):
+    """Tiered hardcore Poisson process (run_HC, crater_distribution.py:
+    191-227): per density/radius tier, repeated sample + thin, then reject
+    against all previously accepted points."""
+    if prev is not None and prev[1].shape[0] == 0:
+        prev = None
+    if prev is not None:
+        # only previous disks that can reach into the region matter
+        px, py, pr = prev[0][:, 0], prev[0][:, 1], prev[1]
+        near = ((px >= region.x_min - pr) & (px <= region.x_max + pr)
+                & (py >= region.y_min - pr) & (py <= region.y_max + pr))
+        prev = (prev[0][near], prev[1][near])
+        if prev[1].shape[0] == 0:
+            prev = None
+    all_coords, all_radius = [], []
+    for density, r_minmax in zip(densities, radius_ranges):
+        coords, radius = sample_poisson(rng, region, density, r_minmax)
+        for _ in range(num_repeat):
+            coords, radius = hardcore_rejection(rng, coords, radius)
+            new_c, new_r = sample_poisson(rng, region, density, r_minmax)
+            coords = np.concatenate([coords, new_c])
+            radius = np.concatenate([radius, new_r])
+        coords, radius = hardcore_rejection(rng, coords, radius)
+        coords, radius = reject_inside_previous(coords, radius, prev)
+        all_coords.append(coords)
+        all_radius.append(radius)
+        prev = (
+            np.concatenate([prev[0], coords], axis=0) if prev is not None else coords,
+            np.concatenate([prev[1], radius], axis=0) if prev is not None else radius,
+        )
+    return np.concatenate(all_coords, axis=0), np.concatenate(all_radius, axis=0)

@@ -101,6 +101,19 @@ def test_mppi_step_variants_match_jax(rng, variant):
     _steps_match(rng, dict(exact=True, **variant), 1)
 
 
+@pytest.mark.parametrize("wheel_speed", [0.0, 1.0, -0.25])
+def test_robot_state_create_matches_jax(wheel_speed):
+    """The thesis protocol starts every run rolling at 1 m/s."""
+    jr = jc.RobotState.create(2.5, -1.0, [0.3, -0.8, 0.1], dtype=jnp.float64,
+                              wheel_speed=wheel_speed)
+    tr = tc.RobotState.create(2.5, -1.0, [0.3, -0.8, 0.1], dtype=torch.float64,
+                              wheel_speed=wheel_speed)
+    want = convert.robot_state_from_numpy(*(np.asarray(a) for a in jr))
+    for a, b in zip(tr, want):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b)
+    assert float(tr.left_wheel_speed) == float(tr.right_wheel_speed) == wheel_speed
+
+
 def test_kinematic_advance_and_std_update(rng):
     (_, _), (thf, tcm) = _world()
     cfg = tc.MPPIConfig(num_samples=8, horizon=12, exact=True)

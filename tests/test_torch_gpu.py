@@ -1,5 +1,7 @@
-"""PyTorch port on the card: kernel K1 (csrc/rollout.cu) against its plain
-version, and the control step on the card against the same step on the CPU.
+"""PyTorch port on the card: kernels K1 (csrc/rollout.cu) and K2
+(csrc/edt_minplus.cu) against their plain versions, the control step on the
+card against the same step on the CPU, the thesis DEM's repeatable build and
+the evaluation's kernel launches.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -19,12 +21,18 @@ from husky_rover_mppi_isaacsim_torch.mppi import (
     RobotState,
     mppi_step,
 )
+from husky_rover_mppi_isaacsim_torch.mppi import evaluation
 from husky_rover_mppi_isaacsim_torch.mppi import rollout as tro
+from husky_rover_mppi_isaacsim_torch.ops import edt
+from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import (
     STANDALONE_CRATER_BUMPS,
     as_costmap,
     crater_surface,
+    generate_obstacles,
+    rasterize_obstacles,
+    thesis_statistics_terrain,
 )
 
 pytestmark = pytest.mark.gpu
@@ -33,7 +41,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernel K1 has no CPU mode")
+        pytest.skip("needs a CUDA card: kernels K1 and K2 have no CPU mode")
     use_full_fp32_matmul()
     return torch.device("cuda")
 
@@ -129,3 +137,59 @@ def test_mppi_step_on_card_matches_cpu(cuda):
                                rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(got.optimal_trajectory.cpu(), want.optimal_trajectory,
                                rtol=0, atol=1e-3)
+
+
+def _occupancy(kind, device):
+    if kind == "random_187x875":
+        g = torch.Generator(device=device).manual_seed(3)
+        return torch.rand((187, 875), generator=g, device=device) < 0.02
+    size = int(kind.split("_")[1])
+    raster = rasterize_obstacles(generate_obstacles(), half_width=75.0, size=size,
+                                 robot_radius=0.3)
+    return torch.from_numpy(raster == 0).to(device)
+
+
+@pytest.mark.parametrize("kind", ["costmap_750", "costmap_1500", "random_187x875"])
+def test_k2_kernel_bit_equal_to_plain_on_card(cuda, kind):
+    occ = _occupancy(kind, cuda)
+    before = edt_minplus_cuda.launches
+    got = edt.edt_exact_sq(occ)
+    torch.cuda.synchronize()
+    assert edt_minplus_cuda.launches == before + 1
+    assert torch.equal(got, edt.edt_exact_sq_plain(occ))
+    assert torch.equal(got.cpu(), edt.edt_exact_sq(occ.cpu()))
+    free = torch.zeros((64, 96), dtype=torch.bool, device=cuda)  # the _BIG sentinel
+    assert torch.equal(edt.edt_exact_sq(free), edt.edt_exact_sq_plain(free))
+
+
+def test_k2_kernel_refuses_what_it_does_not_take(cuda):
+    with pytest.raises(TypeError, match="float32"):
+        edt_minplus_cuda(torch.zeros((8, 8), dtype=torch.float64, device=cuda))
+    with pytest.raises(ValueError, match="4096 rows"):
+        edt_minplus_cuda(torch.zeros((4097, 2), device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        edt_minplus_cuda(torch.zeros((8, 16), device=cuda).t())
+    with pytest.raises(ValueError, match="device"):
+        edt_minplus_cuda.launch(torch.zeros((8, 8), device=cuda), torch.zeros((8, 8)))
+
+
+def test_thesis_dem_builds_bit_equal_on_card(cuda):
+    """The craters are stamped in a fixed order, so two builds agree bit
+    for bit (no float atomics)."""
+    a = thesis_statistics_terrain(size_m=40.0, device=cuda)
+    b = thesis_statistics_terrain(size_m=40.0, device=cuda)
+    assert a.shape == (400, 400) and a.is_cuda and torch.isfinite(a).all()
+    assert torch.equal(a, b)
+
+
+def test_evaluation_run_on_card_launches_k1_and_k2(cuda):
+    """K1 runs twice per 3D-arm step (samples + optimal rollout) and once
+    per 2D-arm step (the optimal rollout); K2 once, for the costmap."""
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    table = evaluation.run_2d_vs_3d_experiment(
+        ks=(64,), runs_per_arm=1, horizon=20, max_loops=10, half_width=20.0, grid_size=400,
+        costmap_size=200, span_fraction=0.3, device=cuda)
+    entry = table["per_k"][64]
+    assert entry["steps"]["3d"] > 0 and entry["finite"] == {"3d": True, "2d": True}
+    assert rollout_25d_cuda.launches == 2 * entry["steps"]["3d"] + entry["steps"]["2d"]
+    assert edt_minplus_cuda.launches == 1

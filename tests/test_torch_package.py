@@ -1,5 +1,6 @@
-"""PyTorch port: the package never imports jax, the CLI's standalone run,
-the JAX-state converters and the kernel build's refusal without nvcc."""
+"""PyTorch port: the package never imports jax, the CLI's standalone run and
+its device rule, the JAX-state converters and the kernel build's refusal
+without nvcc."""
 
 import json
 import subprocess
@@ -30,14 +31,20 @@ for name in names:
     importlib.import_module(name)
 leaked = [m for m in sys.modules if m.startswith(("jax", "husky_rover_mppi_isaacsim_tpu"))
           and sys.modules[m] is not None]
-print(len(names), leaked)
+print(len(names), leaked, ",".join(names))
 """
+
+# modules of the evaluation slice, each imported by the walk above
+SLICE_2 = ("ops.edt_cuda", "terrain.upsample", "terrain.point_process", "terrain.craters",
+           "terrain.smallscale", "mppi.evaluation")
 
 
 def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 15 and out[1] == "[]", out
+    assert int(out[0]) >= 25 and out[1] == "[]", out
+    names = out[2].split(",")
+    assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names for m in SLICE_2), names
 
 
 def test_parse_overrides_and_config():
@@ -67,7 +74,7 @@ def test_standalone_world_matches_jax_at_reduced_size():
 def test_run_standalone_cli_small(capsys):
     args = ["mode=standalone", "world.half_width=20", "world.grid_size=160",
             "world.costmap_size=80", "start.x=-3", "start.y=-2", "goal.x=3", "goal.y=2",
-            "mppi.num_samples=32", "mppi.horizon=15", "max_loops=6", "seed=3"]
+            "mppi.num_samples=32", "mppi.horizon=15", "max_loops=6", "seed=3", "device=cpu"]
     assert cli.main(args) == 0
     res = json.loads(capsys.readouterr().out)
     assert set(res) == {"mode", "reached", "loops", "final_position", "wall_s", "device"}
@@ -75,6 +82,17 @@ def test_run_standalone_cli_small(capsys):
     assert res["loops"] == 6 and res["reached"] is False
     assert len(res["final_position"]) == 2 and np.all(np.isfinite(res["final_position"]))
     assert res["final_position"] != [-3.0, -2.0]
+
+
+@pytest.mark.parametrize("mode", ["standalone", "evaluation"])
+def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
+    """With no ``device`` key the CLI asks for the card; where there is
+    none it raises, and only ``device=cpu`` runs on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for extra in ([], ["device=cuda"], ["device=cuda:0"]):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cli.main([f"mode={mode}", *extra])
+    assert cli.run_device({"device": "cpu"}) == torch.device("cpu")
 
 
 def test_converters_keep_values_and_dtypes():
