@@ -1,5 +1,5 @@
-"""Command-line entry of the PyTorch port: the standalone goal-seek and the
-2D-vs-3D evaluation.
+"""Command-line entry of the PyTorch port: the standalone goal-seek, the
+2D-vs-3D evaluation and the N-rover closed loop.
 
 Usage (dotted ``key=value`` overrides, the keys and defaults of the JAX
 package's ``run_standalone`` and ``run_evaluation``)::
@@ -8,12 +8,15 @@ package's ``run_standalone`` and ``run_evaluation``)::
         start.x=-45 start.y=-40 goal.x=45 goal.y=40 mppi.num_samples=1000
     python -m husky_rover_mppi_isaacsim_torch.cli mode=evaluation \\
         evaluation.protocol=thesis evaluation.ks=[1000] evaluation.runs_per_arm=8
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=closed_loop num_rovers=4 steps=300
 
 ``device=`` names the torch device, ``cuda`` by default: a run that asks for
 the card where there is none raises; the CPU runs only with ``device=cpu``.
 Each mode prints one JSON line that names the device. The YAML tree under
 ``cfg/`` is not read; the evaluation keys and defaults are those of
-``cfg/mode/evaluation.yaml``.
+``cfg/mode/evaluation.yaml``, the closed loop's those of
+``cfg/mode/closed_loop.yaml`` with ``cfg/config.yaml``'s ``mppi`` section
+and ``cfg/physics/default_physics.yaml``.
 """
 
 from __future__ import annotations
@@ -21,10 +24,21 @@ from __future__ import annotations
 import json
 import sys
 import time
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from .core.heightfield import HeightField
+from .env import (
+    ClosedLoopConfig,
+    LoopState,
+    RoverParams,
+    RoverState,
+    goal_distances,
+    init_loop_state,
+    run_episode,
+)
 from .mppi import evaluation
 from .mppi.controller import (
     NESTED_CONFIG,
@@ -161,7 +175,93 @@ def run_evaluation(tree: dict) -> dict:
     return {"mode": "evaluation", **table, "device": str(device)}
 
 
-MODES = {"standalone": run_standalone, "evaluation": run_evaluation}
+def rover_params(tree: dict) -> RoverParams:
+    """RoverParams from the physics section as the JAX ``_rover_params``
+    reads it: ``physics.rover.*`` by field name, ``physics.dt`` as the
+    physics step, ``|physics.gravity[2]|`` as gravity. Unset keys take
+    ``cfg/physics/default_physics.yaml``'s values, which are the defaults."""
+    phys = tree.get("physics") or {}
+    kw = {k: float(v) for k, v in (phys.get("rover") or {}).items()
+          if k in RoverParams._fields}
+    if "dt" in phys and "physics_dt" not in kw:
+        kw["physics_dt"] = float(phys["dt"])
+    grav = phys.get("gravity")
+    if isinstance(grav, (list, tuple)) and len(grav) == 3 and "gravity" not in kw:
+        kw["gravity"] = abs(float(grav[2]))
+    return RoverParams(**kw)
+
+
+def closed_loop_config(tree: dict) -> ClosedLoopConfig:
+    """ClosedLoopConfig from ``mppi.*`` and the physics section, as the JAX
+    ``run_closed_loop`` builds it: the loop's own constants keep their
+    defaults."""
+    return ClosedLoopConfig(mppi=mppi_config(tree.get("mppi")), rover=rover_params(tree))
+
+
+def spawn_points(seed: int, n: int, half_width: float) -> tuple[np.ndarray, np.ndarray]:
+    """Starts and goals ``(n, 2)`` of the closed loop, the JAX CLI's numpy
+    draw (``cli.py:179-183``): both uniform in ``+-min(40, 0.55 hw)``."""
+    rng = np.random.default_rng(seed)
+    lim = min(40.0, 0.55 * half_width)  # spawns and goals well inside the window
+    starts = rng.uniform(-lim, lim, (n, 2))
+    return starts, rng.uniform(-lim, lim, (n, 2))
+
+
+class ClosedLoopRun(NamedTuple):
+    """One closed-loop episode: final state, recorded positions
+    ``(steps, N, 2)``, per-rover progress toward the goal [m] (numpy), wall
+    seconds (host clock, ended by the copy of the final distances)."""
+
+    state: LoopState
+    path: torch.Tensor
+    progress: np.ndarray
+    wall_s: float
+    device: torch.device
+
+
+def closed_loop_episode(tree: dict) -> ClosedLoopRun:
+    """N rovers under the latched/PI closed loop on the standalone world; the
+    JAX ``run_closed_loop``'s keys (``num_rovers``, ``steps``, ``mppi``,
+    ``physics``, ``world``, ``seed``) and ``device``. The exploration noise
+    comes from a ``torch.Generator`` seeded 0 (the JAX run's ``key(0)``)."""
+    use_full_fp32_matmul()
+    dtype = torch.float32
+    device = run_device(tree)
+    n = int(tree.get("num_rovers", 4))
+    steps = int(tree.get("steps", 300))
+    cfg = closed_loop_config(tree)
+    hf, cm, hw = build_standalone_world(world_tree(tree), dtype, device)
+    starts, goals_np = spawn_points(int(tree.get("seed", 42)), n, hw)
+    goals = torch.tensor(goals_np, dtype=dtype, device=device)
+    state = init_loop_state(cfg, RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+    gen = torch.Generator(device=device).manual_seed(0)
+
+    t0 = time.perf_counter()
+    state, path = run_episode(cfg, hf, cm, goals, state, gen, num_steps=steps)
+    d1 = goal_distances(state.rovers.position, goals).cpu().numpy()  # waits for the device
+    wall = time.perf_counter() - t0
+    d0 = np.linalg.norm(starts - goals.cpu().numpy(), axis=-1)
+    return ClosedLoopRun(state, path, d0 - d1, wall, device)
+
+
+def run_closed_loop(tree: dict) -> dict:
+    """:func:`closed_loop_episode`, reported under the JAX run's keys and
+    ``device``."""
+    run = closed_loop_episode(tree)
+    steps = int(tree.get("steps", 300))
+    return {
+        "mode": "closed_loop",
+        "num_rovers": len(run.progress),
+        "steps": steps,
+        "mean_progress_m": float(run.progress.mean()),
+        "wall_s": round(run.wall_s, 2),
+        "sim_steps_per_s": round(steps / run.wall_s, 1),
+        "device": str(run.device),
+    }
+
+
+MODES = {"standalone": run_standalone, "evaluation": run_evaluation,
+         "closed_loop": run_closed_loop}
 
 
 def _parse_value(s: str):

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 
 from .core.heightfield import HeightField
+from .env.closed_loop import ClosedLoopConfig, LoopState
+from .env.rover_sim import RoverParams, RoverState
 from .mppi.controller import NESTED_CONFIG, ControllerState, MPPIConfig, RobotState
 from .mppi.critics import Costmap
 from .mppi.evaluation import TrajectoryLog
@@ -58,6 +60,39 @@ def config_from_jax(cfg) -> MPPIConfig:
         v = getattr(cfg, f.name)
         kw[f.name] = NESTED_CONFIG[f.name](*v) if f.name in NESTED_CONFIG else v
     return MPPIConfig(**kw)
+
+
+def rover_state_from_numpy(position, z, heading, wheel_left, wheel_right,
+                           yaw_rate) -> RoverState:
+    """RoverState from the JAX one's fields, in their order."""
+    return RoverState(*(_tensor(a) for a in (
+        position, z, heading, wheel_left, wheel_right, yaw_rate)))
+
+
+def rover_params_from_jax(params) -> RoverParams:
+    """RoverParams from the JAX one, read by field name."""
+    return RoverParams(**{f: float(getattr(params, f)) for f in RoverParams._fields})
+
+
+def closed_loop_config_from_jax(cfg) -> ClosedLoopConfig:
+    """ClosedLoopConfig from the JAX one: the MPPI and rover parts through
+    :func:`config_from_jax` and :func:`rover_params_from_jax`, the rest by
+    field name."""
+    kw = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(ClosedLoopConfig)}
+    kw["mppi"] = config_from_jax(cfg.mppi)
+    kw["rover"] = rover_params_from_jax(cfg.rover)
+    return ClosedLoopConfig(**kw)
+
+
+def loop_state_from_jax(state) -> LoopState:
+    """LoopState from the JAX one (arrays through ``np.asarray``); the step
+    index becomes a Python int."""
+    return LoopState(
+        rovers=rover_state_from_numpy(*(np.asarray(a) for a in state.rovers)),
+        ctrl=controller_state_from_numpy(*(np.asarray(a) for a in state.ctrl)),
+        latched_left=_tensor(state.latched_left), latched_right=_tensor(state.latched_right),
+        stored_left=_tensor(state.stored_left), stored_right=_tensor(state.stored_right),
+        err_total=_tensor(state.err_total), step_index=int(np.asarray(state.step_index)))
 
 
 def crater_profiles_from_numpy(deformation, marks, height) -> CraterProfiles:

@@ -1,6 +1,7 @@
 """Heightfield geometry ops (counterpart of the JAX ``core``)."""
 
 from .geometry import (
+    align_leading,
     cross3,
     normalize,
     rodrigues_rotate,
@@ -17,6 +18,7 @@ from .heightfield import (
     grid_lookup,
     height_at,
     nearest_height,
+    normal_at,
     quad_normal,
     tangent_project,
     wrap_clamp,

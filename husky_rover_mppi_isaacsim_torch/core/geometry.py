@@ -1,4 +1,5 @@
-"""Rigid-body geometry helpers: Rodrigues rotation, heading updates.
+"""Rigid-body geometry helpers: Rodrigues rotation, heading updates, and the
+alignment of rover-level values with batched leading axes.
 
 Counterpart of ``husky_rover_mppi_isaacsim_tpu/core/geometry.py``
 (projection_warp.py:207-275 math), batched over leading axes.
@@ -10,6 +11,16 @@ import torch
 from torch import Tensor
 
 from .heightfield import dot3
+
+
+def align_leading(value, like: Tensor, ndim: int) -> Tensor:
+    """``value`` as a tensor of ``like``'s dtype and device with unit axes
+    appended up to ``ndim`` axes, so that its axes line up with the leading
+    axes of ``like`` (a rover-level ``(N,)`` against an ``(N, K, ...)``
+    batch, as under ``jax.vmap``; a 0-d value broadcasts over everything).
+    A reshape only: the values, and so every later rounding, are unchanged."""
+    value = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    return value.reshape(value.shape + (1,) * (ndim - value.ndim))
 
 
 def cross3(a: Tensor, b: Tensor) -> Tensor:

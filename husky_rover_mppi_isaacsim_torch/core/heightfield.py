@@ -131,6 +131,11 @@ def quad_normal(q: Tensor, resolution: Tensor) -> Tensor:
     return torch.stack([vx, vy, vz], dim=-1) / norm[..., None]
 
 
+def normal_at(hf: HeightField, x: Tensor, y: Tensor) -> Tensor:
+    """Quad normal at (x, y)."""
+    return quad_normal(corners_at(hf, x, y), hf.resolution)
+
+
 def tangent_project(normal: Tensor, heading: Tensor) -> Tensor:
     """Project ``heading`` onto the plane of ``normal`` and renormalize
     (projection_warp.py:181-190)."""

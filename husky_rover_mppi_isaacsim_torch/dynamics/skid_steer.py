@@ -9,7 +9,9 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/dynamics/skid_steer.py``
 
 :func:`wheel_lag_scan` is the exact sequential form; :func:`wheel_lag_matmul`
 the same linear recurrence as one lower-triangular Toeplitz matmul, which
-differs only in summation order.
+differs only in summation order. Both take a leading rover axis: inputs
+``(N, K, H)`` with wheel speeds ``(N,)``, rover ``n``'s speeds applying to
+its K samples, as under the JAX package's ``jax.vmap`` over rovers.
 """
 
 from __future__ import annotations
@@ -18,6 +20,8 @@ from typing import NamedTuple
 
 import torch
 from torch import Tensor
+
+from ..core.geometry import align_leading
 
 
 class DiffDriveLimits(NamedTuple):
@@ -55,10 +59,11 @@ def wheel_lag_scan(
     u1: Tensor, u2: Tensor, left0, right0, track,
     limits: DiffDriveLimits, k: float, a: float,
 ) -> tuple[Tensor, Tensor]:
-    """Exact sequential wheel-lag conversion of ``(..., H)`` wheel inputs."""
+    """Exact sequential wheel-lag conversion of ``(..., H)`` wheel inputs;
+    ``left0``/``right0`` line up with the leading axes of the batch."""
     batch = u1.shape[:-1]
-    left = torch.as_tensor(left0, dtype=u1.dtype, device=u1.device).expand(batch)
-    right = torch.as_tensor(right0, dtype=u1.dtype, device=u1.device).expand(batch)
+    left = align_leading(left0, u1, len(batch)).expand(batch)
+    right = align_leading(right0, u1, len(batch)).expand(batch)
     wl, wr = [], []
     for t in range(u1.shape[-1]):
         left = left * a + u1[..., t] * k * (1.0 - a)
@@ -89,8 +94,8 @@ def wheel_lag_matmul(
     lag = lag_matrix(horizon, k, a, dt, dev)
     decay = torch.pow(torch.full((), a, dtype=dt, device=dev),
                       torch.arange(1, horizon + 1, dtype=dt, device=dev))
-    l0 = torch.as_tensor(left0, dtype=dt, device=dev)[..., None]
-    r0 = torch.as_tensor(right0, dtype=dt, device=dev)[..., None]
+    l0 = align_leading(left0, u1, u1.ndim)
+    r0 = align_leading(right0, u1, u1.ndim)
     wl = l0 * decay + torch.matmul(u1, lag.T)
     wr = r0 * decay + torch.matmul(u2, lag.T)
     return _to_velocities(wl, wr, track, limits)

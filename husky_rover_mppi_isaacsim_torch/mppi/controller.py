@@ -5,6 +5,12 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/mppi/controller.py``
 tensors both rollouts of a step go through kernel K1
 (:mod:`..ops.rollout_cuda`), on CPU tensors through the plain
 :func:`.rollout.rollout_25d`. There is no engine switch in the config.
+
+:func:`mppi_step` and :func:`kinematic_advance` also take N rovers at once:
+every state field, the goal and the noise with a leading rover axis (the
+JAX package's ``jax.vmap`` over rovers, ``env/closed_loop.py:131-132``).
+The rover axis goes into K1's launch grid, so a step of N rovers is still
+two launches.
 """
 
 from __future__ import annotations
@@ -141,7 +147,12 @@ def mppi_step(
 ) -> tuple[ControllerState, StepOutput]:
     """One MPPI control step (MPPI_isaac.py:505-752): perturb -> wheel lag ->
     K rollouts -> critics -> softmax weights -> weighted inputs -> optimal
-    wheel lag -> optimal rollout."""
+    wheel lag -> optimal rollout.
+
+    Unbatched: ``goal`` (2,), the state fields as in :class:`RobotState` and
+    :class:`ControllerState`, ``noise`` (2, K, H). For N rovers: ``goal``
+    (N, 2), every state field with a leading (N,), ``noise`` (N, 2, K, H);
+    every output then leads with (N,)."""
     wheel_lag = wheel_lag_scan if config.exact else wheel_lag_matmul
     dtype, dev = noise.dtype, noise.device
     # torch.full, not torch.tensor: a host-to-device copy would sync the stream
@@ -159,7 +170,8 @@ def mppi_step(
 
     # 3. K rollouts (projection_warp.py:284-350)
     if config.projection == "2d":
-        traj, _ = rollout_2d(hf, robot.position, robot.heading, lin, ang, config.dt)
+        traj, _ = rollout_2d(hf, robot.position[..., None, :], robot.heading[..., None, :],
+                             lin, ang, config.dt)
         lw = rw = traj  # no wheel tracks: the wheel critic degrades to body
     else:
         # body-slope mode never reads the wheel tracks: K1 skips them and
@@ -170,7 +182,7 @@ def mppi_step(
 
     # 4. critic stack (critics_warp.py:302-329)
     costs = crit.evaluate_trajectories(
-        robot.position[0], robot.position[1], goal, traj, lw, rw, lin,
+        robot.position[..., 0], robot.position[..., 1], goal, traj, lw, rw, lin,
         torch.full((), config.limits.v_max, dtype=dtype, device=dev), costmap,
         horizon_m, config.critic_weights)
 
@@ -180,17 +192,19 @@ def mppi_step(
 
     # 6. optimal-sequence conversion, softer lag (MPPI_isaac.py:672-692)
     k_o, a_o = config.optimal_lag
-    opt_lin, opt_ang = wheel_lag(opt_u1[None], opt_u2[None], robot.left_wheel_speed,
-                                 robot.right_wheel_speed, track, config.limits, k_o, a_o)
-    opt_lin, opt_ang = opt_lin[0], opt_ang[0]
+    opt_lin, opt_ang = wheel_lag(opt_u1[..., None, :], opt_u2[..., None, :],
+                                 robot.left_wheel_speed, robot.right_wheel_speed, track,
+                                 config.limits, k_o, a_o)
+    opt_lin, opt_ang = opt_lin[..., 0, :], opt_ang[..., 0, :]
 
     # 7. optimal rollout: always 3D, wheel tracks never read
     #    (MPPI_isaac.py:696-720)
-    opt = rollout_cuda.rollout_25d_cuda(hf, robot.position, robot.heading, opt_lin[None],
-                                        opt_ang[None], config.dt, wheels=False)
+    opt = rollout_cuda.rollout_25d_cuda(hf, robot.position, robot.heading,
+                                        opt_lin[..., None, :], opt_ang[..., None, :],
+                                        config.dt, wheels=False)
 
     b = config.sigma_base
-    sq = opt_ang[0] * opt_ang[0]
+    sq = opt_ang[..., 0] * opt_ang[..., 0]
     new_ctrl = ControllerState(
         optimal_u1=opt_u1,
         optimal_u2=opt_u2,
@@ -198,10 +212,10 @@ def mppi_step(
         std_u2=torch.clamp(b + sq, min=b),
     )
     out = StepOutput(
-        linear_velocity=opt_lin[0],
-        angular_velocity=opt_ang[0],
-        optimal_trajectory=opt.trajectory[0],
-        optimal_headings=opt.headings[0],
+        linear_velocity=opt_lin[..., 0],
+        angular_velocity=opt_ang[..., 0],
+        optimal_trajectory=opt.trajectory[..., 0, :, :],
+        optimal_headings=opt.headings[..., 0, :, :],
         optimal_linear=opt_lin,
         optimal_angular=opt_ang,
         costs=costs,
@@ -213,14 +227,14 @@ def mppi_step(
 
 def kinematic_advance(config: MPPIConfig, robot: RobotState, out: StepOutput) -> RobotState:
     """Advance to the first waypoint of the optimal rollout
-    (MPPI_isaac.py:769-784)."""
+    (MPPI_isaac.py:769-784), for one rover or a leading rover axis."""
     track = torch.full((), config.robot_radius, dtype=out.linear_velocity.dtype,
                        device=out.linear_velocity.device)
     left, right = inverse_diff_drive(out.linear_velocity, out.angular_velocity, track)
     return RobotState(
-        position=out.optimal_trajectory[0, :2],
-        z=out.optimal_trajectory[0, 2],
-        heading=out.optimal_headings[0],
+        position=out.optimal_trajectory[..., 0, :2],
+        z=out.optimal_trajectory[..., 0, 2],
+        heading=out.optimal_headings[..., 0, :],
         left_wheel_speed=left,
         right_wheel_speed=right,
     )

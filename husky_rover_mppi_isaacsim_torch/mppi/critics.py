@@ -7,6 +7,10 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/mppi/critics.py``
          +   0.5 * maximise_speed + 25.0 * avoid_obstacle
 
 with a deterministic two-pass minimum in the softmax weights.
+
+The rover-level arguments (pose ``x``, ``y``, ``goal``) may carry a leading
+rover axis ``(N,)`` against trajectories ``(N, K, H, 3)``: they line up with
+the leading axes, as under the JAX package's ``jax.vmap`` over rovers.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from typing import NamedTuple
 import torch
 from torch import Tensor
 
+from ..core.geometry import align_leading
 from ..core.heightfield import grid_lookup
 from ..dynamics.skid_steer import require_full_fp32_matmul
 
@@ -47,20 +52,24 @@ def path_follow_critic(x: Tensor, y: Tensor, goal: Tensor, trajectory: Tensor,
     ``horizon_m`` along the goal direction; near it, 10x L1 tracking of every
     waypoint but the last."""
     eps = 1e-6
-    x_diff = goal[0] - x
-    y_diff = goal[1] - y
+    gx, gy = goal[..., 0], goal[..., 1]
+    x_diff = gx - x
+    y_diff = gy - y
     dist = torch.sqrt(x_diff * x_diff + y_diff * y_diff)
     last = trajectory[..., -1, :]
-    inter_x = x + x_diff * horizon_m / (dist + eps)
-    inter_y = y + y_diff * horizon_m / (dist + eps)
-    far = (last[..., 0] - inter_x) ** 2 + (last[..., 1] - inter_y) ** 2
-    far = far * (1.0 + 2.0 * horizon_m / dist)
+    lead = last.ndim - 1  # the sample axes (..., K) of a per-sample cost
+    inter_x = align_leading(x + x_diff * horizon_m / (dist + eps), last, lead)
+    inter_y = align_leading(y + y_diff * horizon_m / (dist + eps), last, lead)
+    scale = align_leading(1.0 + 2.0 * horizon_m / dist, last, lead)
+    far = ((last[..., 0] - inter_x) ** 2 + (last[..., 1] - inter_y) ** 2) * scale
+    goal_x = align_leading(gx, trajectory, lead + 1)
+    goal_y = align_leading(gy, trajectory, lead + 1)
     near = torch.sum(
-        10.0 * (torch.abs(trajectory[..., :-1, 0] - goal[0])
-                + torch.abs(trajectory[..., :-1, 1] - goal[1])),
+        10.0 * (torch.abs(trajectory[..., :-1, 0] - goal_x)
+                + torch.abs(trajectory[..., :-1, 1] - goal_y)),
         dim=-1,
     )
-    return torch.where(dist > horizon_m, far, near)
+    return torch.where(align_leading(dist, last, lead) > horizon_m, far, near)
 
 
 def _pair_slope(points: Tensor) -> Tensor:
@@ -108,11 +117,12 @@ def maximise_speed_critic(x: Tensor, y: Tensor, goal: Tensor,
                           linear_velocities: Tensor, target_speed: Tensor) -> Tensor:
     """Sum of (v_max - v)/(v + 1e-4), off within 2 m of the goal
     (critics_warp.py:269-300)."""
-    x_diff = goal[0] - x
-    y_diff = goal[1] - y
+    x_diff = goal[..., 0] - x
+    y_diff = goal[..., 1] - y
     dist = torch.sqrt(x_diff * x_diff + y_diff * y_diff)
     diff = torch.sum((target_speed - linear_velocities) / (linear_velocities + 1e-4),
                      dim=-1)
+    dist = align_leading(dist, diff, diff.ndim)
     return torch.where(dist < 2.0, torch.zeros_like(diff), diff)
 
 

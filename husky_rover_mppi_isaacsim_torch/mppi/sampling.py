@@ -28,8 +28,9 @@ class InputLimits(NamedTuple):
 
 
 def shift_receding(optimal_u: Tensor) -> Tensor:
-    """Shift one step forward, repeating the last entry (sampling_warp.py:71-92)."""
-    return torch.cat([optimal_u[1:], optimal_u[-1:]], dim=0)
+    """Shift one step forward along the last (horizon) axis, repeating the
+    last entry (sampling_warp.py:71-92)."""
+    return torch.cat([optimal_u[..., 1:], optimal_u[..., -1:]], dim=-1)
 
 
 def perturb(
@@ -37,11 +38,15 @@ def perturb(
     std_u1: Tensor, std_u2: Tensor, limits: InputLimits,
 ) -> tuple[Tensor, Tensor]:
     """Clamped perturbed inputs ``(u1, u2)``, each ``(K, H)``, from the
-    ``(H,)`` previous optimum and ``(2, K, H)`` standard-normal noise."""
+    ``(H,)`` previous optimum, ``()`` stds and ``(2, K, H)`` standard-normal
+    noise; with a leading rover axis ``(N, H)``, ``(N,)`` and
+    ``(N, 2, K, H)`` -> ``(N, K, H)``."""
     base1 = shift_receding(optimal_u1)
     base2 = shift_receding(optimal_u2)
-    u1 = torch.clamp(base1[None, :] + std_u1 * noise[0], limits.min_u1, limits.max_u1)
-    u2 = torch.clamp(base2[None, :] + std_u2 * noise[1], limits.min_u2, limits.max_u2)
+    u1 = torch.clamp(base1[..., None, :] + std_u1[..., None, None] * noise[..., 0, :, :],
+                     limits.min_u1, limits.max_u1)
+    u2 = torch.clamp(base2[..., None, :] + std_u2[..., None, None] * noise[..., 1, :, :],
+                     limits.min_u2, limits.max_u2)
     return u1, u2
 
 

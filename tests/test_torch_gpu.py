@@ -1,7 +1,8 @@
-"""PyTorch port on the card: kernels K1 (csrc/rollout.cu) and K2
-(csrc/edt_minplus.cu) against their plain versions, the control step on the
-card against the same step on the CPU, the thesis DEM's repeatable build and
-the evaluation's kernel launches.
+"""PyTorch port on the card: kernels K1 (csrc/rollout.cu, one rover and N
+rovers), K2 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) against
+their plain versions, the control step and the closed-loop step on the card
+against the same steps on the CPU, the thesis DEM's repeatable build and the
+evaluation's kernel launches.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -14,6 +15,7 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch.cli import use_full_fp32_matmul
 from husky_rover_mppi_isaacsim_torch.core import HeightField
+from husky_rover_mppi_isaacsim_torch import env as tenv
 from husky_rover_mppi_isaacsim_torch.dynamics import skid_steer
 from husky_rover_mppi_isaacsim_torch.mppi import (
     ControllerState,
@@ -24,6 +26,7 @@ from husky_rover_mppi_isaacsim_torch.mppi import (
 from husky_rover_mppi_isaacsim_torch.mppi import evaluation
 from husky_rover_mppi_isaacsim_torch.mppi import rollout as tro
 from husky_rover_mppi_isaacsim_torch.ops import edt
+from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
 from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import (
@@ -41,7 +44,7 @@ pytestmark = pytest.mark.gpu
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: kernels K1 and K2 have no CPU mode")
+        pytest.skip("needs a CUDA card: kernels K1, K2 and K3 have no CPU mode")
     use_full_fp32_matmul()
     return torch.device("cuda")
 
@@ -87,6 +90,124 @@ def test_k1_kernel_refuses_what_it_does_not_take(cuda):
         rollout_25d_cuda(hf, pos.cpu(), heading, lin, lin, 0.045)
     with pytest.raises(ValueError, match=r"\(K, H\)"):
         rollout_25d_cuda(hf, pos, heading, lin, lin[:, :4], 0.045)
+
+
+@pytest.mark.parametrize("wheels", [True, False])
+def test_k1_rover_axis_equals_one_rover_launches(cuda, wheels):
+    """N=4 rovers in one launch: rover n bit-equal to a one-rover launch of
+    its inputs, and within the plain tolerances of the plain batched
+    rollout; the K=1 optimal rollouts of N rovers are one launch too."""
+    hf = _crater(cuda)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    n = 4
+    pos = torch.rand((n, 2), generator=g, device=cuda) * 80.0 - 40.0
+    heading = torch.rand((n, 3), generator=g, device=cuda) - 0.5
+    for k in (1000, 1):
+        lin = torch.rand((n, k, 100), generator=g, device=cuda) * 2.0
+        ang = torch.rand((n, k, 100), generator=g, device=cuda) * 2.0 - 1.0
+        before = rollout_25d_cuda.launches
+        got = rollout_25d_cuda(hf, pos, heading, lin, ang, 0.045, wheels=wheels)
+        torch.cuda.synchronize()
+        assert rollout_25d_cuda.launches == before + 1
+        assert got.trajectory.shape == (n, k, 100, 3)
+        for i in range(n):
+            one = rollout_25d_cuda(hf, pos[i], heading[i], lin[i], ang[i], 0.045, wheels=wheels)
+            for a, b in zip(got, one):
+                assert torch.equal(a[i], b)
+        want = tro.rollout_25d(hf, pos[:, None], heading[:, None], lin, ang, 0.045,
+                               wheels=wheels)
+        for a, b in zip(got[:2], want[:2]):
+            assert (a - b).abs().max().item() <= 5e-4
+    with pytest.raises(ValueError, match="position"):
+        rollout_25d_cuda(hf, pos[:2], heading[:2], lin, ang, 0.045)
+
+
+def test_k3_kernel_bit_equal_to_plain_on_card(cuda):
+    table, i, j = gp.probe_inputs(cuda)
+    rand = torch.randn((256, 256), generator=torch.Generator(device=cuda).manual_seed(5),
+                       device=cuda)
+    for t in (table, rand):
+        before = gp.gather_probe_cuda.launches
+        got = gp.gather_probe_cuda(t, i, j)
+        torch.cuda.synchronize()
+        assert gp.gather_probe_cuda.launches == before + 1
+        for fn in gp.FORMULATIONS.values():
+            assert torch.equal(got, fn(t, i, j))
+    bad = i.clone()
+    bad[0] = 256  # outside the table: NaN, not a read out of bounds
+    assert torch.isnan(gp.gather_probe_cuda(table, bad, j)[0])
+    with pytest.raises(TypeError, match="int32"):
+        gp.gather_probe_cuda(table, i.long(), j)
+    with pytest.raises(ValueError, match="devices"):
+        gp.gather_probe_cuda(table, i.cpu(), j)
+    assert gp.main(["device=cuda"]) == 0
+
+
+def test_closed_loop_step_on_card_matches_cpu(cuda):
+    """One closed-loop step for N=3 rovers: two K1 launches, no host sync,
+    and the step-card-vs-CPU tolerances on the commands and poses."""
+    cfg = tenv.ClosedLoopConfig(mppi=MPPIConfig(num_samples=256, horizon=50))
+    cost = torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4
+    noise = torch.randn((3, 2, 256, 50), generator=torch.Generator().manual_seed(2))
+    starts = [[-10.0, -8.0], [5.0, -12.0], [8.0, 9.0]]
+    goals = [[18.0, 15.0], [-15.0, 10.0], [0.0, -18.0]]
+
+    def run(device):
+        hf = _crater(device, grid=512, hw=25.0)
+        cm = as_costmap(cost, 25.0, device=device)
+        state = tenv.init_loop_state(cfg, tenv.RoverState.create(starts, [1.0, 0.3, 0.0], hf))
+        g = torch.tensor(goals, device=device)
+        noise_d = noise.to(device)
+        if device.type != "cuda":
+            return tenv.closed_loop_step(cfg, hf, cm, g, state, noise=noise_d)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # the step never waits for the card
+        try:
+            return tenv.closed_loop_step(cfg, hf, cm, g, state, noise=noise_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    before = rollout_25d_cuda.launches
+    got = run(cuda)
+    torch.cuda.synchronize()
+    assert rollout_25d_cuda.launches == before + 2
+    want = run(torch.device("cpu"))
+    torch.testing.assert_close(got.stored_left.cpu(), want.stored_left, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.stored_right.cpu(), want.stored_right, rtol=1e-4, atol=1e-4)
+    for f, a, b in zip(got.rovers._fields, got.rovers, want.rovers):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-4, msg=f)
+    for f, a, b in zip(got.ctrl._fields, got.ctrl, want.ctrl):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3, msg=f)
+    torch.testing.assert_close(got.err_total.cpu(), want.err_total, rtol=1e-4, atol=1e-4)
+
+
+def test_rover_step_on_card_matches_cpu(cuda):
+    """Five turning physics steps of 64 rovers, the first under an external
+    force and torque (the divisions by mass and yaw inertia): every state
+    field within 8 float32 ulps of its largest magnitude of the CPU's."""
+    params = tenv.RoverParams()
+    rng = torch.Generator().manual_seed(6)
+    n = 64
+    pos = torch.rand((n, 2), generator=rng) * 40.0 - 20.0
+    turn = [torch.rand(n, generator=rng) * 2.0 for _ in range(2)]
+    push = {"ext_force": torch.randn((n, 3), generator=rng) * 40.0,
+            "ext_torque": torch.randn(n, generator=rng) * 5.0}
+
+    dem = _crater(torch.device("cpu"), grid=512, hw=25.0)  # one DEM for both devices
+
+    def run(device):
+        hf = HeightField(*(t.to(device) for t in dem))
+        state = tenv.RoverState.create(pos, [1.0, 0.3, 0.0], hf)
+        for s in range(5):
+            ext = {k: t.to(device) for k, t in push.items()} if s == 0 else {}
+            state = tenv.step(params, hf, state, *(t.to(device) for t in turn), **ext)
+        return state
+
+    got, want = run(cuda), run(torch.device("cpu"))
+    assert want.yaw_rate.abs().max().item() > 0.1  # the rovers turn
+    for f, a, b in zip(got._fields, got, want):
+        tol = 8 * torch.finfo(torch.float32).eps * max(1.0, b.abs().max().item())
+        assert (a.cpu() - b).abs().max().item() <= tol, f
 
 
 def test_tf32_matmul_is_refused(cuda):

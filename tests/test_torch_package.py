@@ -34,17 +34,19 @@ leaked = [m for m in sys.modules if m.startswith(("jax", "husky_rover_mppi_isaac
 print(len(names), leaked, ",".join(names))
 """
 
-# modules of the evaluation slice, each imported by the walk above
+# modules of the evaluation slice and of the closed-loop slice, each
+# imported by the walk above
 SLICE_2 = ("ops.edt_cuda", "terrain.upsample", "terrain.point_process", "terrain.craters",
            "terrain.smallscale", "mppi.evaluation")
+SLICE_3 = ("env", "env.rover_sim", "env.metrics", "env.closed_loop", "ops.gather_probe")
 
 
 def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 25 and out[1] == "[]", out
+    assert int(out[0]) >= 30 and out[1] == "[]", out
     names = out[2].split(",")
-    assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names for m in SLICE_2), names
+    assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names for m in SLICE_2 + SLICE_3), names
 
 
 def test_parse_overrides_and_config():
@@ -84,7 +86,7 @@ def test_run_standalone_cli_small(capsys):
     assert res["final_position"] != [-3.0, -2.0]
 
 
-@pytest.mark.parametrize("mode", ["standalone", "evaluation"])
+@pytest.mark.parametrize("mode", ["standalone", "evaluation", "closed_loop"])
 def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
     """With no ``device`` key the CLI asks for the card; where there is
     none it raises, and only ``device=cpu`` runs on the CPU."""
@@ -109,6 +111,9 @@ def test_converters_keep_values_and_dtypes():
     assert r.position.tolist() == [1.0, 2.0] and float(r.right_wheel_speed) == 0.2
     c = convert.controller_state_from_numpy(np.ones(4), np.zeros(4), 0.4, 0.5)
     assert c.optimal_u1.shape == (4,) and float(c.std_u2) == 0.5
+    rs = convert.rover_state_from_numpy(np.zeros((3, 2), np.float32), *np.ones((5, 3)))
+    assert rs.position.dtype == torch.float32 and rs.yaw_rate.dtype == torch.float64
+    assert rs.heading.shape == (3,) and float(rs.z[0]) == 1.0
 
 
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
