@@ -5,27 +5,34 @@
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) from the sources, one
 nvcc each, started together; holds each against its plain PyTorch version on
-the card (K1 within 5e-4, its rover axis bit-equal to one-rover launches;
-K2 and K3 bit-equal); builds the standalone world on the card (its costmap
-through K2); checks one control step and one N=4 closed-loop step on the
-card against the same steps on the CPU; drives the flagship goal-seek
-(K=1000 x H=100, (-45, -40) -> (45, 40) on the 150 m crater map with the
-750-obstacle costmap), the CLI's default closed loop (4 rovers, 300 sim
-steps, the same world and widths) and 4096 simulated rovers for 400 physics
-steps; runs the thesis 2D-vs-3D evaluation protocol at full width
-(K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at most
-EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
+the card, bit for bit (K1 on every channel: the flagship shapes, the K=1
+optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
+rovers in one launch against one-rover launches; K1's branch-free division
+and square root against `/` and sqrtf on 2^36 operand pairs and every
+float32 operand); times each kernel back to
+back and as one CUDA-graph replay of 20 launches (device time without the
+host's issue time); builds the standalone world on the card (its
+costmap through K2); checks one control step and one N=4 closed-loop step on
+the card against the same steps on the CPU, and counts the device kernels of
+each (a K1 call dispatches no torch operator but the output's empty); drives
+the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on the 150 m
+crater map with the 750-obstacle costmap), the CLI's default closed loop (4
+rovers, 300 sim steps, the same world and widths) and 4096 simulated rovers
+for 400 physics steps; runs the thesis 2D-vs-3D evaluation protocol at full
+width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
+most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
 timed alone; and runs K3's probe entry point. Each path runs with the
 kernels' launch counts set to 0 just before it and read just after. Each
 phase prints one line; any failure raises and the exit code is not 0. The
-last two lines are the kernel table and the result, as JSON. Needs one
-CUDA card; without one it exits with code 1 and prints no result.
+last two lines are the kernel table (each kernel's time beside its bound,
+its plain version and the one-call library time where there is one) and the
+result, as JSON. Needs one CUDA card; without one it exits with code 1 and
+prints no result.
 """
 
 from __future__ import annotations
 
 import json
-import statistics
 import subprocess
 import sys
 import time
@@ -42,21 +49,24 @@ ROVERS, SIM_STEPS = 4, 300          # the CLI's closed-loop defaults
 VEC_ROVERS, VEC_STEPS = 4096, 400   # bench.py's vec-env shapes
 
 
-def cuda_ms(torch, fn, reps=REPS, inner=1):
-    """Median over ``reps`` of the CUDA-event time of ``inner`` calls, per call."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / inner)
-    return statistics.median(times)
+# one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes per second,
+# and float32 instructions per second outside the tensor cores (67 TFLOP/s
+# counts an FMA as two operations; a lone add or min is one instruction,
+# and 128 lanes per SM per clock is also the rate at which an SM issues
+# instructions of any kind)
+PEAK_BYTES_S = 3.35e12
+PEAK_FP32_S = 67e12
+PEAK_FP32_INSTR_S = PEAK_FP32_S / 2
+# float32 operations of one K1 sample-step with wheel tracks, counted from
+# csrc/rollout.cu (divisions and square roots as one each): an upper bound
+K1_FLOPS_PER_STEP = 150
+
+
+def bound(bytes_moved, ops, op_rate):
+    """The least time in ms for ``bytes_moved`` bytes and ``ops`` operations
+    at ``op_rate`` per second, and which of the two sets it."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES_S, ops / op_rate
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase(label, **fields):
@@ -84,20 +94,18 @@ def main() -> int:
         use_full_fp32_matmul,
     )
     from husky_rover_mppi_isaacsim_torch.core import HeightField, grid_lookup
+    from husky_rover_mppi_isaacsim_torch.core.heightfield import corner_cell, wrap_clamp
     from husky_rover_mppi_isaacsim_torch.mppi import (
         ControllerState,
         MPPIConfig,
         RobotState,
         goal_seek_recorded,
+        kinematic_advance,
         mppi_step,
     )
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
     from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
-    from husky_rover_mppi_isaacsim_torch.mppi.rollout import (
-        rollout_2d,
-        rollout_25d,
-        start_heading,
-    )
+    from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d, rollout_25d
     from husky_rover_mppi_isaacsim_torch.ops.edt import (
         edt_exact_sq,
         edt_exact_sq_plain,
@@ -107,6 +115,12 @@ def main() -> int:
     )
     from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
     from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
+    from husky_rover_mppi_isaacsim_torch.ops.measure import (
+        OpLog,
+        cuda_ms,
+        device_kernels,
+        graph_ms,
+    )
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.terrain import (
         STANDALONE_CRATER_BUMPS,
@@ -141,56 +155,89 @@ def main() -> int:
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
 
-    # 3. K1 against its plain version on the card: the flagship DEM and shapes
+    # 3. K1 against its plain version on the card, every channel bit for bit:
+    #    the flagship DEM and shapes, the K=1 optimal rollout, a ragged shape
+    #    (K=33, H=37: velocity slices not 16-byte aligned) and a start off the
+    #    DEM (wrap-then-clamp reads). Timed back to back (host issue time
+    #    included when it is longer) and as a CUDA-graph replay (device time)
     hw = 75.0
     hf = HeightField.create(crater_surface(1500, hw, STANDALONE_CRATER_BUMPS, device=cuda), hw)
-    pos = torch.tensor(START, device=cuda)
     heading = torch.tensor(HEADING, device=cuda)
     heading = heading / torch.linalg.norm(heading)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    max_err, k1_ms, plain_ms = 0.0, None, None
-    for k, wheels in ((K, True), (K, False), (1, False)):
-        lin = torch.rand((k, H), generator=gen, device=cuda) * 2.0
-        ang = torch.rand((k, H), generator=gen, device=cuda) * 2.0 - 1.0
-        args = (hf, pos, heading, lin, ang, DT)
+
+    def dem_cells(got, start):
+        """DEM cells a rollout read: the start cell's and every step's quad
+        corners, and the wheel tracks' cells."""
+        rows, cols = hf.z.shape
+        pts = [got.trajectory[..., :2].reshape(-1, 2), start.reshape(-1, 2)]
+        flat = []
+        for xy, quad in [(torch.cat(pts), True), (got.left_wheel[..., :2].reshape(-1, 2), False),
+                         (got.right_wheel[..., :2].reshape(-1, 2), False)]:
+            i, j = corner_cell(hf, xy[:, 0], xy[:, 1])
+            for di, dj in ((0, 0), (1, 0), (0, 1), (1, 1)) if quad else ((0, 0),):
+                flat.append(wrap_clamp(j + dj, rows) * cols + wrap_clamp(i + di, cols))
+        return int(torch.unique(torch.cat(flat)).numel())
+
+    def k1_bound(got, start, n, k, h, wheels):
+        channels = 12 if wheels else 6
+        moved = (2 + channels) * n * k * h * 4 + 4 * dem_cells(got, start) + 4 * n * 5
+        return bound(moved, K1_FLOPS_PER_STEP * n * k * h, PEAK_FP32_S)
+
+    max_err, k1_row = 0.0, {}
+    cases = [("flagship", K, H, True, START), ("flagship", K, H, False, START),
+             ("optimal", 1, H, False, START), ("ragged", 33, 37, True, START),
+             ("off_dem", K, H, True, (-78.0, 77.0))]
+    for name, k, h, wheels, start in cases:
+        p = torch.tensor(start, device=cuda)
+        lin = torch.rand((k, h), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((k, h), generator=gen, device=cuda) * 2.0 - 1.0
+        args = (hf, p, heading, lin, ang, DT)
         got = rollout_25d_cuda(*args, wheels=wheels)
         want = rollout_25d(*args, wheels=wheels)
         torch.cuda.synchronize()
-        err = max((a - b).abs().max().item() for a, b in zip(got[:2], want[:2]))
-        wheel_err, wheel_same = 0.0, 1.0
-        if wheels:
-            wheel_err = max((a[..., :2] - b[..., :2]).abs().max().item()
-                            for a, b in zip(got[2:], want[2:]))
-            wheel_same = min((a[..., 2] == b[..., 2]).float().mean().item()
-                             for a, b in zip(got[2:], want[2:]))
-        ok = err <= 5e-4 and wheel_err <= 5e-4 and wheel_same >= 0.98
-        # the kernel alone (prepared inputs, back-to-back launches), the
-        # wrapper call with its torch pre-ops, and the plain version
-        head0 = start_heading(hf, pos, heading).contiguous()
-        lin_t, ang_t = lin.t().contiguous(), ang.t().contiguous()
-        out = torch.empty((12 if wheels else 6, H, k), device=cuda)
-        t_k1 = cuda_ms(torch, lambda: rollout_25d_cuda.launch(hf, pos, head0, lin_t, ang_t,
-                                                              out, DT), inner=20)
-        t_call = cuda_ms(torch, lambda: rollout_25d_cuda(*args, wheels=wheels), inner=20)
-        t_plain = cuda_ms(torch, lambda: rollout_25d(*args, wheels=wheels))
-        phase("k1_vs_plain", K=k, H=H, wheels=wheels, max_abs_err=err,
-              wheel_xy_max_abs_err=wheel_err, wheel_z_bit_equal=wheel_same,
-              k1_ms=t_k1, k1_call_ms=t_call, plain_ms=t_plain, ok=ok)
-        if not ok:
-            raise RuntimeError(f"K1 disagrees with its plain version at K={k}, wheels={wheels}")
-        max_err = max(max_err, err, wheel_err)
-        if k == K and wheels:
-            k1_ms, plain_ms = t_k1, t_plain
+        equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        out = torch.empty((12 if wheels else 6, h, k), device=cuda)
+
+        def launch():
+            rollout_25d_cuda.launch(hf, p, heading, lin, ang, out, DT)
+
+        t_b2b, t_graph = cuda_ms(launch, inner=20), graph_ms(launch)
+        t_call = cuda_ms(lambda: rollout_25d_cuda(*args, wheels=wheels), inner=20)
+        t_plain = cuda_ms(lambda: rollout_25d(*args, wheels=wheels))
+        bound_ms, bound_by = k1_bound(got, p, 1, k, h, wheels)
+        phase("k1_vs_plain", case=name, K=k, H=h, wheels=wheels, start=list(start),
+              bit_equal=equal, max_abs_err=err, k1_ms=t_b2b, k1_graph_ms=t_graph,
+              k1_call_ms=t_call, plain_ms=t_plain, bound_ms=bound_ms, bound_by=bound_by,
+              ok=equal)
+        if not equal:
+            raise RuntimeError(f"K1 disagrees with its plain version: {name}, K={k}, "
+                               f"H={h}, wheels={wheels}")
+        max_err = max(max_err, err)
+        if name == "flagship" and wheels:
+            k1_row = {"ms": t_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
+
+    # K1's branch-free divisions and square roots against `/` and sqrtf:
+    # 2^36 hashed division operand pairs, every float32 square-root operand
+    t0 = time.perf_counter()
+    arith = rollout_25d_cuda.check_arithmetic(cuda, pairs=1 << 36)
+    ok = (arith["divisions_differing"] == 0 and arith["roots_differing"] == 0
+          and arith["divisions_fast"] > 2 ** 31 and arith["roots_fast"] > 2 ** 30)
+    phase("k1_fast_arithmetic", **arith, seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise RuntimeError("K1's fast arithmetic differs from IEEE division or sqrtf")
 
     # K1's rover axis: N rovers in one launch against N one-rover launches
-    # (bit-equal: a rover's threads run the one-rover code) and against the
-    # plain batched rollout (5e-4, as above)
+    # and against the plain batched rollout, bit for bit (a rover's blocks
+    # run the one-rover code)
     pos_n = torch.tensor(spawn_points(42, ROVERS, 75.0)[0], dtype=torch.float32, device=cuda)
     head_n = torch.rand((ROVERS, 3), generator=gen, device=cuda) - 0.5
     head_n[:, 2] = 0.0
-    for k, wheels in ((K, True), (K, False), (1, False)):
-        lin = torch.rand((ROVERS, k, H), generator=gen, device=cuda) * 2.0
-        ang = torch.rand((ROVERS, k, H), generator=gen, device=cuda) * 2.0 - 1.0
+    for k, h, wheels in ((K, H, True), (K, H, False), (1, H, False), (33, 37, True)):
+        lin = torch.rand((ROVERS, k, h), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((ROVERS, k, h), generator=gen, device=cuda) * 2.0 - 1.0
         args = (hf, pos_n, head_n, lin, ang, DT)
         got = rollout_25d_cuda(*args, wheels=wheels)
         ones = [rollout_25d_cuda(hf, pos_n[n], head_n[n], lin[n], ang[n], DT, wheels=wheels)
@@ -199,86 +246,108 @@ def main() -> int:
         torch.cuda.synchronize()
         bit_equal = all(torch.equal(a[n], b) for n, one in enumerate(ones)
                         for a, b in zip(got, one))
-        err = max((a - b).abs().max().item() for a, b in zip(got[:2], want[:2]))
-        head0 = start_heading(hf, pos_n, head_n).contiguous()
-        lin_t, ang_t = lin.transpose(1, 2).contiguous(), ang.transpose(1, 2).contiguous()
-        out = torch.empty((12 if wheels else 6, ROVERS, H, k), device=cuda)
-        t_batched = cuda_ms(torch, lambda: rollout_25d_cuda.launch(hf, pos_n, head0, lin_t,
-                                                                   ang_t, out, DT), inner=20)
-        one_args = [(pos_n[n].contiguous(), head0[n].contiguous(), lin_t[n], ang_t[n],
-                     torch.empty((12 if wheels else 6, H, k), device=cuda))
-                    for n in range(ROVERS)]
+        plain_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        out = torch.empty((12 if wheels else 6, ROVERS, h, k), device=cuda)
+        one_outs = [torch.empty((12 if wheels else 6, h, k), device=cuda)
+                    for _ in range(ROVERS)]
+
+        def batched():
+            rollout_25d_cuda.launch(hf, pos_n, head_n, lin, ang, out, DT)
 
         def one_rover_launches():
-            for p, h0, lt, at, o in one_args:
-                rollout_25d_cuda.launch(hf, p, h0, lt, at, o, DT)
+            for n, o in enumerate(one_outs):
+                rollout_25d_cuda.launch(hf, pos_n[n], head_n[n], lin[n], ang[n], o, DT)
 
-        t_ones = cuda_ms(torch, one_rover_launches, inner=5)
-        t_plain = cuda_ms(torch, lambda: rollout_25d(hf, pos_n[:, None], head_n[:, None], lin,
-                                                     ang, DT, wheels=wheels), reps=3)
-        ok = bit_equal and err <= 5e-4
-        phase("k1_batched", N=ROVERS, K=k, H=H, wheels=wheels, bit_equal_to_one_rover=bit_equal,
-              max_abs_err_vs_plain=err, k1_batched_ms=t_batched,
-              k1_one_rover_launches_ms=t_ones, plain_batched_ms=t_plain, ok=ok)
+        t_batched, t_batched_graph = cuda_ms(batched, inner=20), graph_ms(batched)
+        t_ones = cuda_ms(one_rover_launches, inner=5)
+        t_plain = cuda_ms(lambda: rollout_25d(hf, pos_n[:, None], head_n[:, None], lin,
+                                              ang, DT, wheels=wheels), reps=3)
+        ok = bit_equal and plain_equal
+        phase("k1_batched", N=ROVERS, K=k, H=h, wheels=wheels, bit_equal_to_one_rover=bit_equal,
+              bit_equal_to_plain=plain_equal, k1_batched_ms=t_batched,
+              k1_batched_graph_ms=t_batched_graph, k1_one_rover_launches_ms=t_ones,
+              plain_batched_ms=t_plain, ok=ok)
         if not ok:
-            raise RuntimeError(f"K1's rover axis is wrong at K={k}, wheels={wheels}")
+            raise RuntimeError(f"K1's rover axis is wrong at K={k}, H={h}, wheels={wheels}")
 
     # the eager plain 2D rollout of the evaluation's 2D arm, at its shape
     lin = torch.rand((K, H), generator=gen, device=cuda) * 2.0
     ang = torch.rand((K, H), generator=gen, device=cuda) * 2.0 - 1.0
+    pos = torch.tensor(START, device=cuda)
     phase("rollout_2d_plain", K=K, H=H,
-          ms=cuda_ms(torch, lambda: rollout_2d(hf, pos, heading, lin, ang, DT)))
+          ms=cuda_ms(lambda: rollout_2d(hf, pos, heading, lin, ang, DT)))
 
     # 4. K2 against its plain version on the card, bit for bit: the
-    #    standalone and thesis occupancies, a random non-square map, and an
-    #    obstacle-free map (the _BIG sentinel)
+    #    standalone and thesis occupancies, random maps whose sides are not
+    #    multiples of K2's 64 x 64 tile (875 columns: rows not 16-byte
+    #    aligned; 516: aligned), and an obstacle-free map (the _BIG sentinel)
     def occupancy(size):
         raster = rasterize_obstacles(generate_obstacles(), half_width=75.0, size=size,
                                      robot_radius=0.3)
         return torch.from_numpy(raster == 0)
 
-    rand_occ = torch.rand((187, 875), generator=gen, device=cuda) < 0.02
     maps = {"standalone_750": occupancy(750).to(cuda), "thesis_1500": occupancy(1500).to(cuda),
-            "random_187x875": rand_occ, "free_750": torch.zeros((750, 750), dtype=torch.bool,
-                                                                device=cuda)}
-    k2_ms, k2_plain_ms, k2_err = None, None, 0.0
+            "random_187x875": torch.rand((187, 875), generator=gen, device=cuda) < 0.02,
+            "random_203x516": torch.rand((203, 516), generator=gen, device=cuda) < 0.02,
+            "free_750": torch.zeros((750, 750), dtype=torch.bool, device=cuda)}
+    k2_row, k2_err = {}, 0.0
     for name, occ in maps.items():
         got, want = edt_exact_sq(occ), edt_exact_sq_plain(occ)
         equal = torch.equal(got, want)
         err = (got - want).abs().max().item()
         g2 = row_distances_sq(occ)
         out = torch.empty_like(g2)
-        t_k2 = cuda_ms(torch, lambda: edt_minplus_cuda.launch(g2, out))
-        t_plain = cuda_ms(torch, lambda: minplus_envelope(g2))
+
+        def launch():
+            edt_minplus_cuda.launch(g2, out)
+
+        t_k2, t_k2_graph = cuda_ms(launch), graph_ms(launch)
+        t_plain = cuda_ms(lambda: minplus_envelope(g2))
+        rows, cols = g2.shape
+        # each candidate needs one float32 add, and one three-way min
+        # settles two candidates: 1.5 instructions per candidate
+        bound_ms, bound_by = bound(2 * rows * cols * 4, 1.5 * rows * rows * cols,
+                                   PEAK_FP32_INSTR_S)
         phase("k2_vs_plain", map=name, shape=list(occ.shape), bit_equal=equal, max_abs_err=err,
-              k2_ms=t_k2, plain_ms=t_plain)
+              k2_ms=t_k2, k2_graph_ms=t_k2_graph, plain_ms=t_plain, bound_ms=bound_ms,
+              bound_by=bound_by)
         if not equal:
             raise RuntimeError(f"K2 disagrees with its plain version on {name}")
         k2_err = max(k2_err, err)
         if name == "thesis_1500":
-            k2_ms, k2_plain_ms = t_k2, t_plain
+            k2_row = {"ms": t_k2_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
+                      "bound_by": bound_by}
 
     # K3 against its three plain formulations on the card, bit for bit, at
-    # the probe's shapes: the probe's table and a random one
+    # the probe's shapes: the probe's table and a random one. Timed as
+    # CUDA-graph replays, so that the gather and not the host's issue time
+    # is read; its library call is the one-op formulation table[j, i]
     table, idx_i, idx_j = gp.probe_inputs(cuda)
     rand_table = torch.randn((gp.P, gp.P), generator=gen, device=cuda)
-    k3_ms, k3_plain_ms, k3_err = None, None, 0.0
+    k3_row, k3_err = {}, 0.0
     for name, tab in (("arange", table), ("random", rand_table)):
         got = gp.gather_probe_cuda(tab, idx_i, idx_j)
         plains = {f: fn(tab, idx_i, idx_j) for f, fn in gp.FORMULATIONS.items()}
         equal = {f: torch.equal(got, want) for f, want in plains.items()}
         k3_err = max([k3_err] + [(got - want).abs().max().item() for want in plains.values()])
         out = torch.empty((gp.K,), device=cuda)
-        t_k3 = cuda_ms(torch, lambda: gp.gather_probe_cuda.launch(tab, idx_i, idx_j, out),
-                       inner=20)
-        plain = {f: cuda_ms(torch, lambda: fn(tab, idx_i, idx_j), inner=20)
-                 for f, fn in gp.FORMULATIONS.items()}
+
+        def launch():
+            gp.gather_probe_cuda.launch(tab, idx_i, idx_j, out)
+
+        t_k3, t_k3_graph = cuda_ms(launch, inner=20), graph_ms(launch)
+        plain = {f: graph_ms(lambda: fn(tab, idx_i, idx_j)) for f, fn in gp.FORMULATIONS.items()}
+        # lanes x (one table element, two int32 indices) in, lanes x float32 out
+        bound_ms, bound_by = bound(gp.K * 16, 0, PEAK_FP32_S)
         phase("k3_vs_plain", table=name, shape=[gp.P, gp.P], lanes=gp.K, bit_equal=equal,
-              k3_ms=t_k3, plain_ms=plain)
+              k3_ms=t_k3, k3_graph_ms=t_k3_graph, plain_graph_ms=plain, bound_ms=bound_ms,
+              bound_by=bound_by)
         if not all(equal.values()):
             raise RuntimeError(f"K3 disagrees with a plain formulation on the {name} table")
         if name == "arange":
-            k3_ms, k3_plain_ms = t_k3, plain["flat torch.take"]
+            k3_row = {"ms": t_k3_graph, "plain_ms": plain["flat torch.take"],
+                      "bound_ms": bound_ms, "bound_by": bound_by,
+                      "library_ms": plain["advanced getitem"]}
 
     # 5. the standalone world, built on the card through K2; its EDT against
     #    the CPU's plain one; the costmap builds at 750^2 and 1500^2 with K2
@@ -418,6 +487,50 @@ def main() -> int:
     if not ok:
         raise RuntimeError("the closed-loop step on the card disagrees with the CPU's "
                            "or with one-rover steps")
+
+    # 6c. device kernels of one control step (flagship shapes) and of one
+    #     closed-loop step (N=4), counted by torch.profiler (it fails if the
+    #     profiler records no kernel), with the torch operators each
+    #     dispatches beside them. A K1 call is one kernel and dispatches no
+    #     torch operator but the output's empty (views aside)
+    robot = RobotState.create(*START, HEADING, device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    goal, noise_d = torch.tensor(GOAL, device=cuda), noise.to(cuda)
+
+    def control_step():
+        _, out = mppi_step(cfg, hf, cm, goal, robot, ctrl, noise_d)
+        kinematic_advance(cfg, robot, out)
+
+    cl_state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+
+    def loop_step():
+        tenv.closed_loop_step(cl_cfg, hf, cm, goals_d, cl_state, noise=noise_d4)
+
+    noise_d4 = cl_noise.to(cuda)
+    counts = {}
+    for name, fn in (("control_step", control_step), ("closed_loop_step", loop_step)):
+        fn()
+        before = rollout_25d_cuda.launches
+        kernels = device_kernels(fn)
+        k1_launches = rollout_25d_cuda.launches - before
+        with OpLog() as log:
+            fn()
+        counts[name] = {"device_kernels": kernels, "torch_ops": len(log.device_ops),
+                        "k1_launches": k1_launches}
+    lin = torch.rand((K, H), generator=gen, device=cuda)
+    k1_call = lambda: rollout_25d_cuda(hf, robot.position, robot.heading, lin, lin, DT)  # noqa: E731
+    with OpLog() as log:
+        k1_call()
+    k1_ops = [str(f) for f in log.device_ops]
+    k1_kernels = device_kernels(k1_call)
+    ok = (k1_ops == ["aten.empty.memory_format"] and k1_kernels == 1
+          and counts["control_step"]["device_kernels"] <= 210
+          and all(c["k1_launches"] == 2 for c in counts.values()))
+    phase("step_launches", K=K, H=H, N_closed_loop=ROVERS, k1_call_torch_ops=k1_ops,
+          k1_call_device_kernels=k1_kernels, **counts, ok=ok)
+    if not ok:
+        raise RuntimeError("a control step runs more kernels than it should, or a K1 call "
+                           "issues other device operations")
 
     # 7. the flagship goal-seek, through K1
     robot = RobotState.create(*START, HEADING, device=cuda)
@@ -561,17 +674,17 @@ def main() -> int:
         "name": "rollout_25d", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/rollout.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/rollout_pallas.py:57",
-        "launches": launches, "max_abs_err": max_err, "ms": k1_ms, "plain_ms": plain_ms,
+        "launches": launches, "max_abs_err": max_err, "library_ms": None, **k1_row,
     }, {
         "name": "edt_minplus", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/edt_minplus.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/edt_pallas.py:31",
-        "launches": eval_k2, "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain_ms,
+        "launches": eval_k2, "max_abs_err": k2_err, "library_ms": None, **k2_row,
     }, {
         "name": "gather_probe", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",
         "replaces": "scripts/probe_pallas_gather.py:21",
-        "launches": k3_launches, "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain_ms,
+        "launches": k3_launches, "max_abs_err": k3_err, **k3_row,
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,100 @@
+"""Time the PyTorch port's two host-bound paths for two checkouts in turns,
+on one NVIDIA GPU.
+
+    python3 scripts/torch_ab_paths.py --parent DIR [--out FILE]
+
+``DIR`` holds an earlier checkout of the repository (for example a
+``git archive`` of the parent commit unpacked under ``build/``). The
+checkouts run in turns (parent, this, this, parent), each in a process of
+its own started from its root, so that each imports its own
+``husky_rover_mppi_isaacsim_torch`` and builds its own kernels (built
+before the timed region). A run drives:
+
+* the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on the
+  standalone world): ``ms_per_loop`` = episode wall time (host clock,
+  synchronised at the end) over its loops, with the loops and the final
+  position;
+* the CLI's default closed loop (4 rovers, 300 sim steps):
+  ``ms_per_sim_step`` = the episode's wall time over its steps, with its
+  mean progress.
+
+Each run prints one JSON line; all of them also go to ``FILE`` (default
+``build/ab_paths.json``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+RUN = r'''
+import json, subprocess, time
+import torch
+from husky_rover_mppi_isaacsim_torch.cli import (
+    build_standalone_world, closed_loop_episode, use_full_fp32_matmul)
+from husky_rover_mppi_isaacsim_torch.mppi import (
+    ControllerState, MPPIConfig, RobotState, goal_seek_recorded)
+
+use_full_fp32_matmul()
+cuda = torch.device("cuda")
+hf, cm, _ = build_standalone_world({}, device=cuda)
+cfg = MPPIConfig(num_samples=1000, horizon=100)
+
+def episode(max_loops, seed):
+    robot = RobotState.create(-45.0, -40.0, (1.0, 0.5, 0.0), device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    goal = torch.tensor((45.0, 40.0), device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=max_loops)
+    loops = int(res.loops)
+    torch.cuda.synchronize()
+    return res, loops, time.perf_counter() - t0
+
+episode(4, 0)  # builds the kernels, outside the timed runs
+res, loops, wall = episode(3500, 42)
+closed_loop_episode({})  # warm-up
+run = closed_loop_episode({})
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, timeout=60).stdout.strip()
+print(json.dumps({
+    "card": smi, "flagship_loops": loops, "reached": bool(res.reached),
+    "final_position": res.robot.position.tolist(), "flagship_wall_s": wall,
+    "ms_per_loop": 1e3 * wall / max(loops, 1),
+    "closed_loop_steps": 300, "closed_loop_wall_s": run.wall_s,
+    "ms_per_sim_step": 1e3 * run.wall_s / 300,
+    "mean_progress_m": float(run.progress.mean())}))
+'''
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab_paths.json")
+    args = ap.parse_args(argv)
+    trees = {"parent": args.parent.resolve(), "this": ROOT}
+    results = []
+    for name in ("parent", "this", "this", "parent"):
+        env = dict(os.environ, PYTHONPATH=str(trees[name]))
+        proc = subprocess.run([sys.executable, "-c", RUN], cwd=trees[name], env=env,
+                              capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            print(proc.stderr[-4000:], file=sys.stderr)
+            return proc.returncode
+        result = {"tree": name, **json.loads(proc.stdout.strip().splitlines()[-1])}
+        results.append(result)
+        print(json.dumps(result), flush=True)
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    args.out.write_text(json.dumps(results, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,8 +1,9 @@
 """PyTorch port on the card: kernels K1 (csrc/rollout.cu, one rover and N
-rovers), K2 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) against
-their plain versions, the control step and the closed-loop step on the card
-against the same steps on the CPU, the thesis DEM's repeatable build and the
-evaluation's kernel launches.
+rovers), K2 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) bit-equal to
+their plain versions, a K1 call as one launch and no other device operator,
+the kernels of one control step, the control step and the closed-loop step
+on the card against the same steps on the CPU, the thesis DEM's repeatable
+build and the evaluation's kernel launches.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -21,12 +22,14 @@ from husky_rover_mppi_isaacsim_torch.mppi import (
     ControllerState,
     MPPIConfig,
     RobotState,
+    kinematic_advance,
     mppi_step,
 )
 from husky_rover_mppi_isaacsim_torch.mppi import evaluation
 from husky_rover_mppi_isaacsim_torch.mppi import rollout as tro
 from husky_rover_mppi_isaacsim_torch.ops import edt
 from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
+from husky_rover_mppi_isaacsim_torch.ops import measure
 from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import (
@@ -54,30 +57,101 @@ def _crater(device, grid=1500, hw=75.0):
                                              device=device), hw)
 
 
-@pytest.mark.parametrize("k,wheels", [(1000, True), (1000, False), (1, False)])
-def test_k1_kernel_matches_plain_on_card(cuda, k, wheels):
-    """Trajectory and headings within 5e-4, >= 98% of wheel heights
-    bit-equal (the Pallas tolerances, tests/test_rollout_pallas.py:53-67)."""
+# (rovers, samples, horizon, wheels, start off the DEM): the flagship's and
+# the closed loop's launches, and ragged shapes whose velocity slices are
+# not 16-byte aligned (K = 33, H = 37)
+K1_CASES = [(1, 1000, 100, True, False), (1, 1000, 100, False, False), (1, 1, 100, False, False),
+            (4, 1000, 100, True, False), (4, 1, 100, False, False), (1, 33, 37, True, False),
+            (4, 33, 37, False, False), (1, 33, 37, True, True), (4, 1000, 100, True, True)]
+
+
+@pytest.mark.parametrize("n,k,h,wheels,off_map", K1_CASES)
+def test_k1_kernel_matches_plain_on_card(cuda, n, k, h, wheels, off_map):
+    """Every channel bit-equal to the plain rollout, in one launch. Off the
+    DEM the start cell and the first steps read wrap-then-clamp cells."""
     hf = _crater(cuda)
-    g = torch.Generator(device=cuda).manual_seed(0)
-    lin = torch.rand((k, 100), generator=g, device=cuda) * 2.0
-    ang = torch.rand((k, 100), generator=g, device=cuda) * 2.0 - 1.0
-    pos = torch.tensor([-45.0, -40.0], device=cuda)
-    heading = torch.tensor([0.894427, 0.447214, 0.0], device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(k + h)
+    lin = torch.rand((n, k, h), generator=g, device=cuda) * 2.0
+    ang = torch.rand((n, k, h), generator=g, device=cuda) * 2.0 - 1.0
+    pos = torch.rand((n, 2), generator=g, device=cuda) * 80.0 - 40.0
+    if off_map:  # beyond the 75 m half width, near the (-75, 75) corner
+        pos = pos / 40.0 + torch.tensor([-78.0, 77.0], device=cuda)
+    heading = torch.rand((n, 3), generator=g, device=cuda) - 0.5
+    if n == 1:
+        lin, ang, pos, heading = lin[0], ang[0], pos[0], heading[0]
     before = rollout_25d_cuda.launches
     got = rollout_25d_cuda(hf, pos, heading, lin, ang, 0.045, wheels=wheels)
     torch.cuda.synchronize()
     assert rollout_25d_cuda.launches == before + 1
-    want = tro.rollout_25d(hf, pos, heading, lin, ang, 0.045, wheels=wheels)
-    for a, b in zip(got[:2], want[:2]):
-        assert a.shape == (k, 100, 3)
-        assert (a - b).abs().max().item() <= 5e-4
-    if wheels:
-        for a, b in zip(got[2:], want[2:]):
-            assert (a[..., :2] - b[..., :2]).abs().max().item() <= 5e-4
-            assert (a[..., 2] == b[..., 2]).float().mean().item() >= 0.98
-    else:
+    want = tro.rollout_25d(hf, pos[..., None, :], heading[..., None, :], lin, ang, 0.045,
+                           wheels=wheels)
+    for a, b in zip(got, want):
+        assert a.shape == lin.shape + (3,)
+        assert torch.equal(a, b)
+    if not wheels:
         assert got.left_wheel is got.trajectory
+
+
+def test_k1_fast_arithmetic_is_ieee_on_card(cuda):
+    """K1's branch-free divisions and square roots equal `/` and sqrtf bit
+    for bit wherever the chain takes them: 2^32 hashed division operand
+    pairs and every float32 square-root operand."""
+    got = rollout_25d_cuda.check_arithmetic(cuda)
+    assert got["divisions_differing"] == 0 and got["roots_differing"] == 0
+    assert got["divisions_fast"] > 2 ** 31 and got["roots_fast"] > 2 ** 30
+
+
+def test_k1_call_is_one_launch_and_no_other_device_op(cuda):
+    """A K1 call on the card dispatches no torch operator but the output's
+    ``empty`` (and views of it), and runs exactly one kernel, even for a
+    strided start pose (a view into an earlier rollout, as kinematic_advance
+    passes it)."""
+    hf = _crater(cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lin = torch.rand((4, 64, 100), generator=g, device=cuda)
+    ang = torch.rand((4, 64, 100), generator=g, device=cuda) - 0.5
+    prev = rollout_25d_cuda(hf, torch.zeros((4, 2), device=cuda),
+                            torch.tensor([[1.0, 0.0, 0.0]] * 4, device=cuda), lin, ang, 0.045)
+    pos, heading = prev.trajectory[:, 0, 0, :2], prev.headings[:, 0, 0]
+    assert not pos.is_contiguous() and not heading.is_contiguous()
+    copies = rollout_25d_cuda.copies
+    with measure.OpLog() as log:
+        rollout_25d_cuda(hf, pos, heading, lin, ang, 0.045)
+    assert [str(f) for f in log.device_ops] == ["aten.empty.memory_format"]
+    assert rollout_25d_cuda.copies == copies
+    assert measure.device_kernels(
+        lambda: rollout_25d_cuda(hf, pos, heading, lin, ang, 0.045)) == 1
+    want = tro.rollout_25d(hf, pos[:, None], heading[:, None], lin, ang, 0.045)
+    assert all(torch.equal(a, b) for a, b in zip(
+        rollout_25d_cuda(hf, pos, heading, lin, ang, 0.045), want))
+    # a (K, H) part that is not contiguous is copied, and counted
+    rollout_25d_cuda(hf, pos, heading, lin.transpose(1, 2).contiguous().transpose(1, 2), ang,
+                     0.045)
+    assert rollout_25d_cuda.copies == copies + 1
+
+
+def test_step_runs_about_200_kernels_on_card(cuda):
+    """One mppi_step + kinematic_advance at K=1000 x H=100 runs at most 210
+    device kernels (392 when K1's start projection and transposes were eager
+    torch ops), two of them K1."""
+    hf = _crater(cuda)
+    cfg = MPPIConfig(num_samples=1000, horizon=100)
+    cost = torch.rand((750, 750), generator=torch.Generator().manual_seed(1)) ** 4
+    cm = as_costmap(cost, 75.0, device=cuda)
+    robot = RobotState.create(-45.0, -40.0, [1.0, 0.5, 0.0], device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    goal = torch.tensor([45.0, 40.0], device=cuda)
+    noise = torch.randn((2, 1000, 100), generator=torch.Generator().manual_seed(2)).to(cuda)
+
+    def step():
+        _, out = mppi_step(cfg, hf, cm, goal, robot, ctrl, noise)
+        kinematic_advance(cfg, robot, out)
+
+    step()
+    before = rollout_25d_cuda.launches
+    kernels = measure.device_kernels(step)
+    assert rollout_25d_cuda.launches == before + 2
+    assert 2 <= kernels <= 210
 
 
 def test_k1_kernel_refuses_what_it_does_not_take(cuda):
@@ -90,13 +164,16 @@ def test_k1_kernel_refuses_what_it_does_not_take(cuda):
         rollout_25d_cuda(hf, pos.cpu(), heading, lin, lin, 0.045)
     with pytest.raises(ValueError, match=r"\(K, H\)"):
         rollout_25d_cuda(hf, pos, heading, lin, lin[:, :4], 0.045)
+    long = torch.ones((4, 257), device=cuda)
+    with pytest.raises(ValueError, match="horizons up to 256"):
+        rollout_25d_cuda(hf, pos, heading, long, long, 0.045)
 
 
 @pytest.mark.parametrize("wheels", [True, False])
 def test_k1_rover_axis_equals_one_rover_launches(cuda, wheels):
     """N=4 rovers in one launch: rover n bit-equal to a one-rover launch of
-    its inputs, and within the plain tolerances of the plain batched
-    rollout; the K=1 optimal rollouts of N rovers are one launch too."""
+    its inputs, and to the plain batched rollout; the K=1 optimal rollouts
+    of N rovers are one launch too."""
     hf = _crater(cuda)
     g = torch.Generator(device=cuda).manual_seed(4)
     n = 4
@@ -116,8 +193,8 @@ def test_k1_rover_axis_equals_one_rover_launches(cuda, wheels):
                 assert torch.equal(a[i], b)
         want = tro.rollout_25d(hf, pos[:, None], heading[:, None], lin, ang, 0.045,
                                wheels=wheels)
-        for a, b in zip(got[:2], want[:2]):
-            assert (a - b).abs().max().item() <= 5e-4
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
     with pytest.raises(ValueError, match="position"):
         rollout_25d_cuda(hf, pos[:2], heading[:2], lin, ang, 0.045)
 
@@ -261,16 +338,21 @@ def test_mppi_step_on_card_matches_cpu(cuda):
 
 
 def _occupancy(kind, device):
-    if kind == "random_187x875":
+    """The standalone and thesis costmaps' occupancies, and random maps
+    whose sides are not multiples of K2's 64 x 64 tile (875 columns: rows
+    not 16-byte aligned; 516: aligned)."""
+    if kind.startswith("random"):
         g = torch.Generator(device=device).manual_seed(3)
-        return torch.rand((187, 875), generator=g, device=device) < 0.02
+        shape = tuple(int(v) for v in kind.split("_")[1].split("x"))
+        return torch.rand(shape, generator=g, device=device) < 0.02
     size = int(kind.split("_")[1])
     raster = rasterize_obstacles(generate_obstacles(), half_width=75.0, size=size,
                                  robot_radius=0.3)
     return torch.from_numpy(raster == 0).to(device)
 
 
-@pytest.mark.parametrize("kind", ["costmap_750", "costmap_1500", "random_187x875"])
+@pytest.mark.parametrize("kind", ["costmap_750", "costmap_1500", "random_187x875",
+                                  "random_203x516"])
 def test_k2_kernel_bit_equal_to_plain_on_card(cuda, kind):
     occ = _occupancy(kind, cuda)
     before = edt_minplus_cuda.launches
