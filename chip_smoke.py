@@ -21,13 +21,23 @@ rovers, 300 sim steps, the same world and widths) and 4096 simulated rovers
 for 400 physics steps; runs the thesis 2D-vs-3D evaluation protocol at full
 width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
 most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
-timed alone; and runs K3's probe entry point. Each path runs with the
+timed alone; runs K3's probe entry point; and drives the streamed-terrain
+full-stack loop (mode=largescale, synchronous path) at the LargeScaleConf
+defaults: builds the 7000^2 window twice (bit-equal), holds K1 on that window
+at two poses (the second within one horizon of the window's edge after a
+block shift) and K2 at the 875^2 costmap against their plain versions, checks
+that a shift leaves world heights where they were, steps one 12-step chunk on
+the card against the same chunk on the CPU, and drives the traverse (0, 0) ->
+(65, 65) through the CLI's entry. K3 is timed beside an empty kernel of its
+grid and block (the launch floor of its restated bound). Each path runs with the
 kernels' launch counts set to 0 just before it and read just after. Each
 phase prints one line; any failure raises and the exit code is not 0. The
 last two lines are the kernel table (each kernel's time beside its bound,
 its plain version and the one-call library time where there is one) and the
 result, as JSON. Needs one CUDA card; without one it exits with code 1 and
-prints no result.
+prints no result. ``--only largescale`` (for iterating on the card) runs the
+build and the streamed-terrain phases alone and prints neither the kernel
+table nor the result.
 """
 
 from __future__ import annotations
@@ -77,7 +87,13 @@ def ptxas_lines(built):
     return [ln.strip() for ln in built.log.splitlines() if "registers" in ln or "spill" in ln]
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=["largescale"])
+    only = ap.parse_args(argv).only
+
     import numpy as np
     import torch
 
@@ -90,11 +106,23 @@ def main() -> int:
         build_standalone_world,
         closed_loop_config,
         closed_loop_episode,
+        largescale_conf,
+        largescale_episode,
+        largescale_report,
         spawn_points,
         use_full_fp32_matmul,
     )
     from husky_rover_mppi_isaacsim_torch.core import HeightField, grid_lookup
-    from husky_rover_mppi_isaacsim_torch.core.heightfield import corner_cell, wrap_clamp
+    from husky_rover_mppi_isaacsim_torch.core.heightfield import (
+        corner_cell,
+        nearest_height,
+        wrap_clamp,
+    )
+    from husky_rover_mppi_isaacsim_torch.env import frames
+    from husky_rover_mppi_isaacsim_torch.env.largescale_loop import (
+        LargeScaleClosedLoop,
+        run_chunk,
+    )
     from husky_rover_mppi_isaacsim_torch.mppi import (
         ControllerState,
         MPPIConfig,
@@ -119,6 +147,7 @@ def main() -> int:
         OpLog,
         cuda_ms,
         device_kernels,
+        device_time,
         graph_ms,
     )
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
@@ -130,6 +159,7 @@ def main() -> int:
         rasterize_obstacles,
         thesis_statistics_terrain,
     )
+    from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
@@ -166,7 +196,7 @@ def main() -> int:
     heading = heading / torch.linalg.norm(heading)
     gen = torch.Generator(device=cuda).manual_seed(0)
 
-    def dem_cells(got, start):
+    def dem_cells(hf, got, start):
         """DEM cells a rollout read: the start cell's and every step's quad
         corners, and the wheel tracks' cells."""
         rows, cols = hf.z.shape
@@ -179,10 +209,265 @@ def main() -> int:
                 flat.append(wrap_clamp(j + dj, rows) * cols + wrap_clamp(i + di, cols))
         return int(torch.unique(torch.cat(flat)).numel())
 
-    def k1_bound(got, start, n, k, h, wheels):
+    def k1_bound(hf, got, start, n, k, h, wheels):
         channels = 12 if wheels else 6
-        moved = (2 + channels) * n * k * h * 4 + 4 * dem_cells(got, start) + 4 * n * 5
+        moved = (2 + channels) * n * k * h * 4 + 4 * dem_cells(hf, got, start) + 4 * n * 5
         return bound(moved, K1_FLOPS_PER_STEP * n * k * h, PEAK_FP32_S)
+
+    def k2_bound(rows, cols):
+        # each candidate needs one float32 add, and one three-way min
+        # settles two candidates: 1.5 instructions per candidate
+        return bound(2 * rows * cols * 4, 1.5 * rows * rows * cols, PEAK_FP32_INSTR_S)
+
+    def on_device(nt, dev):
+        """A NamedTuple of tensors (and host fields) with its tensors on ``dev``."""
+        return type(nt)(*(on_device(f, dev) if isinstance(f, tuple)
+                          else f.to(dev) if isinstance(f, torch.Tensor) else f for f in nt))
+
+    def k1_on_window(loop, case, pos, head):
+        """K1 on the loop's live 7000^2 window against the plain rollout,
+        every channel bit for bit, timed as on the 1500^2 DEM. Returns the
+        K=1000 row."""
+        whf, row = loop.hf, {}
+        for k, wheels in ((K, True), (1, False)):
+            lin = torch.rand((k, H), generator=gen, device=cuda) * 2.0
+            ang = torch.rand((k, H), generator=gen, device=cuda) * 2.0 - 1.0
+            args = (whf, pos, head, lin, ang, DT)
+            got = rollout_25d_cuda(*args, wheels=wheels)
+            want = rollout_25d(*args, wheels=wheels)
+            torch.cuda.synchronize()
+            equal = all(torch.equal(a, b) for a, b in zip(got, want))
+            err = max((a - b).abs().max().item() for a, b in zip(got, want))
+            out = torch.empty((12 if wheels else 6, H, k), device=cuda)
+
+            def launch():
+                rollout_25d_cuda.launch(whf, pos, head, lin, ang, out, DT)
+
+            t_b2b, t_graph = cuda_ms(launch, inner=20), graph_ms(launch)
+            t_plain = cuda_ms(lambda: rollout_25d(*args, wheels=wheels), reps=3)
+            bound_ms, bound_by = k1_bound(whf, got, pos, 1, k, H, wheels)
+            off = int(((got.trajectory[..., :2].abs() > loop.window_half).any(-1)).sum())
+            phase("k1_on_window", case=case, dem=list(whf.z.shape), K=k, H=H, wheels=wheels,
+                  position=pos.tolist(), bit_equal=equal, max_abs_err=err,
+                  points_off_window=off, dem_cells_read=dem_cells(whf, got, pos),
+                  k1_ms=t_b2b, k1_graph_ms=t_graph, plain_ms=t_plain, bound_ms=bound_ms,
+                  bound_by=bound_by, ok=equal)
+            if not equal:
+                raise RuntimeError(f"K1 disagrees with its plain version on the 7000^2 "
+                                   f"window: {case}, K={k}")
+            if wheels:
+                row = {"ms": t_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
+                       "bound_by": bound_by, "max_abs_err": err}
+        return row
+
+    def largescale_timed():
+        """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
+        window at 0.025 m/px, 875^2 costmap, K=1000 x H=100), the part that
+        is timed: the world, K1 and K2 at these sizes, the traverse. Returns
+        the loop on the first world, K1's and K2's rows and the traverse's
+        launch counts."""
+        # 11. the world, built twice from the same seeds
+        conf = largescale_conf({})
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        worlds, seconds = [], []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
+            lstm.build()
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            worlds.append(lstm)
+        lstm, again = worlds
+        streamer = lstm.map_manager.streamer
+        window = streamer.window
+        equal = (torch.equal(window, again.map_manager.streamer.window)
+                 and np.array_equal(lstm.extract_rocks_data(), again.extract_rocks_data()))
+        craters = sum(len(r) for _, r in streamer.crater_blocks.values())
+        phase("largescale_world", window=list(window.shape), window_bytes=window.nbytes,
+              resolution_m=conf.terrain.hr_dem_resolution, blocks=len(streamer.block_cache),
+              crater_blocks=len(streamer.crater_blocks), craters=craters,
+              rocks=int(lstm.extract_rocks_data().shape[0]), seconds=seconds,
+              build_phases_s=[w.build_phase_acc for w in worlds], second_build_bit_equal=equal,
+              finite=bool(torch.isfinite(window).all()), z_min=window.min().item(),
+              z_max=window.max().item(),
+              peak_memory_bytes_two_worlds=torch.cuda.max_memory_allocated())
+        if not equal or tuple(window.shape) != (7000, 7000):
+            raise RuntimeError("two builds of the streamed world differ, or the window is "
+                               "not 7000 x 7000")
+        del worlds, again
+
+        #     the loop on that world; K1 on the live window at the rover's
+        #     first pose
+        loop0 = loop = LargeScaleClosedLoop(conf, lstm=lstm, device=cuda)
+        state0 = loop._initial_state()
+        k1_row = k1_on_window(loop, "first_pose", state0.rovers.position[0].clone(),
+                              state0.rovers.heading[0].clone())
+
+        #     K2 at the costmap's 875^2, on the occupancy of the streamed rocks
+        rocks = lstm.extract_rocks_data()
+        raster = rasterize_obstacles(rocks, origin=loop.frame.origin(),
+                                     half_width=loop.window_half, size=conf.costmap_size,
+                                     robot_radius=conf.costmap_robot_radius)
+        occ = torch.from_numpy(raster == 0).to(cuda)
+        got, want = edt_exact_sq(occ), edt_exact_sq_plain(occ)
+        equal, err = torch.equal(got, want), (got - want).abs().max().item()
+        g2 = row_distances_sq(occ)
+        out = torch.empty_like(g2)
+
+        def launch():
+            edt_minplus_cuda.launch(g2, out)
+
+        t_k2, t_k2_graph = cuda_ms(launch), graph_ms(launch)
+        t_plain = cuda_ms(lambda: minplus_envelope(g2))
+        bound_ms, bound_by = k2_bound(*g2.shape)
+        phase("k2_875", shape=list(occ.shape), rocks=int(rocks.shape[0]),
+              occupied_cells=int(occ.sum()), bit_equal=equal, max_abs_err=err, k2_ms=t_k2,
+              k2_graph_ms=t_k2_graph, plain_ms=t_plain, bound_ms=bound_ms, bound_by=bound_by)
+        if not equal or tuple(occ.shape) != (875, 875):
+            raise RuntimeError("K2 disagrees with its plain version at 875 x 875")
+        k2_row = {"ms": t_k2_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
+                  "bound_by": bound_by, "max_abs_err": err}
+
+        #     one chunk's time from the start state (host clock around 12
+        #     closed-loop steps, 24 K1 launches, ended by a synchronize)
+        goal_ctrl = loop._goal_ctrl()
+        chunk_gen = torch.Generator(device=cuda).manual_seed(7)
+        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, generator=chunk_gen), reps=5)
+        phase("largescale_chunk_ms", steps=conf.terrain_check_every, K=K, H=H, chunk_ms=chunk_ms,
+              ms_per_sim_step=chunk_ms / conf.terrain_check_every)
+
+        #     the traverse (0, 0) -> (65, 65) through the CLI's entry
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+        gp.gather_probe_cuda.launches = 0
+        run = largescale_episode({})
+        ls_k1, ls_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+        report, res, loop = largescale_report(run), run.result, run.loop
+        # every path point against the costmap that was live when the rover
+        # drove there, in that costmap's frame
+        path = torch.tensor(res.path_world, dtype=torch.float32, device=cuda)
+        firsts = [first for first, _, _ in loop.costmap_log] + [len(path)]
+        on_cost, max_cost = 0, 0.0
+        for (first, cm, frame), stop in zip(loop.costmap_log, firsts[1:]):
+            if stop <= first:
+                continue
+            cx, cy = frames.world_to_controller(frame, path[first:stop, 0], path[first:stop, 1])
+            ix, iy = costmap_cells(torch.stack([cx, cy], dim=-1), cm)
+            cost = grid_lookup(cm.cost, ix, iy)
+            on_cost += int((cost > 0.99).sum())
+            max_cost = max(max_cost, cost.max().item())
+        chunks = res.steps // loop.conf.terrain_check_every
+        lat = res.shift_latencies_s
+        phase("largescale", **report, K=K, H=H, window=list(loop.hf.z.shape),
+              costmap=list(loop.costmap.cost.shape), k1_launches=ls_k1,
+              k1_expected=2 * res.steps, k2_launches=ls_k2,
+              k2_expected=1 + res.costmap_rebuilds, path_points=len(path),
+              path_points_on_cost_above_0_99=on_cost, max_path_cost=max_cost,
+              ms_per_sim_step=1e3 * res.wall_s / res.steps, ms_per_chunk=1e3 * res.wall_s / chunks,
+              steady_sim_steps_per_s=res.steady_steps / max(res.steady_wall_s, 1e-9),
+              shift_latencies_ms=[1e3 * t for t in lat], shift_phases_s=loop.shift_phase_log,
+              chunk_phases_s=loop.chunk_phase_acc,
+              cascade_phases_s=loop.lstm.cascade_phase_acc,
+              build_phases_s=loop.lstm.build_phase_acc,
+              peak_memory_bytes=torch.cuda.max_memory_allocated())
+        if not (res.reached and res.block_shifts >= 2 and on_cost == 0
+                and res.costmap_rebuilds == res.block_shifts):
+            raise RuntimeError("the streamed traverse did not reach its goal cleanly across "
+                               "two block shifts")
+        if ls_k1 != 2 * res.steps or ls_k2 != 1 + res.costmap_rebuilds:
+            raise RuntimeError(f"the traverse launched K1 {ls_k1} times in {res.steps} steps "
+                               f"and K2 {ls_k2} times for {res.costmap_rebuilds} rebuilds")
+        return loop0, k1_row, k2_row, ls_k1, ls_k2
+
+    def largescale_profiled(loop):
+        """The streamed-terrain slice's phases that use torch.profiler or
+        move the first world's window. Returns K1's row near the window's
+        edge after a shift."""
+        conf, lstm = loop.conf, loop.lstm
+        streamer = lstm.map_manager.streamer
+        state0 = loop._initial_state()
+        # 13. one chunk (12 closed-loop steps, N=1, K=1000 x H=100) from the
+        #     start: on the card (24 K1 launches on the window, no host sync)
+        #     and on the CPU with the plain rollout, same noise. Tolerance:
+        #     2e-3 on the pose (m; unit heading) and 1e-2 on wheel speeds and
+        #     yaw rate (m/s, rad/s): 12 steps of float32 feedback through
+        #     the softmax weights, sin/cos/exp rounding differently on the
+        #     two devices
+        n_chunk = conf.terrain_check_every
+        noise = torch.randn((n_chunk, 1, 2, K, H), generator=torch.Generator().manual_seed(5))
+        goal_ctrl = loop._goal_ctrl()
+        noise_d = noise.to(cuda)
+        torch.cuda.synchronize()
+        before = rollout_25d_cuda.launches
+        torch.cuda.set_sync_debug_mode("error")  # a host sync inside the chunk raises
+        try:
+            got_state, got_pose = loop.chunk(state0, goal_ctrl, noise=noise_d)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        chunk_k1 = rollout_25d_cuda.launches - before
+        t0 = time.perf_counter()
+        want_state, want_pose = run_chunk(conf, on_device(loop.hf, cpu),
+                                          on_device(loop.costmap, cpu), loop.frame,
+                                          on_device(state0, cpu), goal_ctrl.cpu(), noise=noise)
+        cpu_s = time.perf_counter() - t0
+        diffs = {"pose": (got_pose.cpu() - want_pose).abs().tolist()}
+        for f, a, b in zip(got_state.rovers._fields, got_state.rovers, want_state.rovers):
+            diffs[f] = (a.cpu() - b).abs().max().item()
+        kernels = device_kernels(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d))
+        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d), reps=3)
+        # the idle share is read under the profiler, whose tracing slows the
+        # host: the card's busy time is the firmer number
+        on_card = device_time(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d))
+        ok = (max(diffs["pose"][:4]) <= 2e-3 and diffs["pose"][4] == 0.0
+              and max(diffs[f] for f in ("position", "z", "heading")) <= 2e-3
+              and max(diffs[f] for f in ("wheel_left", "wheel_right", "yaw_rate")) <= 1e-2
+              and chunk_k1 == 2 * n_chunk)
+        phase("largescale_chunk_card_vs_cpu", steps=n_chunk, K=K, H=H, k1_launches=chunk_k1,
+              device_kernels=kernels, chunk_ms_after_profiling=chunk_ms,
+              device_idle_share=1.0 - on_card["busy_ms"] / on_card["wall_ms_profiled"],
+              device_time=on_card, cpu_chunk_s=cpu_s, max_abs_diff=diffs,
+              world_pose=got_pose.tolist(), ok=ok)
+        if not ok:
+            raise RuntimeError("one chunk on the card disagrees with the CPU's, or did not "
+                               "launch K1 twice per step")
+
+        # 14. one block shift (+x and +y) by the cascade: world heights at
+        #     fixed world points, read through the controller's heightfield
+        #     in its frame, are the same numbers before and after; then K1
+        #     at a pose within one horizon of the shifted window's edge
+        pts = torch.tensor(np.random.default_rng(0).uniform(-30.0, 80.0, (4096, 2)),
+                           dtype=torch.float32, device=cuda)
+
+        def world_heights():
+            cx, cy = frames.world_to_controller(loop.frame, pts[:, 0], pts[:, 1])
+            return nearest_height(loop.hf, cx, cy)
+
+        before = world_heights()
+        t0 = time.perf_counter()
+        updated, _ = lstm.update_visual_mesh((26.0, 27.0))
+        torch.cuda.synchronize()
+        cascade_s = time.perf_counter() - t0
+        frame0 = loop.frame
+        _, goal_after, shift = loop._on_block_shift(state0, goal_ctrl)
+        after = world_heights()
+        kept = torch.equal(before, after)
+        rebased = torch.equal(goal_after, frames.rebase_on_shift(goal_ctrl, *shift))
+        phase("largescale_reseat", updated=updated, shift_m=list(shift), frame_before=list(frame0),
+              frame_after=list(loop.frame), anchor=list(streamer.anchor), points=len(pts),
+              world_heights_bit_equal=kept, goal_rebased=rebased, cascade_s=cascade_s,
+              cascade_phases_s=dict(lstm.cascade_phase_acc),
+              shift_phases_s=loop.shift_phase_log[-1], window_is_live=loop.hf.z is streamer.window)
+        if not (updated and kept and rebased and tuple(shift) == (25.0, 25.0)):
+            raise RuntimeError("a block shift moved world heights or rebased the goal wrongly")
+        edge = torch.tensor([loop.window_half - 6.0, -(loop.window_half - 3.5)], device=cuda)
+        return k1_on_window(loop, "edge_after_shift", edge,
+                            torch.tensor([1.0, -0.4, 0.0], device=cuda))
+
+    if only == "largescale":
+        largescale_profiled(largescale_timed()[0])
+        return 0
 
     max_err, k1_row = 0.0, {}
     cases = [("flagship", K, H, True, START), ("flagship", K, H, False, START),
@@ -206,7 +491,7 @@ def main() -> int:
         t_b2b, t_graph = cuda_ms(launch, inner=20), graph_ms(launch)
         t_call = cuda_ms(lambda: rollout_25d_cuda(*args, wheels=wheels), inner=20)
         t_plain = cuda_ms(lambda: rollout_25d(*args, wheels=wheels))
-        bound_ms, bound_by = k1_bound(got, p, 1, k, h, wheels)
+        bound_ms, bound_by = k1_bound(hf, got, p, 1, k, h, wheels)
         phase("k1_vs_plain", case=name, K=k, H=h, wheels=wheels, start=list(start),
               bit_equal=equal, max_abs_err=err, k1_ms=t_b2b, k1_graph_ms=t_graph,
               k1_call_ms=t_call, plain_ms=t_plain, bound_ms=bound_ms, bound_by=bound_by,
@@ -304,10 +589,7 @@ def main() -> int:
         t_k2, t_k2_graph = cuda_ms(launch), graph_ms(launch)
         t_plain = cuda_ms(lambda: minplus_envelope(g2))
         rows, cols = g2.shape
-        # each candidate needs one float32 add, and one three-way min
-        # settles two candidates: 1.5 instructions per candidate
-        bound_ms, bound_by = bound(2 * rows * cols * 4, 1.5 * rows * rows * cols,
-                                   PEAK_FP32_INSTR_S)
+        bound_ms, bound_by = k2_bound(rows, cols)
         phase("k2_vs_plain", map=name, shape=list(occ.shape), bit_equal=equal, max_abs_err=err,
               k2_ms=t_k2, k2_graph_ms=t_k2_graph, plain_ms=t_plain, bound_ms=bound_ms,
               bound_by=bound_by)
@@ -337,17 +619,27 @@ def main() -> int:
 
         t_k3, t_k3_graph = cuda_ms(launch, inner=20), graph_ms(launch)
         plain = {f: graph_ms(lambda: fn(tab, idx_i, idx_j)) for f, fn in gp.FORMULATIONS.items()}
-        # lanes x (one table element, two int32 indices) in, lanes x float32 out
-        bound_ms, bound_by = bound(gp.K * 16, 0, PEAK_FP32_S)
+        # lanes x (one table element, two int32 indices) in, lanes x float32
+        # out; no launch finishes in that time, so the bound is the larger of
+        # it and the replay time of an empty kernel of K3's grid and block
+        bytes_ms, _ = bound(gp.K * 16, 0, PEAK_FP32_S)
+        floor_ms = graph_ms(lambda: gp.gather_probe_cuda.launch_floor(gp.K))
+        bound_ms = max(bytes_ms, floor_ms)
+        # of the data sheet's two terms bytes is the larger (a gather does no
+        # operations); `bound_set_by` says which of bytes and floor sets it
+        bound_by = "bytes"
+        set_by = "bytes" if bytes_ms >= floor_ms else "launch floor (empty kernel)"
         phase("k3_vs_plain", table=name, shape=[gp.P, gp.P], lanes=gp.K, bit_equal=equal,
-              k3_ms=t_k3, k3_graph_ms=t_k3_graph, plain_graph_ms=plain, bound_ms=bound_ms,
-              bound_by=bound_by)
+              k3_ms=t_k3, k3_graph_ms=t_k3_graph, plain_graph_ms=plain, bytes_bound_ms=bytes_ms,
+              empty_kernel_graph_ms=floor_ms, bound_ms=bound_ms, bound_by=bound_by,
+              bound_set_by=set_by, k3_over_bound=t_k3_graph / bound_ms)
         if not all(equal.values()):
             raise RuntimeError(f"K3 disagrees with a plain formulation on the {name} table")
         if name == "arange":
             k3_row = {"ms": t_k3_graph, "plain_ms": plain["flat torch.take"],
-                      "bound_ms": bound_ms, "bound_by": bound_by,
-                      "library_ms": plain["advanced getitem"]}
+                      "bound_ms": bound_ms, "bound_by": bound_by, "bound_set_by": set_by,
+                      "bytes_bound_ms": bytes_ms,
+                      "empty_kernel_ms": floor_ms, "library_ms": plain["advanced getitem"]}
 
     # 5. the standalone world, built on the card through K2; its EDT against
     #    the CPU's plain one; the costmap builds at 750^2 and 1500^2 with K2
@@ -488,50 +780,6 @@ def main() -> int:
         raise RuntimeError("the closed-loop step on the card disagrees with the CPU's "
                            "or with one-rover steps")
 
-    # 6c. device kernels of one control step (flagship shapes) and of one
-    #     closed-loop step (N=4), counted by torch.profiler (it fails if the
-    #     profiler records no kernel), with the torch operators each
-    #     dispatches beside them. A K1 call is one kernel and dispatches no
-    #     torch operator but the output's empty (views aside)
-    robot = RobotState.create(*START, HEADING, device=cuda)
-    ctrl = ControllerState.create(cfg, device=cuda)
-    goal, noise_d = torch.tensor(GOAL, device=cuda), noise.to(cuda)
-
-    def control_step():
-        _, out = mppi_step(cfg, hf, cm, goal, robot, ctrl, noise_d)
-        kinematic_advance(cfg, robot, out)
-
-    cl_state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
-
-    def loop_step():
-        tenv.closed_loop_step(cl_cfg, hf, cm, goals_d, cl_state, noise=noise_d4)
-
-    noise_d4 = cl_noise.to(cuda)
-    counts = {}
-    for name, fn in (("control_step", control_step), ("closed_loop_step", loop_step)):
-        fn()
-        before = rollout_25d_cuda.launches
-        kernels = device_kernels(fn)
-        k1_launches = rollout_25d_cuda.launches - before
-        with OpLog() as log:
-            fn()
-        counts[name] = {"device_kernels": kernels, "torch_ops": len(log.device_ops),
-                        "k1_launches": k1_launches}
-    lin = torch.rand((K, H), generator=gen, device=cuda)
-    k1_call = lambda: rollout_25d_cuda(hf, robot.position, robot.heading, lin, lin, DT)  # noqa: E731
-    with OpLog() as log:
-        k1_call()
-    k1_ops = [str(f) for f in log.device_ops]
-    k1_kernels = device_kernels(k1_call)
-    ok = (k1_ops == ["aten.empty.memory_format"] and k1_kernels == 1
-          and counts["control_step"]["device_kernels"] <= 210
-          and all(c["k1_launches"] == 2 for c in counts.values()))
-    phase("step_launches", K=K, H=H, N_closed_loop=ROVERS, k1_call_torch_ops=k1_ops,
-          k1_call_device_kernels=k1_kernels, **counts, ok=ok)
-    if not ok:
-        raise RuntimeError("a control step runs more kernels than it should, or a K1 call "
-                           "issues other device operations")
-
     # 7. the flagship goal-seek, through K1
     robot = RobotState.create(*START, HEADING, device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
@@ -670,16 +918,81 @@ def main() -> int:
     if probe_rc != 0 or k3_launches != 1:
         raise RuntimeError(f"the gather probe returned {probe_rc} with {k3_launches} launches")
 
+    # 11. the streamed-terrain slice: the world, K1 and K2 at its sizes, the
+    #     traverse
+    ls_loop, ls_k1_row, ls_k2_row, ls_k1, ls_k2 = largescale_timed()
+
+    # 12. device kernels of one control step (flagship shapes) and of one
+    #     closed-loop step (N=4), counted by torch.profiler (it fails if the
+    #     profiler records no kernel), with the torch operators each
+    #     dispatches beside them. A K1 call is one kernel and dispatches no
+    #     torch operator but the output's empty (views aside)
+    #     torch.profiler runs only from here on, so that no timed path runs
+    #     in a process it has traced: every timed path is above this line
+    robot = RobotState.create(*START, HEADING, device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    goal, noise_d = torch.tensor(GOAL, device=cuda), noise.to(cuda)
+
+    def control_step():
+        _, out = mppi_step(cfg, hf, cm, goal, robot, ctrl, noise_d)
+        kinematic_advance(cfg, robot, out)
+
+    cl_state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+
+    def loop_step():
+        tenv.closed_loop_step(cl_cfg, hf, cm, goals_d, cl_state, noise=noise_d4)
+
+    noise_d4 = cl_noise.to(cuda)
+    counts = {}
+    for name, fn in (("control_step", control_step), ("closed_loop_step", loop_step)):
+        fn()
+        before = rollout_25d_cuda.launches
+        kernels = device_kernels(fn)
+        k1_launches = rollout_25d_cuda.launches - before
+        with OpLog() as log:
+            fn()
+        counts[name] = {"device_kernels": kernels, "torch_ops": len(log.device_ops),
+                        "k1_launches": k1_launches}
+    lin = torch.rand((K, H), generator=gen, device=cuda)
+    k1_call = lambda: rollout_25d_cuda(hf, robot.position, robot.heading, lin, lin, DT)  # noqa: E731
+    with OpLog() as log:
+        k1_call()
+    k1_ops = [str(f) for f in log.device_ops]
+    k1_kernels = device_kernels(k1_call)
+    ok = (k1_ops == ["aten.empty.memory_format"] and k1_kernels == 1
+          and counts["control_step"]["device_kernels"] <= 210
+          and all(c["k1_launches"] == 2 for c in counts.values()))
+    phase("step_launches", K=K, H=H, N_closed_loop=ROVERS, k1_call_torch_ops=k1_ops,
+          k1_call_device_kernels=k1_kernels, **counts, ok=ok)
+    if not ok:
+        raise RuntimeError("a control step runs more kernels than it should, or a K1 call "
+                           "issues other device operations")
+
+    # 13-14. the streamed slice's chunk under the profiler, and a shift
+    ls_k1_edge = largescale_profiled(ls_loop)
+
+    # The kernel table. K1's and K2's times, bounds and plain times are at
+    # the streamed loop's shapes (the 7000^2 window, the 875^2 costmap), with
+    # the earlier paths' shapes beside them; `launches` is the streamed
+    # traverse's count, the other paths' counts stand in `launches_by_path`
+    ls_k1_err = max(max_err, ls_k1_row.pop("max_abs_err"), ls_k1_edge.pop("max_abs_err"))
+    ls_k2_err = max(k2_err, ls_k2_row.pop("max_abs_err"))
     print(json.dumps({"kernels": [{
         "name": "rollout_25d", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/rollout.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/rollout_pallas.py:57",
-        "launches": launches, "max_abs_err": max_err, "library_ms": None, **k1_row,
+        "launches": ls_k1, "max_abs_err": ls_k1_err, "library_ms": None, **ls_k1_row,
+        "shape": "K=1000 x H=100, wheels, DEM 7000 x 7000",
+        "edge_after_shift": ls_k1_edge, "dem_1500": k1_row,
+        "launches_by_path": {"largescale": ls_k1, "goal_seek": launches, "closed_loop": cl_k1,
+                             "evaluation": eval_k1},
     }, {
         "name": "edt_minplus", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/edt_minplus.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/edt_pallas.py:31",
-        "launches": eval_k2, "max_abs_err": k2_err, "library_ms": None, **k2_row,
+        "launches": ls_k2, "max_abs_err": ls_k2_err, "library_ms": None, **ls_k2_row,
+        "shape": "875 x 875", "map_1500": k2_row,
+        "launches_by_path": {"largescale": ls_k2, "world": world_k2, "evaluation": eval_k2},
     }, {
         "name": "gather_probe", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",

@@ -1,5 +1,6 @@
 """Command-line entry of the PyTorch port: the standalone goal-seek, the
-2D-vs-3D evaluation and the N-rover closed loop.
+2D-vs-3D evaluation, the N-rover closed loop and the streamed-terrain
+full-stack loop.
 
 Usage (dotted ``key=value`` overrides, the keys and defaults of the JAX
 package's ``run_standalone`` and ``run_evaluation``)::
@@ -9,6 +10,7 @@ package's ``run_standalone`` and ``run_evaluation``)::
     python -m husky_rover_mppi_isaacsim_torch.cli mode=evaluation \\
         evaluation.protocol=thesis evaluation.ks=[1000] evaluation.runs_per_arm=8
     python -m husky_rover_mppi_isaacsim_torch.cli mode=closed_loop num_rovers=4 steps=300
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=largescale goal.x=65 goal.y=65
 
 ``device=`` names the torch device, ``cuda`` by default: a run that asks for
 the card where there is none raises; the CPU runs only with ``device=cpu``.
@@ -16,11 +18,17 @@ Each mode prints one JSON line that names the device. The YAML tree under
 ``cfg/`` is not read; the evaluation keys and defaults are those of
 ``cfg/mode/evaluation.yaml``, the closed loop's those of
 ``cfg/mode/closed_loop.yaml`` with ``cfg/config.yaml``'s ``mppi`` section
-and ``cfg/physics/default_physics.yaml``.
+and ``cfg/physics/default_physics.yaml``; the streamed loop's keys are those
+of the JAX ``run_largescale`` (``environment.largescale.*`` or
+``largescale.*`` by ``LargeScaleConf`` field, ``mppi.*``, ``start``, ``goal``,
+``max_steps``, ``terrain_check_every``, ``seed``). It runs the synchronous
+loop; ``deformation.enable``, ``checkpoint.*`` and ``resume`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -47,7 +55,9 @@ from .mppi.controller import (
     RobotState,
     goal_seek,
 )
+from .env.largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf
 from .terrain.costmap import costmap_750
+from .terrain.orchestrator import LargeScaleConf
 from .terrain.surface import STANDALONE_CRATER_BUMPS, crater_surface
 
 
@@ -260,8 +270,96 @@ def run_closed_loop(tree: dict) -> dict:
     }
 
 
+def largescale_conf(tree: dict) -> LargeScaleLoopConf:
+    """The streamed loop's configuration from the JAX ``run_largescale``'s
+    keys. The port serves the synchronous loop only and says so itself:
+    ``pipeline_depth=0``, ``prestage_shifts=False``. Raises
+    ``NotImplementedError`` for deformation, checkpoints and resume."""
+    env = tree.get("environment") or {}
+    ls = dict(env.get("largescale") or tree.get("largescale") or {})
+    fields = {f.name for f in dataclasses.fields(LargeScaleConf)}
+    kw = {k: v for k, v in ls.items() if k in fields}
+    if "crater_gen_densities" in kw:
+        kw["crater_gen_densities"] = tuple(kw["crater_gen_densities"])
+    if "crater_gen_radius" in kw:
+        kw["crater_gen_radius"] = tuple(tuple(r) for r in kw["crater_gen_radius"])
+    if "rock_gen_cfgs" in kw:
+        kw["rock_gen_cfgs"] = tuple(kw["rock_gen_cfgs"])
+    asked = {"wheel-track deformation (deformation.enable)":
+             (tree.get("deformation") or {}).get("enable"),
+             "checkpoints (checkpoint.path, checkpoint.every_steps)": tree.get("checkpoint"),
+             "resuming from a checkpoint (resume)": tree.get("resume")}
+    for what, value in asked.items():
+        if value:
+            raise NotImplementedError(f"{what}: not ported")
+    start = tree.get("start", {"x": 0.0, "y": 0.0})
+    goal = tree.get("goal", {"x": 65.0, "y": 65.0})
+    return LargeScaleLoopConf(
+        terrain=LargeScaleConf(**kw), loop=closed_loop_config(tree),
+        start=(start["x"], start["y"]), goal=(goal["x"], goal["y"]),
+        max_steps=int(tree.get("max_steps", 20000)),
+        terrain_check_every=int(tree.get("terrain_check_every", 12)),
+        seed=int(tree.get("seed", 42)), pipeline_depth=0, prestage_shifts=False)
+
+
+class LargeScaleRun(NamedTuple):
+    """One streamed traverse: the loop (terrain, costmaps, phase logs), its
+    result, and the seconds the terrain build and first costmap took."""
+
+    loop: LargeScaleClosedLoop
+    result: object
+    build_s: dict
+    device: torch.device
+
+
+def largescale_episode(tree: dict) -> LargeScaleRun:
+    """Build the streamed terrain and drive the traverse (the JAX
+    ``run_largescale``, synchronous loop) on ``device``."""
+    use_full_fp32_matmul()
+    device = run_device(tree)
+    conf = largescale_conf(tree)
+    build_s = {}
+    loop = LargeScaleClosedLoop(conf, device=device,
+                                phase_cb=lambda name, s: build_s.update({name: round(s, 3)}))
+    return LargeScaleRun(loop, loop.run(), build_s, device)
+
+
+def largescale_report(run: LargeScaleRun) -> dict:
+    """A traverse under the JAX run's result keys, plus the path taken
+    (``pipeline_depth``, ``prestage_shifts``: the shift latencies are those
+    of the synchronous rebuild, not of a pre-staged swap), ``build_s`` and
+    ``device``."""
+    res, lat = run.result, run.result.shift_latencies_s
+    return {
+        "mode": "largescale",
+        "reached": bool(res.reached),
+        "steps": res.steps,
+        "block_shifts": res.block_shifts,
+        "costmap_rebuilds": res.costmap_rebuilds,
+        "distance_m": round(res.distance_m, 2),
+        "final_position": [round(v, 3) for v in res.final_position],
+        "wall_s": round(res.wall_s, 2),
+        "sim_steps_per_s": round(res.steps / res.wall_s, 1),
+        "shift_latency_ms": {
+            "mean": round(1e3 * float(np.mean(lat)), 2) if lat else None,
+            "max": round(1e3 * float(np.max(lat)), 2) if lat else None,
+        },
+        "prestage": {"hits": res.prestage_hits, "misses": res.prestage_misses},
+        "pipeline_depth": run.loop.conf.pipeline_depth,
+        "prestage_shifts": run.loop.conf.prestage_shifts,
+        "build_s": run.build_s,
+        "device": str(run.device),
+    }
+
+
+def run_largescale(tree: dict) -> dict:
+    """The full-stack streamed-terrain closed loop
+    (visual_terrain_stack_full_terrain.py:293-582), synchronous path."""
+    return largescale_report(largescale_episode(tree))
+
+
 MODES = {"standalone": run_standalone, "evaluation": run_evaluation,
-         "closed_loop": run_closed_loop}
+         "closed_loop": run_closed_loop, "largescale": run_largescale}
 
 
 def _parse_value(s: str):

@@ -14,11 +14,14 @@ import torch
 
 from .core.heightfield import HeightField
 from .env.closed_loop import ClosedLoopConfig, LoopState
+from .env.frames import BlockFrame
 from .env.rover_sim import RoverParams, RoverState
 from .mppi.controller import NESTED_CONFIG, ControllerState, MPPIConfig, RobotState
 from .mppi.critics import Costmap
 from .mppi.evaluation import TrajectoryLog
 from .terrain.craters import CraterField, CraterProfiles
+from .terrain.rocks import RockBlock
+from .terrain.streaming import TerrainStreamer
 
 
 def _tensor(a):
@@ -110,3 +113,37 @@ def trajectory_log_from_jax(log) -> TrajectoryLog:
     return TrajectoryLog(step=int(log.step), trajectory=np.array(log.trajectory),
                          linear_velocities=np.array(log.linear_velocities),
                          start=tuple(log.start), goal=tuple(log.goal))
+
+
+def streamer_state_from_numpy(streamer: TerrainStreamer, lr_dem, anchor, crater_blocks,
+                              rng_state, window, block_cache=None) -> TerrainStreamer:
+    """Load the JAX streamer's state into this package's ``streamer`` (of
+    the same ``StreamerConf``), in place, on its device: the LR DEM, the
+    window and its anchor, the crater metadata per block ``{(bx, by):
+    (coords, radii)}``, the crater generator's ``rng.bit_generator.state``
+    and, where given, the cached blocks ``{(bx, by): array}`` (else the
+    cache is emptied: a later shift builds what enters). The next shift
+    then draws the craters the JAX streamer would draw."""
+    dev = streamer.device
+    streamer.lr_dem = _tensor(lr_dem).to(dtype=torch.float32, device=dev)
+    streamer.anchor = (int(anchor[0]), int(anchor[1]))
+    streamer.crater_blocks = {
+        (int(k[0]), int(k[1])): (np.array(c, np.float64).reshape(-1, 2),
+                                 np.array(r, np.float64).reshape(-1))
+        for k, (c, r) in crater_blocks.items()}
+    streamer.rng.bit_generator.state = rng_state
+    streamer.window = _tensor(window).to(dtype=torch.float32, device=dev)
+    streamer.block_cache = {
+        (int(k[0]), int(k[1])): _tensor(b).to(dtype=torch.float32, device=dev)
+        for k, b in (block_cache or {}).items()}
+    return streamer
+
+
+def rock_block_from_numpy(coordinates, height, quaternion, scale, ids) -> RockBlock:
+    """RockBlock from the JAX one's fields, in their order (numpy copies)."""
+    return RockBlock(*(np.array(a) for a in (coordinates, height, quaternion, scale, ids)))
+
+
+def block_frame_from_jax(frame) -> BlockFrame:
+    """BlockFrame (floats) from the JAX one's 0-d arrays."""
+    return BlockFrame(*(float(np.asarray(v)) for v in frame))

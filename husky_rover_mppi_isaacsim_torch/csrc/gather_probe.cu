@@ -12,9 +12,13 @@
 // between launches) and not staged. An index outside the table gives NaN
 // instead of reading out of bounds (the JAX jnp.take "fill" mode).
 //
-// What bounds it: nothing at the probe's size. 1024 lanes are 8 blocks of
-// 128 threads, one dependent load chain each (index, then element): the
-// launch and one L2 round trip set its time.
+// What bounds it: the launch. 1024 lanes are 8 blocks of 128 threads, one
+// dependent load chain each (index, then element); the 16 KB the function
+// must move take 5 ns at the card's memory rate, far below the time of any
+// launch. gather_probe_floor launches a kernel of the same grid and block
+// that loads and stores nothing: its replay time is the floor K3's bound is
+// restated with, max(bytes / memory rate, floor). With 16 KB of useful bytes
+// no staging (shared memory, TMA) or tensor-core form can pay for itself.
 //
 // Numerics: a gather does no arithmetic, so the result is bit-equal to
 // every plain formulation.
@@ -38,6 +42,9 @@ __global__ void __launch_bounds__(kThreads) gather_probe_kernel(
   out[k] = inside ? __ldg(table + (size_t)j * cols + i) : nanf("");
 }
 
+// The launch floor: K3's grid and block, no loads, no stores.
+__global__ void __launch_bounds__(kThreads) gather_probe_floor_kernel() {}
+
 }  // namespace
 
 // Plain C entry, loaded with ctypes. Device pointers to contiguous data:
@@ -51,5 +58,15 @@ extern "C" int gather_probe_f32(const float* table, int rows, int cols,
   const dim3 grid((n + kThreads - 1) / kThreads);
   gather_probe_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       table, rows, cols, idx_i, idx_j, out, n);
+  return (int)cudaGetLastError();
+}
+
+// The empty kernel at K3's launch shape for n lanes, on `stream`; returns
+// cudaGetLastError(). It is the yardstick of K3's time, not a part of K3.
+extern "C" int gather_probe_floor(int n, void* stream) {
+  if (n <= 0) return (int)cudaSuccess;
+  const dim3 grid((n + kThreads - 1) / kThreads);
+  gather_probe_floor_kernel<<<grid, kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

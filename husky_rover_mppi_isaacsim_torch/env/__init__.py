@@ -1,6 +1,8 @@
-"""Vectorized rover environment and the N-rover closed loop (counterpart of
-the JAX ``env``; its large-scale loop, robot manager and frames are not
-ported yet)."""
+"""Vectorized rover environment, the N-rover closed loop, the controller
+frames and the streamed-terrain loop (counterpart of the JAX ``env``; its
+robot manager is not ported yet)."""
+
+from . import frames
 
 from .closed_loop import (
     ClosedLoopConfig,
@@ -10,6 +12,7 @@ from .closed_loop import (
     loop_noise,
     run_episode,
 )
+from .largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf, LargeScaleRunResult
 from .metrics import goal_distances, path_metrics, success_mask
 from .rover_sim import (
     RoverParams,
@@ -28,6 +31,10 @@ __all__ = [
     "init_loop_state",
     "loop_noise",
     "run_episode",
+    "frames",
+    "LargeScaleClosedLoop",
+    "LargeScaleLoopConf",
+    "LargeScaleRunResult",
     "goal_distances",
     "path_metrics",
     "success_mask",

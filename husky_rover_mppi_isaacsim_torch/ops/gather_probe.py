@@ -80,6 +80,8 @@ class CudaGatherProbe:
             p, n = ctypes.c_void_p, ctypes.c_int
             fn.argtypes = [p, n, n, p, p, p, n, p]
             fn.restype = n
+            built.lib.gather_probe_floor.argtypes = [n, p]
+            built.lib.gather_probe_floor.restype = n
             self.built = built
         return self.built
 
@@ -114,6 +116,16 @@ class CudaGatherProbe:
         if rc != 0:
             raise RuntimeError(f"gather_probe_f32 launch failed: cudaError {rc}")
         self.launches += 1
+
+
+    def launch_floor(self, lanes: int) -> None:
+        """Launch the empty kernel of K3's grid and block for ``lanes`` lanes
+        on the current stream: the launch floor K3's time is held against.
+        Not a launch of K3: it is not counted."""
+        rc = self.load().lib.gather_probe_floor(lanes,
+                                                torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"gather_probe_floor launch failed: cudaError {rc}")
 
 
 gather_probe_cuda = CudaGatherProbe()

@@ -5,8 +5,9 @@
 includes the host's issue time when a call is shorter than it.
 :func:`graph_ms` captures ``launches`` calls into one CUDA graph and times
 its replay, so that only the device's time per launch remains.
-:class:`OpLog` records the torch operators a call dispatches, and
-:func:`device_kernels` counts the kernels a call runs on the card.
+:class:`OpLog` records the torch operators a call dispatches,
+:func:`device_kernels` counts the kernels a call runs on the card, and
+:func:`device_time` sums their time there by name.
 """
 
 from __future__ import annotations
@@ -95,3 +96,33 @@ def device_kernels(fn: Callable[[], object]) -> int:
     if kernels == 0:
         raise RuntimeError("torch.profiler recorded no kernel on the card")
     return kernels
+
+
+def device_time(fn: Callable[[], object], top: int = 8) -> dict:
+    """Time on the card of one call of ``fn``, from ``torch.profiler``: the
+    host's wall time of the call (ended by a synchronize), the summed
+    duration of its kernels and memory operations (``busy_ms``: what the
+    card is not idle for), their count, and the ``top`` names by summed
+    time as ``[name, ms, count]``. Raises where the profiler records no
+    device time."""
+    import time
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            ms, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (ms + (e.time_range.end - e.time_range.start) / 1e3, n + 1)
+    busy_ms = sum(ms for ms, _ in by_name.values())
+    if busy_ms <= 0.0:
+        raise RuntimeError("torch.profiler recorded no device time")
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return {"wall_ms_profiled": wall_ms, "busy_ms": busy_ms,
+            "events": sum(n for _, n in by_name.values()),
+            "top": [[name[:60], ms, n] for name, (ms, n) in ranked]}

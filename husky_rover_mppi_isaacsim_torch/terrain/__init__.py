@@ -1,5 +1,7 @@
-"""Worlds: the standalone crater surface and 750-obstacle costmap, and the
-small-scale procedural terrain of the thesis statistics protocol."""
+"""Worlds: the standalone crater surface and 750-obstacle costmap, the
+small-scale procedural terrain of the thesis statistics protocol, and the
+streamed large-scale terrain (streamer, rocks, clipmaps, collider window and
+their orchestrator)."""
 
 from .costmap import (
     as_costmap,
@@ -7,6 +9,9 @@ from .costmap import (
     device_costmap,
     generate_obstacles,
     rasterize_obstacles,
+    update_costmap_with_obstacles,
 )
+from .orchestrator import LargeScaleConf, LargeScaleTerrainManager
+from .rocks import RockDistConf
 from .smallscale import thesis_statistics_terrain
 from .surface import STANDALONE_CRATER_BUMPS, bump_surface, crater_surface

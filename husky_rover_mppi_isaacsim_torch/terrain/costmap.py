@@ -5,8 +5,10 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/costmap.py``:
 of the JAX package's (whose module imports jax), and the costmap comes from
 the exact EDT (:mod:`..ops.edt`) on the requested device: on the card its
 envelope is kernel K2. :func:`costmap_750` takes any ``size``: 750 for the
-standalone world, 1500 (0.1 m/px) for the thesis statistics protocol. The
-cv2-chamfer variant (``use_exact_edt=False`` there) is not ported.
+standalone world, 1500 (0.1 m/px) for the thesis statistics protocol.
+:func:`update_costmap_with_obstacles` is the streamed-terrain rebuild from
+the rock manager's obstacles. The cv2-chamfer variant
+(``use_exact_edt=False`` there) is not ported.
 """
 
 from __future__ import annotations
@@ -81,5 +83,23 @@ def costmap_750(half_width: float = 75.0, size: int = 750, robot_radius: float =
     Surface (MPPI_OO_current.py:744), not the 1.2 m wheel track."""
     binary = rasterize_obstacles(generate_obstacles(), half_width=half_width,
                                  size=size, robot_radius=robot_radius)
+    cost = device_costmap(binary, falloff_power, device=device)
+    return as_costmap(cost, half_width, dtype=dtype)
+
+
+def update_costmap_with_obstacles(costmap_size: int, half_width: float,
+                                  obstacles_xy: np.ndarray, radii: np.ndarray,
+                                  robot_radius: float, falloff_power: float = 20.0,
+                                  origin=(0.0, 0.0), dtype=torch.float32,
+                                  device=None) -> Costmap:
+    """Streamed-terrain costmap rebuild: rocks become obstacle disks, then
+    the exact-EDT falloff on ``device``
+    (visual_terrain_stack_full_terrain.py:546-576 rebuild path). ``origin``
+    is the window-center world coordinate the reference passes as
+    ``(block_x + half_block, block_y + half_block)`` (:556-561)."""
+    obstacles_xy = np.asarray(obstacles_xy).reshape(-1, 2)
+    obstacles = np.concatenate([obstacles_xy, np.asarray(radii).reshape(-1)[:, None]], axis=-1)
+    binary = rasterize_obstacles(obstacles, origin=origin, half_width=half_width,
+                                 size=costmap_size, robot_radius=robot_radius)
     cost = device_costmap(binary, falloff_power, device=device)
     return as_costmap(cost, half_width, dtype=dtype)

@@ -102,12 +102,13 @@ def build_profiles(num_profiles: int = 100, seed: int = 42, dtype=torch.float32,
 def randomize_metadata(
     rng: np.random.Generator, coordinates: np.ndarray, radius: np.ndarray,
     num_profiles: int, capacity: int, min_xy_ratio: float = 0.85,
-    max_xy_ratio: float = 1.0,
+    max_xy_ratio: float = 1.0, as_numpy: bool = False,
 ) -> CraterField:
     """Metadata randomization in the reference's per-attribute draw order
     (crater_distribution.py:427-451: deformation id, marks id, intensity,
     profile id, xy ratio, rotation), padded to ``capacity``. A field of
-    float32 / int32 / bool CPU tensors."""
+    float32 / int32 / bool CPU tensors, or of numpy arrays with ``as_numpy``
+    (the streamer splits it into radius tiers first)."""
     dtype = np.float32
     n = coordinates.shape[0]
     if n > capacity:
@@ -132,6 +133,8 @@ def randomize_metadata(
     field.xy_factor[:n] = rng.uniform(min_xy_ratio, max_xy_ratio, n)
     field.rotation[:n] = rng.uniform(0, 360, n).astype(np.int64)
     field.mask[:n] = True
+    if as_numpy:
+        return field
     return CraterField(*(torch.from_numpy(f) for f in field))
 
 
@@ -246,6 +249,7 @@ class CraterSamplerConf:
     radius_ranges: tuple = ((1.5, 2.5), (0.75, 1.5), (0.25, 0.5))
     num_repeat: int = 1
     num_profiles: int = 100
+    capacity_per_block: int = 2048
     min_xy_ratio: float = 0.85
     max_xy_ratio: float = 1.0
     seed: int = 42

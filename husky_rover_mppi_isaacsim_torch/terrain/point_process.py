@@ -1,11 +1,13 @@
-"""Hardcore Poisson point process for crater placement, on the host in numpy.
+"""Point processes on the host in numpy: the hardcore Poisson process for
+crater placement and the Thomas cluster process for rocks.
 
 Numpy copies of ``BoundingBox``, ``sample_poisson``, ``hardcore_rejection``,
-``reject_inside_previous`` and ``hardcore_poisson`` in
-``husky_rover_mppi_isaacsim_tpu/terrain/point_process.py`` (whose module
+``reject_inside_previous``, ``hardcore_poisson`` and ``thomas_point_process``
+in ``husky_rover_mppi_isaacsim_tpu/terrain/point_process.py`` (whose module
 imports jax), with the same draw order (DynamicDistribute,
 crater_distribution.py:46-289), so one ``np.random.Generator`` gives both
-packages the same points. The fixed-capacity device variants are not ported.
+packages the same points. The fixed-capacity device variants
+(``poisson_fixed``, ``hardcore_thin_fixed``, ``thomas_fixed``) are not ported.
 """
 
 from __future__ import annotations
@@ -171,3 +173,22 @@ def hardcore_poisson(rng: np.random.Generator, region: BoundingBox, densities,
             np.concatenate([prev[1], radius], axis=0) if prev is not None else radius,
         )
     return np.concatenate(all_coords, axis=0), np.concatenate(all_radius, axis=0)
+
+
+def thomas_point_process(rng: np.random.Generator, region: BoundingBox, parent_density: float,
+                         child_density: float, sigma: float) -> np.ndarray:
+    """Thomas cluster process (rock_distribution.py Thomas semantics):
+    Poisson parents on a region extended by 4 sigma, Poisson-many
+    N(parent, sigma) children, clipped to the region. Returns (n, 2)."""
+    ext = BoundingBox(region.x_min - 4 * sigma, region.x_max + 4 * sigma,
+                      region.y_min - 4 * sigma, region.y_max + 4 * sigma)
+    num_parents = rng.poisson(ext.area * parent_density)
+    px = rng.uniform(ext.x_min, ext.x_max, num_parents)
+    py = rng.uniform(ext.y_min, ext.y_max, num_parents)
+    num_children = rng.poisson(child_density, num_parents)
+    total = int(num_children.sum())
+    cx = np.repeat(px, num_children) + rng.normal(0, sigma, total)
+    cy = np.repeat(py, num_children) + rng.normal(0, sigma, total)
+    inside = ((cx >= region.x_min) & (cx <= region.x_max)
+              & (cy >= region.y_min) & (cy <= region.y_max))
+    return np.stack([cx[inside], cy[inside]]).T

@@ -1,9 +1,11 @@
-"""Catmull-Rom bicubic point sampling (a = -0.5, clamped 4x4 taps).
+"""Bicubic LR -> HR DEM upsampling and the clipmap's point samplers.
 
-Counterpart of ``cubic_kernel`` and ``bicubic_point_sample`` in
-``husky_rover_mppi_isaacsim_tpu/terrain/upsample.py``
-(geometry_clipmaps_warp.py:211-279): what the small-scale terrain's base
-noise resize needs. The separable ``upsample_bicubic`` is not ported.
+Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/upsample.py``:
+:func:`upsample_bicubic` is the separable Catmull-Rom (a = -0.5) integer
+upsample of the streamed blocks (PIL's pixel-center convention, edges
+clamped; high_resolution_DEM_workers.py:107-196), and
+:func:`bicubic_point_sample` / :func:`bilinear_point_sample` are the 4x4 and
+2x2 samplers at fractional pixels (geometry_clipmaps_warp.py:180-279).
 """
 
 from __future__ import annotations
@@ -47,3 +49,51 @@ def bicubic_point_sample(z: Tensor, x: Tensor, y: Tensor) -> Tensor:
     yi = torch.clamp(y0[..., None] + offs, 0, z.shape[-1] - 1)
     patch = z[xi[..., :, None], yi[..., None, :]]  # (..., 4, 4)
     return torch.einsum("...i,...ij,...j->...", wx, patch, wy)
+
+
+def upsample_bicubic(lr: Tensor, factor: int) -> Tensor:
+    """Upsample ``(H, W)`` by an integer factor with Catmull-Rom bicubic.
+
+    Output pixel ``o`` samples source coordinate ``(o + 0.5)/f - 0.5``;
+    edges clamp. Each axis pass gathers four taps per output row and sums
+    them left to right, weights in the image's dtype: the same four products
+    in the same order on every device."""
+
+    def axis_pass(img: Tensor) -> Tensor:  # upsample the leading axis
+        n = img.shape[0]
+        src = (np.arange(n * factor) + 0.5) / factor - 0.5
+        i0 = np.floor(src).astype(np.int64)
+        offs = np.arange(-1, 3)
+        kw = cubic_kernel(offs[None, :] - (src - i0)[:, None])
+        kw = torch.as_tensor(kw / kw.sum(axis=1, keepdims=True), dtype=img.dtype,
+                             device=img.device)
+        idx = torch.as_tensor(np.clip(i0[:, None] + offs[None, :], 0, n - 1), device=img.device)
+        out = kw[:, 0, None] * img[idx[:, 0]]
+        for f in range(1, 4):
+            out = out + kw[:, f, None] * img[idx[:, f]]
+        return out
+
+    return axis_pass(axis_pass(lr).T).T
+
+
+def _take2d(z: Tensor, rows: Tensor, cols: Tensor) -> Tensor:
+    """``z[rows, cols]`` through ``torch.take`` on the flat index: 0-d index
+    tensors would otherwise become Python ints, a host sync each."""
+    return torch.take(z, rows * z.shape[-1] + cols)
+
+
+def bilinear_point_sample(z: Tensor, x: Tensor, y: Tensor) -> Tensor:
+    """2x2 bilinear sample of ``z`` at fractional pixel coordinates (the
+    clipmap's fast path, geometry_clipmaps_warp.py:180-208); ``x`` indexes
+    rows, ``y`` columns. Cells outside the grid clamp to its edge."""
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    fx = x - x0
+    fy = y - y0
+    h, w = z.shape[-2], z.shape[-1]
+    x1 = torch.clamp(x0 + 1, 0, h - 1)
+    y1 = torch.clamp(y0 + 1, 0, w - 1)
+    x0 = torch.clamp(x0, 0, h - 1)
+    y0 = torch.clamp(y0, 0, w - 1)
+    return (_take2d(z, x0, y0) * (1 - fx) * (1 - fy) + _take2d(z, x0, y1) * (1 - fx) * fy
+            + _take2d(z, x1, y0) * fx * (1 - fy) + _take2d(z, x1, y1) * fx * fy)

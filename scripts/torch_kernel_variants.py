@@ -1,7 +1,9 @@
 """Time the design steps of kernels K1 and K2 of the PyTorch port against a
-checkout of an earlier version of the port, on one NVIDIA GPU.
+checkout of an earlier version of the port, and K3's two block shapes, on one
+NVIDIA GPU.
 
     python3 scripts/torch_kernel_variants.py --parent DIR [--out FILE]
+    python3 scripts/torch_kernel_variants.py --only k3 [--out FILE]
 
 ``DIR`` holds an earlier checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``); its
@@ -29,7 +31,12 @@ K2 is timed the same two ways on the 750^2, 1500^2 and 187 x 875 maps: the
 parent kernel, this checkout's with two float mins per candidate pair
 (``fmin``, ``scripts/kernel_steps/edt_fmin.cu`` appended to
 ``csrc/edt_minplus.cu``) and with the DPX three-way min (``dpx``, the kernel
-the costmap build launches), each held bit-equal to ``dpx``. The register report of
+the costmap build launches), each held bit-equal to ``dpx``. K3 is timed by
+graph replay in its production shape (8 blocks of 128 threads) and as one
+block of 1024 threads (``scripts/kernel_steps/gather_probe_1024.cu``), each
+beside an empty kernel of the same grid and block (the launch floor) and the
+one-call ``table[j, i]``, in turns; ``--only k3`` runs that part alone and
+needs no parent checkout. The register report of
 each build and a summary of each kernel's SASS (``cuobjdump -sass``) are
 printed too. Each result is one JSON line; all of them also go to ``FILE`` (default
 ``build/kernel_variants.json``).
@@ -101,9 +108,12 @@ def sass_summary(lib: Path) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--parent", type=Path)
+    ap.add_argument("--only", choices=["k3"])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_variants.json")
     args = ap.parse_args(argv)
+    if args.only is None and args.parent is None:
+        ap.error("--parent is required unless --only k3 is given")
 
     import torch
 
@@ -113,6 +123,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.core import HeightField
     from husky_rover_mppi_isaacsim_torch.mppi.rollout import start_heading
     from husky_rover_mppi_isaacsim_torch.ops import cuda_build
+    from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
     from husky_rover_mppi_isaacsim_torch.ops.edt import row_distances_sq
     from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import ARGTYPES, rollout_25d_cuda
@@ -133,6 +144,43 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     emit(phase="device", nvidia_smi=smi, name=torch.cuda.get_device_name(0))
+
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    cuda = torch.device("cuda")
+
+    # K3: 8 blocks of 128 threads (production) against one block of 1024,
+    # each beside its empty kernel and the one-call table[j, i]
+    k3 = gp.gather_probe_cuda.load()
+    k3_steps = build_steps(cuda_build, "gather_probe.cu", "gather_probe_1024.cu")
+    k3_steps.lib.gather_probe_1024_f32.argtypes = [_P, _I, _I, _P, _P, _P, _I, _P]
+    k3_steps.lib.gather_probe_1024_f32.restype = _I
+    k3_steps.lib.gather_probe_floor_1024.argtypes = [_P]
+    k3_steps.lib.gather_probe_floor_1024.restype = _I
+    table, idx_i, idx_j = gp.probe_inputs(cuda)
+    outs = {v: torch.empty((gp.K,), device=cuda) for v in ("8x128", "1x1024")}
+    k3_variants = {
+        "8x128": lambda: gp.gather_probe_cuda.launch(table, idx_i, idx_j, outs["8x128"]),
+        "floor_8x128": lambda: gp.gather_probe_cuda.launch_floor(gp.K),
+        "1x1024": lambda: _ok(k3_steps.lib.gather_probe_1024_f32(
+            table.data_ptr(), gp.P, gp.P, idx_i.data_ptr(), idx_j.data_ptr(),
+            outs["1x1024"].data_ptr(), gp.K, stream())),
+        "floor_1x1024": lambda: _ok(k3_steps.lib.gather_probe_floor_1024(stream())),
+        "library_getitem": lambda: table[idx_j, idx_i],
+    }
+    order = list(k3_variants)
+    times = {v: [] for v in order}
+    for v in order + order[::-1] + order:
+        times[v].append(graph_ms(k3_variants[v]))
+    torch.cuda.synchronize()
+    want = gp.gather_getitem(table, idx_i, idx_j)
+    emit(phase="k3_variants", lanes=gp.K, table=[gp.P, gp.P], graph_ms=times,
+         bit_equal={v: torch.equal(outs[v], want) for v in outs},
+         ptxas=[ln.strip() for ln in (k3.log + k3_steps.log).splitlines()
+                if "registers" in ln])
+    if args.only == "k3":
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+        return 0
 
     parent_src = args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc"
     new_k1, new_k2 = rollout_25d_cuda.load(), edt_minplus_cuda.load()
@@ -155,11 +203,9 @@ def main(argv=None) -> int:
                     if "registers" in ln or "spill" in ln or "smem" in ln],
              sass=sass_summary(built.path))
 
-    cuda = torch.device("cuda")
     hf = HeightField.create(crater_surface(1500, 75.0, STANDALONE_CRATER_BUMPS, device=cuda),
                             75.0)
     gen = torch.Generator(device=cuda).manual_seed(0)
-    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
 
     for n, k, h, wheels in K1_SHAPES:
         pos = torch.rand((n, 2), generator=gen, device=cuda) * 80.0 - 40.0

@@ -3,7 +3,8 @@ rovers), K2 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) bit-equal to
 their plain versions, a K1 call as one launch and no other device operator,
 the kernels of one control step, the control step and the closed-loop step
 on the card against the same steps on the CPU, the thesis DEM's repeatable
-build and the evaluation's kernel launches.
+build, the evaluation's kernel launches, and the streamed loop's sizes: K1 on
+a 7000 x 7000 DEM, K2 at 875 x 875, and a small streamed traverse.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -396,3 +397,65 @@ def test_evaluation_run_on_card_launches_k1_and_k2(cuda):
     assert entry["steps"]["3d"] > 0 and entry["finite"] == {"3d": True, "2d": True}
     assert rollout_25d_cuda.launches == 2 * entry["steps"]["3d"] + entry["steps"]["2d"]
     assert edt_minplus_cuda.launches == 1
+
+
+@pytest.mark.parametrize("k,wheels", [(1000, True), (1, False)])
+def test_k1_on_a_7000_square_dem_matches_plain_on_card(cuda, k, wheels):
+    """The streamed loop's window size (49 * 10^6 cells, 0.025 m/px): cell
+    offsets beyond 2^25, poses in the middle, in the last rows and columns,
+    and running off the corner (wrap-then-clamp reads)."""
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    z = torch.rand((7000, 7000), generator=gen, device=cuda) * 0.05
+    z += torch.linspace(0.0, 3.0, 7000, device=cuda)[:, None]
+    hf = HeightField.create(z, 87.5)
+    lin = torch.rand((k, 100), generator=gen, device=cuda) * 2.0
+    ang = torch.rand((k, 100), generator=gen, device=cuda) * 2.0 - 1.0
+    for pos, head in (((-12.5, 12.5), (0.0, -1.0, 0.0)), ((81.5, -84.0), (1.0, -0.4, 0.0)),
+                      ((86.9, -87.2), (1.0, -1.0, 0.0))):
+        p = torch.tensor(pos, device=cuda)
+        h = torch.tensor(head, device=cuda)
+        got = rollout_25d_cuda(hf, p, h, lin, ang, 0.045, wheels=wheels)
+        want = tro.rollout_25d(hf, p, h, lin, ang, 0.045, wheels=wheels)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), pos
+
+
+def test_k2_at_the_streamed_costmap_size_on_card(cuda):
+    """875 x 875: not a multiple of the 64-wide tile, rows of 3500 bytes (not
+    16-byte aligned: the batched-load producer)."""
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    for density in (0.04, 0.0005):
+        occ = torch.rand((875, 875), generator=gen, device=cuda) < density
+        before = edt_minplus_cuda.launches
+        got = edt.edt_exact_sq(occ)
+        assert edt_minplus_cuda.launches == before + 1
+        assert torch.equal(got, edt.edt_exact_sq_plain(occ))
+
+
+def test_small_streamed_traverse_on_card_launches_k1_and_k2(cuda):
+    """``mode=largescale`` at a small size on the card: K1 twice per sim
+    step on the live window, K2 once per costmap build, no sync in a chunk."""
+    from husky_rover_mppi_isaacsim_torch.cli import largescale_episode
+
+    tree = {"largescale": dict(block_size=10.0, hr_dem_resolution=0.1, lr_pixel_size=2.0,
+                               hr_dem_num_blocks=1, crater_gen_padding=2.0,
+                               update_every_n_meters=0.25, geo_cm_num_texels_per_level=8,
+                               geo_cm_num_lods=3, terrain_collider_resolution=0.5,
+                               terrain_collider_build_radius=6.0, rock_block_span=1),
+            "mppi": {"num_samples": 64, "horizon": 30}, "start": {"x": 9.7, "y": 1.0},
+            "goal": {"x": 45.0, "y": 8.0}, "max_steps": 240, "device": "cuda"}
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    run = largescale_episode(tree)
+    res = run.result
+    assert res.steps == 240 and rollout_25d_cuda.launches == 2 * res.steps
+    assert res.block_shifts >= 1 and edt_minplus_cuda.launches == 1 + res.costmap_rebuilds
+    assert run.loop.hf.z.is_cuda and run.loop.hf.z is run.loop.lstm.map_manager.streamer.window
+    state, goal = run.loop.last_state, run.loop._goal_ctrl()
+    generator = torch.Generator(device=cuda).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run.loop.chunk(state, goal, generator=generator)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")

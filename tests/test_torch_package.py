@@ -39,14 +39,19 @@ print(len(names), leaked, ",".join(names))
 SLICE_2 = ("ops.edt_cuda", "terrain.upsample", "terrain.point_process", "terrain.craters",
            "terrain.smallscale", "mppi.evaluation")
 SLICE_3 = ("env", "env.rover_sim", "env.metrics", "env.closed_loop", "ops.gather_probe")
+# the streamed-terrain slice
+SLICE_5 = ("env.frames", "env.largescale_loop", "terrain.database", "terrain.streaming",
+           "terrain.map_manager", "terrain.rocks", "terrain.clipmap", "terrain.collider",
+           "terrain.orchestrator")
 
 
 def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 30 and out[1] == "[]", out
+    assert int(out[0]) >= 39 and out[1] == "[]", out
     names = out[2].split(",")
-    assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names for m in SLICE_2 + SLICE_3), names
+    assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
+               for m in SLICE_2 + SLICE_3 + SLICE_5), names
 
 
 def test_parse_overrides_and_config():
@@ -86,7 +91,7 @@ def test_run_standalone_cli_small(capsys):
     assert res["final_position"] != [-3.0, -2.0]
 
 
-@pytest.mark.parametrize("mode", ["standalone", "evaluation", "closed_loop"])
+@pytest.mark.parametrize("mode", ["standalone", "evaluation", "closed_loop", "largescale"])
 def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
     """With no ``device`` key the CLI asks for the card; where there is
     none it raises, and only ``device=cpu`` runs on the CPU."""

@@ -1,0 +1,155 @@
+"""PyTorch port: rock sampling (``terrain/rocks.py``), the Thomas process and
+the block stores against the JAX package.
+
+Rock positions, scales and ids are numpy draws from generators keyed by
+(seed, block): EQUAL in both packages, also after the store's fixed-accuracy
+codec (multiples of 1e-3), which the port writes out in numpy where the JAX
+package calls its C++ runtime. Heights agree to 1.1e-3 m: both are stored as
+multiples of 1e-3, and a height within 1e-4 m of a rounding boundary may
+land on either side. Quaternions come from ``jax.random`` there and a
+``torch.Generator`` here: the math is compared on injected draws, 1e-6 in
+float32.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core.heightfield import HeightField as THeightField
+from husky_rover_mppi_isaacsim_torch.terrain import database as tdb
+from husky_rover_mppi_isaacsim_torch.terrain import point_process as tpp
+from husky_rover_mppi_isaacsim_torch.terrain import rocks as trocks
+from husky_rover_mppi_isaacsim_tpu import native as jnative
+from husky_rover_mppi_isaacsim_tpu.core.heightfield import HeightField as JHeightField
+from husky_rover_mppi_isaacsim_tpu.terrain import database as jdb
+from husky_rover_mppi_isaacsim_tpu.terrain import point_process as jpp
+from husky_rover_mppi_isaacsim_tpu.terrain import rocks as jrocks
+
+from test_torch_streaming import _streamers
+
+torch.set_num_threads(1)
+
+CONF = dict(parent_density=0.005, child_density=3.0, sigma=2.0, scale_min=0.3, scale_max=0.5,
+            block_size=10.0, seed=67)
+
+
+@pytest.fixture(autouse=True)
+def needs_native_codec():
+    """The JAX stores go through the C++ codec when it is built (else
+    float16, which the port does not imitate)."""
+    assert jnative.available(), "the JAX package's C++ runtime is not built"
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_thomas_point_process_equals_jax(seed):
+    region = (-5.0, 20.0, 3.0, 28.0)
+    got = tpp.thomas_point_process(np.random.default_rng(seed), tpp.BoundingBox(*region),
+                                   0.01, 4.0, 3.0)
+    want = jpp.thomas_point_process(np.random.default_rng(seed), jpp.BoundingBox(*region),
+                                    0.01, 4.0, 3.0)
+    assert got.shape[0] > 5
+    np.testing.assert_array_equal(got, want)
+
+
+def test_fixed_accuracy_codec_equals_the_native_one(rng):
+    x = np.concatenate([rng.normal(0.0, 60.0, 500), [0.0, 0.0005, -0.0005, 0.0015, -2.5e-3,
+                                                     1e-9, 123.4565]]).astype(np.float32)
+    want = jnative.decompress(jnative.compress(x, 1e-3), x.shape, 1e-3)
+    got = tdb.unpack_array(tdb.pack_array(x, 1e-3), 1e-3)
+    np.testing.assert_array_equal(got, want)
+    assert got.dtype == np.float32 and np.abs(got - x).max() <= 5.1e-4
+    ids = rng.integers(0, 16, 40).astype(np.int32)
+    np.testing.assert_array_equal(tdb.unpack_array(tdb.pack_array(ids, 1e-3), 1e-3), ids)
+
+
+def test_quaternion_math_matches_jax_on_injected_draws(rng):
+    normal = rng.normal(size=(50, 3)) * [0.2, 0.2, 1.0]
+    normal = (normal / np.linalg.norm(normal, axis=-1, keepdims=True)).astype(np.float32)
+    rand = rng.uniform(-1.0, 1.0, (50, 3)).astype(np.float32)
+    got = trocks.quat_from_normal_and_rand(torch.from_numpy(normal), torch.from_numpy(rand))
+    want = jrocks._quat_from_normal_and_rand(jnp.asarray(normal), jnp.asarray(rand))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(np.linalg.norm(got.numpy(), axis=-1), 1.0, atol=1e-6)
+
+
+def test_tangent_draws_do_not_depend_on_the_batch():
+    a = trocks.block_tangent_draws(67, 3, -2, 9)
+    assert torch.equal(a, trocks.block_tangent_draws(67, 3, -2, 9))
+    assert not torch.equal(a, trocks.block_tangent_draws(67, -2, 3, 9))
+    assert a.dtype == torch.float32 and float(a.abs().max()) <= 1.0
+
+
+def _samplers():
+    js, ts = _streamers(craters=True)
+    js.update((5.0, 5.0))
+    ts.update((5.0, 5.0))
+    return (jrocks.RockSampler(jrocks.RockDistConf(**CONF), js),
+            trocks.RockSampler(trocks.RockDistConf(**CONF), ts))
+
+
+def test_sampled_region_against_jax():
+    jsamp, tsamp = _samplers()
+    want = jsamp.sample_region((4.0, 6.0), block_span=1)
+    got = tsamp.sample_region((4.0, 6.0), block_span=1)
+    assert got.coordinates.shape[0] == want.coordinates.shape[0] > 10
+    for name in ("coordinates", "scale", "ids"):
+        a, b = getattr(got, name), getattr(want, name)
+        assert a.dtype == b.dtype, name
+        np.testing.assert_array_equal(a, b, err_msg=name)
+    np.testing.assert_allclose(got.height, want.height, rtol=0, atol=1.1e-3)
+    np.testing.assert_allclose(np.linalg.norm(got.quaternion, axis=-1), 1.0, atol=2e-3)
+    np.testing.assert_array_equal(trocks.rocks_to_obstacles(got, 0.35),
+                                  jrocks.rocks_to_obstacles(want, 0.35))
+    # one block at a time gives the blocks of the batched query, quaternions too
+    one = trocks.RockSampler(trocks.RockDistConf(**CONF), tsamp.hf)
+    for key in ((0, 0), (1, -1)):
+        a, b = one.sample_block(*key), tsamp.sample_block(*key)
+        for name in ("coordinates", "height", "quaternion", "scale", "ids"):
+            np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    # the converter carries a JAX block over as it is
+    conv = convert.rock_block_from_numpy(want.coordinates, want.height, want.quaternion,
+                                         want.scale, want.ids)
+    np.testing.assert_array_equal(conv.coordinates, got.coordinates)
+
+
+def test_sampler_on_a_fixed_heightfield_matches_jax(rng):
+    z = rng.normal(0.0, 0.3, (120, 120)).astype(np.float32)
+    jhf = JHeightField.create(jnp.asarray(z), 30.0)
+    thf = THeightField.create(torch.from_numpy(z), 30.0)
+    want = jrocks.RockSampler(jrocks.RockDistConf(**CONF), jhf).sample_region((2.0, -3.0), 1)
+    got = trocks.RockSampler(trocks.RockDistConf(**CONF), thf).sample_region((2.0, -3.0), 1)
+    np.testing.assert_array_equal(got.coordinates, want.coordinates)
+    np.testing.assert_array_equal(got.scale, want.scale)
+    np.testing.assert_allclose(got.height, want.height, rtol=0, atol=1.1e-3)
+
+
+def test_block_db_matches_jax(tmp_path, rng):
+    """``BlockDB``: the same payloads come back from both packages' stores,
+    with the same occupancy, missing blocks and rectangles."""
+    dbs = [jdb.BlockDB(jdb.BlockDBConf(block_size=10.0)), tdb.BlockDB(tdb.BlockDBConf(
+        block_size=10.0))]
+    keys = [(0, 0), (0, 1), (2, 2), (3, 0)]
+    for key in keys:
+        payload = {"coordinates": rng.uniform(0, 40, (6, 2)), "radius": rng.uniform(0.2, 2, 6),
+                   "ids": np.arange(6)}
+        for db in dbs:
+            db.add(key, payload)
+    region = (-1, 4, -1, 4)
+    np.testing.assert_array_equal(dbs[1].occupancy(region), dbs[0].occupancy(region))
+    assert dbs[1].missing_blocks(region) == dbs[0].missing_blocks(region)
+    assert dbs[1].missing_rectangles(region) == dbs[0].missing_rectangles(region)
+    occ = rng.uniform(size=(9, 7)) < 0.4
+    assert tdb.largest_empty_rectangle(occ) == jdb.largest_empty_rectangle(occ)
+    assert tdb.decompose_empty_rectangles(occ) == jdb.decompose_empty_rectangles(occ)
+    for key in keys:
+        got, want = dbs[1].get(key), dbs[0].get(key)
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name], err_msg=name)
+    assert len(dbs[1].get_with_neighbors((0, 0))) == len(dbs[0].get_with_neighbors((0, 0))) == 2
+    dbs[1].save_to_disk(str(tmp_path / "db"))
+    back = jdb.BlockDB(jdb.BlockDBConf(block_size=10.0))  # the JAX package reads the port's files
+    back.load_from_disk(str(tmp_path / "db"))
+    assert sorted(back.keys()) == sorted(keys)
+    np.testing.assert_array_equal(back.get((2, 2))["radius"], dbs[1].get((2, 2))["radius"])
