@@ -946,11 +946,11 @@ def main(argv=None) -> int:
     counts = {}
     for name, fn in (("control_step", control_step), ("closed_loop_step", loop_step)):
         fn()
+        kernels = device_kernels(fn)  # calls fn once per profiler session
         before = rollout_25d_cuda.launches
-        kernels = device_kernels(fn)
-        k1_launches = rollout_25d_cuda.launches - before
         with OpLog() as log:
             fn()
+        k1_launches = rollout_25d_cuda.launches - before
         counts[name] = {"device_kernels": kernels, "torch_ops": len(log.device_ops),
                         "k1_launches": k1_launches}
     lin = torch.rand((K, H), generator=gen, device=cuda)
