@@ -22,13 +22,21 @@ for 400 physics steps; runs the thesis 2D-vs-3D evaluation protocol at full
 width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
 most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
 timed alone; runs K3's probe entry point; and drives the streamed-terrain
-full-stack loop (mode=largescale, synchronous path) at the LargeScaleConf
-defaults: builds the 7000^2 window twice (bit-equal), holds K1 on that window
-at two poses (the second within one horizon of the window's edge after a
-block shift) and K2 at the 875^2 costmap against their plain versions, checks
-that a shift leaves world heights where they were, steps one 12-step chunk on
-the card against the same chunk on the CPU, and drives the traverse (0, 0) ->
-(65, 65) through the CLI's entry. K3 is timed beside an empty kernel of its
+full-stack loop (mode=largescale) at the LargeScaleConf defaults: builds the
+7000^2 window twice (bit-equal), holds K1 on that window at two poses (the
+second within one horizon of the window's edge after a block shift) and K2
+at the 875^2 costmap against their plain versions, checks that a shift
+leaves world heights where they were, steps one 12-step chunk on the card
+against the same chunk on the CPU, and drives traverses (0, 0) -> (65, 65)
+through the CLI's entry, in turns: the synchronous loop with shift
+pre-staging and its verification (every staged costmap and window
+bit-equal to the rebuild; it checkpoints past its first shift), the CLI's
+default pipelined loop (terrain worker on a side CUDA stream; every seated
+costmap bit-equal to its rebuild) and the synchronous loop without
+pre-staging, cut to SYNC_STEPS; then resumes the first from its checkpoint
+(bit-identical to the uninterrupted run), reads the chunk's device rate, and
+drives a short wheel-track-deformed traverse across a block border (K1 on the
+deformed window bit-equal, a stamp on the card against the CPU). K3 is timed beside an empty kernel of its
 grid and block (the launch floor of its restated bound). Each path runs with the
 kernels' launch counts set to 0 just before it and read just after. Each
 phase prints one line; any failure raises and the exit code is not 0. The
@@ -42,11 +50,13 @@ table nor the result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 K, H, DT = 1000, 100, 0.045
 START, GOAL, HEADING = (-45.0, -40.0), (45.0, 40.0), (1.0, 0.5, 0.0)
@@ -56,6 +66,19 @@ REPS = 7
 # on an H100 80GB HBM3 at 700 W, so 700 loops keep the phase near 100 s.
 EVAL_MAX_LOOPS = 700
 ROVERS, SIM_STEPS = 4, 300          # the CLI's closed-loop defaults
+# The streamed traverses. The synchronous one without pre-staging is cut
+# to SYNC_STEPS sim steps (past its first block shift); the prestage-verify
+# traverse checkpoints at CKPT_EVERY sim steps (past its first shift) into
+# the checkout's ignored build/ directory; the deformed traverse starts 1 m
+# before the x = 25 m block border.
+SYNC_STEPS, CKPT_EVERY = 3000, 3600
+BUILD = Path(__file__).resolve().parent / "build"
+CKPT = BUILD / "smoke_traverse.ckpt"
+DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
+# the peak device memory of the synchronous traverse without pre-staging
+# as first measured (H100 80GB HBM3, 700 W), printed beside this run's
+# (which excludes what earlier phases still hold)
+UNSTAGED_TRAVERSE_PEAK_BYTES = 1.71e9
 VEC_ROVERS, VEC_STEPS = 4096, 400   # bench.py's vec-env shapes
 
 
@@ -263,9 +286,10 @@ def main(argv=None) -> int:
     def largescale_timed():
         """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
         window at 0.025 m/px, 875^2 costmap, K=1000 x H=100), the part that
-        is timed: the world, K1 and K2 at these sizes, the traverse. Returns
-        the loop on the first world, K1's and K2's rows and the traverse's
-        launch counts."""
+        is timed: the world, K1 and K2 at these sizes, the traverses, the
+        resume, the device rate and the deformed traverse. Returns the loop
+        on the first world, K1's and K2's rows and each path's launch
+        counts ``{path: (K1, K2)}``."""
         # 11. the world, built twice from the same seeds
         conf = largescale_conf({})
         torch.cuda.synchronize()
@@ -337,20 +361,39 @@ def main(argv=None) -> int:
         phase("largescale_chunk_ms", steps=conf.terrain_check_every, K=K, H=H, chunk_ms=chunk_ms,
               ms_per_sim_step=chunk_ms / conf.terrain_check_every)
 
-        #     the traverse (0, 0) -> (65, 65) through the CLI's entry
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-        gp.gather_probe_cuda.launches = 0
-        run = largescale_episode({})
-        ls_k1, ls_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
-        report, res, loop = largescale_report(run), run.result, run.loop
-        # every path point against the costmap that was live when the rover
-        # drove there, in that costmap's frame
+        #     the traverses (0, 0) -> (65, 65) through the CLI's entry, in
+        #     turns in this process (sync, pipelined, sync), each with the
+        #     kernels' counts set to 0 just before it and read just after
+        sync_s1 = run_traverse("largescale_prestage_verify", {}, dataclasses.replace(
+            conf, pipeline_depth=0, verify_prestage=True, checkpoint_path=str(CKPT),
+            checkpoint_every_steps=CKPT_EVERY))
+        pipe = run_traverse("largescale_pipelined", {})
+        sync_s0 = run_traverse("largescale", {}, dataclasses.replace(
+            conf, pipeline_depth=0, prestage_shifts=False, max_steps=SYNC_STEPS))
+        counts = {name: (t["k1"], t["k2"]) for name, t in
+                  (("largescale_prestage_verify", sync_s1), ("largescale_pipelined", pipe),
+                   ("largescale", sync_s0))}
+        largescale_resume(dataclasses.replace(conf, pipeline_depth=0, verify_prestage=True),
+                          sync_s1, counts)
+        rate = pipe["loop"].measure_device_rate(chunks=20)
+        res = pipe["run"].result
+        phase("largescale_device_rate", chunks=20, steps_per_chunk=conf.terrain_check_every,
+              device_sim_steps_per_s=rate, wall_sim_steps_per_s=res.steps / res.wall_s,
+              steady_sim_steps_per_s=res.steady_steps / max(res.steady_wall_s, 1e-9),
+              sync_prestaged_sim_steps_per_s=sync_s1["steps_per_s"],
+              sync_plain_sim_steps_per_s=sync_s0["steps_per_s"])
+        del pipe, sync_s0
+        largescale_deform(conf, counts)
+        return loop0, k1_row, k2_row, counts
+
+    def path_on_cost(loop, res):
+        """Path points on a cost above 0.99 of the costmap that was live
+        when the rover drove there (in that costmap's frame), and the
+        largest such cost."""
         path = torch.tensor(res.path_world, dtype=torch.float32, device=cuda)
-        firsts = [first for first, _, _ in loop.costmap_log] + [len(path)]
+        firsts = [entry[0] for entry in loop.costmap_log] + [len(path)]
         on_cost, max_cost = 0, 0.0
-        for (first, cm, frame), stop in zip(loop.costmap_log, firsts[1:]):
+        for (first, cm, frame, _), stop in zip(loop.costmap_log, firsts[1:]):
             if stop <= first:
                 continue
             cx, cy = frames.world_to_controller(frame, path[first:stop, 0], path[first:stop, 1])
@@ -358,28 +401,189 @@ def main(argv=None) -> int:
             cost = grid_lookup(cm.cost, ix, iy)
             on_cost += int((cost > 0.99).sum())
             max_cost = max(max_cost, cost.max().item())
+        return on_cost, max_cost
+
+    def seated_costmaps_equal(loop):
+        """How many costmaps the loop seated, and whether each is
+        ``torch.equal`` to the synchronous build for its center block and
+        rocks (one K2 launch each, outside the traverse's count)."""
+        equal = [torch.equal(cm.cost, loop.costmap_for((fr.block_x, fr.block_y), rp).cost)
+                 for _, cm, fr, rp in loop.costmap_log]
+        return len(equal), all(equal)
+
+    def run_traverse(name, tree, conf=None):
+        """One traverse through ``cli.largescale_episode`` and its phase."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # by the earlier phases' objects
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+        gp.gather_probe_cuda.launches = 0
+        run = largescale_episode(tree, conf=conf)
+        torch.cuda.synchronize()
+        k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+        peak = torch.cuda.max_memory_allocated() - held
+        report, res, loop = largescale_report(run), run.result, run.loop
+        on_cost, max_cost = path_on_cost(loop, res)
+        seated, seated_equal = seated_costmaps_equal(loop)
+        streamer = loop.lstm.map_manager.streamer
+        builds = dict(loop.costmap_builds)
+        k2_expected = builds["first"] + builds["staged"] + builds["miss"] + builds["verify"]
+        k1_expected = 2 * loop.dispatched_steps
         chunks = res.steps // loop.conf.terrain_check_every
-        lat = res.shift_latencies_s
-        phase("largescale", **report, K=K, H=H, window=list(loop.hf.z.shape),
-              costmap=list(loop.costmap.cost.shape), k1_launches=ls_k1,
-              k1_expected=2 * res.steps, k2_launches=ls_k2,
-              k2_expected=1 + res.costmap_rebuilds, path_points=len(path),
-              path_points_on_cost_above_0_99=on_cost, max_path_cost=max_cost,
-              ms_per_sim_step=1e3 * res.wall_s / res.steps, ms_per_chunk=1e3 * res.wall_s / chunks,
-              steady_sim_steps_per_s=res.steady_steps / max(res.steady_wall_s, 1e-9),
-              shift_latencies_ms=[1e3 * t for t in lat], shift_phases_s=loop.shift_phase_log,
-              chunk_phases_s=loop.chunk_phase_acc,
-              cascade_phases_s=loop.lstm.cascade_phase_acc,
-              build_phases_s=loop.lstm.build_phase_acc,
-              peak_memory_bytes=torch.cuda.max_memory_allocated())
-        if not (res.reached and res.block_shifts >= 2 and on_cost == 0
-                and res.costmap_rebuilds == res.block_shifts):
-            raise RuntimeError("the streamed traverse did not reach its goal cleanly across "
-                               "two block shifts")
-        if ls_k1 != 2 * res.steps or ls_k2 != 1 + res.costmap_rebuilds:
-            raise RuntimeError(f"the traverse launched K1 {ls_k1} times in {res.steps} steps "
-                               f"and K2 {ls_k2} times for {res.costmap_rebuilds} rebuilds")
-        return loop0, k1_row, k2_row, ls_k1, ls_k2
+        lat = [(log["hit"], 1e3 * t) for log, t in zip(loop.shift_phase_log,
+                                                          res.shift_latencies_s)]
+        fields = dict(
+            K=K, H=H, window=list(loop.hf.z.shape), costmap=list(loop.costmap.cost.shape),
+            dispatched_steps=loop.dispatched_steps, k1_launches=k1, k1_expected=k1_expected,
+            k2_launches=k2, k2_expected=k2_expected, costmap_builds=builds,
+            staged_windows_swapped=streamer.staged_shift_hits,
+            staged_windows_verified=streamer.staged_shift_verified,
+            seated_costmaps=seated, seated_costmaps_equal_rebuilds=seated_equal,
+            path_points=len(res.path_world), path_points_on_cost_above_0_99=on_cost,
+            max_path_cost=max_cost, ms_per_sim_step=1e3 * res.wall_s / max(res.steps, 1),
+            ms_per_chunk=1e3 * res.wall_s / max(chunks, 1),
+            steady_sim_steps_per_s=res.steady_steps / max(res.steady_wall_s, 1e-9),
+            shift_latencies_ms=[t for _, t in lat],
+            shift_latency_hit_ms=[t for hit, t in lat if hit],
+            shift_latency_miss_ms=[t for hit, t in lat if not hit],
+            shift_dispatch_gaps_ms=[1e3 * g for g in res.shift_dispatch_gaps_s],
+            shift_phases_s=loop.shift_phase_log, chunk_phases_s=loop.chunk_phase_acc,
+            worker_s=loop.worker_s, cascade_phases_s=loop.lstm.cascade_phase_acc,
+            build_phases_s=loop.lstm.build_phase_acc, peak_memory_bytes=peak,
+            memory_held_by_earlier_phases_bytes=held, peak_memory_bytes_absolute=peak + held,
+            peak_memory_bytes_unstaged_first=UNSTAGED_TRAVERSE_PEAK_BYTES)
+        ok = (k1 == k1_expected and k2 == k2_expected and on_cost == 0 and seated_equal
+              and res.costmap_rebuilds == res.block_shifts
+              and streamer.staged_shift_verified == (streamer.staged_shift_hits
+                                                     if loop.conf.verify_prestage else 0))
+        if name == "largescale":  # the synchronous traverse without pre-staging, cut
+            ok = ok and res.steps == SYNC_STEPS and res.block_shifts >= 1
+        else:
+            ok = ok and res.reached and res.block_shifts >= 2 and res.prestage_hits >= 1
+        phase(name, **report, **fields, ok=ok)
+        if not ok:
+            raise RuntimeError(f"{name}: the traverse is wrong (reached, shifts, pre-stage "
+                               "hits, seated costmaps, path cost or kernel counts)")
+        return {"run": run, "loop": loop, "k1": k1, "k2": k2,
+                "steps_per_s": res.steps / res.wall_s}
+
+    def largescale_resume(conf, full, counts):
+        """Resume the prestage-verify traverse from its checkpoint (written
+        after its first block shift) and hold the continuation to the
+        uninterrupted run: path points and final state ``torch.equal``."""
+        import os
+
+        from husky_rover_mppi_isaacsim_torch.aux import checkpoint as ckpt
+
+        path = ckpt._norm_path(CKPT)
+        meta = ckpt.load_metadata(path)
+        full_res, full_loop = full["run"].result, full["loop"]
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+        t0 = time.perf_counter()
+        loop, info = LargeScaleClosedLoop.resume(conf, path, device=cuda)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        res = loop.run(_resume=info)
+        torch.cuda.synchronize()
+        counts["largescale_resume"] = (rollout_25d_cuda.launches, edt_minplus_cuda.launches)
+        path_equal = np.array_equal(res.path_world, full_res.path_world)
+        state_equal = all(torch.equal(a, b) for a, b in zip(
+            (t for t in _leaves(loop.last_state)), (t for t in _leaves(full_loop.last_state))))
+        window_equal = torch.equal(loop.lstm.map_manager.streamer.window,
+                                   full_loop.lstm.map_manager.streamer.window)
+        t0 = time.perf_counter()
+        loop.save_checkpoint(BUILD / "smoke_traverse_again.ckpt", loop.last_state,
+                             0, res.steps, res.path_world)
+        save_s = time.perf_counter() - t0
+        shifts_before = meta["prestage_hits"] + meta["prestage_misses"]
+        ok = (path_equal and state_equal and window_equal and shifts_before >= 1
+              and res.reached == full_res.reached and res.steps == full_res.steps
+              and res.final_position == full_res.final_position)
+        phase("largescale_resume", checkpoint_steps=meta["steps"],
+              shifts_before_checkpoint=shifts_before, file_bytes=os.path.getsize(path),
+              save_s=save_s, restore_s=restore_s, steps=res.steps, reached=res.reached,
+              final_position=list(res.final_position), path_points=len(res.path_world),
+              path_bit_equal=path_equal, final_state_bit_equal=state_equal,
+              window_bit_equal=window_equal, k1_launches=counts["largescale_resume"][0],
+              k2_launches=counts["largescale_resume"][1], ok=ok)
+        if not ok:
+            raise RuntimeError("the resumed traverse differs from the uninterrupted one")
+
+    def largescale_deform(conf, counts):
+        """A short deformed traverse at the reference window's resolution
+        across the x = 25 m block border: the window is lower under the
+        track and mostly unchanged, the controller reads the deformed
+        window, K1 on it is bit-equal to the plain rollout, one stamp on the
+        card agrees with the CPU's, two identical stamps are bit-equal, and
+        the rolled pass counts equal a CPU roll."""
+        from husky_rover_mppi_isaacsim_torch.env.largescale_loop import _roll_pass_counts
+
+        dconf = dataclasses.replace(
+            largescale_conf({"deformation": {"enable": True}}), start=DEFORM_START,
+            goal=DEFORM_GOAL, max_steps=DEFORM_STEPS)
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+        loop = LargeScaleClosedLoop(dconf, device=cuda)
+        streamer = loop.lstm.map_manager.streamer
+        before, anchor0 = streamer.window.clone(), streamer.anchor
+        res = loop.run()
+        torch.cuda.synchronize()
+        counts["largescale_deform"] = (rollout_25d_cuda.launches, edt_minplus_cuda.launches)
+        bpx = streamer.conf.block_px
+        moved = (streamer.anchor[0] - anchor0[0], streamer.anchor[1] - anchor0[1])
+        diff = streamer.window[:-bpx] - before[bpx:] if moved == (1, 0) else None
+        lowered = diff is not None and diff.min().item() < -1e-4
+        unchanged = diff is not None and (diff.abs() < 1e-9).double().mean().item()
+        del before
+        live = loop.hf.z is streamer.window
+        state = loop.last_state
+        k1_row = k1_on_window(loop, "deformed_window", state.rovers.position[0].clone(),
+                              state.rovers.heading[0].clone())
+        # one stamp on the card against the same stamp on the CPU, and two
+        # identical stamps on the card
+        eng = loop.deform_engine
+        pos4, yaws, loads = loop.wheel_stamp_inputs(state)
+        wox, woy = streamer.window_origin()
+        stamps = []
+        for _ in range(2):
+            w, c = streamer.window.clone(), loop.pass_counts.clone()
+            eng.deform_window(w, c, streamer._res, (wox, woy), pos4, yaws, loads)
+            stamps.append((w, c))
+        twice_equal = torch.equal(*(s[0] for s in stamps)) and torch.equal(*(s[1] for s in stamps))
+        w_cpu, c_cpu = streamer.window.cpu(), loop.pass_counts.cpu()
+        eng.deform_window(w_cpu, c_cpu, streamer.conf.resolution, (wox, woy), pos4.cpu(),
+                          yaws.cpu(), loads.cpu())
+        stamp_err = (stamps[0][0].cpu() - w_cpu).abs().max().item()
+        counts_equal = torch.equal(stamps[0][1].cpu(), c_cpu)
+        del stamps, w_cpu
+        rolled = _roll_pass_counts(loop.pass_counts, bpx, -bpx)
+        roll_equal = torch.equal(rolled.cpu(), _roll_pass_counts(loop.pass_counts.cpu(), bpx, -bpx))
+        ok = (res.block_shifts >= 1 and moved == (1, 0) and lowered and unchanged > 0.9 and live
+              and stamp_err <= 1e-6 and counts_equal and twice_equal and roll_equal
+              and counts["largescale_deform"][0] == 2 * res.steps)
+        phase("largescale_deform", start=list(DEFORM_START), goal=list(DEFORM_GOAL),
+              steps=res.steps, reached=res.reached, block_shifts=res.block_shifts,
+              anchor_moved=list(moved), window=list(streamer.window.shape),
+              resolution_m=streamer.conf.resolution,
+              footprint_points_per_wheel=int(eng.profile.shape[0]),
+              window_min_change_m=diff.min().item() if diff is not None else None,
+              unchanged_share=unchanged, passes=int(loop.pass_counts.sum()),
+              hf_is_deformed_window=live, k1_deformed_bit_equal=True,
+              k1_deformed_ms=k1_row["ms"], stamp_card_vs_cpu_max_abs_m=stamp_err,
+              stamp_counts_equal=counts_equal, two_stamps_bit_equal=twice_equal,
+              rolled_counts_equal_cpu=roll_equal, k1_launches=counts["largescale_deform"][0],
+              k2_launches=counts["largescale_deform"][1], wall_s=res.wall_s, ok=ok)
+        if not ok:
+            raise RuntimeError("the deformed traverse or a deformation stamp is wrong")
+
+    def _leaves(state):
+        for f in state:
+            if isinstance(f, tuple):
+                yield from _leaves(f)
+            elif isinstance(f, torch.Tensor):
+                yield f
+
 
     def largescale_profiled(loop):
         """The streamed-terrain slice's phases that use torch.profiler or
@@ -920,7 +1124,10 @@ def main(argv=None) -> int:
 
     # 11. the streamed-terrain slice: the world, K1 and K2 at its sizes, the
     #     traverse
-    ls_loop, ls_k1_row, ls_k2_row, ls_k1, ls_k2 = largescale_timed()
+    ls_loop, ls_k1_row, ls_k2_row, ls_counts = largescale_timed()
+    # the kernel line's launches: the default streamed path (the CLI's
+    # pipelined traverse); every path's count under launches_by_path
+    ls_k1, ls_k2 = ls_counts["largescale_pipelined"]
 
     # 12. device kernels of one control step (flagship shapes) and of one
     #     closed-loop step (N=4), counted by torch.profiler (it fails if the
@@ -984,15 +1191,16 @@ def main(argv=None) -> int:
         "launches": ls_k1, "max_abs_err": ls_k1_err, "library_ms": None, **ls_k1_row,
         "shape": "K=1000 x H=100, wheels, DEM 7000 x 7000",
         "edge_after_shift": ls_k1_edge, "dem_1500": k1_row,
-        "launches_by_path": {"largescale": ls_k1, "goal_seek": launches, "closed_loop": cl_k1,
-                             "evaluation": eval_k1},
+        "launches_by_path": {**{k: v[0] for k, v in ls_counts.items()}, "goal_seek": launches,
+                             "closed_loop": cl_k1, "evaluation": eval_k1},
     }, {
         "name": "edt_minplus", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/edt_minplus.cu",
         "replaces": "husky_rover_mppi_isaacsim_tpu/ops/edt_pallas.py:31",
         "launches": ls_k2, "max_abs_err": ls_k2_err, "library_ms": None, **ls_k2_row,
         "shape": "875 x 875", "map_1500": k2_row,
-        "launches_by_path": {"largescale": ls_k2, "world": world_k2, "evaluation": eval_k2},
+        "launches_by_path": {**{k: v[1] for k, v in ls_counts.items()}, "world": world_k2,
+                             "evaluation": eval_k2},
     }, {
         "name": "gather_probe", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",

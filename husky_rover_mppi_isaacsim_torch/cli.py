@@ -21,9 +21,10 @@ Each mode prints one JSON line that names the device. The YAML tree under
 and ``cfg/physics/default_physics.yaml``; the streamed loop's keys are those
 of the JAX ``run_largescale`` (``environment.largescale.*`` or
 ``largescale.*`` by ``LargeScaleConf`` field, ``mppi.*``, ``start``, ``goal``,
-``max_steps``, ``terrain_check_every``, ``seed``). It runs the synchronous
-loop; ``deformation.enable``, ``checkpoint.*`` and ``resume`` raise
-``NotImplementedError``.
+``max_steps``, ``terrain_check_every``, ``seed``, ``deformation.enable``,
+``checkpoint.path``, ``checkpoint.every_steps``, ``resume``) and builds the
+JAX run's configuration: the pipelined loop with shift pre-staging, the
+synchronous loop under deformation.
 """
 
 from __future__ import annotations
@@ -56,6 +57,7 @@ from .mppi.controller import (
     goal_seek,
 )
 from .env.largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf
+from .physics.deformation import DeformationEngineConf
 from .terrain.costmap import costmap_750
 from .terrain.orchestrator import LargeScaleConf
 from .terrain.surface import STANDALONE_CRATER_BUMPS, crater_surface
@@ -272,9 +274,10 @@ def run_closed_loop(tree: dict) -> dict:
 
 def largescale_conf(tree: dict) -> LargeScaleLoopConf:
     """The streamed loop's configuration from the JAX ``run_largescale``'s
-    keys. The port serves the synchronous loop only and says so itself:
-    ``pipeline_depth=0``, ``prestage_shifts=False``. Raises
-    ``NotImplementedError`` for deformation, checkpoints and resume."""
+    keys, with its defaults (``pipeline_depth=4``, ``prestage_shifts``):
+    ``deformation.enable`` sets a deformation engine at the window's
+    resolution, ``checkpoint.path`` and ``checkpoint.every_steps`` the
+    periodic checkpoint."""
     env = tree.get("environment") or {}
     ls = dict(env.get("largescale") or tree.get("largescale") or {})
     fields = {f.name for f in dataclasses.fields(LargeScaleConf)}
@@ -285,21 +288,20 @@ def largescale_conf(tree: dict) -> LargeScaleLoopConf:
         kw["crater_gen_radius"] = tuple(tuple(r) for r in kw["crater_gen_radius"])
     if "rock_gen_cfgs" in kw:
         kw["rock_gen_cfgs"] = tuple(kw["rock_gen_cfgs"])
-    asked = {"wheel-track deformation (deformation.enable)":
-             (tree.get("deformation") or {}).get("enable"),
-             "checkpoints (checkpoint.path, checkpoint.every_steps)": tree.get("checkpoint"),
-             "resuming from a checkpoint (resume)": tree.get("resume")}
-    for what, value in asked.items():
-        if value:
-            raise NotImplementedError(f"{what}: not ported")
+    terrain = LargeScaleConf(**kw)
+    deform = None
+    if (tree.get("deformation") or {}).get("enable"):
+        deform = DeformationEngineConf(terrain_resolution=terrain.hr_dem_resolution)
+    ck = tree.get("checkpoint") or {}
     start = tree.get("start", {"x": 0.0, "y": 0.0})
     goal = tree.get("goal", {"x": 65.0, "y": 65.0})
     return LargeScaleLoopConf(
-        terrain=LargeScaleConf(**kw), loop=closed_loop_config(tree),
+        terrain=terrain, loop=closed_loop_config(tree),
         start=(start["x"], start["y"]), goal=(goal["x"], goal["y"]),
         max_steps=int(tree.get("max_steps", 20000)),
         terrain_check_every=int(tree.get("terrain_check_every", 12)),
-        seed=int(tree.get("seed", 42)), pipeline_depth=0, prestage_shifts=False)
+        seed=int(tree.get("seed", 42)), deform=deform, checkpoint_path=ck.get("path"),
+        checkpoint_every_steps=int(ck.get("every_steps", 0)))
 
 
 class LargeScaleRun(NamedTuple):
@@ -312,13 +314,21 @@ class LargeScaleRun(NamedTuple):
     device: torch.device
 
 
-def largescale_episode(tree: dict) -> LargeScaleRun:
+def largescale_episode(tree: dict, conf: LargeScaleLoopConf | None = None) -> LargeScaleRun:
     """Build the streamed terrain and drive the traverse (the JAX
-    ``run_largescale``, synchronous loop) on ``device``."""
+    ``run_largescale``) on ``device``; ``resume: <checkpoint>`` continues an
+    interrupted traverse from its file (either package's). ``conf``
+    replaces the configuration the keys build."""
     use_full_fp32_matmul()
     device = run_device(tree)
-    conf = largescale_conf(tree)
+    conf = largescale_conf(tree) if conf is None else conf
     build_s = {}
+    resume = tree.get("resume")
+    if resume:
+        t0 = time.perf_counter()
+        loop, info = LargeScaleClosedLoop.resume(conf, resume, device=device)
+        build_s["resume"] = round(time.perf_counter() - t0, 3)
+        return LargeScaleRun(loop, loop.run(_resume=info), build_s, device)
     loop = LargeScaleClosedLoop(conf, device=device,
                                 phase_cb=lambda name, s: build_s.update({name: round(s, 3)}))
     return LargeScaleRun(loop, loop.run(), build_s, device)
@@ -326,9 +336,8 @@ def largescale_episode(tree: dict) -> LargeScaleRun:
 
 def largescale_report(run: LargeScaleRun) -> dict:
     """A traverse under the JAX run's result keys, plus the path taken
-    (``pipeline_depth``, ``prestage_shifts``: the shift latencies are those
-    of the synchronous rebuild, not of a pre-staged swap), ``build_s`` and
-    ``device``."""
+    (``pipeline_depth``, ``prestage_shifts``, ``deformation``), the longest
+    gap between two chunk dispatches, ``build_s`` and ``device``."""
     res, lat = run.result, run.result.shift_latencies_s
     return {
         "mode": "largescale",
@@ -347,6 +356,8 @@ def largescale_report(run: LargeScaleRun) -> dict:
         "prestage": {"hits": res.prestage_hits, "misses": res.prestage_misses},
         "pipeline_depth": run.loop.conf.pipeline_depth,
         "prestage_shifts": run.loop.conf.prestage_shifts,
+        "deformation": run.loop.deform_engine is not None,
+        "max_dispatch_gap_ms": round(1e3 * res.max_dispatch_gap_s, 2),
         "build_s": run.build_s,
         "device": str(run.device),
     }
@@ -354,7 +365,7 @@ def largescale_report(run: LargeScaleRun) -> dict:
 
 def run_largescale(tree: dict) -> dict:
     """The full-stack streamed-terrain closed loop
-    (visual_terrain_stack_full_terrain.py:293-582), synchronous path."""
+    (visual_terrain_stack_full_terrain.py:293-582)."""
     return largescale_report(largescale_episode(tree))
 
 

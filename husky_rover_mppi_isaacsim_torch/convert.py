@@ -19,6 +19,7 @@ from .env.rover_sim import RoverParams, RoverState
 from .mppi.controller import NESTED_CONFIG, ControllerState, MPPIConfig, RobotState
 from .mppi.critics import Costmap
 from .mppi.evaluation import TrajectoryLog
+from .physics.deformation import DeformationEngineConf
 from .terrain.craters import CraterField, CraterProfiles
 from .terrain.rocks import RockBlock
 from .terrain.streaming import TerrainStreamer
@@ -147,3 +148,42 @@ def rock_block_from_numpy(coordinates, height, quaternion, scale, ids) -> RockBl
 def block_frame_from_jax(frame) -> BlockFrame:
     """BlockFrame (floats) from the JAX one's 0-d arrays."""
     return BlockFrame(*(float(np.asarray(v)) for v in frame))
+
+
+def deformation_engine_conf_from_jax(conf) -> DeformationEngineConf:
+    """This package's DeformationEngineConf from the JAX one: every field,
+    the nested confs included, read by name."""
+
+    def copy(cls, src):
+        kw = {}
+        for f in dataclasses.fields(cls):
+            v = getattr(src, f.name)
+            kw[f.name] = copy(type(getattr(cls(), f.name)), v) if dataclasses.is_dataclass(v) \
+                else v
+        return cls(**kw)
+
+    return copy(DeformationEngineConf, conf)
+
+
+def largescale_checkpoint_from_jax(loop, path) -> dict:
+    """The state a traverse checkpoint written by the JAX package carries,
+    loaded into this package's objects on ``loop``'s device (``loop``: a
+    ``LargeScaleClosedLoop`` of the same configuration, which gives the
+    template's shapes): ``{"state": LoopState, "costmap": Costmap,
+    "crater_blocks": {(bx, by): (coords, radii)}, "path": (T, 2),
+    "meta": dict}`` plus ``window`` and ``counts`` where the file has them.
+    The JAX file holds no control noise generator state."""
+    payload, meta = loop.load_checkpoint(path)
+    state = payload["state"]
+    out = {
+        "state": state._replace(step_index=int(state.step_index)),
+        "costmap": payload["costmap"],
+        "crater_blocks": {tuple(int(v) for v in k.split("|")): (v["c"], v["r"])
+                          for k, v in payload["craters"].items()},
+        "path": payload["path"],
+        "meta": meta,
+    }
+    for name in ("window", "counts"):
+        if name in payload:
+            out[name] = payload[name]
+    return out

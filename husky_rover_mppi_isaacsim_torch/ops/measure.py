@@ -7,12 +7,14 @@ includes the host's issue time when a call is shorter than it.
 its replay, so that only the device's time per launch remains.
 :class:`OpLog` records the torch operators a call dispatches,
 :func:`device_kernels` counts the kernels a call runs on the card, and
-:func:`device_time` sums their time there by name.
+:func:`device_time` sums their time there by name, and :func:`issue_ms`
+times calls issued back to back with one synchronize at the end.
 """
 
 from __future__ import annotations
 
 import statistics
+import time
 from typing import Callable
 
 import torch
@@ -61,6 +63,27 @@ def graph_ms(fn: Callable[[], object], launches: int = 20, reps: int = 7) -> flo
     return statistics.median(times)
 
 
+def issue_ms(fn: Callable[[], object], calls: int, device) -> float:
+    """Host wall time per call, in ms, of ``calls`` calls of ``fn`` issued
+    back to back with no host read between them and one synchronize at the
+    end (after one synchronized warm-up call). On the card that is the
+    device's time where the device is the slower side, else the host's
+    issue time."""
+    device = torch.device(device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return 1e3 * (time.perf_counter() - t0) / calls
+
+
 class OpLog(TorchDispatchMode):
     """Within ``with OpLog() as log:``, ``log.ops`` lists every torch
     operator dispatched, in order; :attr:`device_ops` drops the views, which
@@ -82,7 +105,6 @@ class OpLog(TorchDispatchMode):
 def _profiled_events(fn: Callable[[], object]):
     """The device events of one call of ``fn`` under ``torch.profiler`` and
     the host's wall time of the call (ended by a synchronize), in ms."""
-    import time
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()

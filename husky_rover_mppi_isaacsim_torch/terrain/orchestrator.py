@@ -144,6 +144,7 @@ class LargeScaleTerrainManager:
         self.device = device
         self.last_update_coordinates: Optional[Tuple[float, float]] = None
         self.rocks_data: List[np.ndarray] = []
+        self._last_rocks_position: Optional[Tuple[float, float]] = None
         # cascade sub-phase accumulators (host seconds)
         self.cascade_phase_acc = {"streamer_s": 0.0, "clipmap_s": 0.0,
                                   "rocks_s": 0.0, "collider_s": 0.0,
@@ -294,6 +295,7 @@ class LargeScaleTerrainManager:
             rocks_data.append(block.coordinates)
             rocks_data.append(block.scale)
         self.rocks_data = rocks_data
+        self._last_rocks_position = global_corrected  # checkpoint / resume
         t3 = _time.perf_counter()
 
         # 4. collider window shift (:250) — deferred to export time when

@@ -16,8 +16,15 @@ of a shift, the prefetch band and its corner) for the two packages to see
 the same craters. Per-crater appearance comes from a generator keyed by the
 block and does not depend on the order.
 
+:meth:`TerrainStreamer.prestage_shift` composes the shifted window for an
+anticipated anchor ahead of the crossing (drawing the entering blocks'
+craters then, in the order the shift would); the shift itself then swaps it
+in. The stage is keyed on the source window's identity and its
+``Tensor._version``, so a window written in place since (a deformation
+stamp) is never swapped for a stale stage.
+
 Not ported: the C++ tile pool route (``native_pool`` takes ``"never"``
-only) and shift pre-staging (``prestage_shift``).
+only).
 """
 
 from __future__ import annotations
@@ -146,6 +153,12 @@ class TerrainStreamer:
         self.anchor: Tuple[int, int] | None = None  # SW block index of window
         self.window: Tensor | None = None
         self.shift_count = 0
+        # (anchor, staged window, source window, source version)
+        self._staged_shift: tuple | None = None
+        self.staged_shift_hits = 0
+        # tests: compose every swapped-in stage again and require equality
+        self.verify_stage = False
+        self.staged_shift_verified = 0
         self._res = torch.tensor(conf.resolution, dtype=torch.float32, device=self.device)
 
     # --- coordinates --------------------------------------------------------
@@ -404,6 +417,7 @@ class TerrainStreamer:
             and abs(new_anchor[0] - old_anchor[0]) < side
             and abs(new_anchor[1] - old_anchor[1]) < side
         )
+        staged, self._staged_shift = self._staged_shift, None
         if not small_shift:
             self.bulk_build([(new_anchor[0] + i, new_anchor[1] + j)
                              for i in range(side) for j in range(side)])
@@ -412,17 +426,34 @@ class TerrainStreamer:
                            for j in range(side)], dim=1)
                 for i in range(side)], dim=0)
         else:
-            self.window = self._compose_shift(old_anchor, new_anchor)
+            if staged is not None and staged[0] == new_anchor and self._stage_current(staged):
+                # the pre-staged window: its roll and entering blocks ran
+                # while the control loop kept going
+                if self.verify_stage:
+                    if not torch.equal(staged[1], self._compose_shift(old_anchor, new_anchor)):
+                        raise AssertionError("staged window != the shift's compose")
+                    self.staged_shift_verified += 1
+                self.window = staged[1]
+                self.staged_shift_hits += 1
+            else:
+                self.window = self._compose_shift(old_anchor, new_anchor)
             if self.conf.prefetch:
                 self._prefetch(new_anchor[0] - old_anchor[0], new_anchor[1] - old_anchor[1])
         self.shift_count += 1
         return True
 
-    def _compose_shift(self, old_anchor, new_anchor) -> Tensor:
+    def _stage_current(self, staged) -> bool:
+        """The stage was composed from the live window as it is now."""
+        return staged[2] is self.window and staged[3] == self.window._version
+
+    def _compose_shift(self, old_anchor, new_anchor, source: Tensor | None = None) -> Tensor:
         """Shifted window for ``old_anchor -> new_anchor``: build the
         entering blocks (row-major over the new window, the JAX package's
-        order), roll the window and write them in. ``torch.roll`` makes a
-        new window; the old one is released with its last reference."""
+        order), roll the window (or ``source``) and write them in.
+        ``torch.roll`` makes a new window; the old one is released with its
+        last reference. On the card every block and the source are marked
+        as read on the current stream, so that the caching allocator does
+        not hand their memory out while a side stream still reads them."""
         side = self.conf.blocks_per_side
         bpx = self.conf.block_px
         di = new_anchor[0] - old_anchor[0]
@@ -434,11 +465,37 @@ class TerrainStreamer:
                     and 0 <= new_anchor[1] + j - old_anchor[1] < side)
         ]
         self.bulk_build([(new_anchor[0] + i, new_anchor[1] + j) for i, j in entering])
-        window = torch.roll(self.window, (-di * bpx, -dj * bpx), (0, 1))
-        for i, j in entering:
-            window[i * bpx:(i + 1) * bpx, j * bpx:(j + 1) * bpx] = self.build_block(
-                new_anchor[0] + i, new_anchor[1] + j)
+        source = self.window if source is None else source
+        blocks = [self.build_block(new_anchor[0] + i, new_anchor[1] + j) for i, j in entering]
+        if source.is_cuda:
+            stream = torch.cuda.current_stream(source.device)
+            for t in [source] + blocks:
+                t.record_stream(stream)
+        window = torch.roll(source, (-di * bpx, -dj * bpx), (0, 1))
+        for (i, j), block in zip(entering, blocks):
+            window[i * bpx:(i + 1) * bpx, j * bpx:(j + 1) * bpx] = block
         return window
+
+    def prestage_shift(self, new_anchor: Tuple[int, int]) -> None:
+        """Compose the shifted window for an anticipated anchor now, so that
+        the crossing in :meth:`update` only swaps it in. Entering blocks are
+        built (and their craters drawn) as the shift would build them. The
+        stage is keyed on the source window's identity and version: a new
+        window, or a write into this one, invalidates it. Nothing is staged
+        for a jump that :meth:`update` would serve by a full rebuild."""
+        if self.window is None or self.anchor is None or new_anchor == self.anchor:
+            return
+        side = self.conf.blocks_per_side
+        if (abs(new_anchor[0] - self.anchor[0]) >= side
+                or abs(new_anchor[1] - self.anchor[1]) >= side):
+            return
+        src = self.window
+        staged = self._staged_shift
+        if staged is not None and staged[0] == new_anchor and self._stage_current(staged):
+            return
+        version = src._version
+        win = self._compose_shift(self.anchor, new_anchor, source=src)
+        self._staged_shift = (new_anchor, win, src, version)
 
     def _prefetch(self, di: int, dj: int) -> None:
         """Build (and cache) the band of blocks one step further along the

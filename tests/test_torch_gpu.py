@@ -4,7 +4,8 @@ their plain versions, a K1 call as one launch and no other device operator,
 the kernels of one control step, the control step and the closed-loop step
 on the card against the same steps on the CPU, the thesis DEM's repeatable
 build, the evaluation's kernel launches, and the streamed loop's sizes: K1 on
-a 7000 x 7000 DEM, K2 at 875 x 875, and a small streamed traverse.
+a 7000 x 7000 DEM, K2 at 875 x 875, a small streamed traverse (pipelined,
+its worker on a side stream), and the wheel-track deformation stamp.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -449,7 +450,15 @@ def test_small_streamed_traverse_on_card_launches_k1_and_k2(cuda):
     run = largescale_episode(tree)
     res = run.result
     assert res.steps == 240 and rollout_25d_cuda.launches == 2 * res.steps
-    assert res.block_shifts >= 1 and edt_minplus_cuda.launches == 1 + res.costmap_rebuilds
+    # the CLI's default loop is pipelined with pre-staging: K2 runs once
+    # per costmap build (the first, staged ones, misses), on the worker's
+    # stream; each seated costmap is the synchronous build of its key
+    builds = run.loop.costmap_builds
+    assert res.block_shifts >= 1 and edt_minplus_cuda.launches == sum(builds.values())
+    assert builds["miss"] == res.prestage_misses and res.costmap_rebuilds == res.block_shifts
+    for _, cm, frame, rocks in run.loop.costmap_log:
+        want = run.loop.costmap_for((frame.block_x, frame.block_y), rocks)
+        assert torch.equal(cm.cost, want.cost)
     assert run.loop.hf.z.is_cuda and run.loop.hf.z is run.loop.lstm.map_manager.streamer.window
     state, goal = run.loop.last_state, run.loop._goal_ctrl()
     generator = torch.Generator(device=cuda).manual_seed(0)
@@ -459,3 +468,30 @@ def test_small_streamed_traverse_on_card_launches_k1_and_k2(cuda):
         run.loop.chunk(state, goal, generator=generator)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+def test_deformation_stamp_on_card_is_deterministic_and_matches_cpu(cuda):
+    """A ``deform_window`` stamp with shared cells on the card: two stamps
+    from the same inputs are ``torch.equal``; against the CPU, heights to
+    1e-6 m and equal pass counts."""
+    from husky_rover_mppi_isaacsim_torch.physics.deformation import (
+        DeformationEngine,
+        DeformationEngineConf,
+    )
+
+    eng = DeformationEngine(DeformationEngineConf(terrain_resolution=0.025))
+    gen = torch.Generator().manual_seed(4)
+    window = torch.randn((800, 800), generator=gen) * 0.1
+    positions = torch.rand((4, 2), generator=gen) * 5.0 + 2.0
+    yaws = torch.rand(4, generator=gen) * 6.0 - 3.0
+    loads = torch.rand(4, generator=gen) * 120.0
+    outs = []
+    for dev in (cuda, cuda, torch.device("cpu")):
+        w, c = window.to(dev), torch.zeros((800, 800), dtype=torch.int32, device=dev)
+        for res in (0.025, 0.05):  # the second stamp shares cells and decays
+            eng.deform_window(w, c, res, (0.0, 0.0), positions.to(dev), yaws.to(dev),
+                              loads.to(dev))
+        outs.append((w.cpu(), c.cpu()))
+    assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
+    assert float((outs[0][0] - outs[2][0]).abs().max()) <= 1e-6
+    assert torch.equal(outs[0][1], outs[2][1]) and int(outs[0][1].max()) >= 2

@@ -112,6 +112,16 @@ def _paired_loops(craters: bool, share_terrain: bool):
     return jloop, tls.LargeScaleClosedLoop(tconf, lstm=lstm, device="cpu")
 
 
+def _assert_same_craters(ts, js):
+    """Crater metadata (blocks, order, values) and the crater generator's
+    state equal in both streamers."""
+    assert list(ts.crater_blocks) == list(js.crater_blocks)
+    for blk, (coords, radii) in js.crater_blocks.items():
+        np.testing.assert_array_equal(ts.crater_blocks[blk][0], coords)
+        np.testing.assert_array_equal(ts.crater_blocks[blk][1], radii)
+    assert ts.rng.bit_generator.state == js.rng.bit_generator.state
+
+
 def _assert_state_close(tstate, jstate, atol):
     for name in ("position", "z", "heading", "wheel_left", "wheel_right", "yaw_rate"):
         np.testing.assert_allclose(getattr(tstate.rovers, name).numpy(),
@@ -123,14 +133,20 @@ def _assert_state_close(tstate, jstate, atol):
                                    err_msg=name)
 
 
+@pytest.mark.parametrize("prestage", [False, True], ids=["rebuilt", "prestaged"])
 @pytest.mark.parametrize("craters", [False, True], ids=["smooth", "craters"])
-def test_chunks_across_a_block_shift_match_jax(craters):
+def test_chunks_across_a_block_shift_match_jax(craters, prestage):
     """The slice as a whole, chunk by chunk: both loops step the same chunks
     from the same state (the JAX state, converted, at each chunk's start)
     with the JAX noise, run the terrain cascade on the same pose, and cross
     one block border. After each chunk the poses and states agree to 2e-3
     (six float32 closed-loop steps); at the shift the window, the costmap, the rebased state and goal and the
-    world position agree as the module docstring states."""
+    world position agree as the module docstring states. With
+    ``prestage`` each package pre-stages from the same pose after every
+    chunk that did not shift (the synchronous loop's order; the worker's
+    inline form), so the window and costmap seated at the shift are the
+    staged ones in both: they agree with the JAX package's as a rebuild
+    does, and the crater metadata and generator state stay equal."""
     jloop, tloop = _paired_loops(craters, share_terrain=True)
     jstate, jgoal = jloop._initial_state(), jloop._goal_ctrl()
     tgoal = tloop._goal_ctrl()
@@ -138,6 +154,7 @@ def test_chunks_across_a_block_shift_match_jax(craters):
     jstream, tstream = jloop.lstm.map_manager.streamer, tloop.lstm.map_manager.streamer
     k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
     shifts = 0
+    staged_at = []
     for idx in range(12):
         ox, oy = (np.float32(v + jloop.half_block) for v in (jloop.block_x, jloop.block_y))
         tstate = convert.loop_state_from_jax(jstate)
@@ -147,28 +164,42 @@ def test_chunks_across_a_block_shift_match_jax(craters):
         np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose, np.float32), atol=2e-3,
                                    rtol=0, err_msg=f"pose after chunk {idx}")
         _assert_state_close(tstate, jstate, 2e-3)
-        wx, wy = float(jpose[0]), float(jpose[1])
-        assert tloop.lstm.update_visual_mesh((wx, wy)) == jloop.lstm.update_visual_mesh((wx, wy))
+        wx, wy, hx, hy = (float(v) for v in jpose[:4])
+        updated = tloop.lstm.update_visual_mesh((wx, wy))
+        assert updated == jloop.lstm.update_visual_mesh((wx, wy))
         moved = jloop.lstm.get_hr_map_current_block_coordinates() != (jloop.block_x,
                                                                       jloop.block_y)
         assert moved == (tloop.lstm.get_hr_map_current_block_coordinates()
                          != (tloop.block_x, tloop.block_y))
         if not moved:
+            if prestage:
+                jloop._prestage_inline(wx, wy, hx, hy)
+                tloop._prestage_inline(wx, wy, hx, hy)
+                staged_at.append(idx)
+                assert (tloop._staged is None) == (jloop._staged is None)
+                if craters:
+                    _assert_same_craters(tstream, jstream)
             continue
         shifts += 1
-        jstate, jgoal, jshift = jloop._on_block_shift(jstate, jgoal)
+        upd = jloop.lstm._to_global(updated[1]) if updated[0] else (wx, wy)
+        jstate, jgoal, jshift = jloop._on_block_shift(jstate, jgoal, update_pos=upd)
         tstate, tgoal, tshift = tloop._on_block_shift(convert.loop_state_from_jax(jstate)._replace(
-            rovers=tstate.rovers), tgoal)
+            rovers=tstate.rovers), tgoal, update_pos=upd)
+        hits = (tloop.prestage_hits, tloop.prestage_misses, tstream.staged_shift_hits)
+        assert hits == (jloop.prestage_hits, jloop.prestage_misses, jstream.staged_shift_hits)
+        if not prestage:
+            assert hits == (0, 1, 0)
+        elif not craters:  # staged from chunk 0 on, for the block and anchor it crossed into
+            assert hits == (1, 0, 1) and staged_at[0] == 0
+        # with craters both packages stage and then miss alike (the staged
+        # blocks drew their craters in the same order in both)
         assert tuple(tshift) == tuple(jshift)
         assert (tloop.block_x, tloop.block_y) == (jloop.block_x, jloop.block_y)
         assert tstream.anchor == jstream.anchor and tloop.hf.z is tstream.window
         np.testing.assert_allclose(tstream.window.numpy(), np.asarray(jstream.window),
                                    atol=1e-4, rtol=0)
         if craters:
-            assert tstream.crater_blocks.keys() == jstream.crater_blocks.keys()
-            for blk, (coords, radii) in jstream.crater_blocks.items():
-                np.testing.assert_array_equal(tstream.crater_blocks[blk][0], coords)
-                np.testing.assert_array_equal(tstream.crater_blocks[blk][1], radii)
+            _assert_same_craters(tstream, jstream)
         np.testing.assert_array_equal(tloop.lstm.extract_rocks_data(),
                                       jloop.lstm.extract_rocks_data())
         tcost, jcost = tloop.costmap.cost.numpy(), np.asarray(jloop.costmap.cost)
@@ -267,24 +298,43 @@ def test_window_reseat_preserves_world_heights():
     assert float((after - world).abs().max()) < 0.2
 
 
-def test_unported_options_raise_by_name():
-    """Every option the port cannot serve yet raises NotImplementedError and
-    names itself; none is silently ignored."""
-    for kw, word in ((dict(pipeline_depth=4), "pipeline_depth"),
-                     (dict(prestage_shifts=True), "prestage_shifts"),
-                     (dict(verify_prestage=True), "verify_prestage"),
-                     (dict(deform=object()), "deform"),
-                     (dict(checkpoint_path="x.ckpt"), "checkpoint_path"),
-                     (dict(checkpoint_every_steps=100), "checkpoint_every_steps")):
-        conf = dataclasses.replace(loop_confs(False)[1], **kw)
-        with pytest.raises(NotImplementedError, match=word):
-            tls.LargeScaleClosedLoop(conf, device="cpu")
-    for tree, word in (({"deformation": {"enable": True}}, "deformation"),
-                       ({"checkpoint": {"path": "x.ckpt"}}, "checkpoint"),
-                       ({"resume": "x.ckpt"}, "resume")):
-        with pytest.raises(NotImplementedError, match=word):
-            cli.largescale_conf(tree)
-    assert cli.largescale_conf({"deformation": {"enable": False}}).deform is None
+OPTIONS = {
+    "pipeline_depth": dict(pipeline_depth=4),
+    "prestage_shifts": dict(prestage_shifts=True, pipeline_depth=0),
+    "verify_prestage": dict(verify_prestage=True, prestage_shifts=True, pipeline_depth=0),
+    "deform": dict(deform="engine"),
+    "checkpoint_path": dict(checkpoint_path="traverse.ckpt", checkpoint_every_steps=6),
+    "checkpoint_every_steps": dict(checkpoint_every_steps=6, checkpoint_path="traverse.ckpt"),
+    "native_pool": None,
+}
+
+
+@pytest.mark.parametrize("option", list(OPTIONS))
+def test_unported_options_raise_by_name(option, tmp_path):
+    """Every option of the JAX loop's configuration now constructs the loop
+    and runs a chunk; the one the port still cannot serve (the streamer's
+    C++ tile pool) raises ``NotImplementedError`` and names itself."""
+    from husky_rover_mppi_isaacsim_torch.physics.deformation import DeformationEngineConf
+
+    tconf = loop_confs(False)[1]
+    if OPTIONS[option] is None:
+        tconf.terrain.streamer_conf.native_pool = "auto"
+        with pytest.raises(NotImplementedError, match="native_pool"):
+            tls.LargeScaleClosedLoop(tconf, device="cpu")
+        return
+    kw = dict(OPTIONS[option])
+    if kw.get("deform") == "engine":
+        kw["deform"] = DeformationEngineConf(terrain_resolution=0.1)
+    if "checkpoint_path" in kw:
+        kw["checkpoint_path"] = str(tmp_path / kw["checkpoint_path"])
+    conf = dataclasses.replace(tconf, max_steps=2 * CHUNK, **kw)
+    loop = tls.LargeScaleClosedLoop(conf, device="cpu")
+    res = loop.run(noise_source=jax_chunk_noise)
+    assert res.steps == 2 * CHUNK and np.isfinite(res.path_world).all()
+    if "checkpoint_path" in kw:
+        assert (tmp_path / "traverse.ckpt.npz").is_file()
+    if option == "deform":
+        assert int(loop.pass_counts.sum()) == 2 * 4 * loop.deform_engine.profile.shape[0]
 
 
 TINY_CLI = [
@@ -300,14 +350,16 @@ TINY_CLI = [
 
 def test_cli_largescale_on_the_cpu(capsys):
     """``cli mode=largescale device=cpu`` at the tiny size prints the JAX
-    run's result keys, and says which path it ran."""
+    run's result keys, and says which path it ran: the JAX run's, pipelined
+    with pre-staging."""
     assert cli.main(TINY_CLI) == 0
     out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert set(out) >= {"mode", "reached", "steps", "block_shifts", "costmap_rebuilds",
                         "distance_m", "final_position", "wall_s", "sim_steps_per_s",
                         "shift_latency_ms", "prestage"}
     assert out["mode"] == "largescale" and out["device"] == "cpu" and out["steps"] == 24
-    assert out["pipeline_depth"] == 0 and out["prestage_shifts"] is False
+    assert out["pipeline_depth"] == 4 and out["prestage_shifts"] is True  # the JAX defaults
+    assert out["deformation"] is False
     assert out["costmap_rebuilds"] == out["block_shifts"]
     assert np.isfinite(out["final_position"]).all()
 
@@ -325,3 +377,46 @@ def test_converted_jax_state_steps_like_the_port():
     want, pose_w = tloop.chunk(tloop._initial_state(), tloop._goal_ctrl(), noise=noise)
     assert got.step_index == want.step_index == CHUNK
     np.testing.assert_allclose(pose.numpy(), pose_w.numpy(), atol=1e-4, rtol=0)
+
+
+JAX_REPORT_KEYS = {"mode", "reached", "steps", "block_shifts", "costmap_rebuilds", "distance_m",
+                   "final_position", "wall_s", "sim_steps_per_s", "shift_latency_ms", "prestage"}
+
+
+def test_cli_builds_the_jax_configuration():
+    """``largescale_conf`` reads the JAX ``run_largescale``'s keys as it
+    does: the JAX defaults, a deformation engine at the window's resolution,
+    the checkpoint keys."""
+    tree = cli.parse_overrides(TINY_CLI + ["deformation.enable=true", "checkpoint.path=a.ckpt",
+                                           "checkpoint.every_steps=12"])
+    conf = cli.largescale_conf(tree)
+    jconf = jls.LargeScaleLoopConf()
+    assert (conf.pipeline_depth, conf.prestage_shifts, conf.prestage_lookahead_m) == (
+        jconf.pipeline_depth, jconf.prestage_shifts, jconf.prestage_lookahead_m) == (4, True, 6.0)
+    default = tls.LargeScaleLoopConf()
+    for f in dataclasses.fields(jls.LargeScaleLoopConf):
+        if f.name in ("terrain", "loop", "deform", "auto_engine"):
+            continue  # nested confs; the JAX-only engine switch
+        assert getattr(default, f.name) == getattr(jconf, f.name), f.name
+    assert conf.deform.terrain_resolution == 0.1 and conf.deform.enable
+    assert (conf.checkpoint_path, conf.checkpoint_every_steps) == ("a.ckpt", 12)
+    assert cli.largescale_conf({"deformation": {"enable": False}}).deform is None
+
+
+def test_cli_deformation_checkpoint_and_resume(tmp_path, capsys):
+    """``deformation.enable``, ``checkpoint.*`` and ``resume`` at the tiny
+    size: a deformed traverse checkpoints every 12 steps, and a second
+    process-like call resumes from the file to a longer ``max_steps``; both
+    print the JAX run's keys."""
+    ck = tmp_path / "traverse.ckpt"
+    args = [a for a in TINY_CLI if not a.startswith("max_steps")]
+    assert cli.main(args + ["max_steps=24", "deformation.enable=true", f"checkpoint.path={ck}",
+                            "checkpoint.every_steps=12"]) == 0
+    first = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(first) >= JAX_REPORT_KEYS and first["deformation"] is True
+    assert first["pipeline_depth"] == 4 and first["steps"] == 24  # deformation: synchronous
+    assert (tmp_path / "traverse.ckpt.npz").is_file()
+    assert cli.main(args + ["max_steps=36", "deformation.enable=true", f"resume={ck}"]) == 0
+    second = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert set(second) >= JAX_REPORT_KEYS and second["steps"] == 36
+    assert "resume" in second["build_s"]

@@ -43,6 +43,8 @@ SLICE_3 = ("env", "env.rover_sim", "env.metrics", "env.closed_loop", "ops.gather
 SLICE_5 = ("env.frames", "env.largescale_loop", "terrain.database", "terrain.streaming",
            "terrain.map_manager", "terrain.rocks", "terrain.clipmap", "terrain.collider",
            "terrain.orchestrator")
+# the rest of the streamed-terrain loop: deformation and checkpoints
+SLICE_6 = ("physics", "physics.deformation", "aux", "aux.checkpoint")
 
 
 def test_package_imports_without_jax():
@@ -51,7 +53,7 @@ def test_package_imports_without_jax():
     assert int(out[0]) >= 39 and out[1] == "[]", out
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
-               for m in SLICE_2 + SLICE_3 + SLICE_5), names
+               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6), names
 
 
 def test_parse_overrides_and_config():

@@ -11,6 +11,12 @@ land on either side. Quaternions come from ``jax.random`` there and a
 float32.
 """
 
+import ctypes
+import fcntl
+import os
+import tempfile
+import time
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -35,11 +41,60 @@ CONF = dict(parent_density=0.005, child_density=3.0, sigma=2.0, scale_min=0.3, s
             block_size=10.0, seed=67)
 
 
+NATIVE_WAIT_S = 300.0
+
+
+def _native_library_stale() -> bool:
+    """The JAX package's shared library is missing or older than its source."""
+    try:
+        return os.path.getmtime(jnative._LIB_PATH) < os.path.getmtime(jnative._SRC)
+    except OSError:
+        return True
+
+
+def _native_library_ready() -> bool:
+    """The library is newer than its source and loads in a fresh
+    ``ctypes.CDLL`` (a half-written file does not)."""
+    if _native_library_stale():
+        return False
+    try:
+        ctypes.CDLL(jnative._LIB_PATH)
+        return True
+    except OSError:
+        return False
+
+
 @pytest.fixture(autouse=True)
 def needs_native_codec():
     """The JAX stores go through the C++ codec when it is built (else
-    float16, which the port does not imitate)."""
-    assert jnative.available(), "the JAX package's C++ runtime is not built"
+    float16, which the port does not imitate). Test processes that start
+    together all build the library at once, each writing the same file, and
+    a process that loaded a half-written one keeps that failure for its
+    life. So: take a lock shared by the processes of this machine, wait
+    (at most ``NATIVE_WAIT_S``) until the library is complete, building it
+    when nobody else has, then forget the cached failure and load it
+    again. Fails with the build error only after the wait."""
+    if jnative.available():
+        return
+    deadline = time.monotonic() + NATIVE_WAIT_S
+    lock = os.path.join(tempfile.gettempdir(), "husky_native_build.lock")
+    with open(lock, "a") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            while True:
+                if _native_library_stale():
+                    try:
+                        jnative._compile()
+                    except Exception:  # noqa: BLE001 - another process may be writing it
+                        pass
+                if _native_library_ready() or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+            jnative._lib, jnative._build_error = None, None
+            assert jnative.available(), (
+                f"the JAX package's C++ runtime is not built: {jnative._build_error}")
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -81,7 +81,8 @@ def test_streamer_conf_geometry_and_refusals():
         tstream.StreamerConf(native_pool="auto")
     with pytest.raises(ValueError, match="integer multiple"):
         tstream.StreamerConf(resolution=0.3, lr_resolution=5.0)
-    assert not hasattr(tstream.TerrainStreamer, "prestage_shift")
+    # shift pre-staging is ported; the C++ tile pool is what still raises
+    assert callable(tstream.TerrainStreamer.prestage_shift)
 
 
 @pytest.mark.parametrize("craters", [False, True], ids=["smooth", "craters"])
@@ -174,3 +175,59 @@ def test_crater_db_round_trip_and_region_sampling(tmp_path):
     for key, (coords, radii) in ts.crater_blocks.items():
         np.testing.assert_array_equal(other.crater_blocks[key][0], coords)
         np.testing.assert_array_equal(other.crater_blocks[key][1], radii)
+
+
+@pytest.mark.parametrize("stage,move", [((1, 0), (1, 0)), ((0, -1), (0, -1)), ((1, 1), (1, 1)),
+                                        ((1, 0), (1, 1)), ((-1, 0), (0, 1))],
+                         ids=["x_hit", "minus_y_hit", "diagonal_hit", "diagonal_miss", "miss"])
+def test_prestaged_shift_matches_jax(stage, move):
+    """``prestage_shift`` then the shift, in both packages: the stage draws
+    the entering blocks' craters when it is made, in the shift's order, so
+    crater metadata and the generator's state stay EQUAL after the stage
+    and after the shift; the staged window is swapped in where the anchor
+    is the one staged (a hit in both), and the window agrees to 1e-4 m."""
+    js, ts = _streamers(True)
+    start = (5.0, 5.0)
+    js.update(start)
+    ts.update(start)
+    a = ts.anchor
+    new = (a[0] + stage[0], a[1] + stage[1])
+    js.prestage_shift(new)
+    ts.prestage_shift(new)
+    _assert_same_craters(ts, js)
+    assert list(ts.block_cache) == list(js.block_cache)
+    ts.prestage_shift(new)  # already staged from this window: nothing more is drawn
+    _assert_same_craters(ts, js)
+    target = (start[0] + 10.0 * move[0], start[1] + 10.0 * move[1])
+    assert ts.update(target) and js.update(target)
+    assert ts.staged_shift_hits == js.staged_shift_hits == int(stage == move)
+    _assert_same_craters(ts, js)
+    np.testing.assert_allclose(ts.window.numpy(), np.asarray(js.window), rtol=0,
+                               atol=HEIGHT_ATOL)
+    # the swapped-in window is the one the shift composes
+    fresh = tstream.TerrainStreamer(ts.conf, ts.lr_dem.numpy(), device="cpu")
+    fresh.crater_blocks = dict(ts.crater_blocks)
+    fresh.update(target)
+    assert torch.equal(fresh.window, ts.window)
+
+
+def test_stage_of_a_window_written_in_place_is_never_swapped_in():
+    """The stage is keyed on the source window's identity AND its version:
+    after an in-place write (a deformation stamp) the shift composes from
+    the written window instead of swapping the stale stage in; a stage made
+    after the write is swapped in."""
+    _, ts = _streamers(False)
+    ts.update((5.0, 5.0))
+    a = ts.anchor
+    new = (a[0] + 1, a[1])
+    ts.prestage_shift(new)
+    stale = ts._staged_shift[1]
+    ts.window[150:160] += 1.0  # rows that the +x shift keeps
+    assert ts.update((15.0, 5.0)) and ts.staged_shift_hits == 0
+    assert not torch.equal(ts.window, stale)
+    assert torch.equal(ts.window[50:60], stale[50:60] + 1.0)
+    ts.prestage_shift((new[0] + 1, new[1]))
+    ts.window[0:10] -= 1.0  # rows that the next shift drops
+    ts.prestage_shift((new[0] + 1, new[1]))  # re-staged from the written window
+    staged = ts._staged_shift[1]
+    assert ts.update((25.0, 5.0)) and ts.staged_shift_hits == 1 and ts.window is staged
