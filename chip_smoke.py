@@ -36,8 +36,16 @@ costmap bit-equal to its rebuild) and the synchronous loop without
 pre-staging, cut to SYNC_STEPS; then resumes the first from its checkpoint
 (bit-identical to the uninterrupted run), reads the chunk's device rate, and
 drives a short wheel-track-deformed traverse across a block border (K1 on the
-deformed window bit-equal, a stamp on the card against the CPU). K3 is timed beside an empty kernel of its
-grid and block (the launch floor of its restated bound). Each path runs with the
+deformed window bit-equal, a stamp on the card against the CPU). K3 is timed
+beside an empty kernel of its grid and block (the launch floor of its
+restated bound). The CLI's paths through its composed cfg/ tree: mode=sdg
+(cfg/mode/sdg.yaml with its camera block on: 10 frames of the 500^2 yard
+with rocks, a 640 x 480 camera marched in 128 steps with cast shadows)
+under both rendering files, timed by phase, and one capture on the card
+held against the CPU's; K1 on the 4000^2 DEM of environment=lunaryard_80m
+bit-equal to its plain version, that yard's goal-seek (-30, -30) -> (30, 30)
+at K=1000 x H=100, and environment=lunalab's 4-rover closed loop; the SDG
+frame's device kernels are counted after every timed path. Each path runs with the
 kernels' launch counts set to 0 just before it and read just after. Each
 phase prints one line; any failure raises and the exit code is not 0. The
 last two lines are the kernel table (each kernel's time beside its bound,
@@ -45,7 +53,8 @@ its plain version and the one-call library time where there is one) and the
 result, as JSON. Needs one CUDA card; without one it exits with code 1 and
 prints no result. ``--only largescale`` (for iterating on the card) runs the
 build and the streamed-terrain phases alone and prints neither the kernel
-table nor the result.
+table nor the result; ``--only cli`` runs the build and the CLI's paths
+the same way.
 """
 
 from __future__ import annotations
@@ -80,6 +89,24 @@ DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
 # (which excludes what earlier phases still hold)
 UNSTAGED_TRAVERSE_PEAK_BYTES = 1.71e9
 VEC_ROVERS, VEC_STEPS = 4096, 400   # bench.py's vec-env shapes
+# mode=sdg as cfg/mode/sdg.yaml has it, its commented camera block switched
+# on; the frames go to the checkout's ignored build/ directory
+SDG_FRAMES = 10
+SDG_ARGS = ["mode=sdg", f"sdg.num_images={SDG_FRAMES}", f"sdg.data_dir={BUILD / 'sdg'}",
+            "sdg.camera={width: 640, height: 480, pitch_deg: 15.0, mount_height: 0.8, "
+            "steps: 128, cast_shadows: true}"]
+# the yard goal-seek (environment=lunaryard_80m: a 4000^2 DEM at 0.02 m/px)
+# and the lab's closed loop (environment=lunalab), the widths of cfg/
+YARD_ARGS = ["mode=standalone", "environment=lunaryard_80m", "start.x=-30", "start.y=-30",
+             "goal.x=30", "goal.y=30"]
+LAB_ARGS = ["mode=closed_loop", "environment=lunalab"]
+# the card-vs-CPU tolerances of tests/test_torch_labeling.py and
+# tests/test_torch_cli.py (each derived there): terrain shades, depths on
+# the terrain and on rocks (a ray grazing a rock's silhouette takes the root
+# of a near-zero discriminant), rock shades, the post-effected top-down
+# rgb, and the share of pixels whose hit, class or instance may differ
+SHADE_ATOL, DEPTH_RTOL, ROCK_RTOL, ROCK_SHADE_ATOL, WARP_ATOL = 1e-6, 1e-5, 1e-3, 1e-3, 1e-4
+HIT_SHARE = 0.9999
 
 
 # one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes per second,
@@ -114,7 +141,7 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=["largescale"])
+    ap.add_argument("--only", choices=["largescale", "cli"])
     only = ap.parse_args(argv).only
 
     import numpy as np
@@ -125,15 +152,27 @@ def main(argv=None) -> int:
         return 1
 
     from husky_rover_mppi_isaacsim_torch import env as tenv
+    from husky_rover_mppi_isaacsim_torch.aux.labeling import (
+        AutonomousLabeling,
+        CameraIntrinsics,
+        LabelingConf,
+    )
     from husky_rover_mppi_isaacsim_torch.cli import (
         build_standalone_world,
         closed_loop_config,
         closed_loop_episode,
+        compose,
         largescale_conf,
         largescale_episode,
         largescale_report,
+        moonyard_section,
+        mppi_config,
+        render_settings_from_cfg,
+        run_sdg,
+        run_standalone,
         spawn_points,
         use_full_fp32_matmul,
+        world_tree,
     )
     from husky_rover_mppi_isaacsim_torch.core import HeightField, grid_lookup
     from husky_rover_mppi_isaacsim_torch.core.heightfield import (
@@ -183,6 +222,8 @@ def main(argv=None) -> int:
         thesis_statistics_terrain,
     )
     from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
+    from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
+    from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
@@ -669,8 +710,205 @@ def main(argv=None) -> int:
         return k1_on_window(loop, "edge_after_shift", edge,
                             torch.tensor([1.0, -0.4, 0.0], device=cuda))
 
+    def cli_timed():
+        """The CLI's paths through its composed cfg/ tree, timed: mode=sdg
+        (10 frames, top-down and camera) under both rendering files, one
+        capture held against the CPU's, then the moonyard worlds: K1 on the
+        4000^2 yard DEM, the yard goal-seek and the lab's closed loop.
+        Returns each path's launch counts, K1's yard row and the capture
+        function."""
+        def zero_counts():
+            torch.cuda.synchronize()
+            rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+            gp.gather_probe_cuda.launches = 0
+
+        def counts():
+            return {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
+                    "k3": gp.gather_probe_cuda.launches}
+
+        sdg_shapes = {"rgb": (500, 500, 3), "depth": (500, 500), "semantic": (500, 500),
+                      "cam_depth": (480, 640), "cam_rgb": (480, 640), "cam_semantic": (480, 640),
+                      "cam_instance": (480, 640)}
+        sdg_counts = {}
+        for rendering in ("ray_tracing", "path_tracing"):
+            tree = compose(SDG_ARGS + [f"rendering={rendering}"])
+            zero_counts()
+            t0 = time.perf_counter()
+            res = run_sdg(tree)
+            wall = time.perf_counter() - t0
+            sdg_counts[rendering] = counts()
+            out = Path(res["output_dir"])
+            npy, pngs = sorted(out.glob("*.npy")), sorted(out.glob("*.png"))
+            arrays = {f.name: np.load(f) for f in npy}
+            shapes_ok = all(a.shape == sdg_shapes[n.rsplit("_", 1)[0]] for n, a in arrays.items())
+            finite = all(np.isfinite(a).all() for a in arrays.values())
+            rocks_seen = sum(int((a == 2).any()) for n, a in arrays.items()
+                             if n.startswith("semantic"))
+            ok = (len(npy) == 7 * SDG_FRAMES and shapes_ok and finite and res["device"] == "cuda"
+                  and len(list(out.glob("camera_*.json"))) == SDG_FRAMES)
+            phase("sdg_frames", rendering=rendering, frames=SDG_FRAMES, dem=[500, 500],
+                  camera=[640, 480], march_steps=128, cast_shadows=True, wall_s=wall,
+                  ms_per_frame=1e3 * wall / SDG_FRAMES,
+                  ms_per_frame_by_phase={k: 1e3 * v / SDG_FRAMES
+                                         for k, v in res["seconds"].items()},
+                  npy_files=len(npy), png_files=len(pngs), pngs_written=bool(pngs),
+                  frames_with_rocks=rocks_seen, shapes_ok=shapes_ok, finite=finite,
+                  kernel_launches=sdg_counts[rendering], device=res["device"], ok=ok)
+            if not ok:
+                raise RuntimeError(f"mode=sdg ({rendering}) wrote wrong or missing frames")
+
+        # one capture on the card and on the CPU: the same DEM and draws, the
+        # path_tracing effects, the camera with rocks and cast shadows
+        sdg_settings = render_settings_from_cfg(compose(SDG_ARGS + ["rendering=path_tracing"]))
+        sdg_dem = MoonyardGenerator(MoonyardConf(), device=cuda).randomize()
+        sdg_res = MoonyardConf().base.resolution
+        srng = np.random.default_rng(7)
+        rock_xy, rock_r = hardcore_poisson(srng, BoundingBox(0.0, 10.0, 0.0, 10.0), (0.08,),
+                                           ((0.08, 0.4),))
+        sun = (-0.55, 0.4, 0.35)
+        cam_xy, yaw = srng.uniform(1.5, 8.5, 2), srng.uniform(0, 2 * np.pi)
+
+        def sdg_capture(device, name):
+            lab = AutonomousLabeling(LabelingConf(num_images=1, data_dir=str(BUILD / name)),
+                                     sdg_settings)
+            dem = sdg_dem.to(device)
+            top = lab.record(dem, sdg_res, sun_direction=sun, rock_xy=rock_xy, rock_radius=rock_r)
+            gz = float(dem[int(cam_xy[0] / sdg_res), int(cam_xy[1] / sdg_res)])
+            cam = lab.record_camera(dem, sdg_res, (0.0, 0.0), cam_xy, (np.cos(yaw), np.sin(yaw)),
+                                    gz, intrinsics=CameraIntrinsics(640, 480), sun_direction=sun,
+                                    rock_xy=rock_xy, rock_radius=rock_r, steps=128,
+                                    cast_shadows=True, frame=0)
+            return top, {k: v.cpu().numpy() for k, v in cam.items()}
+
+        (top_c, cam_c), (top_h, cam_h) = sdg_capture(cuda, "sdg_card"), sdg_capture(cpu, "sdg_cpu")
+        same_inst = cam_c["instance"] == cam_h["instance"]
+        both = same_inst & np.isfinite(cam_c["depth"]) & np.isfinite(cam_h["depth"])
+        terrain, rock = both & (cam_h["instance"] == 0), both & (cam_h["instance"] > 0)
+        rel = np.zeros_like(cam_h["depth"])
+        rel[both] = np.abs(cam_c["depth"][both] - cam_h["depth"][both]) / cam_h["depth"][both]
+        rgb_d = np.abs(cam_c["rgb"] - cam_h["rgb"])
+        cmp = {
+            "top_rgb_max_abs": float(np.abs(top_c["rgb"] - top_h["rgb"]).max()),
+            "top_depth_equal": bool(np.array_equal(top_c["depth"], top_h["depth"])),
+            "top_semantic_equal": bool(np.array_equal(top_c["semantic"], top_h["semantic"])),
+            "cam_hit_share": float((cam_c["hit"] == cam_h["hit"]).mean()),
+            "cam_instance_share": float(same_inst.mean()),
+            "cam_semantic_share": float((cam_c["semantic"] == cam_h["semantic"]).mean()),
+            "cam_terrain_depth_max_rel": float(rel[terrain].max(initial=0.0)),
+            "cam_rock_depth_max_rel": float(rel[rock].max(initial=0.0)),
+            "cam_rock_depth_share_within_1e-5": float((rel[rock] <= DEPTH_RTOL).mean()),
+            "cam_terrain_rgb_share_within": float((rgb_d[same_inst & (cam_h["instance"] == 0)]
+                                                   <= SHADE_ATOL).mean()),
+            "cam_rock_rgb_max_abs": float(rgb_d[same_inst & (cam_h["instance"] > 0)].max(
+                initial=0.0)),
+            "cam_rock_pixels": int(rock.sum()), "cam_hit_pixels": int(cam_h["hit"].sum()),
+        }
+        ok = (cmp["top_rgb_max_abs"] <= WARP_ATOL and cmp["top_depth_equal"]
+              and cmp["top_semantic_equal"] and cmp["cam_hit_share"] >= HIT_SHARE
+              and cmp["cam_instance_share"] >= HIT_SHARE and cmp["cam_semantic_share"] >= HIT_SHARE
+              and cmp["cam_terrain_depth_max_rel"] <= DEPTH_RTOL
+              and cmp["cam_rock_depth_max_rel"] <= ROCK_RTOL
+              and cmp["cam_terrain_rgb_share_within"] >= 0.999
+              and cmp["cam_rock_rgb_max_abs"] <= ROCK_SHADE_ATOL and cmp["cam_hit_pixels"] > 0)
+        phase("sdg_frame_card_vs_cpu", rendering="path_tracing", rocks=len(rock_r), **cmp, ok=ok)
+        if not ok:
+            raise RuntimeError("an SDG capture on the card disagrees with the CPU's")
+
+        # the yard: its world (a 4000^2 DEM at 0.02 m/px, a free 400^2
+        # costmap), K1 on that DEM against its plain version, then the goal-seek
+        yard_tree = compose(YARD_ARGS)
+        yard_cfg = mppi_config(yard_tree["mppi"])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yhf, ycm, _ = build_standalone_world(world_tree(yard_tree), device=cuda,
+                                             moonyard=moonyard_section(yard_tree))
+        torch.cuda.synchronize()
+        yard_world_s = time.perf_counter() - t0
+        ypos = torch.tensor([-30.0, -30.0], device=cuda)
+        lin = torch.rand((K, H), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((K, H), generator=gen, device=cuda) * 2.0 - 1.0
+        yargs = (yhf, ypos, heading, lin, ang, DT)
+        got, want = rollout_25d_cuda(*yargs), rollout_25d(*yargs)
+        torch.cuda.synchronize()
+        yard_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        yard_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+        yout = torch.empty((12, H, K), device=cuda)
+
+        def yard_launch():
+            rollout_25d_cuda.launch(yhf, ypos, heading, lin, ang, yout, DT)
+
+        y_b2b, y_graph = cuda_ms(yard_launch, inner=20), graph_ms(yard_launch)
+        y_plain = cuda_ms(lambda: rollout_25d(*yargs), reps=3)
+        y_bound, y_bound_by = k1_bound(yhf, got, ypos, 1, K, H, True)
+        yard_k1_row = {"ms": y_graph, "plain_ms": y_plain, "bound_ms": y_bound,
+                       "bound_by": y_bound_by, "max_abs_err": yard_err}
+        phase("k1_on_moonyard", dem=list(yhf.z.shape), resolution=float(yhf.resolution), K=K, H=H,
+              wheels=True, position=ypos.tolist(), bit_equal=yard_equal, max_abs_err=yard_err,
+              dem_cells_read=dem_cells(yhf, got, ypos), k1_ms=y_b2b, k1_graph_ms=y_graph,
+              plain_ms=y_plain, bound_ms=y_bound, bound_by=y_bound_by, ok=yard_equal)
+        if not yard_equal:
+            raise RuntimeError("K1 disagrees with its plain version on the 4000^2 yard DEM")
+        free = bool(ycm.cost.max().item() == 0.0)
+        zero_counts()
+        yard = run_standalone(yard_tree)
+        yard_counts = counts()
+        yloops = yard["loops"]
+        ok = (yard["reached"] and free and yard["device"] == "cuda"
+              and yard_counts["k1"] % 2 == 0
+              and 2 * yloops <= yard_counts["k1"] <= 2 * (yloops + 3)
+              and yard_counts["k2"] == 0 and all(np.isfinite(yard["final_position"])))
+        phase("moonyard_standalone", environment="lunaryard_80m", dem=list(yhf.z.shape),
+              costmap=list(ycm.cost.shape), free_costmap=free, K=yard_cfg.num_samples,
+              H=yard_cfg.horizon, start=[-30.0, -30.0], goal=[30.0, 30.0],
+              world_build_s=yard_world_s, reached=yard["reached"], loops=yloops,
+              final_position=yard["final_position"], wall_s=yard["wall_s"],
+              ms_per_loop=1e3 * yard["wall_s"] / max(yloops, 1), k1_launches=yard_counts["k1"],
+              k2_launches=yard_counts["k2"], collisions=0 if free else None, ok=ok)
+        if not ok:
+            raise RuntimeError("the yard goal-seek did not reach its goal, or ran the wrong "
+                               "kernels")
+        del yhf, ycm, got, want, yout
+
+        # the lab: 4 rovers, 300 sim steps, K=1000 x H=100 (cfg/mode/closed_loop.yaml
+        # and cfg/config.yaml's mppi), spawns and goals inside the 9.6 x 6.4 m lab
+        lab_tree = compose(LAB_ARGS)
+        zero_counts()
+        lab = closed_loop_episode(lab_tree)
+        lab_counts = counts()
+        lab_steps = int(lab_tree["steps"])
+        lab_finite = bool(torch.isfinite(lab.path).all())
+        ok = (lab_counts["k1"] == 2 * lab_steps and lab_finite and lab_counts["k2"] == 0
+              and len(lab.progress) == int(lab_tree["num_rovers"]))
+        phase("moonyard_closed_loop", environment="lunalab", N=len(lab.progress),
+              K=lab_tree["mppi"].num_samples, H=lab_tree["mppi"].horizon, steps=lab_steps,
+              spawn_limit_m=min(40.0, 0.55 * world_tree(lab_tree)["half_width"]),
+              k1_launches=lab_counts["k1"], k2_launches=lab_counts["k2"], finite=lab_finite,
+              mean_progress_m=float(lab.progress.mean()), progress_m=lab.progress.tolist(),
+              wall_s=lab.wall_s, ms_per_sim_step=1e3 * lab.wall_s / lab_steps, ok=ok)
+        if not ok:
+            raise RuntimeError("the lab's closed loop ran the wrong kernels or left a non-finite "
+                               "path")
+        return sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture
+
+    def sdg_profiled(sdg_capture):
+        """Device kernels of one SDG frame, counted by torch.profiler after
+        every timed path: the generator (a fresh one per call, so that
+        every call draws alike), then the top-down and the camera capture
+        with fixed draws."""
+        sdg_gens = iter([MoonyardGenerator(MoonyardConf(), device=cuda) for _ in range(8)])
+        kernels = {
+            "generator": device_kernels(lambda: next(sdg_gens).randomize()),
+            "top_down_and_camera": device_kernels(lambda: sdg_capture(cuda, "sdg_profiled")),
+        }
+        kernels["frame"] = sum(kernels.values())
+        phase("sdg_launches", **{f"device_kernels_{k}": v for k, v in kernels.items()},
+              march_steps=128, shadow_steps=64, ok=kernels["frame"] > 0)
+
     if only == "largescale":
         largescale_profiled(largescale_timed()[0])
+        return 0
+    if only == "cli":
+        sdg_profiled(cli_timed()[-1])
         return 0
 
     max_err, k1_row = 0.0, {}
@@ -1122,6 +1360,10 @@ def main(argv=None) -> int:
     if probe_rc != 0 or k3_launches != 1:
         raise RuntimeError(f"the gather probe returned {probe_rc} with {k3_launches} launches")
 
+    # 10b. the CLI as run.py runs it (its composed cfg/ tree): mode=sdg,
+    #      the yard goal-seek and the lab's closed loop
+    sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture = cli_timed()
+
     # 11. the streamed-terrain slice: the world, K1 and K2 at its sizes, the
     #     traverse
     ls_loop, ls_k1_row, ls_k2_row, ls_counts = largescale_timed()
@@ -1178,11 +1420,15 @@ def main(argv=None) -> int:
     # 13-14. the streamed slice's chunk under the profiler, and a shift
     ls_k1_edge = largescale_profiled(ls_loop)
 
+    # 15. device kernels of one SDG frame (every timed path is above)
+    sdg_profiled(sdg_capture)
+
     # The kernel table. K1's and K2's times, bounds and plain times are at
     # the streamed loop's shapes (the 7000^2 window, the 875^2 costmap), with
     # the earlier paths' shapes beside them; `launches` is the streamed
     # traverse's count, the other paths' counts stand in `launches_by_path`
-    ls_k1_err = max(max_err, ls_k1_row.pop("max_abs_err"), ls_k1_edge.pop("max_abs_err"))
+    ls_k1_err = max(max_err, ls_k1_row.pop("max_abs_err"), ls_k1_edge.pop("max_abs_err"),
+                    yard_k1_row.pop("max_abs_err"))
     ls_k2_err = max(k2_err, ls_k2_row.pop("max_abs_err"))
     print(json.dumps({"kernels": [{
         "name": "rollout_25d", "route": "cuda",
@@ -1191,8 +1437,12 @@ def main(argv=None) -> int:
         "launches": ls_k1, "max_abs_err": ls_k1_err, "library_ms": None, **ls_k1_row,
         "shape": "K=1000 x H=100, wheels, DEM 7000 x 7000",
         "edge_after_shift": ls_k1_edge, "dem_1500": k1_row,
+        "dem_4000_moonyard": yard_k1_row,
         "launches_by_path": {**{k: v[0] for k, v in ls_counts.items()}, "goal_seek": launches,
-                             "closed_loop": cl_k1, "evaluation": eval_k1},
+                             "closed_loop": cl_k1, "evaluation": eval_k1,
+                             "moonyard_standalone": yard_counts["k1"],
+                             "moonyard_closed_loop": lab_counts["k1"],
+                             **{f"sdg_{r}": c["k1"] for r, c in sdg_counts.items()}},
     }, {
         "name": "edt_minplus", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/edt_minplus.cu",

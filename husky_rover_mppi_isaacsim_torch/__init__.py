@@ -2,7 +2,7 @@
 PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of ``husky_rover_mppi_isaacsim_tpu`` (the JAX reference, which stays
-beside it), slice by slice. It imports torch and numpy, never jax, and the
+beside it), slice by slice. It imports torch, numpy and scipy, never jax, and the
 layout mirrors the JAX package's:
 
 - ``core``      — heightfield geometry: corner gathers, bilinear height, quad
@@ -13,10 +13,18 @@ layout mirrors the JAX package's:
 - ``ops``       — kernels and the ops behind them: the CUDA rollout (K1),
                   the exact EDT with its CUDA min-plus envelope (K2), and
                   their build.
-- ``terrain``   — crater surface, the 750-obstacle costmap, and the
-                  small-scale procedural terrain (base noise + craters).
+- ``terrain``   — crater surface, the 750-obstacle costmap, the
+                  small-scale procedural terrain (base noise + craters) and
+                  the streamed terrain.
+- ``env``       — the rover simulator, the closed loop and the streamed loop.
+- ``physics``   — wheel-track deformation, terramechanics, the scene config.
+- ``aux``       — the configuration tree (its own YAML reader), SDG
+                  labeling, render post-effects, stellar lighting,
+                  checkpoints.
+- ``utils``     — the scoped timer.
 - ``convert``   — JAX-side state (as numpy) into this package's objects.
-- ``cli``       — ``python -m husky_rover_mppi_isaacsim_torch.cli``.
+- ``cli``       — ``python -m husky_rover_mppi_isaacsim_torch.cli``, reading
+                  ``cfg/`` as ``run.py`` does.
 """
 
 __version__ = "0.1.0"

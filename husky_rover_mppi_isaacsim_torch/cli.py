@@ -1,30 +1,28 @@
-"""Command-line entry of the PyTorch port: the standalone goal-seek, the
-2D-vs-3D evaluation, the N-rover closed loop and the streamed-terrain
-full-stack loop.
+"""Command-line entry of the PyTorch port, the counterpart of ``run.py``: the
+standalone goal-seek, the 2D-vs-3D evaluation, the N-rover closed loop, the
+streamed-terrain full-stack loop and synthetic-data generation.
 
-Usage (dotted ``key=value`` overrides, the keys and defaults of the JAX
-package's ``run_standalone`` and ``run_evaluation``)::
+Usage (the JAX CLI's composition: ``cfg/config.yaml`` or ``--config=``, the
+``environment=`` / ``rendering=`` / ``physics=`` group files, ``mode=X``
+merging ``cfg/mode/X.yaml``, then dotted ``key=value`` overrides read as
+YAML)::
 
     python -m husky_rover_mppi_isaacsim_torch.cli mode=standalone \\
         start.x=-45 start.y=-40 goal.x=45 goal.y=40 mppi.num_samples=1000
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=standalone environment=lunaryard_80m
     python -m husky_rover_mppi_isaacsim_torch.cli mode=evaluation \\
         evaluation.protocol=thesis evaluation.ks=[1000] evaluation.runs_per_arm=8
-    python -m husky_rover_mppi_isaacsim_torch.cli mode=closed_loop num_rovers=4 steps=300
-    python -m husky_rover_mppi_isaacsim_torch.cli mode=largescale goal.x=65 goal.y=65
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=closed_loop environment=lunalab
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=largescale
+    python -m husky_rover_mppi_isaacsim_torch.cli mode=sdg sdg.num_images=10 "sdg.camera={}"
 
+The tree is read by the port's own YAML reader (:mod:`.aux.yaml_reader`) and
+instantiated into the port's config classes (:mod:`.aux.config`). The
+``environment`` group's ``moonyard`` section (lunalab, lunaryard_*) makes the
+standalone and closed-loop world a procedural yard with a free costmap.
 ``device=`` names the torch device, ``cuda`` by default: a run that asks for
 the card where there is none raises; the CPU runs only with ``device=cpu``.
-Each mode prints one JSON line that names the device. The YAML tree under
-``cfg/`` is not read; the evaluation keys and defaults are those of
-``cfg/mode/evaluation.yaml``, the closed loop's those of
-``cfg/mode/closed_loop.yaml`` with ``cfg/config.yaml``'s ``mppi`` section
-and ``cfg/physics/default_physics.yaml``; the streamed loop's keys are those
-of the JAX ``run_largescale`` (``environment.largescale.*`` or
-``largescale.*`` by ``LargeScaleConf`` field, ``mppi.*``, ``start``, ``goal``,
-``max_steps``, ``terrain_check_every``, ``seed``, ``deformation.enable``,
-``checkpoint.path``, ``checkpoint.every_steps``, ``resume``) and builds the
-JAX run's configuration: the pipelined loop with shift pre-staging, the
-synchronous loop under deformation.
+Each mode prints one JSON line with the JAX run's keys and ``device``.
 """
 
 from __future__ import annotations
@@ -33,11 +31,24 @@ import dataclasses
 import json
 import sys
 import time
+from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .aux.config import apply_overrides, build_dataclass, instantiate_configs, load_config
+from .aux.labeling import AutonomousLabeling, CameraIntrinsics, LabelingConf
+from .aux.render_fx import (
+    ChromaticAberrationsConf,
+    FlaresConf,
+    MotionBlurConf,
+    RenderSettings,
+    apply_chromatic_aberrations,
+    apply_lens_flare,
+    apply_motion_blur,
+)
+from .core.device import run_device
 from .core.heightfield import HeightField
 from .env import (
     ClosedLoopConfig,
@@ -49,18 +60,22 @@ from .env import (
     run_episode,
 )
 from .mppi import evaluation
-from .mppi.controller import (
-    NESTED_CONFIG,
-    ControllerState,
-    MPPIConfig,
-    RobotState,
-    goal_seek,
-)
+from .mppi.controller import ControllerState, MPPIConfig, RobotState, goal_seek
 from .env.largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf
 from .physics.deformation import DeformationEngineConf
-from .terrain.costmap import costmap_750
+from .terrain.costmap import as_costmap, costmap_750
+from .terrain.craters import CraterSamplerConf
 from .terrain.orchestrator import LargeScaleConf
+from .terrain.point_process import BoundingBox, hardcore_poisson
+from .terrain.rocks import RockDistConf
+from .terrain.smallscale import BaseTerrainGeneratorConf, MoonyardConf, MoonyardGenerator
 from .terrain.surface import STANDALONE_CRATER_BUMPS, crater_surface
+from .utils.timer import wait_for
+
+# the top of the configuration tree (the repository's cfg/config.yaml)
+CONFIG = Path(__file__).resolve().parent.parent / "cfg" / "config.yaml"
+# the config groups a ``group=name`` argument swaps for cfg/<group>/<name>.yaml
+GROUPS = ("environment", "rendering", "physics")
 
 
 def use_full_fp32_matmul() -> None:
@@ -70,36 +85,52 @@ def use_full_fp32_matmul() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def build_standalone_world(world: dict, dtype=torch.float32, device=None):
+def moonyard_conf(moonyard: dict) -> MoonyardConf:
+    """The small-scale yard or lab of an ``environment.moonyard`` section
+    (``base``, ``crater``, ``is_lab``, ``is_yard``, ``z_scale``)."""
+    crater = {k: (tuple(tuple(r) for r in v) if k == "radius_ranges"
+                  else tuple(v) if k == "densities" else v)
+              for k, v in (moonyard.get("crater") or {}).items()}
+    return MoonyardConf(base=BaseTerrainGeneratorConf(**(moonyard.get("base") or {})),
+                        crater=CraterSamplerConf(**crater),
+                        is_lab=bool(moonyard.get("is_lab", False)),
+                        is_yard=bool(moonyard.get("is_yard", True)),
+                        z_scale=float(moonyard.get("z_scale", 1.0)))
+
+
+def moonyard_dem(moonyard: dict, grid: int, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The moonyard generator's DEM cropped or zero-padded to the square
+    ``grid``² window, on ``device`` (the JAX ``_moonyard_dem``)."""
+    dem = MoonyardGenerator(moonyard_conf(moonyard), dtype, device).randomize()
+    out = torch.zeros((grid, grid), dtype=dtype, device=dem.device)
+    sy, sx = min(grid, dem.shape[0]), min(grid, dem.shape[1])
+    out[:sy, :sx] = dem[:sy, :sx]
+    return out
+
+
+def build_standalone_world(world: dict, dtype=torch.float32, device=None, moonyard=None):
     """The standalone world: crater DEM (``grid_size``² over
-    ±``half_width``) and the 750-obstacle costmap (``costmap_size``²).
-    Returns ``(heightfield, costmap, half_width)``."""
+    ±``half_width``) and the 750-obstacle costmap (``costmap_size``²), or
+    with ``moonyard`` (an ``environment.moonyard`` section) the yard's DEM
+    and a free costmap. Returns ``(heightfield, costmap, half_width)``."""
     hw = float(world.get("half_width", 75.0))
     grid = int(world.get("grid_size", 1500))
-    z = crater_surface(grid, hw, STANDALONE_CRATER_BUMPS, dtype=dtype, device=device)
-    hf = HeightField.create(z, hw)
-    cm = costmap_750(half_width=hw, size=int(world.get("costmap_size", 750)),
-                     dtype=dtype, device=device)
-    return hf, cm, hw
+    size = int(world.get("costmap_size", 750))
+    if moonyard:
+        hf = HeightField.create(moonyard_dem(moonyard, grid, dtype, device), hw)
+        # no obstacle field in the labs and yards: free space
+        cm = as_costmap(torch.zeros((size, size), dtype=dtype, device=hf.z.device), hw)
+        return hf, cm, hw
+    hf = HeightField.create(crater_surface(grid, hw, STANDALONE_CRATER_BUMPS, dtype=dtype,
+                                           device=device), hw)
+    return hf, costmap_750(half_width=hw, size=size, dtype=dtype, device=device), hw
 
 
 def mppi_config(d) -> MPPIConfig:
-    """MPPIConfig from a dict of its fields (nested limits as dicts)."""
-    d = dict(d or {})
-    for k, cls in NESTED_CONFIG.items():
-        if isinstance(d.get(k), dict):
-            d[k] = cls(**d[k])
-    return MPPIConfig(**d)
-
-
-def run_device(tree: dict) -> torch.device:
-    """The ``device`` key (default ``cuda``). Raises when it names a CUDA
-    device and there is none: nothing falls back to the CPU."""
-    device = torch.device(str(tree.get("device", "cuda")))
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device={device} asked for, but no CUDA device is present; "
-                           "pass device=cpu to run on the CPU")
-    return device
+    """MPPIConfig from the tree's ``mppi`` entry: an instance as it is, a
+    dict of its fields (nested limits as dicts) built, TPU-only fields
+    refused by name."""
+    return d if isinstance(d, MPPIConfig) else build_dataclass(MPPIConfig, d or {})
 
 
 def world_tree(tree: dict) -> dict:
@@ -109,15 +140,21 @@ def world_tree(tree: dict) -> dict:
     return world
 
 
+def moonyard_section(tree: dict):
+    """``environment.moonyard``, or ``None``."""
+    env = tree.get("environment")
+    return env.get("moonyard") if isinstance(env, dict) else None
+
+
 def run_standalone(tree: dict) -> dict:
     """Goal-seek on the standalone world; the JAX ``run_standalone``'s keys
-    (``mppi``, ``world``, ``start``, ``goal``, ``seed``, ``max_loops``) and
-    ``device``. The result names the device beside ``wall_s``."""
+    (``mppi``, ``world``, ``environment.moonyard``, ``start``, ``goal``,
+    ``seed``, ``max_loops``) and ``device``. The result names the device beside ``wall_s``."""
     use_full_fp32_matmul()
     dtype = torch.float32
-    device = run_device(tree)
+    device = run_device(tree.get("device"))
     cfg = mppi_config(tree.get("mppi"))
-    hf, cm, _ = build_standalone_world(world_tree(tree), dtype, device)
+    hf, cm, _ = build_standalone_world(world_tree(tree), dtype, device, moonyard_section(tree))
     start = tree.get("start", {"x": -60.0, "y": -60.0})
     goal_d = tree.get("goal", {"x": 65.0, "y": 60.0})
     goal = torch.tensor([goal_d["x"], goal_d["y"]], dtype=dtype, device=device)
@@ -157,7 +194,7 @@ def run_evaluation(tree: dict) -> dict:
     if thesis and runs_per_arm <= 5:
         raise SystemExit("evaluation.runs_per_arm must exceed the thesis protocol's "
                          f"drop-5-greatest trim (got {runs_per_arm})")
-    device = run_device(tree)
+    device = run_device(tree.get("device"))
     if thesis:
         table = evaluation.run_thesis_protocol_experiment(
             ks=ks, runs_per_arm=runs_per_arm,
@@ -204,9 +241,13 @@ def rover_params(tree: dict) -> RoverParams:
 
 
 def closed_loop_config(tree: dict) -> ClosedLoopConfig:
-    """ClosedLoopConfig from ``mppi.*`` and the physics section, as the JAX
-    ``run_closed_loop`` builds it: the loop's own constants keep their
-    defaults."""
+    """The tree's ``closed_loop`` where the configuration instantiated one,
+    else ClosedLoopConfig from ``mppi`` and the physics section with the
+    loop's own constants at their defaults, as the JAX ``run_closed_loop``
+    builds it."""
+    cl = tree.get("closed_loop")
+    if isinstance(cl, ClosedLoopConfig):
+        return cl
     return ClosedLoopConfig(mppi=mppi_config(tree.get("mppi")), rover=rover_params(tree))
 
 
@@ -234,15 +275,16 @@ class ClosedLoopRun(NamedTuple):
 def closed_loop_episode(tree: dict) -> ClosedLoopRun:
     """N rovers under the latched/PI closed loop on the standalone world; the
     JAX ``run_closed_loop``'s keys (``num_rovers``, ``steps``, ``mppi``,
-    ``physics``, ``world``, ``seed``) and ``device``. The exploration noise
-    comes from a ``torch.Generator`` seeded 0 (the JAX run's ``key(0)``)."""
+    ``physics``, ``world``, ``environment.moonyard``, ``seed``) and
+    ``device``. The exploration noise comes from a ``torch.Generator``
+    seeded 0 (the JAX run's ``key(0)``)."""
     use_full_fp32_matmul()
     dtype = torch.float32
-    device = run_device(tree)
+    device = run_device(tree.get("device"))
     n = int(tree.get("num_rovers", 4))
     steps = int(tree.get("steps", 300))
     cfg = closed_loop_config(tree)
-    hf, cm, hw = build_standalone_world(world_tree(tree), dtype, device)
+    hf, cm, hw = build_standalone_world(world_tree(tree), dtype, device, moonyard_section(tree))
     starts, goals_np = spawn_points(int(tree.get("seed", 42)), n, hw)
     goals = torch.tensor(goals_np, dtype=dtype, device=device)
     state = init_loop_state(cfg, RoverState.create(starts, [1.0, 0.0, 0.0], hf))
@@ -287,7 +329,8 @@ def largescale_conf(tree: dict) -> LargeScaleLoopConf:
     if "crater_gen_radius" in kw:
         kw["crater_gen_radius"] = tuple(tuple(r) for r in kw["crater_gen_radius"])
     if "rock_gen_cfgs" in kw:
-        kw["rock_gen_cfgs"] = tuple(kw["rock_gen_cfgs"])
+        kw["rock_gen_cfgs"] = tuple(c if isinstance(c, RockDistConf) else RockDistConf(**c)
+                                    for c in kw["rock_gen_cfgs"])
     terrain = LargeScaleConf(**kw)
     deform = None
     if (tree.get("deformation") or {}).get("enable"):
@@ -320,7 +363,7 @@ def largescale_episode(tree: dict, conf: LargeScaleLoopConf | None = None) -> La
     interrupted traverse from its file (either package's). ``conf``
     replaces the configuration the keys build."""
     use_full_fp32_matmul()
-    device = run_device(tree)
+    device = run_device(tree.get("device"))
     conf = largescale_conf(tree) if conf is None else conf
     build_s = {}
     resume = tree.get("resume")
@@ -369,44 +412,140 @@ def run_largescale(tree: dict) -> dict:
     return largescale_report(largescale_episode(tree))
 
 
+def render_settings_from_cfg(tree: dict) -> RenderSettings | None:
+    """The ``rendering`` group as RenderSettings (the ``startSim`` path,
+    src/environments_wrappers/__init__.py:96-135: lens flares, chromatic
+    aberrations and motion blur from the rendering config before SDG)."""
+    rend = tree.get("rendering") or {}
+    if not isinstance(rend, dict):
+        return None
+    settings = RenderSettings()
+    ca = dict(rend.get("chromatic_aberration") or {})
+    if "strength" in ca:
+        ca["strength"] = tuple(ca["strength"])
+    for apply, cls, section in ((apply_lens_flare, FlaresConf, rend.get("flares")),
+                                (apply_chromatic_aberrations, ChromaticAberrationsConf, ca),
+                                (apply_motion_blur, MotionBlurConf, rend.get("motion_blur"))):
+        fields = {f.name for f in dataclasses.fields(cls)}
+        apply(cls(**{k: v for k, v in (section or {}).items() if k in fields}), settings)
+    return settings
+
+
+def _section(value):
+    """An optional ``sdg`` sub-section: ``true`` is ``{}``, a mapping is
+    itself, anything else (``false``, absent) is off."""
+    if value is True:
+        return {}
+    return value if isinstance(value, dict) else None
+
+
+def run_sdg(tree: dict) -> dict:
+    """Synthetic-data generation (the JAX ``run_sdg``): ``sdg.num_images``
+    fresh yards from the default ``MoonyardConf`` (the environment group's
+    yard is not read, as in the JAX run) on ``device``, each with a
+    hardcore-Poisson rock scatter (``sdg.rocks``: density, r_min, r_max;
+    ``false`` turns it off) and a random sun, labeled top-down and, with
+    ``sdg.camera`` (width, height, pitch_deg, mount_height, steps,
+    cast_shadows), from a robot-mounted camera. The host draws (rocks,
+    sun, camera pose) come from ``numpy.random.default_rng(seed)`` in the
+    JAX run's order, so they equal its draws. The result adds the seconds
+    spent per phase (``generator``, ``top_down``, ``camera``, ``write``)
+    and ``device``."""
+    use_full_fp32_matmul()
+    device = run_device(tree.get("device"))
+    sdg = tree.get("sdg", {})
+    fields = {f.name for f in dataclasses.fields(LabelingConf)}
+    conf = LabelingConf(**{k: v for k, v in sdg.items() if k in fields})
+    gen = MoonyardGenerator(MoonyardConf(), device=device)
+    labeler = AutonomousLabeling(conf, render_settings_from_cfg(tree))
+    cam_cfg, rock_cfg = _section(sdg.get("camera")), _section(sdg.get("rocks", {}))
+    rng = np.random.default_rng(int(tree.get("seed", 42)))
+    res = gen.conf.base.resolution
+    generator_s = 0.0
+    for _ in range(conf.num_images):
+        t0 = time.perf_counter()
+        dem = wait_for(gen.randomize())
+        generator_s += time.perf_counter() - t0
+        rock_xy = rock_r = None
+        if rock_cfg is not None:
+            yard = BoundingBox(0.0, gen.conf.base.x_size, 0.0, gen.conf.base.y_size)
+            rock_xy, rock_r = hardcore_poisson(
+                rng, yard, (float(rock_cfg.get("density", 0.08)),),
+                ((float(rock_cfg.get("r_min", 0.08)), float(rock_cfg.get("r_max", 0.4))),))
+        # a random sun between captures (stellar-driven in the reference)
+        az = rng.uniform(0, 2 * np.pi)
+        el = rng.uniform(np.deg2rad(10), np.deg2rad(60))
+        sun = (float(np.cos(el) * np.cos(az)), float(np.cos(el) * np.sin(az)),
+               float(np.sin(el)))
+        frame_id = labeler.frame  # the camera products join this capture's id
+        labeler.record(dem, res, sun_direction=sun, rock_xy=rock_xy, rock_radius=rock_r)
+        if cam_cfg is not None:
+            h, w = dem.shape
+            px = rng.uniform(0.15, 0.85) * h * res
+            py = rng.uniform(0.15, 0.85) * w * res
+            yaw = rng.uniform(0, 2 * np.pi)
+            intr = CameraIntrinsics(width=int(cam_cfg.get("width", CameraIntrinsics.width)),
+                                    height=int(cam_cfg.get("height", CameraIntrinsics.height)))
+            labeler.record_camera(
+                dem, res, (0.0, 0.0), (px, py), (float(np.cos(yaw)), float(np.sin(yaw))),
+                float(dem[int(px / res), int(py / res)]), intrinsics=intr,
+                sun_direction=sun, rock_xy=rock_xy, rock_radius=rock_r,
+                mount_height=float(cam_cfg.get("mount_height", 0.8)),
+                pitch_deg=float(cam_cfg.get("pitch_deg", 15.0)),
+                steps=int(cam_cfg.get("steps", 128)),
+                cast_shadows=bool(cam_cfg.get("cast_shadows", False)), frame=frame_id)
+    return {
+        "mode": "sdg",
+        "num_images": conf.num_images,
+        "camera": cam_cfg is not None,
+        "output_dir": str(labeler.run_dir),
+        "seconds": {"generator": generator_s, **labeler.seconds},
+        "device": str(device),
+    }
+
+
 MODES = {"standalone": run_standalone, "evaluation": run_evaluation,
-         "closed_loop": run_closed_loop, "largescale": run_largescale}
+         "closed_loop": run_closed_loop, "largescale": run_largescale, "sdg": run_sdg}
 
 
-def _parse_value(s: str):
-    if s.startswith("[") and s.endswith("]"):  # a list: [350,500,1000]
-        return [_parse_value(v.strip()) for v in s[1:-1].split(",") if v.strip()]
-    low = s.lower()
-    if low in ("true", "false"):
-        return low == "true"
-    for cast in (int, float):
-        try:
-            return cast(s)
-        except ValueError:
-            pass
-    return s
-
-
-def parse_overrides(argv) -> dict:
-    """``a.b=c`` arguments -> nested dict ``{"a": {"b": c}}``."""
-    tree: dict = {}
+def compose(argv) -> dict:
+    """The instantiated configuration tree of a command line, composed as
+    the JAX CLI's ``main`` does: ``cfg/config.yaml`` (or ``--config=``), a
+    ``group=name`` argument for each of :data:`GROUPS` swapping in
+    ``<group>/<name>.yaml`` beside it, ``mode=X`` merging ``mode/X.yaml``
+    where there is one (losing to the dotted overrides), then the dotted
+    ``key=value`` overrides and :func:`instantiate_configs`."""
+    cfg_path, overrides = CONFIG, []
     for arg in argv:
-        if "=" not in arg:
-            raise SystemExit(f"expected key=value, got {arg!r}")
-        key, value = arg.split("=", 1)
-        node = tree
-        *parents, leaf = key.split(".")
-        for p in parents:
-            node = node.setdefault(p, {})
-        node[leaf] = _parse_value(value)
-    return tree
+        if arg.startswith("--config="):
+            cfg_path = Path(arg.split("=", 1)[1])
+        else:
+            overrides.append(arg)
+    tree = load_config(cfg_path) if cfg_path.exists() else {}
+    group_ov = [o for o in overrides if o.split("=", 1)[0] in GROUPS]
+    overrides = [o for o in overrides if o not in group_ov]
+    for o in group_ov:
+        group, name = o.split("=", 1)
+        tree[group] = load_config(cfg_path.parent / group / f"{name}.yaml")
+    for o in list(overrides):
+        if o.startswith("mode="):
+            mode_file = cfg_path.parent / "mode" / f"{o.split('=', 1)[1]}.yaml"
+            if mode_file.exists():
+                for k, v in load_config(mode_file).items():
+                    if isinstance(v, dict) and isinstance(tree.get(k), dict):
+                        tree[k].update(v)
+                    else:
+                        tree[k] = v
+                overrides.remove(o)
+    apply_overrides(tree, overrides)
+    return instantiate_configs(tree)
 
 
 def main(argv=None) -> int:
-    tree = parse_overrides(sys.argv[1:] if argv is None else argv)
+    tree = compose(sys.argv[1:] if argv is None else argv)
     mode = tree.get("mode", "standalone")
     if mode not in MODES:
-        print(f"mode {mode!r} is not ported; {sorted(MODES)} run", file=sys.stderr)
+        print(f"unknown mode {mode!r}; choose from {sorted(MODES)}", file=sys.stderr)
         return 2
     print(json.dumps(MODES[mode](tree)))
     return 0

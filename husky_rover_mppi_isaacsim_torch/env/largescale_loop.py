@@ -54,6 +54,7 @@ import torch
 from torch import Tensor
 
 from ..aux import checkpoint as ckpt
+from ..core.device import run_device
 from ..core.heightfield import HeightField
 from ..mppi.critics import Costmap
 from ..ops import measure
@@ -330,7 +331,7 @@ class LargeScaleClosedLoop:
         """``lstm`` injects a prebuilt terrain manager (on ``device``);
         ``phase_cb(name, seconds)`` gets one call per construction phase.
         ``device`` is where the terrain, the state and the controller live
-        (default: the CPU; the entry point passes the card)."""
+        (default: the card; see :func:`..core.device.run_device`)."""
         conf.refuse_unported()
         t0 = time.perf_counter()
 
@@ -343,7 +344,7 @@ class LargeScaleClosedLoop:
             t0 = time.perf_counter()
 
         self.conf = conf
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = run_device(device)
         if lstm is None:
             self.lstm = LargeScaleTerrainManager(conf.terrain, device=self.device)
             self.lstm.build()

@@ -16,7 +16,7 @@ two launches.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, ClassVar, NamedTuple
 
 import torch
 from torch import Tensor
@@ -61,6 +61,14 @@ class MPPIConfig:
     slope_critic: str = "wheels"
     exact: bool = False              # True: sequential wheel lag; False: Toeplitz matmul
     return_rollouts: bool = False    # include all K trajectories in the output
+
+    # fields of the JAX MPPIConfig the port dropped: the TPU gather engines'
+    # and patch fields, and two initial velocities no step reads; the
+    # configuration loader refuses them by name
+    TPU_ONLY_FIELDS: ClassVar[frozenset] = frozenset((
+        "gather_engine", "patch_size", "costmap_patch_size", "chunk_patches", "pallas_block_k",
+        "dem_resolution", "costmap_resolution", "initial_linear_velocity",
+        "initial_angular_velocity"))
 
     def __post_init__(self):
         if self.projection not in ("3d", "2d"):

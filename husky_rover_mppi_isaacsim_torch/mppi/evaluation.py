@@ -33,6 +33,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..core.device import run_device
 from ..core.heightfield import HeightField, grid_lookup
 from . import critics as crit
 from .controller import (
@@ -240,7 +241,7 @@ def run_2d_vs_3d_experiment(
     velocity finite)."""
     from ..terrain import STANDALONE_CRATER_BUMPS, costmap_750, crater_surface
 
-    device = torch.device(device or "cpu")
+    device = run_device(device)
     z = crater_surface(grid_size, half_width, STANDALONE_CRATER_BUMPS, dtype=dtype,
                        device=device)
     hf = HeightField.create(z, half_width)
@@ -340,7 +341,7 @@ def run_thesis_protocol_experiment(
     as in :func:`run_2d_vs_3d_experiment`."""
     from ..terrain import costmap_750, thesis_statistics_terrain
 
-    device = torch.device(device or "cpu")
+    device = run_device(device)
     z = thesis_statistics_terrain(seed=terrain_seed, size_m=2 * half_width,
                                   z_scale=terrain_z_scale,
                                   max_elevation=1.2 * terrain_z_scale,

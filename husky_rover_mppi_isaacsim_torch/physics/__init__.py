@@ -1,6 +1,8 @@
-"""Physics add-ons: the wheel-track terrain deformation engine (counterpart
-of the JAX ``physics`` package; its terramechanics solver and scene config
-are not ported yet)."""
+"""Physics add-ons: the wheel-track terrain deformation engine, the wheel
+terramechanics solver and the scene configuration (counterpart of the JAX
+``physics`` package)."""
+
+import dataclasses
 
 from .deformation import (
     BoundaryDistributionConf,
@@ -11,6 +13,23 @@ from .deformation import (
     FootprintConf,
     ForceDepthRegressionConf,
 )
+from .terramechanics import (
+    RobotParameter,
+    TerrainMechanicalParameter,
+    TerramechanicsSolver,
+)
+
+
+@dataclasses.dataclass
+class PhysicsSceneConf:
+    """Scene-level physics settings (src/physics/physics_scene.py:14-23 +
+    cfg/physics/*.yaml)."""
+
+    dt: float = 1.0 / 60.0
+    gravity: tuple = (0.0, 0.0, -1.62)  # lunar gravity
+    enable_ccd: bool = False
+    enable_stabilization: bool = True
+
 
 __all__ = [
     "BoundaryDistributionConf",
@@ -20,4 +39,8 @@ __all__ = [
     "DepthDistributionConf",
     "FootprintConf",
     "ForceDepthRegressionConf",
+    "RobotParameter",
+    "TerrainMechanicalParameter",
+    "TerramechanicsSolver",
+    "PhysicsSceneConf",
 ]

@@ -12,7 +12,8 @@ One documented divergence: the JAX package draws the two base-noise grids
 terrain seed, or are injected as tensors (``base_noise``), so the port's
 thesis DEM is the same procedure with a different base-noise stream. The
 craters come from numpy with the JAX package's seed and draw order and are
-the same craters. The mesh export (``dem_to_mesh_grid``) is not ported.
+the same craters. The mesh export (``dem_to_mesh_grid``) stays on the host
+in numpy, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core.device import run_device
 from .craters import (
     CraterProfiles,
     CraterSamplerConf,
@@ -111,13 +113,14 @@ class MoonyardConf:
 class MoonyardGenerator:
     """GenerateProceduralMoonYard (terrain_generation.py:505-590): base noise
     + hardcore-Poisson craters; ``randomize`` returns a fresh DEM on
-    ``device``. Craters come from ``np.random.default_rng(seed)``, the base
+    ``device`` (default: the card, see :func:`..core.device.run_device`).
+    Craters come from ``np.random.default_rng(seed)``, the base
     noise from a ``torch.Generator`` seeded with the same seed."""
 
     def __init__(self, conf: MoonyardConf, dtype=torch.float32, device=None):
         self.conf = conf
         self.dtype = dtype
-        self.device = torch.device(device or "cpu")
+        self.device = run_device(device)
         self.rng = np.random.default_rng(conf.base.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(conf.base.seed)
         self.profiles: CraterProfiles = build_profiles(
@@ -173,3 +176,19 @@ def thesis_statistics_terrain(
         is_lab=False, is_yard=False, z_scale=z_scale,
     )
     return MoonyardGenerator(conf, dtype, device).randomize(base_noise)
+
+
+def dem_to_mesh_grid(dem, resolution: float) -> tuple[np.ndarray, np.ndarray]:
+    """Vertices ``(H W, 3)`` and triangle indices ``(2 (H-1)(W-1), 3)`` of the
+    regular grid mesh, two triangles per pixel (buildGrid,
+    terrain_manager.py:151-193). ``dem`` may be a tensor on any device; the
+    mesh is numpy on the host."""
+    dem = dem.cpu().numpy() if isinstance(dem, Tensor) else np.asarray(dem)
+    h, w = dem.shape
+    xx, yy = np.meshgrid(np.arange(h) * resolution, np.arange(w) * resolution, indexing="ij")
+    vertices = np.stack([xx.ravel(), yy.ravel(), dem.ravel()], axis=-1)
+    idx = np.arange(h * w).reshape(h, w)
+    a, b = idx[:-1, :-1].ravel(), idx[:-1, 1:].ravel()
+    c, d = idx[1:, :-1].ravel(), idx[1:, 1:].ravel()
+    tris = np.concatenate([np.stack([a, b, c], axis=-1), np.stack([b, d, c], axis=-1)], axis=0)
+    return vertices, tris

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core.device import run_device
 from .craters import (
     CraterField,
     CraterProfiles,
@@ -138,10 +139,11 @@ class TerrainStreamer:
             lr_dem: (H, W) low-resolution source DEM (meters), row = x.
             lr_center: world coordinate of the LR DEM center.
             device: where the LR DEM, the profile tables, the block cache
-                and the window live.
+                and the window live (default: the card, see
+                :func:`..core.device.run_device`).
         """
         self.conf = conf
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = run_device(device)
         self.lr_dem = torch.as_tensor(np.asarray(lr_dem), dtype=torch.float32,
                                       device=self.device)
         self.lr_center = lr_center

@@ -27,6 +27,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
+from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
 from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
 from husky_rover_mppi_isaacsim_torch.mppi import evaluation as tev
 from husky_rover_mppi_isaacsim_torch.mppi.critics import CriticWeights
@@ -202,7 +203,7 @@ def test_episode_protocol_matches_jax():
     got = tev.run_2d_vs_3d_experiment(
         ks=(K,), runs_per_arm=RUNS, horizon=H, max_loops=max_loops, half_width=HW,
         grid_size=200, costmap_size=100, seed=seed, span_fraction=span,
-        dtype=torch.float64, noise=_port_noise(noises))
+        dtype=torch.float64, device="cpu", noise=_port_noise(noises))
 
     jhf = JHeightField.create(crater_surface(200, HW, STANDALONE_CRATER_BUMPS,
                                              dtype=jnp.float64), HW, dtype=jnp.float64)
@@ -260,7 +261,7 @@ def test_thesis_protocol_matches_jax(monkeypatch):
     got = tev.run_thesis_protocol_experiment(
         ks=(K,), runs_per_arm=RUNS, horizon=H, max_loops=max_loops, half_width=HW,
         seed=seed, terrain_seed=terrain_seed, dtype=torch.float64,
-        noise=_port_noise(noises), base_noise=base_noise)
+        device="cpu", noise=_port_noise(noises), base_noise=base_noise)
 
     z = thesis_statistics_terrain(seed=terrain_seed, size_m=2 * HW)
     jhf = JHeightField.create(jnp.asarray(z, jnp.float64), HW, dtype=jnp.float64)
@@ -322,7 +323,7 @@ def test_cli_evaluation_prints_the_jax_keys(capsys):
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 1
     got = json.loads(lines[0])
-    want = json.loads(json.dumps(jcli.run_evaluation(cli.parse_overrides(args))))
+    want = json.loads(json.dumps(jcli.run_evaluation(apply_overrides({}, args))))
     assert set(got) == set(want) | {"device"} and got["device"] == "cpu"
     assert got["mode"] == "evaluation" and got["config"] == want["config"]
     g, w = got["per_k"]["8"], want["per_k"]["8"]
@@ -333,7 +334,7 @@ def test_cli_evaluation_prints_the_jax_keys(capsys):
 
 def test_cli_thesis_protocol_refuses_five_runs():
     args = ["mode=evaluation", "evaluation.protocol=thesis", "evaluation.runs_per_arm=5"]
-    for main in (cli.main, lambda a: jcli.run_evaluation(cli.parse_overrides(a))):
+    for main in (cli.main, lambda a: jcli.run_evaluation(apply_overrides({}, a))):
         with pytest.raises(SystemExit, match="drop-5-greatest"):
             main(args + ["device=cpu"])
 

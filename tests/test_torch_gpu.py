@@ -5,7 +5,9 @@ the kernels of one control step, the control step and the closed-loop step
 on the card against the same steps on the CPU, the thesis DEM's repeatable
 build, the evaluation's kernel launches, and the streamed loop's sizes: K1 on
 a 7000 x 7000 DEM, K2 at 875 x 875, a small streamed traverse (pipelined,
-its worker on a side stream), and the wheel-track deformation stamp.
+its worker on a side stream), and the wheel-track deformation stamp; the
+CLI's slice: K1 on the 4000 x 4000 yard DEM, an SDG capture on the card
+against the CPU's.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -495,3 +497,72 @@ def test_deformation_stamp_on_card_is_deterministic_and_matches_cpu(cuda):
     assert torch.equal(outs[0][0], outs[1][0]) and torch.equal(outs[0][1], outs[1][1])
     assert float((outs[0][0] - outs[2][0]).abs().max()) <= 1e-6
     assert torch.equal(outs[0][1], outs[2][1]) and int(outs[0][1].max()) >= 2
+
+
+def test_k1_on_the_yard_dem_matches_plain_on_card(cuda):
+    """``environment=lunaryard_80m``'s world on the card: a 4000^2 DEM at
+    0.02 m/px (64 MB, not resident in L2) and a free costmap; K1 bit-equal
+    to its plain version in the middle, at the start of the yard goal-seek
+    and running off the yard's corner."""
+    from husky_rover_mppi_isaacsim_torch import cli
+
+    tree = cli.compose(["environment=lunaryard_80m"])
+    hf, cm, _ = cli.build_standalone_world(cli.world_tree(tree), device=cuda,
+                                           moonyard=cli.moonyard_section(tree))
+    assert hf.z.shape == (4000, 4000) and hf.z.is_cuda and not cm.cost.any()
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for k, wheels in ((1000, True), (1, False)):
+        lin = torch.rand((k, 100), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((k, 100), generator=gen, device=cuda) * 2.0 - 1.0
+        for pos in ((0.0, 0.0), (-30.0, -30.0), (39.6, -39.7)):
+            p = torch.tensor(pos, device=cuda)
+            h = torch.tensor((1.0, 0.5, 0.0), device=cuda)
+            got = rollout_25d_cuda(hf, p, h, lin, ang, 0.045, wheels=wheels)
+            want = tro.rollout_25d(hf, p, h, lin, ang, 0.045, wheels=wheels)
+            torch.cuda.synchronize()
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), pos
+
+
+def test_sdg_capture_on_card_matches_cpu(cuda, tmp_path):
+    """One SDG capture (top-down with the path-tracing effects, camera with
+    rocks and cast shadows) of the same DEM and draws on the card and on the
+    CPU, at the tolerances of tests/test_torch_labeling.py: the height map
+    and the top-down classes equal, the effected rgb to 1e-4 (the warp's
+    coordinates round differently), hits, classes and instances equal on
+    >= 99.99% of the pixels, depths to 1e-5 (terrain) / 1e-3 (rocks)."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch import cli
+    from husky_rover_mppi_isaacsim_torch.aux import labeling as lab
+    from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
+    from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
+
+    settings = cli.render_settings_from_cfg(cli.compose(["rendering=path_tracing"]))
+    dem = MoonyardGenerator(MoonyardConf(), device=cuda).randomize()
+    rng = np.random.default_rng(3)
+    xy, r = hardcore_poisson(rng, BoundingBox(0.0, 10.0, 0.0, 10.0), (0.08,), ((0.08, 0.4),))
+    sun, cam_xy = (-0.55, 0.4, 0.35), (3.0, 4.0)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        labeler = lab.AutonomousLabeling(lab.LabelingConf(data_dir=str(tmp_path / dev.type)),
+                                         settings)
+        z = dem.to(dev)
+        top = labeler.record(z, 0.02, sun_direction=sun, rock_xy=xy, rock_radius=r)
+        cam = labeler.record_camera(z, 0.02, (0.0, 0.0), cam_xy, (0.6, 0.8),
+                                    float(z[150, 200]), lab.CameraIntrinsics(160, 120),
+                                    sun_direction=sun, rock_xy=xy, rock_radius=r, steps=128,
+                                    cast_shadows=True, frame=0)
+        outs[dev.type] = top, {k: v.cpu().numpy() for k, v in cam.items()}
+    (top_c, cam_c), (top_h, cam_h) = outs["cuda"], outs["cpu"]
+    assert np.array_equal(top_c["depth"], top_h["depth"])
+    assert np.array_equal(top_c["semantic"], top_h["semantic"]) and (top_h["semantic"] == 2).any()
+    assert np.abs(top_c["rgb"] - top_h["rgb"]).max() <= 1e-4
+    for k in ("hit", "semantic", "instance"):
+        assert (cam_c[k] == cam_h[k]).mean() >= 0.9999, k
+    both = (cam_c["instance"] == cam_h["instance"]) & np.isfinite(cam_h["depth"]) \
+        & np.isfinite(cam_c["depth"])
+    for sel, rtol in ((both & (cam_h["instance"] == 0), 1e-5),
+                      (both & (cam_h["instance"] > 0), 1e-3)):
+        np.testing.assert_allclose(cam_c["depth"][sel], cam_h["depth"][sel], rtol=rtol)
+    assert cam_h["hit"].mean() > 0.3

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
+from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
 from husky_rover_mppi_isaacsim_torch.env import frames as tframes
 from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
 from husky_rover_mppi_isaacsim_torch.env.closed_loop import ClosedLoopConfig as TLoopConfig
@@ -337,13 +338,18 @@ def test_unported_options_raise_by_name(option, tmp_path):
         assert int(loop.pass_counts.sum()) == 2 * 4 * loop.deform_engine.profile.shape[0]
 
 
+# the streamed terrain cut to a tiny size, in the environment group's
+# largescale section (a top-level `largescale.*` key loses to that section,
+# as in the JAX CLI)
+TINY_TERRAIN = dict(block_size=10, hr_dem_resolution=0.1, lr_pixel_size=2, hr_dem_num_blocks=1,
+                    crater_gen_padding=2, update_every_n_meters=0.25,
+                    geo_cm_num_texels_per_level=8, geo_cm_num_lods=3,
+                    terrain_collider_resolution=0.5, terrain_collider_build_radius=6,
+                    rock_block_span=1)
 TINY_CLI = [
-    "mode=largescale", "device=cpu", "largescale.block_size=10", "largescale.hr_dem_resolution=0.1",
-    "largescale.lr_pixel_size=2", "largescale.hr_dem_num_blocks=1",
-    "largescale.crater_gen_padding=2", "largescale.update_every_n_meters=0.25",
-    "largescale.geo_cm_num_texels_per_level=8", "largescale.geo_cm_num_lods=3",
-    "largescale.terrain_collider_resolution=0.5", "largescale.terrain_collider_build_radius=6",
-    "largescale.rock_block_span=1", "mppi.num_samples=16", "mppi.horizon=12",
+    "mode=largescale", "device=cpu",
+    *(f"environment.largescale.{k}={v}" for k, v in TINY_TERRAIN.items()),
+    "mppi.num_samples=16", "mppi.horizon=12",
     "start.x=9.7", "start.y=1", "goal.x=45", "goal.y=8", "max_steps=24",
 ]
 
@@ -387,7 +393,7 @@ def test_cli_builds_the_jax_configuration():
     """``largescale_conf`` reads the JAX ``run_largescale``'s keys as it
     does: the JAX defaults, a deformation engine at the window's resolution,
     the checkpoint keys."""
-    tree = cli.parse_overrides(TINY_CLI + ["deformation.enable=true", "checkpoint.path=a.ckpt",
+    tree = apply_overrides({}, TINY_CLI + ["deformation.enable=true", "checkpoint.path=a.ckpt",
                                            "checkpoint.every_steps=12"])
     conf = cli.largescale_conf(tree)
     jconf = jls.LargeScaleLoopConf()

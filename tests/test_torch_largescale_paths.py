@@ -59,7 +59,7 @@ def test_prestage_hits_verify_and_changes_no_path():
     the loop, and the staged window is swapped in), K2's builds add up,
     and the same traverse without pre-staging takes the same path and ends
     in the same state, bit for bit."""
-    staged = tls.LargeScaleClosedLoop(conf(verify_prestage=True))
+    staged = tls.LargeScaleClosedLoop(conf(verify_prestage=True), device="cpu")
     res = staged.run()
     assert res.reached and res.block_shifts == 1
     assert (res.prestage_hits, res.prestage_misses) == (1, 0)
@@ -67,7 +67,7 @@ def test_prestage_hits_verify_and_changes_no_path():
     assert streamer.staged_shift_hits == streamer.staged_shift_verified == 1
     assert staged.costmap_builds == {"first": 1, "staged": 1, "miss": 0, "verify": 1}
     assert_seated_costmaps_equal_rebuilds(staged)
-    plain = tls.LargeScaleClosedLoop(conf(prestage_shifts=False))
+    plain = tls.LargeScaleClosedLoop(conf(prestage_shifts=False), device="cpu")
     ref = plain.run()
     assert (ref.prestage_hits, ref.prestage_misses) == (0, 1)
     np.testing.assert_array_equal(res.path_world, ref.path_world)
@@ -81,7 +81,7 @@ def test_pipelined_loop_reaches_the_goal_with_rebuilt_costmaps():
     """``pipeline_depth=2``: the rover reaches the goal across the shift,
     the terrain worker staged it, and every costmap the main thread seated
     from a worker's event equals its synchronous build."""
-    loop = tls.LargeScaleClosedLoop(conf(pipeline_depth=2))
+    loop = tls.LargeScaleClosedLoop(conf(pipeline_depth=2), device="cpu")
     res = loop.run()
     assert res.reached and res.block_shifts == 1 and res.prestage_hits == 1
     assert len(loop.costmap_log) == 2 and loop.costmap_log[1][1] is loop.costmap
@@ -95,7 +95,7 @@ def test_pipelined_loop_reaches_the_goal_with_rebuilt_costmaps():
 def test_pipelined_worker_error_surfaces():
     """A failure inside the terrain worker thread surfaces from ``run()``
     (tests/test_largescale_loop.py:391-409), within a bound."""
-    loop = tls.LargeScaleClosedLoop(conf(pipeline_depth=2))
+    loop = tls.LargeScaleClosedLoop(conf(pipeline_depth=2), device="cpu")
 
     def boom(_local):
         raise RuntimeError("cascade exploded")

@@ -31,12 +31,12 @@ def test_synchronous_resume_is_bit_identical(tmp_path, deform):
     counts), the control noise generator's state included
     (tests/test_largescale_loop.py:302, :330)."""
     kw = dict(deform=deform_conf()) if deform else {}
-    full = tls.LargeScaleClosedLoop(conf(**kw))
+    full = tls.LargeScaleClosedLoop(conf(**kw), device="cpu")
     res_full = full.run()
     assert res_full.block_shifts == 1 and res_full.steps > CUT
     ck = tmp_path / "ck.ckpt"
     part = tls.LargeScaleClosedLoop(conf(max_steps=CUT, checkpoint_path=str(ck),
-                                         checkpoint_every_steps=CUT, **kw))
+                                         checkpoint_every_steps=CUT, **kw), device="cpu")
     res_part = part.run()
     assert res_part.block_shifts == 1, "the checkpoint must come after the shift"
     assert set(tckpt.leaf_shapes(ck)) >= {"generator", "state/rovers/position", "costmap/cost"}
@@ -60,7 +60,7 @@ def test_deformed_traverse_lowers_the_terrain_under_the_track():
     lowers the window, most of it stays as it was, and the controller's
     heightfield is the deformed window; the pass counts roll with the
     window at the shift."""
-    loop = tls.LargeScaleClosedLoop(conf(deform=deform_conf(), pipeline_depth=4))
+    loop = tls.LargeScaleClosedLoop(conf(deform=deform_conf(), pipeline_depth=4), device="cpu")
     streamer = loop.lstm.map_manager.streamer
     before = streamer.window.clone()
     anchor0 = streamer.anchor

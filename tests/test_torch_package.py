@@ -1,6 +1,7 @@
-"""PyTorch port: the package never imports jax, the CLI's standalone run and
-its device rule, the JAX-state converters and the kernel build's refusal
-without nvcc."""
+"""PyTorch port: the package never imports jax (nor PyYAML, which the card's
+machine lacks), the CLI's standalone run and the device rule of every entry
+point, the JAX-state converters and the kernel build's refusal without
+nvcc."""
 
 import json
 import subprocess
@@ -13,7 +14,16 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
+from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
+from husky_rover_mppi_isaacsim_torch.core.device import run_device
+from husky_rover_mppi_isaacsim_torch.env.largescale_loop import (
+    LargeScaleClosedLoop,
+    LargeScaleLoopConf,
+)
+from husky_rover_mppi_isaacsim_torch.mppi import evaluation
 from husky_rover_mppi_isaacsim_torch.ops import cuda_build
+from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
+from husky_rover_mppi_isaacsim_torch.terrain.streaming import StreamerConf, TerrainStreamer
 from husky_rover_mppi_isaacsim_tpu import cli as jcli
 
 # small tensors: one intra-op thread each, so that the test workers running
@@ -25,11 +35,15 @@ REPO = Path(__file__).resolve().parents[1]
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None  # any `import jax` now raises
+sys.modules["yaml"] = None  # and any `import yaml`
 import husky_rover_mppi_isaacsim_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
-leaked = [m for m in sys.modules if m.startswith(("jax", "husky_rover_mppi_isaacsim_tpu"))
+from husky_rover_mppi_isaacsim_torch import cli
+tree = cli.compose(["mode=sdg", "environment=lunalab4SDG", "rendering=path_tracing"])
+assert type(tree["mppi"]).__name__ == "MPPIConfig" and tree["sdg"]["num_images"] == 10
+leaked = [m for m in sys.modules if m.startswith(("jax", "yaml", "husky_rover_mppi_isaacsim_tpu"))
           and sys.modules[m] is not None]
 print(len(names), leaked, ",".join(names))
 """
@@ -45,27 +59,45 @@ SLICE_5 = ("env.frames", "env.largescale_loop", "terrain.database", "terrain.str
            "terrain.orchestrator")
 # the rest of the streamed-terrain loop: deformation and checkpoints
 SLICE_6 = ("physics", "physics.deformation", "aux", "aux.checkpoint")
+# the CLI as run.py runs it: the configuration tree, SDG, terramechanics
+SLICE_7 = ("core.device", "utils", "utils.timer", "aux.stellar", "aux.yaml_reader", "aux.config",
+           "aux.render_fx", "aux.labeling", "physics.terramechanics")
 
 
 def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 39 and out[1] == "[]", out
+    assert int(out[0]) >= 48 and out[1] == "[]", out
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
-               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6), names
+               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7), names
+
+
+def test_chip_smoke_imports_neither_jax_nor_yaml():
+    """Every import statement of chip_smoke.py (most sit inside ``main``,
+    after the card check) names neither jax, PyYAML nor the JAX package:
+    the card's machine has none of them."""
+    import ast
+
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "husky_rover_mppi_isaacsim_torch.cli" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "yaml",
+                                                          "husky_rover_mppi_isaacsim_tpu")]
 
 
 def test_parse_overrides_and_config():
-    tree = cli.parse_overrides(["mode=standalone", "mppi.num_samples=64", "mppi.exact=true",
+    tree = apply_overrides({}, ["mode=standalone", "mppi.num_samples=64", "mppi.exact=true",
                                 "goal.x=4.5", "mppi.limits.v_max=1.5"])
     assert tree == {"mode": "standalone", "goal": {"x": 4.5},
                     "mppi": {"num_samples": 64, "exact": True, "limits": {"v_max": 1.5}}}
     cfg = cli.mppi_config(tree["mppi"])
     assert cfg.num_samples == 64 and cfg.exact and cfg.limits.v_max == 1.5
-    assert cli.main(["mode=sdg"]) == 2
-    with pytest.raises(SystemExit):
-        cli.parse_overrides(["mode"])
+    assert cli.mppi_config(cfg) is cfg
+    assert cli.main(["mode=no_such_mode"]) == 2
+    with pytest.raises(ValueError, match="key=value"):
+        apply_overrides({}, ["mode"])
 
 
 def test_standalone_world_matches_jax_at_reduced_size():
@@ -93,7 +125,7 @@ def test_run_standalone_cli_small(capsys):
     assert res["final_position"] != [-3.0, -2.0]
 
 
-@pytest.mark.parametrize("mode", ["standalone", "evaluation", "closed_loop", "largescale"])
+@pytest.mark.parametrize("mode", ["standalone", "evaluation", "closed_loop", "largescale", "sdg"])
 def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
     """With no ``device`` key the CLI asks for the card; where there is
     none it raises, and only ``device=cpu`` runs on the CPU."""
@@ -101,7 +133,30 @@ def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
     for extra in ([], ["device=cuda"], ["device=cuda:0"]):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cli.main([f"mode={mode}", *extra])
-    assert cli.run_device({"device": "cpu"}) == torch.device("cpu")
+    assert run_device("cpu") == torch.device("cpu")
+
+
+ENTRY_POINTS = {
+    "LargeScaleClosedLoop": lambda: LargeScaleClosedLoop(LargeScaleLoopConf()),
+    "LargeScaleClosedLoop.resume": lambda: LargeScaleClosedLoop.resume(LargeScaleLoopConf(),
+                                                                        "none.ckpt"),
+    "run_2d_vs_3d_experiment": lambda: evaluation.run_2d_vs_3d_experiment(ks=(8,)),
+    "run_thesis_protocol_experiment": lambda: evaluation.run_thesis_protocol_experiment(
+        ks=(8,)),
+    "TerrainStreamer": lambda: TerrainStreamer(StreamerConf(), np.zeros((4, 4))),
+    "MoonyardGenerator": lambda: MoonyardGenerator(MoonyardConf()),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(ENTRY_POINTS))
+def test_entry_points_run_on_the_card_by_default(monkeypatch, entry):
+    """Given no device, each library entry point asks for the card and
+    raises where there is none, before any work; the CPU runs only when
+    named (tests pass ``device="cpu"``)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ENTRY_POINTS[entry]()
+    assert MoonyardGenerator(MoonyardConf(), device="cpu").device == torch.device("cpu")
 
 
 def test_converters_keep_values_and_dtypes():

@@ -118,7 +118,7 @@ def test_thesis_statistics_terrain_matches_jax_with_injected_noise():
     noise = _jax_base_noise(42, (4, 4), -1.2, 1.2)
     assert [tuple(t.shape) for t in noise] == list(tss.base_noise_shapes())
     got = tss.thesis_statistics_terrain(seed=42, size_m=20.0, base_noise=noise,
-                                        dtype=torch.float64)
+                                        dtype=torch.float64, device="cpu")
     want = np.asarray(jss.thesis_statistics_terrain(seed=42, size_m=20.0))
     assert got.dtype == torch.float64 and got.shape == want.shape == (200, 200)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=CRATER_ATOL)
@@ -135,7 +135,7 @@ def test_moonyard_generator_matches_jax_with_injected_noise(kind):
                              is_lab=kind == "lab", is_yard=kind == "yard")
     low_shape = tss.base_noise_shapes(conf.is_lab, conf.is_yard)[0]
     noise = _jax_base_noise(5, low_shape, conf.base.min_elevation, conf.base.max_elevation)
-    got = tss.MoonyardGenerator(conf, dtype=torch.float64).randomize(noise)
+    got = tss.MoonyardGenerator(conf, dtype=torch.float64, device="cpu").randomize(noise)
     want = np.asarray(jss.MoonyardGenerator(jconf).randomize())
     assert got.shape == want.shape == (200, 150)
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=CRATER_ATOL)
