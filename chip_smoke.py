@@ -18,7 +18,13 @@ each (a K1 call dispatches no torch operator but the output's empty); drives
 the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on the 150 m
 crater map with the 750-obstacle costmap), the CLI's default closed loop (4
 rovers, 300 sim steps, the same world and widths) and 4096 simulated rovers
-for 400 physics steps; runs the thesis 2D-vs-3D evaluation protocol at full
+for 400 physics steps; drives the host shell's SimulationManager (5 robot
+slots, 300 ticks over its message bus: spawns, a teleport, a reset, a pose
+subscriber; its first ticks on the card against the CPU's), the
+MPPIController's run on the flagship (its step bit-equal to mppi_step), and
+the sharded step on torch.distributed ranks in their own processes (one
+NCCL rank bit-equal to mppi_step, two gloo ranks sharing the card, the
+rover x sample meshes, the scaling sweep's report); runs the thesis 2D-vs-3D evaluation protocol at full
 width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
 most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
 timed alone; runs K3's probe entry point; and drives the streamed-terrain
@@ -63,6 +69,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -89,6 +96,15 @@ DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
 # (which excludes what earlier phases still hold)
 UNSTAGED_TRAVERSE_PEAK_BYTES = 1.71e9
 VEC_ROVERS, VEC_STEPS = 4096, 400   # bench.py's vec-env shapes
+# the simulation manager's run: 5 robot slots (3 robots spawned over the
+# bus), 300 ticks timed in windows of 30, its first 5 ticks against the CPU;
+# the teleport target of tick 100
+SIM_SLOTS, SIM_TICKS, SIM_WINDOW, SIM_CHECK = 5, 300, 30, 5
+SIM_SPAWNS = {"husky_0": START, "husky_1": (-40.0, 30.0), "husky_2": (35.0, -40.0)}
+SIM_TELEPORT = (0.0, -20.0)
+# the 2-rank sharded step's optimal inputs against the unsharded step's: the
+# weighted sums are float32 sums of 500 + 500 terms against one of 1000
+SHARD_U_ATOL = 1e-5
 # mode=sdg as cfg/mode/sdg.yaml has it, its commented camera block switched
 # on; the frames go to the checkout's ignored build/ directory
 SDG_FRAMES = 10
@@ -188,6 +204,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.mppi import (
         ControllerState,
         MPPIConfig,
+        MPPIController,
         RobotState,
         goal_seek_recorded,
         kinematic_advance,
@@ -213,6 +230,11 @@ def main(argv=None) -> int:
         graph_ms,
     )
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
+    from husky_rover_mppi_isaacsim_torch.shell import (
+        SimulationManager,
+        SimulationManagerConf,
+        Topics,
+    )
     from husky_rover_mppi_isaacsim_torch.terrain import (
         STANDALONE_CRATER_BUMPS,
         costmap_750,
@@ -224,6 +246,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
     from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
     from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
+    from shard_ranks import run_ranks
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
@@ -1103,7 +1126,7 @@ def main(argv=None) -> int:
             d = torch.sqrt(edt_exact_sq_plain(occ))
             (1.0 - normalize_minmax(d)) ** 20.0
         else:
-            costmap_750(size=size, device=cuda)
+            costmap_750(size=size, use_exact_edt=True, device=cuda)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -1311,6 +1334,236 @@ def main(argv=None) -> int:
     if not (vec_finite and vec_close):
         raise RuntimeError("the vectorized env on the card disagrees with the CPU's")
 
+    # 7d. the host shell's SimulationManager on the flagship world: 5 robot
+    #     slots at ClosedLoopConfig() (K=1000 x H=100). First its first
+    #     SIM_CHECK ticks on the card against the same ticks on the CPU, the
+    #     same noise injected, at the closed-loop step's card-vs-CPU
+    #     tolerances (phase 6b); then SIM_TICKS ticks driven over its bus (3
+    #     spawns before tick 0, a teleport at tick 100, a reset at tick 200,
+    #     a POSE_STATE subscriber over the last 10 ticks), timed in windows of
+    #     SIM_WINDOW ticks, every tick without a subscriber under
+    #     set_sync_debug_mode("error"): 2 K1 launches a tick
+    sim_conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig())
+    sim_goals = np.array([GOAL, (40.0, -30.0), (-35.0, 40.0), (0.0, 0.0), (0.0, 0.0)])
+    hf_cpu, cm_cpu = HeightField(*(t.cpu() for t in hf)), type(cm)(*(t.cpu() for t in cm))
+
+    def sim_manager(dev, hf_, cm_):
+        sm = SimulationManager(sim_conf, hf_, cm_, tenv.RobotManager(SIM_SLOTS), sim_goals,
+                               device=dev)
+        for name, pos in SIM_SPAWNS.items():
+            sm.bus.publish(Topics.ROBOT_SPAWN, {"name": name, "position": pos,
+                                                "heading": HEADING})
+        sm.apply_modifications()
+        return sm
+
+    sim_noise = torch.randn((SIM_CHECK, SIM_SLOTS, 2, K, H),
+                            generator=torch.Generator().manual_seed(5))
+    card_states, cpu_states = [], []
+    with sim_manager(cuda, hf, cm) as card_sm, sim_manager(cpu, hf_cpu, cm_cpu) as cpu_sm:
+        card_noise = sim_noise.to(cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")  # a host sync inside a tick raises
+        try:
+            for i in range(SIM_CHECK):
+                card_states.append(card_sm.step(noise=card_noise[i]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for i in range(SIM_CHECK):
+            cpu_states.append(cpu_sm.step(noise=sim_noise[i]))
+    sim_diffs, sim_ok = [], True
+    for got, want in zip(card_states, cpu_states):
+        d = {"v": (v(got).cpu() - v(want)).abs().max().item(),
+             "omega": (w(got).cpu() - w(want)).abs().max().item(),
+             "optimal_u": max((a.cpu() - b).abs().max().item()
+                              for a, b in zip(got.ctrl[:2], want.ctrl[:2])),
+             "rover_state": max((a.cpu() - b).abs().max().item()
+                                for a, b in zip(got.rovers, want.rovers))}
+        v_ref, w_ref = v(want).abs().max().item(), w(want).abs().max().item()
+        sim_ok = sim_ok and (d["v"] <= 1e-5 + 1e-4 * v_ref and d["omega"] <= 1e-4 + 1e-4 * w_ref
+                             and d["optimal_u"] <= 1e-3 and d["rover_state"] <= 1e-3)
+        sim_diffs.append(d)
+
+    seen, flushed, windows = [], {}, []
+    sm = sim_manager(cuda, hf, cm)
+    try:
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
+        for w0 in range(0, SIM_TICKS, SIM_WINDOW):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for tick in range(w0, w0 + SIM_WINDOW):
+                if tick == 100:
+                    sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "husky_1",
+                                                           "position": SIM_TELEPORT,
+                                                           "heading": (0.0, 1.0, 0.0)})
+                if tick == 200:
+                    sm.bus.publish(Topics.ROBOT_RESET, {"name": "husky_0"})
+                if tick == SIM_TICKS - 10:
+                    sm.bus.subscribe(Topics.POSE_STATE, seen.append)
+                quiet = not sm.bus.has_subscribers(Topics.POSE_STATE)
+                if quiet:
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    state = sm.step()
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                if tick in (100, 200):
+                    flushed[tick] = state  # read back after the timed run
+            torch.cuda.synchronize()
+            windows.append(1e3 * (time.perf_counter() - t0) / SIM_WINDOW)
+        sim_k1, sim_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+    finally:
+        sm.close()
+    teleported = sm.robots.pose(flushed[100].rovers, "husky_1")
+    reset = sm.robots.pose(flushed[200].rovers, "husky_0")
+    sim_finite = all(bool(torch.isfinite(t).all()) for t in sm.state.rovers + sm.state.ctrl)
+    med = float(np.median(windows))
+    pose_ok = (np.array_equal(teleported[0], np.float32(SIM_TELEPORT))
+               and np.array_equal(reset[0], np.float32(START))
+               and len(seen) == 10 and all(m["positions"].shape == (SIM_SLOTS, 2) for m in seen))
+    phase("sim_manager", slots=SIM_SLOTS, robots=len(sm.robots.names), K=K, H=H,
+          ticks=SIM_TICKS, k1_launches=sim_k1, k1_expected=2 * SIM_TICKS, k2_launches=sim_k2,
+          ms_per_sim_step={"min": min(windows), "median": med, "max": max(windows),
+                           "spread": (max(windows) - min(windows)) / med,
+                           "windows": windows, "window_ticks": SIM_WINDOW},
+          teleported_slot_pose={"position": teleported[0].tolist(), "z": teleported[1],
+                                "heading": teleported[2].tolist()},
+          reset_slot_position=reset[0].tolist(), pose_messages=len(seen),
+          final_positions=sm.state.rovers.position.tolist(), finite=sim_finite,
+          card_vs_cpu_ticks=SIM_CHECK, card_vs_cpu_max_abs_diff=sim_diffs, card_vs_cpu_ok=sim_ok)
+    if not (sim_ok and sim_finite and pose_ok):
+        raise RuntimeError("the simulation manager on the card disagrees with the CPU's, left a "
+                           "non-finite state or did not apply its bus requests")
+    if sim_k1 != 2 * SIM_TICKS:
+        raise RuntimeError(f"K1 ran {sim_k1} times in {SIM_TICKS} simulation-manager ticks")
+
+    # 7e. MPPIController (the reference controller's surface) on the flagship:
+    #     step(noise=) bit-equal to mppi_step, then run() (-45, -40) -> (45,
+    #     40), its noise from the controller's seed stream (not goal_seek's:
+    #     its loop count is its own), one host sync a loop
+    check = MPPIController(cfg, hf, cm, GOAL, seed=42)
+    r0 = RobotState.create(*START, HEADING, device=cuda)
+    c0 = ControllerState.create(cfg, device=cuda)
+    got = check.step(r0, c0, noise.to(cuda))
+    want = mppi_step(cfg, hf, cm, goal, r0, c0, noise.to(cuda))
+    ctl_step_equal = all(torch.equal(a, b) for a, b in zip(got[0] + got[1][:-1],
+                                                           want[0] + want[1][:-1]))
+    ctl = MPPIController(cfg, hf, cm, GOAL, seed=42)
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
+    t0 = time.perf_counter()
+    final, _, ctl_path = ctl.run(r0, max_loops=3500)
+    torch.cuda.synchronize()
+    ctl_wall = time.perf_counter() - t0
+    ctl_k1 = rollout_25d_cuda.launches
+    ix, iy = costmap_cells(ctl_path, cm)
+    ctl_cost = grid_lookup(cm.cost, ix, iy)
+    ctl_reached = bool((torch.abs(final.position - goal) <= 0.5).all())
+    ctl_finite = bool(torch.isfinite(ctl_path).all())
+    ctl_collisions = int((ctl_cost > 0.99).sum())
+    phase("mppi_controller", reached=ctl_reached, loops=ctl.loop, k1_launches=ctl_k1,
+          k1_expected=2 * ctl.loop, collisions=ctl_collisions,
+          max_path_cost=ctl_cost.max().item(), final_position=final.position.tolist(),
+          wall_s=ctl_wall, ms_per_loop=1e3 * ctl_wall / max(ctl.loop, 1),
+          step_equals_mppi_step=ctl_step_equal, finite=ctl_finite)
+    if not (ctl_step_equal and ctl_finite and ctl_reached and ctl_collisions == 0):
+        raise RuntimeError("MPPIController.step differs from mppi_step on the card, or its run "
+                           "did not reach the goal cleanly")
+    if ctl_k1 != 2 * ctl.loop or ctl_k1 == 0:
+        raise RuntimeError(f"K1 ran {ctl_k1} times in {ctl.loop} controller loops")
+
+    # 7f. the sharded step on torch.distributed ranks, each its own process
+    #     on the card (K=1000 x H=100, the flagship world): one NCCL rank,
+    #     bit-equal to mppi_step; two gloo ranks sharing the card (500
+    #     samples each; costs and weights equal to mppi_step's rows, the
+    #     optimal inputs within SHARD_U_ATOL, the optimal rollout within
+    #     1e-3); the multi-rover step of the 4 closed-loop rovers on meshes
+    #     (2, 1) and (1, 2) against one-rover mppi_step (costs equal: a
+    #     sample's cost does not depend on its shard; the rest at phase 6b's
+    #     batched tolerances); and scaling_sweep([1, 2]) with its report (the ranks
+    #     share one card: no scaling claim)
+    ctrl_rovers = ControllerState(torch.zeros((ROVERS, H)), torch.zeros((ROVERS, H)),
+                                  torch.full((ROVERS,), 0.25), torch.full((ROVERS,), 0.25))
+    head = torch.tensor(HEADING) / torch.linalg.norm(torch.tensor(HEADING))
+    robots_rovers = RobotState(torch.tensor(starts, dtype=torch.float32), torch.zeros(ROVERS),
+                               head.repeat(ROVERS, 1), torch.zeros(ROVERS), torch.zeros(ROVERS))
+    shard_job = dict(hf=hf_cpu, costmap=cm_cpu, goal=torch.tensor(GOAL),
+                     robot=RobotState(*(t.cpu() for t in r0)),
+                     ctrl=ControllerState(*(t.cpu() for t in c0)), noise=noise,
+                     goals=torch.tensor(goals_np, dtype=torch.float32), robots=robots_rovers,
+                     ctrls=ctrl_rovers, rover_noise=cl_noise)
+    sample_case = {"kind": "sample", "config": cfg}
+    BUILD.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        report_path = Path(tmp) / "scaling.json"
+        t0 = time.perf_counter()
+        (one,), = run_ranks({**shard_job, "cases": [sample_case]}, 1, Path(tmp) / "one",
+                            backend="nccl", device="cuda", timeout_s=300)
+        one_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        two = run_ranks({**shard_job, "cases": [
+            sample_case,
+            {"kind": "multi_rover", "config": cfg, "mesh": (2, 1)},
+            {"kind": "multi_rover", "config": cfg, "mesh": (1, 2)},
+            {"kind": "sweep", "config": cfg, "counts": [1, 2], "iters": 10,
+             "report": str(report_path),
+             "note": "2 gloo ranks sharing one card: a check that the sweep runs"}]},
+            2, Path(tmp) / "two", backend="gloo", device="cuda", timeout_s=400)
+        two_s = time.perf_counter() - t0
+        report = json.loads(report_path.read_text())
+    ref_ctrl, ref_out = (type(part)(*(t.cpu() if t is not None else None for t in part))
+                         for part in mppi_step(cfg, hf, cm, goal, r0, c0, noise.to(cuda)))
+    one_equal = all(torch.equal(a, b) for a, b in zip(one["ctrl"] + one["out"][:-1],
+                                                      ref_ctrl + ref_out[:-1]))
+    shards = [r[0] for r in two]
+    two_costs_equal = torch.equal(torch.cat([s["out"].costs for s in shards]), ref_out.costs)
+    two_weights_equal = torch.equal(torch.cat([s["out"].weights for s in shards]),
+                                    ref_out.weights)
+    two_diff = {"optimal_u": max((a - b).abs().max().item() for s in shards
+                                 for a, b in zip(s["ctrl"][:2], ref_ctrl[:2])),
+                "optimal_trajectory": max((s["out"].optimal_trajectory
+                                           - ref_out.optimal_trajectory).abs().max().item()
+                                          for s in shards)}
+    two_ok = (two_costs_equal and two_weights_equal and two_diff["optimal_u"] <= SHARD_U_ATOL
+              and two_diff["optimal_trajectory"] <= 1e-3)
+    rover_ref = [mppi_step(cfg, hf, cm, goals_d[n],
+                           RobotState(*(t[n].to(cuda) for t in robots_rovers)),
+                           ControllerState(*(t[n].to(cuda) for t in ctrl_rovers)), noise_d[n])[1]
+                 for n in range(ROVERS)]
+    multi = {}
+    for case, mesh_shape in ((1, (2, 1)), (2, (1, 2))):
+        rs, ss = mesh_shape
+        diff = {"costs": 0.0, "weights": 0.0, "optimal_trajectory": 0.0, "linear_velocity": 0.0}
+        for n in range(ROVERS):
+            ranks = [(n // (ROVERS // rs)) * ss + j for j in range(ss)]
+            local = n % (ROVERS // rs)
+            outs = [two[r][case]["out"] for r in ranks]
+            for f in ("costs", "weights"):
+                got = torch.cat([getattr(o, f)[local] for o in outs])
+                diff[f] = max(diff[f], (got - getattr(rover_ref[n], f).cpu()).abs().max().item())
+            for f in ("optimal_trajectory", "linear_velocity"):
+                diff[f] = max(diff[f], max((getattr(o, f)[local]
+                                            - getattr(rover_ref[n], f).cpu()).abs().max().item()
+                                           for o in outs))
+        multi[f"{rs}x{ss}"] = diff
+    v_ref = max(abs(o.linear_velocity.item()) for o in rover_ref)
+    multi_ok = all(d["costs"] == 0.0 and d["weights"] <= 1e-3
+                   and d["optimal_trajectory"] <= 1e-3 and d["linear_velocity"] <= 1e-5 + 1e-4 * v_ref for d in multi.values())
+    shard_k1 = [one["k1_launches"]] + [s["k1_launches"] for s in shards]
+    sweep_ok = (sorted(report["results"]) == ["1", "2"]
+                and "no scaling claim" in report["devices"].get("shared_device", ""))
+    phase("sharded_step", K=K, H=H, one_rank_nccl_bit_equal=one_equal,
+          two_ranks_gloo={"samples_per_rank": K // 2, "costs_equal": two_costs_equal,
+                          "weights_equal": two_weights_equal, "max_abs_diff": two_diff,
+                          "optimal_u_atol": SHARD_U_ATOL},
+          multi_rover_max_abs_diff=multi, k1_launches_per_rank=shard_k1,
+          sweep=report["results"], sweep_devices=report["devices"],
+          launch_seconds={"one_rank": one_s, "two_ranks": two_s})
+    if not (one_equal and two_ok and multi_ok and sweep_ok):
+        raise RuntimeError("a sharded step on the card disagrees with mppi_step")
+    if shard_k1 != [2, 2, 2]:
+        raise RuntimeError(f"the sharded step's ranks launched K1 {shard_k1} times, not twice each")
+
     # 8. the thesis statistics DEM, built twice on the card: bit-equal
     t0 = time.perf_counter()
     dems = [thesis_statistics_terrain(device=cuda) for _ in range(2)]
@@ -1442,6 +1695,8 @@ def main(argv=None) -> int:
                              "closed_loop": cl_k1, "evaluation": eval_k1,
                              "moonyard_standalone": yard_counts["k1"],
                              "moonyard_closed_loop": lab_counts["k1"],
+                             "sim_manager": sim_k1, "mppi_controller": ctl_k1,
+                             "sharded_step_per_rank": shard_k1,
                              **{f"sdg_{r}": c["k1"] for r, c in sdg_counts.items()}},
     }, {
         "name": "edt_minplus", "route": "cuda",

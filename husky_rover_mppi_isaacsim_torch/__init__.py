@@ -16,11 +16,15 @@ layout mirrors the JAX package's:
 - ``terrain``   — crater surface, the 750-obstacle costmap, the
                   small-scale procedural terrain (base noise + craters) and
                   the streamed terrain.
-- ``env``       — the rover simulator, the closed loop and the streamed loop.
+- ``env``       — the rover simulator, the closed loop, the streamed loop and
+                  the named-robot registry.
+- ``shell``     — the host shell: message bus, rate, monitor and the
+                  simulation manager.
+- ``parallel``  — sample and rover sharding over ``torch.distributed``.
 - ``physics``   — wheel-track deformation, terramechanics, the scene config.
 - ``aux``       — the configuration tree (its own YAML reader), SDG
                   labeling, render post-effects, stellar lighting,
-                  checkpoints.
+                  checkpoints, plots.
 - ``utils``     — the scoped timer.
 - ``convert``   — JAX-side state (as numpy) into this package's objects.
 - ``cli``       — ``python -m husky_rover_mppi_isaacsim_torch.cli``, reading

@@ -123,7 +123,8 @@ def build_standalone_world(world: dict, dtype=torch.float32, device=None, moonya
         return hf, cm, hw
     hf = HeightField.create(crater_surface(grid, hw, STANDALONE_CRATER_BUMPS, dtype=dtype,
                                            device=device), hw)
-    return hf, costmap_750(half_width=hw, size=size, dtype=dtype, device=device), hw
+    cm = costmap_750(half_width=hw, size=size, use_exact_edt=True, dtype=dtype, device=device)
+    return hf, cm, hw
 
 
 def mppi_config(d) -> MPPIConfig:

@@ -15,12 +15,15 @@ import torch
 from .core.heightfield import HeightField
 from .env.closed_loop import ClosedLoopConfig, LoopState
 from .env.frames import BlockFrame
+from .env.robot_manager import RobotManager, RobotSpec
 from .env.rover_sim import RoverParams, RoverState
 from .mppi.controller import NESTED_CONFIG, ControllerState, MPPIConfig, RobotState
 from .mppi.critics import Costmap
 from .mppi.evaluation import TrajectoryLog
 from .physics.deformation import DeformationEngineConf
+from .shell.sim_manager import SimulationManagerConf
 from .terrain.craters import CraterField, CraterProfiles
+from .terrain.point_process import MaskedPoints
 from .terrain.rocks import RockBlock
 from .terrain.streaming import TerrainStreamer
 
@@ -187,3 +190,29 @@ def largescale_checkpoint_from_jax(loop, path) -> dict:
         if name in payload:
             out[name] = payload[name]
     return out
+
+
+def robot_manager_from_jax(rm) -> RobotManager:
+    """A RobotManager with the JAX one's registry: capacity, and every
+    robot's spec (name, slot, spawn pose, namespace, active flag). The queue
+    of pending edits (closures over JAX arrays) is not copied."""
+    out = RobotManager(rm.max_robots)
+    for name in rm.names:
+        spec = rm.spec(name)
+        out._robots[name] = RobotSpec(
+            spec.name, int(spec.slot), tuple(float(v) for v in spec.spawn_position),
+            tuple(float(v) for v in spec.spawn_heading), spec.namespace, bool(spec.active))
+    return out
+
+
+def masked_points_from_jax(pts) -> MaskedPoints:
+    """MaskedPoints from the JAX one's fields (points, radius, mask)."""
+    return MaskedPoints(*(_tensor(np.asarray(a)) for a in pts))
+
+
+def simulation_manager_conf_from_jax(conf) -> SimulationManagerConf:
+    """SimulationManagerConf from the JAX one: the loop through
+    :func:`closed_loop_config_from_jax`, the rest by field name."""
+    kw = {f.name: getattr(conf, f.name) for f in dataclasses.fields(SimulationManagerConf)}
+    kw["loop"] = closed_loop_config_from_jax(conf.loop)
+    return SimulationManagerConf(**kw)

@@ -1,6 +1,6 @@
 """Vectorized rover environment, the N-rover closed loop, the controller
-frames and the streamed-terrain loop (counterpart of the JAX ``env``; its
-robot manager is not ported yet)."""
+frames, the streamed-terrain loop and the named-robot registry (counterpart
+of the JAX ``env``)."""
 
 from . import frames
 
@@ -14,6 +14,7 @@ from .closed_loop import (
 )
 from .largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf, LargeScaleRunResult
 from .metrics import goal_distances, path_metrics, success_mask
+from .robot_manager import RobotManager, RobotSpec
 from .rover_sim import (
     RoverParams,
     RoverState,
@@ -38,6 +39,8 @@ __all__ = [
     "goal_distances",
     "path_metrics",
     "success_mask",
+    "RobotManager",
+    "RobotSpec",
     "RoverParams",
     "RoverState",
     "contact_forces",

@@ -160,27 +160,34 @@ def wheel_contact_forces(params: RoverParams, hf: HeightField, state: RoverState
 
 
 def teleport(state: RoverState, hf: HeightField, index: int, position, heading) -> RoverState:
-    """Teleport rover ``index``: new pose on the DEM, wheel state zeroed
-    (RobotManager.teleport_robot semantics). Returns a new state; the
-    fields of ``state`` are not written."""
+    """Teleport rover ``index`` (a Python int): new pose on the DEM, wheel
+    state zeroed (RobotManager.teleport_robot semantics). Returns a new
+    state; the fields of ``state`` are not written. With ``position`` and
+    ``heading`` on the state's device it waits for nothing."""
     position = torch.as_tensor(position, dtype=state.position.dtype,
                                device=state.position.device)
     heading = geom.normalize(torch.as_tensor(heading, dtype=state.heading.dtype,
                                              device=state.heading.device))
     z = hfield.height_at(hf, position[0], position[1])
 
-    def put(field: Tensor, value) -> Tensor:
+    def put(field: Tensor, value: Tensor | None = None) -> Tensor:
+        """``field`` with row ``index`` set to ``value`` (zeroed without
+        one). Device values and fills only: writing a Python number into a
+        CUDA tensor copies it from the host, a stream sync."""
         out = field.clone()
-        out[index] = value
+        if value is None:
+            out[index].zero_()
+        else:
+            out[index] = value
         return out
 
     return RoverState(
         position=put(state.position, position),
         z=put(state.z, z.to(state.z.dtype)),
         heading=put(state.heading, heading),
-        wheel_left=put(state.wheel_left, 0.0),
-        wheel_right=put(state.wheel_right, 0.0),
-        yaw_rate=put(state.yaw_rate, 0.0),
+        wheel_left=put(state.wheel_left),
+        wheel_right=put(state.wheel_right),
+        yaw_rate=put(state.yaw_rate),
     )
 
 

@@ -5,6 +5,7 @@ from .controller import (
     GoalSeekResult,
     GoalSeekTrace,
     MPPIConfig,
+    MPPIController,
     RobotState,
     StepOutput,
     goal_seek,
@@ -13,5 +14,6 @@ from .controller import (
     mppi_step,
 )
 from .critics import Costmap, CriticWeights, evaluate_trajectories
+from .reference_rollout import rollout_25d_reference
 from .rollout import Rollout, rollout_2d, rollout_25d
 from .sampling import InputLimits, LoopSeedSequence, perturb, sample_noise

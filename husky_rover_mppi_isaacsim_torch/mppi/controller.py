@@ -11,6 +11,9 @@ every state field, the goal and the noise with a leading rover axis (the
 JAX package's ``jax.vmap`` over rovers, ``env/closed_loop.py:131-132``).
 The rover axis goes into K1's launch grid, so a step of N rovers is still
 two launches.
+
+:class:`MPPIController` is the host-side wrapper with the replayable
+per-loop seed stream (JAX ``MPPIController``).
 """
 
 from __future__ import annotations
@@ -18,9 +21,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, ClassVar, NamedTuple
 
+import numpy as np
 import torch
 from torch import Tensor
 
+from ..core.device import run_device
 from ..core.heightfield import HeightField
 from ..dynamics.skid_steer import (
     DiffDriveLimits,
@@ -32,7 +37,7 @@ from ..ops import rollout_cuda
 from . import critics as crit
 from .critics import Costmap, CriticWeights
 from .rollout import rollout_2d
-from .sampling import InputLimits, perturb, sample_noise
+from .sampling import InputLimits, LoopSeedSequence, perturb, sample_noise
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,6 +157,7 @@ class StepOutput(NamedTuple):
 def mppi_step(
     config: MPPIConfig, hf: HeightField, costmap: Costmap, goal: Tensor,
     robot: RobotState, ctrl: ControllerState, noise: Tensor,
+    reduce: Callable[[Tensor, str], None] | None = None,
 ) -> tuple[ControllerState, StepOutput]:
     """One MPPI control step (MPPI_isaac.py:505-752): perturb -> wheel lag ->
     K rollouts -> critics -> softmax weights -> weighted inputs -> optimal
@@ -160,7 +166,13 @@ def mppi_step(
     Unbatched: ``goal`` (2,), the state fields as in :class:`RobotState` and
     :class:`ControllerState`, ``noise`` (2, K, H). For N rovers: ``goal``
     (N, 2), every state field with a leading (N,), ``noise`` (N, 2, K, H);
-    every output then leads with (N,)."""
+    every output then leads with (N,).
+
+    ``reduce(t, op)``, where given, combines the step's sample reductions
+    in place across the holders of the other samples: the cost minimum
+    (``op="min"``), then the total weight and the two weighted input sums
+    (``op="sum"``), in that order (:mod:`..parallel.mesh`'s all-reduces).
+    Costs and weights are then this holder's samples only."""
     wheel_lag = wheel_lag_scan if config.exact else wheel_lag_matmul
     dtype, dev = noise.dtype, noise.device
     # torch.full, not torch.tensor: a host-to-device copy would sync the stream
@@ -195,8 +207,15 @@ def mppi_step(
         horizon_m, config.critic_weights)
 
     # 5. importance weights + weighted optimal inputs (critics_warp.py:338-376)
-    weights = crit.softmax_weights(costs, config.temperature)
-    opt_u1, opt_u2 = crit.weighted_update(weights, u1, u2)
+    min_cost = torch.amin(costs, dim=-1, keepdim=True)
+    if reduce is not None:
+        reduce(min_cost, "min")
+    weights = crit.softmax_weights(costs, config.temperature, min_cost)
+    total, sum1, sum2 = crit.weighted_sums(weights, u1, u2)
+    if reduce is not None:
+        for t in (total, sum1, sum2):
+            reduce(t, "sum")
+    opt_u1, opt_u2 = sum1 / total, sum2 / total
 
     # 6. optimal-sequence conversion, softer lag (MPPI_isaac.py:672-692)
     k_o, a_o = config.optimal_lag
@@ -339,3 +358,64 @@ def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
             loop = loop + active.to(torch.int64)
             halt = reached_now(robot)
     return robot, ctrl, loop, halt, steps, bp, bv
+
+
+def loop_generator_seed(seed: int, loop_seed: int) -> int:
+    """The ``torch.Generator`` seed of one control loop, from the
+    controller's seed and the loop's seed of :class:`LoopSeedSequence` (the
+    JAX package folds the loop seed into ``key(seed)``; torch cannot
+    reproduce that stream, so the two packages' draws differ)."""
+    state = np.random.SeedSequence((seed, loop_seed)).generate_state(1, np.uint64)
+    return int(state[0] >> 1)
+
+
+class MPPIController:
+    """Host-side convenience wrapper mirroring the reference controller's
+    surface API (``warp_setup``/``MPPI_step``/``run``) around
+    :func:`mppi_step`. Owns the world on its device and the replayable
+    per-loop seed stream: loop ``n`` draws its noise from a
+    ``torch.Generator`` on the device seeded with
+    ``loop_generator_seed(seed, n-th loop seed)``.
+
+    ``device`` is the card unless the caller names another
+    (:func:`..core.device.run_device`); the world moves there."""
+
+    def __init__(self, config: MPPIConfig, hf: HeightField, costmap: Costmap, goal_xy,
+                 seed: int = 42, device=None):
+        self.device = run_device(device)
+        self.config = config
+        self.hf = HeightField(*(t.to(self.device) for t in hf))
+        self.costmap = Costmap(*(t.to(self.device) for t in costmap))
+        self.goal = torch.as_tensor(goal_xy, dtype=self.hf.z.dtype, device=self.device)
+        self.seed = seed
+        self.seeds = LoopSeedSequence(config.horizon, seed)
+        self._generator = torch.Generator(device=self.device)
+        self.loop = 0
+
+    def step(self, robot: RobotState, ctrl: ControllerState,
+             noise: Tensor | None = None) -> tuple[ControllerState, StepOutput]:
+        """One control step; draws the loop noise from the seed stream
+        unless ``noise`` (2, K, H) is given (tests replay JAX's draws)."""
+        if noise is None:
+            self._generator.manual_seed(loop_generator_seed(self.seed, self.seeds.next_seed()))
+            noise = sample_noise(self._generator, self.config.num_samples, self.config.horizon,
+                                 self.hf.z.dtype, self.device)
+        self.loop += 1
+        return mppi_step(self.config, self.hf, self.costmap, self.goal, robot, ctrl, noise)
+
+    def run(self, robot: RobotState, max_loops: int = 3500
+            ) -> tuple[RobotState, ControllerState, Tensor]:
+        """Host-visible goal-seek loop (one host sync per loop, for the stop
+        test; :func:`goal_seek` syncs once per ``unroll`` loops). Stops when
+        |dx| <= 0.5 and |dy| <= 0.5 or after ``max_loops`` loops of this
+        controller. Returns the final robot and controller states and the
+        positions visited, ``(loops + 1, 2)``, on the device."""
+        robot = RobotState(*(t.to(self.device) for t in robot))
+        ctrl = ControllerState.create(self.config, self.hf.z.dtype, self.device)
+        trajectory = [robot.position]
+        while (self.loop < max_loops
+               and bool((torch.abs(robot.position - self.goal) > 0.5).any())):
+            ctrl, out = self.step(robot, ctrl)
+            robot = kinematic_advance(self.config, robot, out)
+            trajectory.append(robot.position)
+        return robot, ctrl, torch.stack(trajectory)

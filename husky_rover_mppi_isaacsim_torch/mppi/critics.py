@@ -141,17 +141,32 @@ def evaluate_trajectories(
     return cost
 
 
-def softmax_weights(costs: Tensor, temperature: float) -> Tensor:
-    """``exp(-(c - min c)/T)`` with a two-pass min (critics_warp.py:338-347)."""
-    min_cost = torch.amin(costs, dim=-1, keepdim=True)
+def softmax_weights(costs: Tensor, temperature: float, min_cost: Tensor | None = None) -> Tensor:
+    """``exp(-(c - min c)/T)`` with a two-pass min (critics_warp.py:338-347).
+    ``mppi_step`` passes ``min_cost`` (``...``, 1), its minimum (all-reduced
+    in the sharded step); without it the local min is taken, as in the JAX
+    package's ``softmax_weights``, the form ``tests/test_torch_critics.py``
+    holds against JAX."""
+    if min_cost is None:
+        min_cost = torch.amin(costs, dim=-1, keepdim=True)
     return torch.exp(-(costs - min_cost) / temperature)
 
 
-def weighted_update(weights: Tensor, u1: Tensor, u2: Tensor) -> tuple[Tensor, Tensor]:
-    """``sum_k w_k u_k / sum_k w_k`` (critics_warp.py:350-376), full float32
-    on the card (no TF32)."""
+def weighted_sums(weights: Tensor, u1: Tensor, u2: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The three sums of the weighted update: ``sum_k w_k`` (``...``, 1) and
+    ``sum_k w_k u_k`` for each input (``...``, H), full float32 on the card
+    (no TF32)."""
     require_full_fp32_matmul(u1)
     total = torch.sum(weights, dim=-1)[..., None]
-    opt1 = torch.einsum("...k,...kh->...h", weights, u1) / total
-    opt2 = torch.einsum("...k,...kh->...h", weights, u2) / total
-    return opt1, opt2
+    return (total, torch.einsum("...k,...kh->...h", weights, u1),
+            torch.einsum("...k,...kh->...h", weights, u2))
+
+
+def weighted_update(weights: Tensor, u1: Tensor, u2: Tensor) -> tuple[Tensor, Tensor]:
+    """``sum_k w_k u_k / sum_k w_k`` (critics_warp.py:350-376): the JAX
+    package's ``weighted_update``, kept under its name for
+    ``tests/test_torch_critics.py`` to hold against JAX. ``mppi_step`` calls
+    :func:`weighted_sums` and divides, so that the sharded step can
+    all-reduce the sums first."""
+    total, sum1, sum2 = weighted_sums(weights, u1, u2)
+    return sum1 / total, sum2 / total

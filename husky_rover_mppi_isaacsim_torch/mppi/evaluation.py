@@ -245,7 +245,8 @@ def run_2d_vs_3d_experiment(
     z = crater_surface(grid_size, half_width, STANDALONE_CRATER_BUMPS, dtype=dtype,
                        device=device)
     hf = HeightField.create(z, half_width)
-    cm = costmap_750(half_width=half_width, size=costmap_size, dtype=dtype, device=device)
+    cm = costmap_750(half_width=half_width, size=costmap_size, use_exact_edt=True, dtype=dtype,
+                     device=device)
     cm_host = _costmap_on_cpu(cm)
 
     rng = np.random.default_rng(seed)
@@ -350,7 +351,7 @@ def run_thesis_protocol_experiment(
     hf = HeightField.create(z, half_width)
     # 0.1 m/px costmap, the reference protocol's grid (MPPI_OO_current.py:743)
     cm = costmap_750(half_width=half_width, size=int(round(2 * half_width / 0.1)),
-                     dtype=dtype, device=device)
+                     use_exact_edt=True, dtype=dtype, device=device)
     cm_host = _costmap_on_cpu(cm)
     pairs = thesis_pairs(runs_per_arm, half_width, seed)
     weights = crit.CriticWeights(slope_wheels=slope_weight)

@@ -12,10 +12,14 @@ Stage 2 follows the device: :func:`edt_exact_sq` sends CUDA tensors through
 kernel K2 (:mod:`.edt_cuda`) and CPU tensors through the plain row blocks of
 :func:`minplus_envelope`. :func:`edt_exact_sq_plain` runs the plain blocks on
 either device, for the comparisons with K2.
+
+:func:`chamfer5` is the host numpy copy of the JAX package's cv2-compatible
+5x5 chamfer transform, the distance of :func:`..terrain.costmap.reference_costmap`.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import Tensor
 
@@ -85,3 +89,47 @@ def distance_costmap(occupied: Tensor, falloff_power: float = 20.0) -> Tensor:
     (MPPI_isaac.py:374-377). An obstacle-free map gives a zero costmap."""
     cost = (1.0 - normalize_minmax(edt_exact(occupied))) ** falloff_power
     return torch.where(torch.any(occupied), cost, torch.zeros_like(cost))
+
+
+# OpenCV's 5x5 DIST_L2 chamfer weights (a, b, c), and the forward mask: every
+# neighbour strictly before its pixel in raster order, as (dy, dx, weight)
+_CHAMFER_A, _CHAMFER_B, _CHAMFER_C = 1.0, 1.4, 2.1969
+_CHAMFER_FWD = ((-1, -1, _CHAMFER_B), (-1, 0, _CHAMFER_A), (-1, 1, _CHAMFER_B),
+                (0, -1, _CHAMFER_A), (-2, -1, _CHAMFER_C), (-2, 1, _CHAMFER_C),
+                (-1, -2, _CHAMFER_C), (-1, 2, _CHAMFER_C))
+
+
+def chamfer5(binary_free: np.ndarray) -> np.ndarray:
+    """5x5 chamfer distance transform of an image (0 = obstacle, nonzero =
+    free), float32 pixels: the two-pass raster scan of the JAX package's
+    ``_chamfer5_numpy`` with OpenCV's DIST_L2 weights (1.0, 1.4, 2.1969),
+    which matches ``cv2.distanceTransform(img, DIST_L2, 5)`` to 1e-3.
+
+    Host numpy, one route: no cv2 and no native library. Every forward-mask
+    neighbour of pixel (y, x) lies at a smaller ``t = 3y + x``, so the
+    pixels of one constant ``t`` (a wavefront) depend only on earlier
+    wavefronts and update as one vector operation; the backward pass walks
+    ``t`` down with the mask mirrored. Each pixel takes the min over the
+    same eight float32 sums as in the sequential scan, and min is exact, so
+    the result is bit-equal to it."""
+    h, w = binary_free.shape
+    big = np.float32(1e9)
+    pad = 2
+    dp = np.pad(np.where(binary_free == 0, np.float32(0), big).astype(np.float32), pad,
+                constant_values=big)
+    flat = dp.reshape(-1)  # a view: writes land in dp
+    stride = w + 2 * pad
+    ys, xs = np.mgrid[0:h, 0:w]
+    t = (3 * ys + xs).ravel()
+    order = np.argsort(t, kind="stable")
+    pixels = ((ys + pad) * stride + xs + pad).ravel()[order]
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(t))])
+    waves = [pixels[bounds[i]:bounds[i + 1]] for i in range(len(bounds) - 1)]
+    for sign, sweep in ((1, waves), (-1, waves[::-1])):
+        offsets = [(sign * (dy * stride + dx), wgt) for dy, dx, wgt in _CHAMFER_FWD]
+        for idx in sweep:
+            v = flat[idx]
+            for off, wgt in offsets:
+                v = np.minimum(v, flat[idx + off] + wgt)
+            flat[idx] = v
+    return dp[pad:-pad, pad:-pad]

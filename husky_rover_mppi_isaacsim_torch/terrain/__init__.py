@@ -9,6 +9,7 @@ from .costmap import (
     device_costmap,
     generate_obstacles,
     rasterize_obstacles,
+    reference_costmap,
     update_costmap_with_obstacles,
 )
 from .orchestrator import LargeScaleConf, LargeScaleTerrainManager

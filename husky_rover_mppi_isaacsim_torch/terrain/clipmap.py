@@ -11,7 +11,8 @@ re-design of ``geometry_clipmaps*.py``):
   replacing the ``_bilinear/_bicubic`` warp kernels,
   geometry_clipmaps_warp.py:180-279);
 * :class:`NestedClipmap` pairs a fine (HR window) and a coarse (LR DEM)
-  clipmap like ``NestedGeometryClipmapManager``.
+  clipmap like ``NestedGeometryClipmapManager``, with its rock-placement
+  query.
 
 There is no USD stage to mutate; the sampled vertex buffer is the product.
 """
@@ -25,6 +26,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import heightfield as hfield
+from .rocks import rock_surface_hf
 from .upsample import bicubic_point_sample, bilinear_point_sample
 
 
@@ -159,3 +162,16 @@ class NestedClipmap:
 
     def sample(self, center):
         return self.fine.sample(center), self.coarse.sample(center)
+
+    def get_height_and_random_orientation(self, xy: Tensor, generator: torch.Generator,
+                                          hf) -> tuple[Tensor, Tensor, Tensor]:
+        """Rock-placement query (get_height_and_random_scale,
+        nested_geometry_clipmaps_manager.py:220-237) against the
+        :class:`HeightField` ``hf``: per point of ``xy`` (N, 2) the bilinear
+        height (N,), a random surface-tangent quaternion xyzw (N, 4) and the
+        quad normal (N, 3). The tangent draw is ``(N, 3)`` uniforms in
+        [-1, 1) from ``generator`` (on ``xy``'s device): not JAX's draw."""
+        rand = torch.rand((xy.shape[0], 3), generator=generator, dtype=xy.dtype,
+                          device=xy.device) * 2.0 - 1.0
+        height, quat = rock_surface_hf(hf, xy, rand)
+        return height, quat, hfield.normal_at(hf, xy[:, 0], xy[:, 1])

@@ -2,13 +2,20 @@
 
 Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/costmap.py``:
 :func:`generate_obstacles` and :func:`rasterize_obstacles` are numpy copies
-of the JAX package's (whose module imports jax), and the costmap comes from
-the exact EDT (:mod:`..ops.edt`) on the requested device: on the card its
-envelope is kernel K2. :func:`costmap_750` takes any ``size``: 750 for the
-standalone world, 1500 (0.1 m/px) for the thesis statistics protocol.
+of the JAX package's (whose module imports jax). The costmap comes from one
+of two distance transforms, as in the JAX package:
+
+* :func:`reference_costmap` (host numpy): the cv2-compatible 5x5 chamfer
+  (:func:`..ops.edt.chamfer5`), the default of :func:`costmap_750`;
+* :func:`device_costmap`: the exact EDT (:mod:`..ops.edt`) on the requested
+  device, whose envelope is kernel K2 on the card; the default of
+  :func:`update_costmap_with_obstacles`, and what every world build of the
+  package asks for (``use_exact_edt=True``).
+
+:func:`costmap_750` takes any ``size``: 750 for the standalone world, 1500
+(0.1 m/px) for the thesis statistics protocol.
 :func:`update_costmap_with_obstacles` is the streamed-terrain rebuild from
-the rock manager's obstacles. The cv2-chamfer variant
-(``use_exact_edt=False`` there) is not ported.
+the rock manager's obstacles.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch
 from torch import Tensor
 
 from ..mppi.critics import Costmap
-from ..ops.edt import distance_costmap
+from ..ops.edt import chamfer5, distance_costmap
 
 
 def generate_obstacles(num: int = 750, seed: int = 99, extent: float = 50.0,
@@ -62,6 +69,20 @@ def rasterize_obstacles(obstacles: np.ndarray, origin=(0.0, 0.0),
     return img
 
 
+def reference_costmap(binary_free: np.ndarray, falloff_power: float = 20.0) -> np.ndarray:
+    """Host costmap with cv2-chamfer parity (MPPI_isaac.py:374-377):
+    chamfer-5 distance transform, min-max normalize, ``(1-d)^p``."""
+    d = chamfer5(binary_free)
+    d = (d - d.min()) / (d.max() - d.min())
+    return (1.0 - d) ** falloff_power
+
+
+def _falloff_costmap(binary: np.ndarray, falloff_power: float, use_exact_edt: bool, device):
+    if use_exact_edt:
+        return device_costmap(binary, falloff_power, device=device)
+    return reference_costmap(binary, falloff_power)
+
+
 def device_costmap(binary_free, falloff_power: float = 20.0, device=None) -> Tensor:
     """Costmap of a free/obstacle image via the exact EDT on ``device``."""
     occupied = torch.as_tensor(np.asarray(binary_free) == 0, device=device)
@@ -77,23 +98,27 @@ def as_costmap(cost, half_width: float, dtype=None, device=None) -> Costmap:
 
 
 def costmap_750(half_width: float = 75.0, size: int = 750, robot_radius: float = 0.3,
-                falloff_power: float = 20.0, dtype=torch.float32, device=None) -> Costmap:
-    """The regenerated ``costmap_750_transformed`` fixture (exact EDT) as a
-    :class:`Costmap`. ``robot_radius`` is the 0.3 m of the imported-map
-    Surface (MPPI_OO_current.py:744), not the 1.2 m wheel track."""
+                falloff_power: float = 20.0, use_exact_edt: bool = False,
+                dtype=torch.float32, device=None) -> Costmap:
+    """The regenerated ``costmap_750_transformed`` fixture as a
+    :class:`Costmap` on ``device``: the cv2-chamfer costmap by default (built
+    on the host), the exact EDT with ``use_exact_edt``. ``robot_radius`` is
+    the 0.3 m of the imported-map Surface (MPPI_OO_current.py:744), not the
+    1.2 m wheel track."""
     binary = rasterize_obstacles(generate_obstacles(), half_width=half_width,
                                  size=size, robot_radius=robot_radius)
-    cost = device_costmap(binary, falloff_power, device=device)
-    return as_costmap(cost, half_width, dtype=dtype)
+    cost = _falloff_costmap(binary, falloff_power, use_exact_edt, device)
+    return as_costmap(cost, half_width, dtype=dtype, device=device)
 
 
 def update_costmap_with_obstacles(costmap_size: int, half_width: float,
                                   obstacles_xy: np.ndarray, radii: np.ndarray,
                                   robot_radius: float, falloff_power: float = 20.0,
-                                  origin=(0.0, 0.0), dtype=torch.float32,
-                                  device=None) -> Costmap:
+                                  use_exact_edt: bool = True, origin=(0.0, 0.0),
+                                  dtype=torch.float32, device=None) -> Costmap:
     """Streamed-terrain costmap rebuild: rocks become obstacle disks, then
-    the exact-EDT falloff on ``device``
+    the distance falloff on ``device`` (the exact EDT unless
+    ``use_exact_edt`` is false: then the host chamfer)
     (visual_terrain_stack_full_terrain.py:546-576 rebuild path). ``origin``
     is the window-center world coordinate the reference passes as
     ``(block_x + half_block, block_y + half_block)`` (:556-561)."""
@@ -101,5 +126,5 @@ def update_costmap_with_obstacles(costmap_size: int, half_width: float,
     obstacles = np.concatenate([obstacles_xy, np.asarray(radii).reshape(-1)[:, None]], axis=-1)
     binary = rasterize_obstacles(obstacles, origin=origin, half_width=half_width,
                                  size=costmap_size, robot_radius=robot_radius)
-    cost = device_costmap(binary, falloff_power, device=device)
-    return as_costmap(cost, half_width, dtype=dtype)
+    cost = _falloff_costmap(binary, falloff_power, use_exact_edt, device)
+    return as_costmap(cost, half_width, dtype=dtype, device=device)

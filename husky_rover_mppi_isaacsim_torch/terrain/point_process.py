@@ -6,16 +6,24 @@ Numpy copies of ``BoundingBox``, ``sample_poisson``, ``hardcore_rejection``,
 in ``husky_rover_mppi_isaacsim_tpu/terrain/point_process.py`` (whose module
 imports jax), with the same draw order (DynamicDistribute,
 crater_distribution.py:46-289), so one ``np.random.Generator`` gives both
-packages the same points. The fixed-capacity device variants
-(``poisson_fixed``, ``hardcore_thin_fixed``, ``thomas_fixed``) are not ported.
+packages the same points.
+
+The fixed-capacity variants (:class:`MaskedPoints`, :func:`poisson_fixed`,
+:func:`hardcore_thin_fixed`, :func:`thomas_fixed`) are torch on any device,
+with static shapes (a mask marks the valid points). They draw from an
+explicit ``torch.Generator`` in place of the JAX key, so their points are
+not the JAX package's; :func:`hardcore_thin_masked` is the draw-free half
+of the thinning, to which tests hand JAX's marks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
+import torch
+from torch import Tensor
 
 
 @dataclasses.dataclass
@@ -192,3 +200,97 @@ def thomas_point_process(rng: np.random.Generator, region: BoundingBox, parent_d
     inside = ((cx >= region.x_min) & (cx <= region.x_max)
               & (cy >= region.y_min) & (cy <= region.y_max))
     return np.stack([cx[inside], cy[inside]]).T
+
+
+# --- fixed capacity, torch ----------------------------------------------------
+
+class MaskedPoints(NamedTuple):
+    """Fixed-capacity point set: ``points`` (C, 2), ``radius`` (C,),
+    ``mask`` (C,) validity."""
+
+    points: Tensor
+    radius: Tensor
+    mask: Tensor
+
+    @property
+    def capacity(self) -> int:
+        return self.points.shape[0]
+
+
+def _poisson_count(generator: torch.Generator, rate: float, shape, device) -> Tensor:
+    """Poisson draws of mean ``rate``, int64, ``shape``."""
+    rates = torch.full(shape, float(rate), dtype=torch.float64, device=device)
+    return torch.poisson(rates, generator=generator).to(torch.int64)
+
+
+def _uniform(generator: torch.Generator, shape, lo: float, hi: float, dtype, device) -> Tensor:
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device) * (hi - lo) + lo
+
+
+def poisson_fixed(generator: torch.Generator, region: tuple, density: float, r_minmax: tuple,
+                  capacity: int, dtype=torch.float32, device=None) -> MaskedPoints:
+    """Poisson process with static shapes: ``capacity`` uniform candidates
+    in ``region`` ``(x_min, x_max, y_min, y_max)``, the first
+    ``min(Poisson(area * density), capacity)`` of them valid. Draws, in
+    order, the count, x, y and the radii from ``generator`` (on ``device``)."""
+    x_min, x_max, y_min, y_max = region
+    area = (x_max - x_min) * (y_max - y_min)
+    count = torch.clamp(_poisson_count(generator, area * density, (), device), max=capacity)
+    mask = torch.arange(capacity, device=device) < count
+    x = _uniform(generator, (capacity,), x_min, x_max, dtype, device)
+    y = _uniform(generator, (capacity,), y_min, y_max, dtype, device)
+    r = _uniform(generator, (capacity,), r_minmax[0], r_minmax[1], dtype, device)
+    return MaskedPoints(torch.stack([x, y], dim=-1), r, mask)
+
+
+def hardcore_thin_masked(pts: MaskedPoints, marks: Tensor) -> MaskedPoints:
+    """Age-mark hardcore thinning on a fixed-capacity set, given the marks
+    (C,): a valid point survives if it is older (smaller mark) than every
+    valid point strictly inside its radius (the O(C^2) pairwise form of
+    the JAX ``hardcore_thin_fixed``)."""
+    diff = pts.points[:, None, :] - pts.points[None, :, :]
+    dist = torch.sqrt(torch.sum(diff * diff, dim=-1))
+    in_disk = (dist < pts.radius[:, None]) & (dist > 0)
+    in_disk = in_disk & pts.mask[None, :] & pts.mask[:, None]
+    older = marks[:, None] < marks[None, :]
+    keep = torch.all(torch.where(in_disk, older, True), dim=-1) & pts.mask
+    return MaskedPoints(pts.points, pts.radius, keep)
+
+
+def hardcore_thin_fixed(generator: torch.Generator, pts: MaskedPoints) -> MaskedPoints:
+    """:func:`hardcore_thin_masked` with the marks drawn uniform in [0, 1)
+    from ``generator`` (on the points' device)."""
+    marks = torch.rand((pts.capacity,), generator=generator, dtype=pts.points.dtype,
+                       device=pts.points.device)
+    return hardcore_thin_masked(pts, marks)
+
+
+def thomas_fixed(generator: torch.Generator, region: tuple, parent_density: float,
+                 child_density: float, sigma: float, parent_capacity: int,
+                 children_per_parent: int, dtype=torch.float32, device=None) -> MaskedPoints:
+    """Thomas cluster process with static (parents x children) capacity:
+    Poisson parents on the region grown by 4 sigma, Poisson-many
+    N(parent, sigma) children each (capped at ``children_per_parent``), only
+    children inside ``region`` valid; radii are zero. Draws, in order, the
+    parent count, parent x, parent y, the child counts and the child
+    offsets from ``generator`` (on ``device``)."""
+    x_min, x_max, y_min, y_max = region
+    ext = (x_min - 4 * sigma, x_max + 4 * sigma, y_min - 4 * sigma, y_max + 4 * sigma)
+    area = (ext[1] - ext[0]) * (ext[3] - ext[2])
+    n_parents = torch.clamp(_poisson_count(generator, area * parent_density, (), device),
+                            max=parent_capacity)
+    pmask = torch.arange(parent_capacity, device=device) < n_parents
+    px = _uniform(generator, (parent_capacity,), ext[0], ext[1], dtype, device)
+    py = _uniform(generator, (parent_capacity,), ext[2], ext[3], dtype, device)
+    n_children = torch.clamp(_poisson_count(generator, child_density, (parent_capacity,), device),
+                             max=children_per_parent)
+    cmask = ((torch.arange(children_per_parent, device=device)[None, :] < n_children[:, None])
+             & pmask[:, None])
+    noise = torch.randn((parent_capacity, children_per_parent, 2), generator=generator,
+                        dtype=dtype, device=device) * sigma
+    cx = px[:, None] + noise[..., 0]
+    cy = py[:, None] + noise[..., 1]
+    inside = (cx >= x_min) & (cx <= x_max) & (cy >= y_min) & (cy <= y_max)
+    points = torch.stack([cx, cy], dim=-1).reshape(-1, 2)
+    mask = (cmask & inside).reshape(-1)
+    return MaskedPoints(points, torch.zeros(points.shape[0], dtype=dtype, device=device), mask)

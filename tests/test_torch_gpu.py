@@ -7,7 +7,9 @@ build, the evaluation's kernel launches, and the streamed loop's sizes: K1 on
 a 7000 x 7000 DEM, K2 at 875 x 875, a small streamed traverse (pipelined,
 its worker on a side stream), and the wheel-track deformation stamp; the
 CLI's slice: K1 on the 4000 x 4000 yard DEM, an SDG capture on the card
-against the CPU's.
+against the CPU's; the simulation manager's ticks on the card against the
+CPU's, ``MPPIController.step`` and the one-rank sharded step bit-equal to
+``mppi_step`` on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -566,3 +568,101 @@ def test_sdg_capture_on_card_matches_cpu(cuda, tmp_path):
                       (both & (cam_h["instance"] > 0), 1e-3)):
         np.testing.assert_allclose(cam_c["depth"][sel], cam_h["depth"][sel], rtol=rtol)
     assert cam_h["hit"].mean() > 0.3
+
+
+def test_sim_manager_steps_on_card_match_cpu(cuda):
+    """Five SimulationManager ticks of 3 slots (two robots spawned, one
+    teleported over the bus after tick 1) on the card and on the CPU with
+    the same injected noise: two K1 launches a tick, no host sync in a tick
+    without a POSE_STATE subscriber, and the closed-loop step's card-vs-CPU
+    tolerances."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.shell import (
+        SimulationManager,
+        SimulationManagerConf,
+        Topics,
+    )
+
+    conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig(
+        mppi=MPPIConfig(num_samples=256, horizon=50)))
+    cost = torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4
+    noise = torch.randn((5, 3, 2, 256, 50), generator=torch.Generator().manual_seed(2))
+    goals = np.array([[18.0, 15.0], [-15.0, 10.0], [0.0, -18.0]])
+    dem = _crater(torch.device("cpu"), grid=512, hw=25.0)
+
+    def run(device):
+        rm = tenv.RobotManager(3)
+        rm.spawn("a", (-10.0, -8.0))
+        rm.spawn("b", (5.0, -12.0), heading=(0.0, 1.0, 0.0))
+        launches = []
+        ticks = noise.to(device)  # before the sync check: a host-to-device copy waits
+        with SimulationManager(conf, dem, as_costmap(cost, 25.0), rm, goals,
+                               device=device) as sm:
+            for tick in range(5):
+                before = rollout_25d_cuda.launches
+                if device.type == "cuda":
+                    torch.cuda.synchronize()
+                    torch.cuda.set_sync_debug_mode("error")
+                try:
+                    sm.step(noise=ticks[tick])
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+                launches.append(rollout_25d_cuda.launches - before)
+                if tick == 1:
+                    sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "a", "position": (3.0, 4.0)})
+            return sm.state, launches
+
+    (got, launches), (want, _) = run(cuda), run(torch.device("cpu"))
+    assert launches == [2] * 5
+    for f, a, b in zip(got.rovers._fields, got.rovers, want.rovers):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3, msg=f)
+    for f, a, b in zip(got.ctrl._fields, got.ctrl, want.ctrl):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-3, msg=f)
+    torch.testing.assert_close(got.stored_left.cpu(), want.stored_left, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got.stored_right.cpu(), want.stored_right, rtol=1e-4, atol=1e-4)
+
+
+def test_mppi_controller_step_equals_mppi_step_on_card(cuda):
+    """``MPPIController.step(noise=)`` is ``mppi_step`` on the card, bit for
+    bit, and a drawn step launches K1 twice."""
+    from husky_rover_mppi_isaacsim_torch.mppi import MPPIController
+
+    hf = _crater(cuda, grid=512, hw=25.0)
+    cm = as_costmap(torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4, 25.0,
+                    device=cuda)
+    cfg = MPPIConfig(num_samples=1000, horizon=100)
+    ctl = MPPIController(cfg, hf, cm, (15.0, 12.0), seed=42)
+    robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    noise = torch.randn((2, 1000, 100), generator=torch.Generator().manual_seed(3)).to(cuda)
+    got = ctl.step(robot, ctrl, noise)
+    want = mppi_step(cfg, hf, cm, ctl.goal, robot, ctrl, noise)
+    for a, b in zip(got[0] + got[1][:-1], want[0] + want[1][:-1]):
+        assert torch.equal(a, b)
+    before = rollout_25d_cuda.launches
+    ctl.step(robot, ctrl)
+    assert rollout_25d_cuda.launches == before + 2
+
+
+def test_sharded_step_one_rank_bit_equal_on_card(cuda, tmp_path):
+    """One NCCL rank on the card: the sharded step equals ``mppi_step`` bit
+    for bit (the all-reduces of one rank change nothing)."""
+    from shard_ranks import run_ranks
+
+    hf = _crater(torch.device("cpu"), grid=512, hw=25.0)
+    cm = as_costmap(torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4, 25.0)
+    cfg = MPPIConfig(num_samples=1000, horizon=100)
+    job = dict(hf=hf, costmap=cm, goal=torch.tensor([15.0, 12.0]),
+               robot=RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0]),
+               ctrl=ControllerState.create(cfg),
+               noise=torch.randn((2, 1000, 100), generator=torch.Generator().manual_seed(3)),
+               cases=[{"kind": "sample", "config": cfg}])
+    (res,), = run_ranks(job, 1, tmp_path, backend="nccl", device="cuda", timeout_s=300)
+    to = lambda tree: type(tree)(*(t.to(cuda) for t in tree))  # noqa: E731
+    want_ctrl, want_out = mppi_step(cfg, HeightField(*(t.to(cuda) for t in hf)), to(cm),
+                                    job["goal"].to(cuda), to(job["robot"]), to(job["ctrl"]),
+                                    job["noise"].to(cuda))
+    assert res["k1_launches"] == 2
+    for a, b in zip(res["ctrl"] + res["out"][:-1], want_ctrl + want_out[:-1]):
+        assert torch.equal(a, b.cpu())

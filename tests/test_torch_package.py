@@ -15,13 +15,18 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
 from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
+from husky_rover_mppi_isaacsim_torch.core import HeightField
 from husky_rover_mppi_isaacsim_torch.core.device import run_device
+from husky_rover_mppi_isaacsim_torch.env import RobotManager
 from husky_rover_mppi_isaacsim_torch.env.largescale_loop import (
     LargeScaleClosedLoop,
     LargeScaleLoopConf,
 )
-from husky_rover_mppi_isaacsim_torch.mppi import evaluation
+from husky_rover_mppi_isaacsim_torch.mppi import MPPIConfig, MPPIController, evaluation
 from husky_rover_mppi_isaacsim_torch.ops import cuda_build
+from husky_rover_mppi_isaacsim_torch.parallel import make_mesh, scaling_sweep
+from husky_rover_mppi_isaacsim_torch.shell import SimulationManager, SimulationManagerConf
+from husky_rover_mppi_isaacsim_torch.terrain import as_costmap
 from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
 from husky_rover_mppi_isaacsim_torch.terrain.streaming import StreamerConf, TerrainStreamer
 from husky_rover_mppi_isaacsim_tpu import cli as jcli
@@ -62,15 +67,19 @@ SLICE_6 = ("physics", "physics.deformation", "aux", "aux.checkpoint")
 # the CLI as run.py runs it: the configuration tree, SDG, terramechanics
 SLICE_7 = ("core.device", "utils", "utils.timer", "aux.stellar", "aux.yaml_reader", "aux.config",
            "aux.render_fx", "aux.labeling", "physics.terramechanics")
+# the host shell, the controller wrapper, sharding and the library leftovers
+SLICE_8 = ("env.robot_manager", "shell", "shell.pubsub", "shell.rate", "shell.monitor",
+           "shell.sim_manager", "parallel", "parallel.mesh", "parallel.scaling",
+           "mppi.reference_rollout", "aux.visualize")
 
 
 def test_package_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=120, check=True).stdout.split()
-    assert int(out[0]) >= 48 and out[1] == "[]", out
+    assert int(out[0]) >= 60 and out[1] == "[]", out
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
-               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7), names
+               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8), names
 
 
 def test_chip_smoke_imports_neither_jax_nor_yaml():
@@ -83,6 +92,26 @@ def test_chip_smoke_imports_neither_jax_nor_yaml():
     names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
     names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
     assert "husky_rover_mppi_isaacsim_torch.cli" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "yaml",
+                                                          "husky_rover_mppi_isaacsim_tpu")]
+
+
+def test_shard_ranks_imports_neither_jax_nor_yaml():
+    """``shard_ranks.py``, the rank harness that chip_smoke.py starts on the
+    card, imports only torch and the port, also when run as a rank."""
+    out = subprocess.run([sys.executable, "-c", (
+        "import sys; sys.modules['jax'] = None; sys.modules['yaml'] = None\n"
+        "import shard_ranks\n"
+        "print([m for m in sys.modules if m.startswith(('jax', 'yaml', "
+        "'husky_rover_mppi_isaacsim_tpu')) and sys.modules[m] is not None])")],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True).stdout.split()
+    assert out == ["[]"], out
+    import ast
+
+    tree = ast.parse((REPO / "shard_ranks.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "husky_rover_mppi_isaacsim_torch" in names
     assert not [m for m in names if m.split(".")[0] in ("jax", "yaml",
                                                           "husky_rover_mppi_isaacsim_tpu")]
 
@@ -136,6 +165,10 @@ def test_missing_card_raises_instead_of_running_on_the_cpu(monkeypatch, mode):
     assert run_device("cpu") == torch.device("cpu")
 
 
+def _tiny_world():
+    return HeightField.create(torch.zeros((8, 8)), 2.0), as_costmap(np.zeros((4, 4)), 2.0)
+
+
 ENTRY_POINTS = {
     "LargeScaleClosedLoop": lambda: LargeScaleClosedLoop(LargeScaleLoopConf()),
     "LargeScaleClosedLoop.resume": lambda: LargeScaleClosedLoop.resume(LargeScaleLoopConf(),
@@ -145,6 +178,11 @@ ENTRY_POINTS = {
         ks=(8,)),
     "TerrainStreamer": lambda: TerrainStreamer(StreamerConf(), np.zeros((4, 4))),
     "MoonyardGenerator": lambda: MoonyardGenerator(MoonyardConf()),
+    "MPPIController": lambda: MPPIController(MPPIConfig(), *_tiny_world(), (1.0, 1.0)),
+    "SimulationManager": lambda: SimulationManager(SimulationManagerConf(), *_tiny_world(),
+                                                   RobotManager(1), np.zeros((1, 2))),
+    "make_mesh": lambda: make_mesh((1,), ("sample",)),
+    "scaling_sweep": lambda: scaling_sweep(MPPIConfig(), *_tiny_world(), [1]),
 }
 
 

@@ -78,7 +78,7 @@ def test_distance_costmap_matches_jax():
 
 
 def test_costmap_750_matches_jax_at_reduced_size():
-    got = tcost.costmap_750(size=150)
+    got = tcost.costmap_750(size=150, use_exact_edt=True)
     want = jcost.costmap_750(size=150, use_exact_edt=True)
     np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=0, atol=1e-6)
     assert float(got.half_width) == float(want.half_width) == 75.0
