@@ -4,12 +4,14 @@
 
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) from the sources, one
-nvcc each, started together; holds each against its plain PyTorch version on
+nvcc each, and the host runtime (csrc/husky_native.cpp) with g++, all
+started together; holds each kernel against its plain PyTorch version on
 the card, bit for bit (K1 on every channel: the flagship shapes, the K=1
 optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
 rovers in one launch against one-rover launches; K1's branch-free division
 and square root against `/` and sqrtf on 2^36 operand pairs and every
-float32 operand); times each kernel back to
+float32 operand; K1 on 8 samples against the float64 Warp-semantics
+oracle, compat.warp_oracle); times each kernel back to
 back and as one CUDA-graph replay of 20 launches (device time without the
 host's issue time); builds the standalone world on the card (its
 costmap through K2); checks one control step and one N=4 closed-loop step on
@@ -42,7 +44,13 @@ costmap bit-equal to its rebuild) and the synchronous loop without
 pre-staging, cut to SYNC_STEPS; then resumes the first from its checkpoint
 (bit-identical to the uninterrupted run), reads the chunk's device rate, and
 drives a short wheel-track-deformed traverse across a block border (K1 on the
-deformed window bit-equal, a stamp on the card against the CPU). K3 is timed
+deformed window bit-equal, a stamp on the card against the CPU); builds the
+7000^2 window on the native tile pool (native_pool="always": bicubic bases on
+the pool's 8 C++ threads, uploaded without a host sync, craters stamped on
+the card) against the device route, the pool's bases on the card against the
+CPU's, K1 on the pool-built window, and drives a synchronous traverse with
+the CLI's override terrain_streamer.native_pool=always, cut to POOL_STEPS.
+K3 is timed
 beside an empty kernel of its grid and block (the launch floor of its
 restated bound). The CLI's paths through its composed cfg/ tree: mode=sdg
 (cfg/mode/sdg.yaml with its camera block on: 10 frames of the 500^2 yard
@@ -50,7 +58,9 @@ with rocks, a 640 x 480 camera marched in 128 steps with cast shadows)
 under both rendering files, timed by phase, and one capture on the card
 held against the CPU's; K1 on the 4000^2 DEM of environment=lunaryard_80m
 bit-equal to its plain version, that yard's goal-seek (-30, -30) -> (30, 30)
-at K=1000 x H=100, and environment=lunalab's 4-rover closed loop; the SDG
+at K=1000 x H=100, and environment=lunalab's 4-rover closed loop; the
+worldbuilders' rock request on that yard DEM (RequestMixer: hard-core Thomas
+xy, image and normal-map clippers) on the card against the CPU; the SDG
 frame's device kernels are counted after every timed path. Each path runs with the
 kernels' launch counts set to 0 just before it and read just after. Each
 phase prints one line; any failure raises and the exit code is not 0. The
@@ -123,6 +133,21 @@ LAB_ARGS = ["mode=closed_loop", "environment=lunalab"]
 # rgb, and the share of pixels whose hit, class or instance may differ
 SHADE_ATOL, DEPTH_RTOL, ROCK_RTOL, ROCK_SHADE_ATOL, WARP_ATOL = 1e-6, 1e-5, 1e-3, 1e-3, 1e-4
 HIT_SHARE = 0.9999
+# the tile pool route: the 7000^2 window's pool-built and device-built
+# heights agree to tests/test_torch_native.py's bound on the synthetic LOLA
+# DEM (float32 upsample sums in another order); the pool traverse (0, 0) ->
+# (65, 65), synchronous with pre-staging, is cut to POOL_STEPS sim steps,
+# past its first block shift: on H100 80GB HBM3 at 700 W its rover stood at
+# (21.5, 21.9) after 2400 steps and at (24.3, 24.1) after 3000, short of the
+# x, y = 25 m border (the path moves with the window's last bits)
+ROUTE_ATOL, POOL_STEPS = 1e-4, 4200
+# the worldbuilders' rock request on the lunaryard_80m DEM (4000^2 at
+# 0.02 m/px): hard-core Thomas xy, z and orientation clipped from the DEM
+WB_MPP, WB_SEED = 0.02, 11
+# K1 against the Warp-semantics oracle: samples, and the CPU float32
+# rollout tests' bound (tests/test_torch_rollout.py) on trajectory,
+# headings and wheel xy, with >= 98% of wheel heights equal
+ORACLE_SAMPLES, ORACLE_ATOL, ORACLE_WHEEL_Z_SHARE = 8, 5e-4, 0.98
 
 
 # one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes per second,
@@ -168,6 +193,7 @@ def main(argv=None) -> int:
         return 1
 
     from husky_rover_mppi_isaacsim_torch import env as tenv
+    from husky_rover_mppi_isaacsim_torch import native
     from husky_rover_mppi_isaacsim_torch.aux.labeling import (
         AutonomousLabeling,
         CameraIntrinsics,
@@ -262,15 +288,23 @@ def main(argv=None) -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1, K2 and K3 from the sources, one nvcc each, started together
+    # 2. build K1, K2 and K3 from the sources, one nvcc each, and the host
+    #    runtime (csrc/husky_native.cpp) with g++, all started together
     t0 = time.perf_counter()
     wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda)
-    with ThreadPoolExecutor(len(wrappers)) as pool:
+    with ThreadPoolExecutor(len(wrappers) + 1) as pool:
+        host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
+        native_ok = host_build.result()
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
+    phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
+          seconds=seconds, gxx_seconds=round(native.build_seconds, 3),
+          library=native.library_path.name if native_ok else None, ok=native_ok)
+    if not native_ok:
+        raise RuntimeError(f"the native host runtime did not build:\n{native.build_error()}")
 
     # 3. K1 against its plain version on the card, every channel bit for bit:
     #    the flagship DEM and shapes, the K=1 optimal rollout, a ragged shape
@@ -448,7 +482,95 @@ def main(argv=None) -> int:
               sync_plain_sim_steps_per_s=sync_s0["steps_per_s"])
         del pipe, sync_s0
         largescale_deform(conf, counts)
+
+        #     the tile pool route: the window built on the pool and on the
+        #     card, then a synchronous traverse with the CLI's streamer
+        #     override terrain_streamer.native_pool=always
+        native_pool_builds(conf)
+        pool_conf = dataclasses.replace(
+            largescale_conf({"terrain_streamer": {"native_pool": "always"}}),
+            pipeline_depth=0, max_steps=POOL_STEPS)
+        pooled = run_traverse("largescale_native_pool", {}, pool_conf)
+        counts["largescale_native_pool"] = (pooled["k1"], pooled["k2"])
+        del pooled
         return loop0, k1_row, k2_row, counts
+
+    def native_pool_builds(conf):
+        """The LargeScaleConf window (7 x 7 blocks of 25 m at 0.025 m/px,
+        7000^2, upscale factor 200) built with native_pool="always" on the
+        card (8 pool workers; its update under set_sync_debug_mode("error"))
+        and with "never" on the card: the two agree within ROUTE_ATOL. The
+        pool's bases (craters off) on the card equal the CPU's bit for bit
+        (the same C++ on the host; a CPU crater stamp of 49 blocks would
+        take minutes). K1 at K=1000 x H=100 on the pool-built window is
+        bit-equal to its plain version."""
+        from husky_rover_mppi_isaacsim_torch.terrain.map_manager import MapManager
+        from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleConf
+
+        def streamer(mode, dev, craters=True):
+            terrain = LargeScaleConf(hr_dem_generate_craters=craters)
+            terrain.streamer_conf.native_pool = mode
+            return MapManager(terrain.map_conf, device=dev).streamer
+
+        def build(s, no_sync=False):
+            if s.device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if no_sync:
+                torch.cuda.set_sync_debug_mode("error")  # a host sync raises
+            try:
+                s.update(conf.start)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            if s.device.type == "cuda":
+                torch.cuda.synchronize()
+            return time.perf_counter() - t0
+
+        pooled, devrt = streamer("always", cuda), streamer("never", cuda)
+        pool_s = build(pooled, no_sync=True)
+        never_s = build(devrt)
+        diff = (pooled.window - devrt.window).abs().max().item()
+        del devrt
+        bases = {dev.type: streamer("always", dev, craters=False) for dev in (cuda, cpu)}
+        base_s = {k: build(b) for k, b in bases.items()}
+        bases_equal = torch.equal(bases["cuda"].window.cpu(), bases["cpu"].window)
+        pool = pooled.tile_pool()
+        jobs, collect_s = pool.jobs, pool.collect_s
+        for b in bases.values():
+            b.close()
+        del bases
+        #   a shift (+x) on the pool route, also without a host sync
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            shifted = pooled.update((conf.start[0] + pooled.conf.block_size, conf.start[1]))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        build_shift_s = time.perf_counter() - t0
+        whf = HeightField.create(pooled.window, pooled.conf.window_size / 2)
+        p = torch.zeros(2, device=cuda)
+        lin = torch.rand((K, H), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((K, H), generator=gen, device=cuda) * 2.0 - 1.0
+        got, want = rollout_25d_cuda(whf, p, heading, lin, ang, DT), rollout_25d(
+            whf, p, heading, lin, ang, DT)
+        k1_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        window = list(pooled.window.shape)
+        ok = (diff <= ROUTE_ATOL and bases_equal and k1_equal and shifted
+              and window == [7000, 7000] and pool.jobs > jobs)
+        phase("native_pool", window=window, blocks=pooled.conf.blocks_per_side ** 2,
+              upscale_factor=pooled.conf.upscale_factor, workers=pooled.conf.native_pool_workers,
+              build_s_always_card=pool_s, build_s_never_card=never_s,
+              build_s_bases_always=base_s,
+              shift_s_always_card=build_shift_s, pool_jobs_first_window=jobs,
+              pool_collect_all_s_first_window=collect_s, pool_jobs_after_shift=pool.jobs,
+              update_without_host_sync=True, bases_card_equal_cpu=bases_equal,
+              max_abs_diff_always_vs_never_m=diff, atol=ROUTE_ATOL,
+              k1_on_pool_window_bit_equal=k1_equal, K=K, H=H, ok=ok)
+        pooled.close()
+        if not ok:
+            raise RuntimeError("the tile pool route's window is wrong, or K1 on it disagrees "
+                               "with its plain version")
 
     def path_on_cost(loop, res):
         """Path points on a cost above 0.99 of the costmap that was live
@@ -490,6 +612,7 @@ def main(argv=None) -> int:
         on_cost, max_cost = path_on_cost(loop, res)
         seated, seated_equal = seated_costmaps_equal(loop)
         streamer = loop.lstm.map_manager.streamer
+        pool = streamer.tile_pool()  # None on the card unless native_pool="always"
         builds = dict(loop.costmap_builds)
         k2_expected = builds["first"] + builds["staged"] + builds["miss"] + builds["verify"]
         k1_expected = 2 * loop.dispatched_steps
@@ -515,19 +638,27 @@ def main(argv=None) -> int:
             worker_s=loop.worker_s, cascade_phases_s=loop.lstm.cascade_phase_acc,
             build_phases_s=loop.lstm.build_phase_acc, peak_memory_bytes=peak,
             memory_held_by_earlier_phases_bytes=held, peak_memory_bytes_absolute=peak + held,
-            peak_memory_bytes_unstaged_first=UNSTAGED_TRAVERSE_PEAK_BYTES)
+            peak_memory_bytes_unstaged_first=UNSTAGED_TRAVERSE_PEAK_BYTES,
+            native_pool=streamer.conf.native_pool, pool_jobs=pool.jobs if pool else 0,
+            pool_collect_all_s=pool.collect_s if pool else 0.0,
+            costmap_first_path_points=[entry[0] for entry in loop.costmap_log])
         ok = (k1 == k1_expected and k2 == k2_expected and on_cost == 0 and seated_equal
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
         if name == "largescale":  # the synchronous traverse without pre-staging, cut
             ok = ok and res.steps == SYNC_STEPS and res.block_shifts >= 1
+        elif name == "largescale_native_pool":  # the tile pool route, cut
+            ok = (ok and res.steps == POOL_STEPS and res.block_shifts >= 1 and pool is not None
+                  and pool.jobs >= len(streamer.block_cache))
         else:
             ok = ok and res.reached and res.block_shifts >= 2 and res.prestage_hits >= 1
         phase(name, **report, **fields, ok=ok)
         if not ok:
             raise RuntimeError(f"{name}: the traverse is wrong (reached, shifts, pre-stage "
                                "hits, seated costmaps, path cost or kernel counts)")
+        if pool is not None:
+            streamer.close()
         return {"run": run, "loop": loop, "k1": k1, "k2": k2,
                 "steps_per_s": res.steps / res.wall_s}
 
@@ -871,6 +1002,7 @@ def main(argv=None) -> int:
               plain_ms=y_plain, bound_ms=y_bound, bound_by=y_bound_by, ok=yard_equal)
         if not yard_equal:
             raise RuntimeError("K1 disagrees with its plain version on the 4000^2 yard DEM")
+        worldbuilders_rocks(yhf.z)
         free = bool(ycm.cost.max().item() == 0.0)
         zero_counts()
         yard = run_standalone(yard_tree)
@@ -912,6 +1044,83 @@ def main(argv=None) -> int:
             raise RuntimeError("the lab's closed loop ran the wrong kernels or left a non-finite "
                                "path")
         return sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture
+
+    def worldbuilders_rocks(dem):
+        """A rock scatter in the form of the reference's lab and yard rock
+        requests (OmniLRS WorldBuilders + RequestMixer) over the
+        lunaryard_80m yard: hard-core Thomas xy on an 80 x 80 m plane, z
+        from an image clipper and orientation from a normal-map clipper on
+        the yard's 4000^2 float32 DEM, scale uniform in [0.02, 0.2]. Run on
+        the card and on the CPU from the same seeds: counts equal,
+        positions, heights and scales bit-equal, quaternions within the
+        float32 spacing of the largest slope (tests/test_torch_worldbuilders.py)."""
+        from husky_rover_mppi_isaacsim_torch import worldbuilders as wb
+        from husky_rover_mppi_isaacsim_torch.worldbuilders import samplers as wsamp
+
+        side = dem.shape[0] * WB_MPP
+
+        def requests(data):
+            res = tuple(data.shape)
+            return (
+                wb.UserRequest_T(p_type=wb.Position_T(), sampler=wb.HardCoreThomasClusterSampler_T(
+                    randomization_space=2, lambda_parent=0.05, lambda_daughter=50, sigma=0.5,
+                    core_radius=0.05, num_repeat=1, seed=WB_SEED),
+                    layer=wb.Plane_T(xmin=0.0, xmax=side, ymin=0.0, ymax=side), axes=["x", "y"]),
+                wb.UserRequest_T(p_type=wb.Position_T(), sampler=wb.ImageClipper_T(
+                    randomization_space=1, resolution=res, mpp_resolution=WB_MPP, data=data),
+                    layer=wb.Line_T(xmin=0, xmax=1), axes=["z"]),
+                wb.UserRequest_T(p_type=wb.Scale_T(), sampler=wb.UniformSampler_T(
+                    randomization_space=1, min=(0.02,), max=(0.2,), seed=WB_SEED + 1),
+                    layer=wb.Line_T(xmin=0.02, xmax=0.2), axes=["xyz"]),
+                wb.UserRequest_T(p_type=wb.OrientationParam_T(), sampler=wb.NormalMapClipper_T(
+                    randomization_space=1, resolution=res, mpp_resolution=WB_MPP, data=data),
+                    layer=wb.RollPitchYaw_T(output_space=4), axes=["x", "y", "z", "w"]),
+            )
+
+        reject = wsamp._hardcore_reject
+        out, secs, thin_s, slopes = {}, {}, {}, {}
+        for dev in (cuda, cpu):
+            thin_s[dev.type] = 0.0
+
+            def timed_reject(*args, dev=dev):  # the thinning's seconds
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                keep = reject(*args)
+                torch.cuda.synchronize()
+                thin_s[dev.type] += time.perf_counter() - t0
+                return keep
+
+            wsamp._hardcore_reject = timed_reject
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                mixer = wb.RequestMixer(requests(dem.to(dev)), device=dev)
+                out[dev.type] = {k: v.cpu() for k, v in mixer(num=1).items()}
+                torch.cuda.synchronize()
+                secs[dev.type] = time.perf_counter() - t0
+            finally:
+                wsamp._hardcore_reject = reject
+            clip = mixer.execution_graph["xformOp:orientation"]["meta_layer"][0].layer
+            slopes[dev.type] = max(clip.slope_x.abs().max().item(), clip.slope_y.abs().max().item())
+        card, host = out["cuda"], out["cpu"]
+        n = card["xformOp:translation"].shape[0]
+        same_count = all(card[k].shape == host[k].shape for k in card)
+        exact = same_count and all(torch.equal(card[k], host[k])
+                                   for k in ("xformOp:translation", "xformOp:scale"))
+        q_atol = float(np.spacing(np.float32(max(slopes.values()))))
+        q_err = ((card["xformOp:orientation"] - host["xformOp:orientation"]).abs().max().item()
+                 if same_count else None)
+        finite = all(bool(torch.isfinite(v).all()) for v in card.values())
+        ok = exact and q_err is not None and q_err <= q_atol and finite and n > 10000
+        phase("worldbuilders", environment="lunaryard_80m", dem=list(dem.shape),
+              dem_dtype=str(dem.dtype), plane_m=[side, side], rocks=n,
+              rocks_cpu=host["xformOp:translation"].shape[0], counts_equal=same_count,
+              positions_heights_scales_bit_equal=exact, quaternion_max_abs_diff=q_err,
+              quaternion_atol=q_atol, seconds=secs, thinning_s=thin_s,
+              thinning_share={k: thin_s[k] / secs[k] for k in secs}, finite=finite, ok=ok)
+        if not ok:
+            raise RuntimeError("the worldbuilders' rock request differs between the card and "
+                               "the CPU")
 
     def sdg_profiled(sdg_capture):
         """Device kernels of one SDG frame, counted by torch.profiler after
@@ -1019,6 +1228,42 @@ def main(argv=None) -> int:
               plain_batched_ms=t_plain, ok=ok)
         if not ok:
             raise RuntimeError(f"K1's rover axis is wrong at K={k}, H={h}, wheels={wheels}")
+
+    # K1 against the thesis's Warp semantics (compat.warp_oracle, float64,
+    # one sample at a time) on the flagship DEM from the flagship start,
+    # where the oracle's cells stay on the DEM (it does not wrap negative
+    # indices)
+    from husky_rover_mppi_isaacsim_torch.compat import warp_oracle
+
+    t0 = time.perf_counter()
+    pos_o = torch.tensor(START, device=cuda)
+    lin_o = torch.rand((ORACLE_SAMPLES, H), generator=gen, device=cuda) * 2.0
+    ang_o = torch.rand((ORACLE_SAMPLES, H), generator=gen, device=cuda) * 2.0 - 1.0
+    got = [c.double().cpu().numpy() for c in rollout_25d_cuda(hf, pos_o, heading, lin_o, ang_o, DT)]
+    z64 = hf.z.double().cpu().numpy()
+    grid = [float(hf.x_min), float(hf.y_min), float(hf.resolution)]
+    errs, z_equal = [0.0, 0.0, 0.0, 0.0], []
+    for n in range(ORACLE_SAMPLES):
+        want = warp_oracle.rollout_25d(z64, *grid, pos_o.double().cpu().numpy(),
+                                       heading.double().cpu().numpy(),
+                                       lin_o[n].double().cpu().numpy(),
+                                       ang_o[n].double().cpu().numpy(), DT)
+        for c, (g, w) in enumerate(zip(got, want)):
+            xy = slice(0, 2) if c >= 2 else slice(None)
+            errs[c] = max(errs[c], float(np.abs(g[n][:, xy] - w[:, xy]).max()))
+            if c >= 2:
+                z_equal.append(float((g[n][:, 2] == w[:, 2]).mean()))
+    z_share = float(np.mean(z_equal))
+    ok = max(errs) <= ORACLE_ATOL and z_share >= ORACLE_WHEEL_Z_SHARE
+    phase("k1_vs_oracle", samples=ORACLE_SAMPLES, H=H, dem=list(hf.z.shape), start=list(START),
+          oracle="husky_rover_mppi_isaacsim_torch/compat/warp_oracle.py::rollout_25d (float64)",
+          max_abs_err={"trajectory": errs[0], "headings": errs[1], "left_wheel_xy": errs[2],
+                       "right_wheel_xy": errs[3]},
+          atol=ORACLE_ATOL, wheel_heights_equal_share=z_share,
+          wheel_heights_equal_share_min=ORACLE_WHEEL_Z_SHARE,
+          seconds=time.perf_counter() - t0, ok=ok)
+    if not ok:
+        raise RuntimeError("K1 disagrees with the Warp-semantics oracle")
 
     # the eager plain 2D rollout of the evaluation's 2D arm, at its shape
     lin = torch.rand((K, H), generator=gen, device=cuda) * 2.0

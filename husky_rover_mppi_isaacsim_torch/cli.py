@@ -320,7 +320,10 @@ def largescale_conf(tree: dict) -> LargeScaleLoopConf:
     keys, with its defaults (``pipeline_depth=4``, ``prestage_shifts``):
     ``deformation.enable`` sets a deformation engine at the window's
     resolution, ``checkpoint.path`` and ``checkpoint.every_steps`` the
-    periodic checkpoint."""
+    periodic checkpoint. The tile pool fields of a ``terrain_streamer``
+    section (``native_pool``, ``native_pool_workers``) go to the loop's
+    streamer; the JAX package registers that section and reads nothing of
+    it (the streamer's geometry comes from the ``largescale`` keys)."""
     env = tree.get("environment") or {}
     ls = dict(env.get("largescale") or tree.get("largescale") or {})
     fields = {f.name for f in dataclasses.fields(LargeScaleConf)}
@@ -333,6 +336,12 @@ def largescale_conf(tree: dict) -> LargeScaleLoopConf:
         kw["rock_gen_cfgs"] = tuple(c if isinstance(c, RockDistConf) else RockDistConf(**c)
                                     for c in kw["rock_gen_cfgs"])
     terrain = LargeScaleConf(**kw)
+    streamer = tree.get("terrain_streamer")
+    if streamer is not None:
+        given = streamer if isinstance(streamer, dict) else dataclasses.asdict(streamer)
+        for name in ("native_pool", "native_pool_workers"):
+            if name in given:
+                setattr(terrain.streamer_conf, name, given[name])
     deform = None
     if (tree.get("deformation") or {}).get("enable"):
         deform = DeformationEngineConf(terrain_resolution=terrain.hr_dem_resolution)

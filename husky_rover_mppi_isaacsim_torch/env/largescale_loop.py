@@ -115,15 +115,6 @@ class LargeScaleLoopConf:
         """costmap = DEM grid / 8 (MPPI_isaac.py:271-272)."""
         return self.terrain.streamer_conf.window_px // 8
 
-    def refuse_unported(self) -> None:
-        """Raise ``NotImplementedError`` for what the port cannot serve: the
-        C++ tile pool route of the streamer."""
-        pool = self.terrain.streamer_conf.native_pool
-        if pool != "never":
-            raise NotImplementedError(
-                f"native_pool={pool!r}: the C++ tile pool is not ported; blocks upsample on "
-                "the streamer's device (native_pool='never')")
-
 
 @dataclasses.dataclass
 class LargeScaleRunResult:
@@ -332,7 +323,6 @@ class LargeScaleClosedLoop:
         ``phase_cb(name, seconds)`` gets one call per construction phase.
         ``device`` is where the terrain, the state and the controller live
         (default: the card; see :func:`..core.device.run_device`)."""
-        conf.refuse_unported()
         t0 = time.perf_counter()
 
         def _mark(name):

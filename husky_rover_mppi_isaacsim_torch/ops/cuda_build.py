@@ -1,10 +1,13 @@
-"""Build a CUDA source of this package into a shared library and load it.
+"""Build a source of this package into a shared library and load it.
 
 Sources in ``husky_rover_mppi_isaacsim_torch/csrc`` have a plain C interface.
-They are compiled with ``nvcc`` for ``sm_90a`` at first use into
-``build/torch_kernels/`` at the repository root (listed in ``.gitignore``),
-under a name keyed by a hash of the source and the flags, and loaded with
-ctypes. Nothing is built when a module is imported.
+The CUDA ones are compiled with ``nvcc`` for ``sm_90a`` (:func:`build`), the
+host runtime ``husky_native.cpp`` with ``g++`` (:func:`build_host`), at first
+use into ``build/torch_kernels/`` at the repository root (listed in
+``.gitignore``), under a name keyed by a hash of the source and the flags,
+and loaded with ctypes. Each build writes a file of its own process and
+renames it into place, so that a concurrent loader never sees a partial
+library. Nothing is built when a module is imported.
 """
 
 from __future__ import annotations
@@ -28,6 +31,9 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# the host runtime's flags, those of the JAX package's native build
+HOST_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-shared", "-pthread")
+HOST_CXX = "g++"
 
 
 @dataclass
@@ -51,25 +57,42 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build(source_name: str) -> BuiltLibrary:
-    """Compile ``csrc/<source_name>`` (unless a library of the same source
-    and flags is already built) and load it."""
-    src = CSRC / source_name
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+def _build_cached(src: Path, compiler, flags) -> BuiltLibrary:
+    """Compile ``src`` with ``compiler()`` and ``flags`` unless a library of
+    the same source and flags is built, then load it."""
+    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{src.stem}_{key.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():
-        nvcc = _nvcc()
+        exe = compiler()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-            capture_output=True, text=True, check=False)
+        proc = subprocess.run([exe, *flags, "-o", str(tmp), str(src)],
+                              capture_output=True, text=True, check=False)
         seconds = time.perf_counter() - t0
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed on {src.name}:\n{log}")
+            raise RuntimeError(f"{Path(exe).name} failed on {src.name}:\n{log}")
         os.replace(tmp, out)  # atomic: a concurrent loader never sees a partial file
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+
+
+def build(source_name: str) -> BuiltLibrary:
+    """Compile the CUDA source ``csrc/<source_name>`` with nvcc (unless a
+    library of the same source and flags is already built) and load it."""
+    return _build_cached(CSRC / source_name, _nvcc, NVCC_FLAGS)
+
+
+def _host_cxx() -> str:
+    found = shutil.which(HOST_CXX)
+    if found is None:
+        raise RuntimeError(f"{HOST_CXX} not found: the host runtime needs a C++17 compiler")
+    return found
+
+
+def build_host(source_name: str) -> BuiltLibrary:
+    """Compile the host C++ source ``csrc/<source_name>`` with g++ (unless a
+    library of the same source and flags is already built) and load it."""
+    return _build_cached(CSRC / source_name, _host_cxx, HOST_FLAGS)

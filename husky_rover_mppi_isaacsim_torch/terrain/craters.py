@@ -201,6 +201,7 @@ def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: fl
 def render_crater_block(
     profiles: CraterProfiles, field: CraterField, block_origin, resolution: float,
     z_scale: float, block_px: int, pad_px: int, patch_px: int = 128, chunk: int = 256,
+    upload=None,
 ) -> Tensor:
     """Render all craters of ``field`` into one ``(block_px, block_px)``
     float32 block raster on the tables' device (CraterBuilder.
@@ -210,8 +211,13 @@ def render_crater_block(
     host in float32. The raster carries a patch-sized guard band, so a patch
     that overhangs the padded block is cut off, not moved; a crater whose
     patch leaves the guard band too is clamped into it, as in the JAX
-    package. Masked craters are skipped (they render as zeros there)."""
+    package. Masked craters are skipped (they render as zeros there).
+    ``upload`` moves each chunk of the (host) field to the tables' device
+    (default: ``Tensor.to``; the streamer passes its pinned
+    :class:`..core.device.HostUploader`)."""
     dev = profiles.height.device
+    if upload is None:
+        upload = lambda t: t.to(dev)  # noqa: E731
     size_px = block_px + 2 * pad_px
     guard = patch_px
     hi = size_px + 2 * guard - patch_px
@@ -230,7 +236,7 @@ def render_crater_block(
         live = np.flatnonzero(mask[s:s + chunk])
         if live.size == 0:
             continue
-        sub = CraterField(*(f[s:s + chunk].to(dev) for f in field))
+        sub = CraterField(*(upload(f[s:s + chunk]) for f in field))
         patches = _render_patches(profiles, sub, resolution, z_scale, patch_px)
         for i in live.tolist():
             r, c = int(row0[s + i]), int(col0[s + i])

@@ -1,9 +1,12 @@
 """Block databases + region-sampling acceleration structures.
 
 A numpy copy of ``husky_rover_mppi_isaacsim_tpu/terrain/database.py``
-(this package imports nothing of that one), with the fixed-accuracy float
-codec written out in numpy (:func:`quantize` / :func:`dequantize`) where
-that module calls its C++ runtime. The reference's DB layer:
+(this package imports nothing of that one). Float payloads go through this
+package's C++ fixed-accuracy codec (:func:`pack_native`, the ``"n"`` kind,
+byte for byte the JAX package's); :func:`quantize` / :func:`pack_array`
+write the same quantization out in numpy (the ``"q"`` kind, which
+:func:`unpack_array` still reads) and are the plain version the tests hold
+the codec against. The reference's DB layer:
 
 * ``CraterDB`` / ``RockDB`` keep per-block payload dicts with neighbor-aware
   queries, occupancy matrices over query regions, and missing-block lists
@@ -59,8 +62,25 @@ def pack_array(arr: np.ndarray, tolerance: float) -> tuple:
     return ("i", zlib.compress(arr.astype(np.int32).tobytes()), arr.shape)
 
 
+def pack_native(arr: np.ndarray, tolerance: float) -> tuple:
+    """``(kind, bytes, shape)`` as the JAX package's ``BlockDB`` packs:
+    floats through the native fixed-accuracy codec (``"n"``), anything else
+    as zlib'd int32 (``"i"``)."""
+    arr = np.asarray(arr)
+    if arr.dtype.kind == "f":
+        from ..native import compress
+
+        return ("n", compress(arr, tolerance), arr.shape)
+    return ("i", zlib.compress(arr.astype(np.int32).tobytes()), arr.shape)
+
+
 def unpack_array(packed: tuple, tolerance: float) -> np.ndarray:
+    """Inverse of :func:`pack_native` and :func:`pack_array`."""
     kind, buf, shape = packed
+    if kind == "n":
+        from ..native import decompress
+
+        return decompress(buf, shape, tolerance)
     raw = zlib.decompress(buf)
     if kind == "q":
         q = np.cumsum(np.frombuffer(raw, np.int64))
@@ -150,7 +170,7 @@ class BlockDB:
     def _pack(self, payload: Dict[str, np.ndarray]) -> object:
         if not self.conf.compress:
             return payload
-        return {name: pack_array(arr, self.conf.tolerance) for name, arr in payload.items()}
+        return {name: pack_native(arr, self.conf.tolerance) for name, arr in payload.items()}
 
     def _unpack(self, packed: object) -> Dict[str, np.ndarray]:
         if not self.conf.compress:

@@ -16,8 +16,9 @@ half of ``rock_manager.py``):
   blocks share a batch. ``jax.random``'s stream cannot be reproduced, so
   the quaternions differ from the JAX package's; the math
   (:func:`quat_from_normal_and_rand`) is the same;
-* blocks are stored through the fixed-accuracy codec of
-  :mod:`.database` at the reference's ZFP tolerance 1e-3: what comes back
+* blocks are stored through the native fixed-accuracy codec
+  (:func:`.database.pack_native`) at the reference's ZFP tolerance 1e-3,
+  as the JAX package stores them: what comes back
   from the store, positions included, is a multiple of 1e-3;
 * ``rocks_data`` feeds the MPPI costmap as ``extract_rocks_data`` does
   (visual_terrain_stack_full_terrain.py:240-260).
@@ -36,7 +37,7 @@ from ..core import geometry as geom
 from ..core import heightfield as hfield
 from ..core.heightfield import HeightField
 from . import point_process as pp
-from .database import pack_array, unpack_array
+from .database import pack_native, unpack_array
 from .streaming import window_normal
 from .upsample import bilinear_point_sample
 
@@ -125,8 +126,10 @@ def rock_surface_window(window: Tensor, ox: float, oy: float, res: Tensor, xy: T
 
 class RockDB:
     """Per-block rock storage (rock_database.py:22-400). With ``compress``
-    float fields go through the fixed-accuracy codec at the reference's ZFP
-    tolerance 1e-3 (utils.py:43-53), ids as int32."""
+    float fields go through the native fixed-accuracy codec at the
+    reference's ZFP tolerance 1e-3 (utils.py:43-53), ids as int32; each
+    field packs as ``((bytes, kind), shape)``, the JAX ``RockDB``'s layout
+    and bytes."""
 
     TOLERANCE = 1e-3
 
@@ -135,12 +138,15 @@ class RockDB:
         self.compress = compress
 
     def _pack(self, block: RockBlock) -> dict:
-        return {name: pack_array(arr, self.TOLERANCE)
-                for name, arr in dataclasses.asdict(block).items()}
+        packed = {}
+        for name, arr in dataclasses.asdict(block).items():
+            kind, buf, shape = pack_native(arr, self.TOLERANCE)
+            packed[name] = ((buf, kind), shape)
+        return packed
 
     def _unpack(self, packed: dict) -> RockBlock:
-        return RockBlock(**{name: unpack_array(p, self.TOLERANCE)
-                            for name, p in packed.items()})
+        return RockBlock(**{name: unpack_array((kind, buf, shape), self.TOLERANCE)
+                            for name, ((buf, kind), shape) in packed.items()})
 
     def __contains__(self, key) -> bool:
         return tuple(key) in self._blocks

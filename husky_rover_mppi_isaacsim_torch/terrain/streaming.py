@@ -23,8 +23,18 @@ in. The stage is keyed on the source window's identity and its
 ``Tensor._version``, so a window written in place since (a deformation
 stamp) is never swapped for a stale stage.
 
-Not ported: the C++ tile pool route (``native_pool`` takes ``"never"``
-only).
+With ``StreamerConf.native_pool`` on (``"auto"`` on a CPU streamer,
+``"always"`` on any device) :meth:`TerrainStreamer.bulk_build` upsamples
+every missing block's LR patch on the native C++ :class:`..native.TilePool`
+(host threads, the reference's upsample workers) from a host copy of the LR
+DEM, then uploads each base to the streamer's device and stamps its craters
+there. On the card the uploads, and the crater fields' on both routes, go
+through pinned buffers without a host sync (:class:`..core.device.
+HostUploader`). Every caller of ``bulk_build`` takes the route: the first
+window, a shift's entering blocks, :meth:`TerrainStreamer.prestage_shift`
+and the prefetch band. The pool is created at first use, raises where the
+native library does not build, and is closed with the streamer
+(:meth:`TerrainStreamer.close`).
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from ..core.device import run_device
+from ..core.device import HostUploader, run_device
 from .craters import (
     CraterField,
     CraterProfiles,
@@ -67,6 +77,14 @@ def window_normal(window: Tensor, px: Tensor, py: Tensor, res: Tensor) -> Tensor
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
 
 
+NATIVE_POOL_MODES = ("auto", "always", "never")
+
+
+def check_native_pool(mode: str) -> None:
+    if mode not in NATIVE_POOL_MODES:
+        raise ValueError(f"native_pool={mode!r}: expected one of {NATIVE_POOL_MODES}")
+
+
 @dataclasses.dataclass
 class StreamerConf:
     """Window geometry (HighResDEMConf semantics,
@@ -83,7 +101,13 @@ class StreamerConf:
     generate_craters: bool = True
     max_cached_blocks: int = 256
     prefetch: bool = True          # travel-direction block prefetch on shift
-    native_pool: str = "never"     # the C++ tile pool route is not ported
+    # Route the blocks' bicubic upsamples through the native C++ TilePool
+    # (csrc/husky_native.cpp, the worker-pool role of
+    # high_resolution_DEM_workers.py:199-466): "auto" on a CPU streamer
+    # only, "always" on any device, "never" not at all. The crater stamp
+    # runs on the streamer's device either way.
+    native_pool: str = "auto"      # "auto" | "always" | "never"
+    native_pool_workers: int = 8   # the reference's 8 upsample workers
 
     def __post_init__(self) -> None:
         if not (self.block_size > 0 and self.resolution > 0):
@@ -94,10 +118,7 @@ class StreamerConf:
         lr_block = self.block_size / self.lr_resolution
         if abs(lr_block - round(lr_block)) >= 1e-9:
             raise ValueError("block_size must be an integer number of LR pixels")
-        if self.native_pool != "never":
-            raise NotImplementedError(
-                f"native_pool={self.native_pool!r}: the C++ tile pool is not ported; "
-                "blocks upsample on the streamer's device (native_pool='never')")
+        check_native_pool(self.native_pool)
 
     @property
     def blocks_per_side(self) -> int:
@@ -142,10 +163,10 @@ class TerrainStreamer:
                 and the window live (default: the card, see
                 :func:`..core.device.run_device`).
         """
+        check_native_pool(conf.native_pool)
         self.conf = conf
         self.device = run_device(device)
-        self.lr_dem = torch.as_tensor(np.asarray(lr_dem), dtype=torch.float32,
-                                      device=self.device)
+        self.lr_dem = lr_dem
         self.lr_center = lr_center
         self.rng = np.random.default_rng(conf.seed)
         self.profiles: CraterProfiles = build_profiles(
@@ -162,6 +183,26 @@ class TerrainStreamer:
         self.verify_stage = False
         self.staged_shift_verified = 0
         self._res = torch.tensor(conf.resolution, dtype=torch.float32, device=self.device)
+        self._upload = HostUploader(self.device)
+        self._pool = None  # the native TilePool, created at first use
+
+    @property
+    def lr_dem(self) -> Tensor:
+        """The LR DEM on the streamer's device. Setting it keeps a float32
+        host copy beside it, which the tile pool route reads."""
+        return self._lr_dem
+
+    @lr_dem.setter
+    def lr_dem(self, value) -> None:
+        host = value.cpu().numpy() if isinstance(value, Tensor) else np.asarray(value)
+        self._lr_host = np.ascontiguousarray(host, np.float32)
+        self._lr_dem = torch.as_tensor(self._lr_host, device=self.device)
+
+    def close(self) -> None:
+        """Close the tile pool, if one was started. Idempotent."""
+        if self._pool is not None:
+            self._pool.close()
+            self._pool = None
 
     # --- coordinates --------------------------------------------------------
 
@@ -345,9 +386,10 @@ class TerrainStreamer:
 
     # --- block building -----------------------------------------------------
 
-    def _lr_patch(self, bx: int, by: int) -> Tensor:
-        """LR source patch covering a block + 2 LR pixels of margin, clamped
-        at the LR DEM edges (querry_low_res_dem semantics)."""
+    def _lr_indices(self, bx: int, by: int):
+        """LR rows and columns of the patch covering a block + 2 LR pixels
+        of margin, clamped at the LR DEM edges (querry_low_res_dem
+        semantics)."""
         lr_px = int(round(self.conf.block_size / self.conf.lr_resolution))
         margin = 2
         h, w = self.lr_dem.shape
@@ -358,16 +400,57 @@ class TerrainStreamer:
         py = int(round((by * self.conf.block_size - cy) / self.conf.lr_resolution)) + w // 2
         xs = np.clip(np.arange(px - margin, px + lr_px + margin), 0, h - 1)
         ys = np.clip(np.arange(py - margin, py + lr_px + margin), 0, w - 1)
+        return xs, ys
+
+    def _lr_patch(self, bx: int, by: int) -> Tensor:
+        """The block's LR patch on the streamer's device."""
+        xs, ys = self._lr_indices(bx, by)
         xs = torch.as_tensor(xs, device=self.device)
         ys = torch.as_tensor(ys, device=self.device)
         return self.lr_dem[xs][:, ys]
 
+    def _lr_patch_host(self, bx: int, by: int) -> np.ndarray:
+        """The block's LR patch from the host copy (no device read)."""
+        xs, ys = self._lr_indices(bx, by)
+        return self._lr_host[np.ix_(xs, ys)]
+
+    def tile_pool(self):
+        """The native TilePool when the route is on for this streamer's
+        device, else None. Created at first use; raises where the native
+        library does not build."""
+        mode = self.conf.native_pool
+        if mode == "never" or (mode == "auto" and self.device.type != "cpu"):
+            return None
+        if self._pool is None:
+            from .. import native
+
+            self._pool = native.TilePool(self.conf.native_pool_workers)
+        return self._pool
+
     def bulk_build(self, keys) -> int:
         """Build every block of ``keys`` that is not cached, in order.
-        Returns the number built."""
+        With the tile pool on, the bicubic upsamples of all of them run
+        concurrently on its C++ threads (shortest-queue dispatch, the
+        8-worker upsample pool of high_resolution_DEM_workers.py:107-196),
+        then each base is uploaded and stamped in order; otherwise each
+        block builds through :meth:`build_block`. Returns the number
+        built."""
         missing = [k for k in keys if k not in self.block_cache]
-        for k in missing:
-            self.build_block(*k)
+        if not missing:
+            return 0
+        pool = self.tile_pool()
+        if pool is None:
+            for k in missing:
+                self.build_block(*k)
+            return len(missing)
+        from .. import native
+
+        f = self.conf.upscale_factor
+        jobs = {pool.submit(native.BICUBIC, self._lr_patch_host(*k), f): k for k in missing}
+        results = pool.collect_all(timeout_s=300.0)
+        m, bpx = 2 * f, self.conf.block_px
+        for jid, (bx, by) in jobs.items():
+            self._finish_block(bx, by, self._upload(results[jid][m:m + bpx, m:m + bpx]))
         return len(missing)
 
     def build_block(self, bx: int, by: int) -> Tensor:
@@ -380,13 +463,18 @@ class TerrainStreamer:
         conf = self.conf
         m = 2 * conf.upscale_factor
         hr = upsample_bicubic(self._lr_patch(bx, by), conf.upscale_factor)
-        hr = hr[m:m + conf.block_px, m:m + conf.block_px]
+        return self._finish_block(bx, by, hr[m:m + conf.block_px, m:m + conf.block_px])
+
+    def _finish_block(self, bx: int, by: int, hr: Tensor) -> Tensor:
+        """Crater stamp + cache insert for an upsampled block base."""
+        conf = self.conf
         if conf.generate_craters:
             origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
             for field, patch_px in self._block_fields(bx, by):
                 hr = hr + render_crater_block(
                     self.profiles, field, origin, conf.resolution, conf.z_scale,
-                    conf.block_px, conf.pad_px, patch_px=patch_px, chunk=256)
+                    conf.block_px, conf.pad_px, patch_px=patch_px, chunk=256,
+                    upload=self._upload)
         hr = hr.contiguous()
         if len(self.block_cache) >= conf.max_cached_blocks:
             self.block_cache.pop(next(iter(self.block_cache)))

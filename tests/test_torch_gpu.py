@@ -9,7 +9,9 @@ its worker on a side stream), and the wheel-track deformation stamp; the
 CLI's slice: K1 on the 4000 x 4000 yard DEM, an SDG capture on the card
 against the CPU's; the simulation manager's ticks on the card against the
 CPU's, ``MPPIController.step`` and the one-rank sharded step bit-equal to
-``mppi_step`` on the card.
+``mppi_step`` on the card; the last host libraries: the streamer's tile
+pool route on the card (no host sync, its bases equal to the CPU's) and a
+worldbuilders request on the card against the CPU.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -666,3 +668,78 @@ def test_sharded_step_one_rank_bit_equal_on_card(cuda, tmp_path):
     assert res["k1_launches"] == 2
     for a, b in zip(res["ctrl"] + res["out"][:-1], want_ctrl + want_out[:-1]):
         assert torch.equal(a, b.cpu())
+
+
+def test_streamer_pool_route_on_card_without_a_host_sync(cuda):
+    """native_pool="always" on the card: the first window and a shift
+    raise no host sync; on smooth terrain the window equals the CPU pool
+    route's (the same C++ bases, uploaded), with craters it is within 1e-4
+    of the card's device route (tests/test_torch_native.py)."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.terrain import map_manager as tmap
+    from husky_rover_mppi_isaacsim_torch.terrain import streaming as tstream
+
+    lr = tmap.synthetic_lola_dem(256, 2.0, seed=42)
+
+    def make(dev, mode, craters):
+        conf = tstream.StreamerConf(block_size=10.0, resolution=0.1, lr_resolution=2.0,
+                                    num_blocks=1, pad_size=2.0, seed=57,
+                                    generate_craters=craters, native_pool=mode)
+        return tstream.TerrainStreamer(conf, lr, device=dev)
+
+    for craters in (False, True):
+        card = make(cuda, "always", craters)
+        ref = make(cuda, "never", craters) if craters else make("cpu", "always", craters)
+        for pos in ((0.0, 0.0), (12.0, 0.0)):
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                card.update(pos)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            ref.update(pos)
+            torch.cuda.synchronize()
+            if craters:
+                assert float((card.window - ref.window).abs().max()) <= 1e-4
+            else:
+                assert torch.equal(card.window.cpu(), ref.window)
+        assert card.tile_pool().jobs == len(card.block_cache)
+        card.close()
+    assert np.isfinite(card.window.cpu().numpy()).all()
+
+
+def test_worldbuilders_request_on_card_matches_cpu(cuda):
+    """A hard-core Thomas request with both clippers on a float32 DEM, on
+    the card and on the CPU from the same seeds: counts, positions, heights
+    and scales equal, quaternions within the float32 spacing of the largest
+    slope (tests/test_torch_worldbuilders.py)."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch import worldbuilders as wb
+
+    dem = torch.from_numpy((np.random.default_rng(7).normal(size=(256, 256)) * 0.1)
+                           .astype(np.float32))
+
+    def requests(data):
+        return (
+            wb.UserRequest_T(p_type=wb.Position_T(), sampler=wb.HardCoreThomasClusterSampler_T(
+                randomization_space=2, lambda_parent=0.05, lambda_daughter=50, sigma=0.5,
+                core_radius=0.05, num_repeat=1, seed=5),
+                layer=wb.Plane_T(xmin=0, xmax=25.6, ymin=0, ymax=25.6), axes=["x", "y"]),
+            wb.UserRequest_T(p_type=wb.Position_T(), sampler=wb.ImageClipper_T(
+                randomization_space=1, resolution=(256, 256), mpp_resolution=0.1, data=data),
+                layer=wb.Line_T(xmin=0, xmax=1), axes=["z"]),
+            wb.UserRequest_T(p_type=wb.OrientationParam_T(), sampler=wb.NormalMapClipper_T(
+                randomization_space=1, resolution=(256, 256), mpp_resolution=0.1, data=data),
+                layer=wb.RollPitchYaw_T(output_space=4), axes=["x", "y", "z", "w"]),
+        )
+
+    card = wb.RequestMixer(requests(dem.to(cuda)), device=cuda)(num=1)
+    host = wb.RequestMixer(requests(dem), device="cpu")(num=1)
+    assert card["xformOp:translation"].shape[0] > 500
+    assert torch.equal(card["xformOp:translation"].cpu(), host["xformOp:translation"])
+    slopes = np.rad2deg(np.arctan2(np.stack(np.gradient(dem.numpy())), 1))
+    atol = float(np.spacing(np.abs(slopes).max()))
+    diff = (card["xformOp:orientation"].cpu() - host["xformOp:orientation"]).abs().max()
+    assert float(diff) <= atol

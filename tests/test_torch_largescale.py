@@ -44,6 +44,7 @@ from husky_rover_mppi_isaacsim_tpu.mppi import sampling as jsamp
 from husky_rover_mppi_isaacsim_tpu.mppi.controller import MPPIConfig as JMPPIConfig
 from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import LargeScaleConf as JLargeScaleConf
 from husky_rover_mppi_isaacsim_tpu.terrain.rocks import RockDistConf as JRockDistConf
+from test_torch_rocks import wait_for_jax_native
 
 torch.set_num_threads(1)
 
@@ -55,9 +56,12 @@ STARTS, GOAL, MAX_STEPS = {False: (9.7, 1.0), True: (9.85, 1.0)}, (45.0, 8.0), 6
 START = STARTS[False]
 
 
-def tiny_terrain(conf_cls, rock_cls, **kw):
+def tiny_terrain(conf_cls, rock_cls, native_pool="always", **kw):
     """The JAX tests' ``tiny_terrain`` (tests/test_largescale_loop.py) with a
-    0.25 m update gate."""
+    0.25 m update gate, its blocks upsampled on the route ``native_pool``
+    names. The JAX package takes the native tile pool on the CPU ("auto")
+    where its library is built, which this waits for; the port-vs-JAX tests
+    pin both packages to that route ("always")."""
     defaults = dict(
         block_size=10.0, hr_dem_resolution=0.1, lr_pixel_size=2.0, hr_dem_num_blocks=1,
         hr_dem_generate_craters=False, crater_gen_padding=2.0, update_every_n_meters=0.25,
@@ -67,7 +71,10 @@ def tiny_terrain(conf_cls, rock_cls, **kw):
                                 scale_min=0.3, scale_max=0.5, block_size=10.0, seed=67),),
         rock_block_span=1)
     defaults.update(kw)
-    return conf_cls(**defaults)
+    wait_for_jax_native()
+    conf = conf_cls(**defaults)
+    conf.streamer_conf.native_pool = native_pool
+    return conf
 
 
 def loop_confs(craters: bool):
@@ -306,24 +313,21 @@ OPTIONS = {
     "deform": dict(deform="engine"),
     "checkpoint_path": dict(checkpoint_path="traverse.ckpt", checkpoint_every_steps=6),
     "checkpoint_every_steps": dict(checkpoint_every_steps=6, checkpoint_path="traverse.ckpt"),
-    "native_pool": None,
+    "native_pool": dict(native_pool="always"),
 }
 
 
 @pytest.mark.parametrize("option", list(OPTIONS))
 def test_unported_options_raise_by_name(option, tmp_path):
-    """Every option of the JAX loop's configuration now constructs the loop
-    and runs a chunk; the one the port still cannot serve (the streamer's
-    C++ tile pool) raises ``NotImplementedError`` and names itself."""
+    """Every option of the JAX loop's configuration constructs the loop and
+    runs two chunks, the streamer's C++ tile pool route included (its blocks
+    upsampled on the pool's threads)."""
     from husky_rover_mppi_isaacsim_torch.physics.deformation import DeformationEngineConf
 
     tconf = loop_confs(False)[1]
-    if OPTIONS[option] is None:
-        tconf.terrain.streamer_conf.native_pool = "auto"
-        with pytest.raises(NotImplementedError, match="native_pool"):
-            tls.LargeScaleClosedLoop(tconf, device="cpu")
-        return
     kw = dict(OPTIONS[option])
+    if "native_pool" in kw:
+        tconf.terrain.streamer_conf.native_pool = kw.pop("native_pool")
     if kw.get("deform") == "engine":
         kw["deform"] = DeformationEngineConf(terrain_resolution=0.1)
     if "checkpoint_path" in kw:
@@ -336,6 +340,9 @@ def test_unported_options_raise_by_name(option, tmp_path):
         assert (tmp_path / "traverse.ckpt.npz").is_file()
     if option == "deform":
         assert int(loop.pass_counts.sum()) == 2 * 4 * loop.deform_engine.profile.shape[0]
+    if option == "native_pool":
+        pool = loop.lstm.map_manager.streamer.tile_pool()
+        assert pool is not None and pool.jobs == len(loop.lstm.map_manager.streamer.block_cache)
 
 
 # the streamed terrain cut to a tiny size, in the environment group's

@@ -36,7 +36,9 @@ START, GOAL, MAX_STEPS = (8.5, 1.0), (12.5, 1.0), 330
 
 
 def conf(**kw) -> tls.LargeScaleLoopConf:
-    base = dict(terrain=tiny_terrain(LargeScaleConf, RockDistConf),
+    # the port's own paths, held against its synchronous loop, on the
+    # device-upsampled window (the route they ran on before the tile pool)
+    base = dict(terrain=tiny_terrain(LargeScaleConf, RockDistConf, native_pool="never"),
                 loop=ClosedLoopConfig(mppi=MPPIConfig(num_samples=16, horizon=10)),
                 start=START, goal=GOAL, max_steps=MAX_STEPS, seed=3, terrain_check_every=6,
                 prestage_lookahead_m=2.0, pipeline_depth=0)

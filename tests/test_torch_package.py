@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
+from husky_rover_mppi_isaacsim_torch import worldbuilders as wb
 from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
 from husky_rover_mppi_isaacsim_torch.core import HeightField
 from husky_rover_mppi_isaacsim_torch.core.device import run_device
@@ -71,6 +72,10 @@ SLICE_7 = ("core.device", "utils", "utils.timer", "aux.stellar", "aux.yaml_reade
 SLICE_8 = ("env.robot_manager", "shell", "shell.pubsub", "shell.rate", "shell.monitor",
            "shell.sim_manager", "parallel", "parallel.mesh", "parallel.scaling",
            "mppi.reference_rollout", "aux.visualize")
+# the last host libraries: the native runtime, the worldbuilders, the oracles
+SLICE_9 = ("native", "worldbuilders", "worldbuilders.types", "worldbuilders.samplers",
+           "worldbuilders.layers", "worldbuilders.clippers", "worldbuilders.mixer",
+           "compat", "compat.numpy_oracle", "compat.warp_oracle")
 
 
 def test_package_imports_without_jax():
@@ -79,7 +84,7 @@ def test_package_imports_without_jax():
     assert int(out[0]) >= 60 and out[1] == "[]", out
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
-               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8), names
+               for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8 + SLICE_9), names
 
 
 def test_chip_smoke_imports_neither_jax_nor_yaml():
@@ -177,6 +182,11 @@ ENTRY_POINTS = {
     "run_thesis_protocol_experiment": lambda: evaluation.run_thesis_protocol_experiment(
         ks=(8,)),
     "TerrainStreamer": lambda: TerrainStreamer(StreamerConf(), np.zeros((4, 4))),
+    "TerrainStreamer(native_pool=always)": lambda: TerrainStreamer(
+        StreamerConf(native_pool="always"), np.zeros((4, 4))),
+    "RequestMixer": lambda: wb.RequestMixer(()),
+    "Layer_Factory.get": lambda: wb.Layer_Factory.get(
+        wb.Plane_T(), wb.UniformSampler_T(randomization_space=2, min=(0, 0), max=(1, 1))),
     "MoonyardGenerator": lambda: MoonyardGenerator(MoonyardConf()),
     "MPPIController": lambda: MPPIController(MPPIConfig(), *_tiny_world(), (1.0, 1.0)),
     "SimulationManager": lambda: SimulationManager(SimulationManagerConf(), *_tiny_world(),

@@ -3,10 +3,10 @@ the block stores against the JAX package.
 
 Rock positions, scales and ids are numpy draws from generators keyed by
 (seed, block): EQUAL in both packages, also after the store's fixed-accuracy
-codec (multiples of 1e-3), which the port writes out in numpy where the JAX
-package calls its C++ runtime. Heights agree to 1.1e-3 m: both are stored as
-multiples of 1e-3, and a height within 1e-4 m of a rounding boundary may
-land on either side. Quaternions come from ``jax.random`` there and a
+codec (multiples of 1e-3; each package's C++ runtime, with the port's
+numpy quantization held against it as its plain version). Heights agree to
+1.1e-3 m: both are stored as multiples of 1e-3, and a height within 1e-4 m
+of a rounding boundary may land on either side. Quaternions come from ``jax.random`` there and a
 ``torch.Generator`` here: the math is compared on injected draws, 1e-6 in
 float32.
 """
@@ -64,16 +64,15 @@ def _native_library_ready() -> bool:
         return False
 
 
-@pytest.fixture(autouse=True)
-def needs_native_codec():
-    """The JAX stores go through the C++ codec when it is built (else
-    float16, which the port does not imitate). Test processes that start
-    together all build the library at once, each writing the same file, and
-    a process that loaded a half-written one keeps that failure for its
-    life. So: take a lock shared by the processes of this machine, wait
-    (at most ``NATIVE_WAIT_S``) until the library is complete, building it
-    when nobody else has, then forget the cached failure and load it
-    again. Fails with the build error only after the wait."""
+def wait_for_jax_native() -> None:
+    """Make the JAX package's C++ runtime available in this process. Test
+    processes that start together all build the library at once, each
+    writing the same file, and a process that loaded a half-written one
+    keeps that failure for its life. So: take a lock shared by the
+    processes of this machine, wait (at most ``NATIVE_WAIT_S``) until the
+    library is complete, building it when nobody else has, then forget the
+    cached failure and load it again. Fails with the build error only after
+    the wait."""
     if jnative.available():
         return
     deadline = time.monotonic() + NATIVE_WAIT_S
@@ -95,6 +94,13 @@ def needs_native_codec():
                 f"the JAX package's C++ runtime is not built: {jnative._build_error}")
         finally:
             fcntl.flock(fh, fcntl.LOCK_UN)
+
+
+@pytest.fixture(autouse=True)
+def needs_native_codec():
+    """The JAX stores go through the C++ codec when it is built (else
+    float16, which the port does not imitate): wait for it."""
+    wait_for_jax_native()
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

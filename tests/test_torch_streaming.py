@@ -32,7 +32,7 @@ def _confs(craters=True, prefetch=True):
     kw = dict(block_size=10.0, resolution=0.1, lr_resolution=2.0, num_blocks=1, pad_size=2.0,
               seed=57, generate_craters=craters, prefetch=prefetch)
     return (jstream.StreamerConf(crater=JCraterConf(seed=57), native_pool="never", **kw),
-            tstream.StreamerConf(crater=TCraterConf(seed=57), **kw))
+            tstream.StreamerConf(crater=TCraterConf(seed=57), native_pool="never", **kw))
 
 
 def _streamers(craters=True, prefetch=True):
@@ -77,11 +77,14 @@ def test_streamer_conf_geometry_and_refusals():
     for name in ("blocks_per_side", "block_px", "window_px", "window_size", "upscale_factor",
                  "pad_px"):
         assert getattr(tconf, name) == getattr(jconf, name), name
-    with pytest.raises(NotImplementedError, match="native_pool"):
-        tstream.StreamerConf(native_pool="auto")
+    # the tile pool route takes JAX's three modes, "auto" by default
+    assert tstream.StreamerConf().native_pool == jstream.StreamerConf().native_pool == "auto"
+    for mode in ("auto", "always", "never"):
+        assert tstream.StreamerConf(native_pool=mode).native_pool == mode
+    with pytest.raises(ValueError, match="native_pool"):
+        tstream.StreamerConf(native_pool="sometimes")
     with pytest.raises(ValueError, match="integer multiple"):
         tstream.StreamerConf(resolution=0.3, lr_resolution=5.0)
-    # shift pre-staging is ported; the C++ tile pool is what still raises
     assert callable(tstream.TerrainStreamer.prestage_shift)
 
 
