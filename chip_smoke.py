@@ -98,6 +98,9 @@ ROVERS, SIM_STEPS = 4, 300          # the CLI's closed-loop defaults
 # the checkout's ignored build/ directory; the deformed traverse starts 1 m
 # before the x = 25 m block border.
 SYNC_STEPS, CKPT_EVERY = 3000, 3600
+# graph_chunk: chunks run eagerly and as a graph replay, in turns, on the
+# second 7000^2 world; a block shift seats a new window half-way
+GRAPH_CHUNKS = 12
 BUILD = Path(__file__).resolve().parent / "build"
 CKPT = BUILD / "smoke_traverse.ckpt"
 DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
@@ -227,13 +230,16 @@ def main(argv=None) -> int:
         LargeScaleClosedLoop,
         run_chunk,
     )
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
     from husky_rover_mppi_isaacsim_torch.mppi import (
         ControllerState,
         MPPIConfig,
         MPPIController,
         RobotState,
+        evaluation,
         goal_seek_recorded,
         kinematic_advance,
+        masked_steps,
         mppi_step,
     )
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
@@ -254,6 +260,7 @@ def main(argv=None) -> int:
         device_kernels,
         device_time,
         graph_ms,
+        launch_calls,
     )
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.shell import (
@@ -340,6 +347,14 @@ def main(argv=None) -> int:
         # settles two candidates: 1.5 instructions per candidate
         return bound(2 * rows * cols * 4, 1.5 * rows * rows * cols, PEAK_FP32_INSTR_S)
 
+    def _same(a, b):
+        """Every tensor of two pytrees equal, in order (None leaves skipped)."""
+        import torch.utils._pytree as pytree
+
+        ta = [t for t in pytree.tree_leaves(a) if isinstance(t, torch.Tensor)]
+        tb = [t for t in pytree.tree_leaves(b) if isinstance(t, torch.Tensor)]
+        return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
     def on_device(nt, dev):
         """A NamedTuple of tensors (and host fields) with its tensors on ``dev``."""
         return type(nt)(*(on_device(f, dev) if isinstance(f, tuple)
@@ -417,7 +432,9 @@ def main(argv=None) -> int:
         if not equal or tuple(window.shape) != (7000, 7000):
             raise RuntimeError("two builds of the streamed world differ, or the window is "
                                "not 7000 x 7000")
-        del worlds, again
+        del worlds
+        graph_chunk(conf, again)
+        del again
 
         #     the loop on that world; K1 on the live window at the rover's
         #     first pose
@@ -494,6 +511,54 @@ def main(argv=None) -> int:
         counts["largescale_native_pool"] = (pooled["k1"], pooled["k2"])
         del pooled
         return loop0, k1_row, k2_row, counts
+
+    def graph_chunk(conf, lstm):
+        """The streamed chunk at the LargeScaleConf defaults (the 7000^2
+        window, K=1000 x H=100, 12 steps) on the second world: GRAPH_CHUNKS
+        chunks from the start, each run eagerly (run_chunk) and as the
+        loop's graph replay from the same state and generator state, in
+        turns; after GRAPH_CHUNKS // 2 chunks the cascade seats the next
+        window, costmap and frame origin (a (25, 25) m block shift), so the
+        later replays read what the helper copied in, not what it captured.
+        State and pose torch.equal after every chunk."""
+        loop = LargeScaleClosedLoop(conf, lstm=lstm, device=cuda)
+        graph = loop.chunk_fn
+        state, goal_ctrl = loop._initial_state(), loop._goal_ctrl()
+        gen = torch.Generator(device=cuda).manual_seed(21)
+        times = {"eager": [], "graph": []}
+        equal, shift, origins = True, None, []
+        for c in range(GRAPH_CHUNKS):
+            if c == GRAPH_CHUNKS // 2:  # one seat: window, costmap, origin, goal
+                loop.lstm.update_visual_mesh((26.0, 27.0))
+                state, goal_ctrl, shift = loop._on_block_shift(state, goal_ctrl)
+            outs = {}
+            draws = gen.get_state()
+            for name, fn in (("eager", run_chunk), ("graph", graph)):
+                gen.set_state(draws)
+                loop.chunk_fn = fn
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = loop.chunk(state, goal_ctrl, gen)
+                torch.cuda.synchronize()
+                times[name].append(1e3 * (time.perf_counter() - t0))
+            equal = equal and _same(outs["eager"], outs["graph"])
+            origins.append(loop.origin().tolist())
+            state = tenv.clone_state(outs["graph"][0])
+        loop.chunk_fn = graph
+        pose = outs["graph"][1].tolist()
+        # the first graph call is the eager warm-up, the second captures
+        ok = (equal and shift == (25.0, 25.0) and graph.replays == GRAPH_CHUNKS - 1
+              and all(np.isfinite(pose)))
+        phase("graph_chunk", window=list(loop.hf.z.shape), K=K, H=H,
+              steps=conf.terrain_check_every, chunks=GRAPH_CHUNKS, seat_after=GRAPH_CHUNKS // 2,
+              shift_m=list(shift) if shift else None, origins=[origins[0], origins[-1]],
+              graph_equals_eager=equal,
+              ms_per_chunk_eager=float(np.median(times["eager"])),
+              ms_per_chunk_graph=float(np.median(times["graph"][2:])),
+              ms_per_chunk_graph_all=times["graph"], capture_ms=graph.capture_ms,
+              replays=graph.replays, final_world_pose=pose, ok=ok)
+        if not ok:
+            raise RuntimeError("the graphed streamed chunk differs from the eager one")
 
     def native_pool_builds(conf):
         """The LargeScaleConf window (7 x 7 blocks of 25 m at 0.025 m/px,
@@ -808,7 +873,7 @@ def main(argv=None) -> int:
         chunk_k1 = rollout_25d_cuda.launches - before
         t0 = time.perf_counter()
         want_state, want_pose = run_chunk(conf, on_device(loop.hf, cpu),
-                                          on_device(loop.costmap, cpu), loop.frame,
+                                          on_device(loop.costmap, cpu), loop.frame.origin(),
                                           on_device(state0, cpu), goal_ctrl.cpu(), noise=noise)
         cpu_s = time.perf_counter() - t0
         diffs = {"pose": (got_pose.cpu() - want_pose).abs().tolist()}
@@ -1490,15 +1555,18 @@ def main(argv=None) -> int:
         raise RuntimeError("the closed-loop step on the card disagrees with the CPU's "
                            "or with one-rover steps")
 
-    # 7. the flagship goal-seek, through K1
+    # 7. the flagship goal-seek, through K1, its masked steps replayed as
+    #    one CUDA graph of 4 steps (the default route on the card)
     robot = RobotState.create(*START, HEADING, device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
     goal = torch.tensor(GOAL, device=cuda)
     gen = torch.Generator(device=cuda).manual_seed(42)
+    gs_graph = Graphed(masked_steps)
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
     t0 = time.perf_counter()
-    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=3500)
+    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=3500,
+                             steps_fn=gs_graph)
     loops = int(res.loops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1516,6 +1584,30 @@ def main(argv=None) -> int:
         raise RuntimeError("the flagship goal-seek did not reach its goal cleanly")
     if launches != 2 * res.steps or launches == 0:
         raise RuntimeError(f"K1 ran {launches} times for {res.steps} control steps")
+
+    #     graph_goal_seek: the same episode with the masked steps eager, from
+    #     the same generator state: equal loops, path and final state
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = 0
+    t0 = time.perf_counter()
+    eager = goal_seek_recorded(cfg, hf, cm, goal, RobotState.create(*START, HEADING, device=cuda),
+                               ControllerState.create(cfg, device=cuda),
+                               torch.Generator(device=cuda).manual_seed(42), max_loops=3500,
+                               steps_fn=masked_steps)
+    e_loops = int(eager.loops)
+    torch.cuda.synchronize()
+    e_wall = time.perf_counter() - t0
+    equal = (e_loops == loops and eager.steps == res.steps and _same(eager, res))
+    ok = equal and rollout_25d_cuda.launches == launches and gs_graph.replays > 0
+    phase("graph_goal_seek", K=K, H=H, unroll=4, loops_graph=loops, loops_eager=e_loops,
+          reached=bool(res.reached), final_position=final, graph_equals_eager=equal,
+          ms_per_loop_eager=1e3 * e_wall / max(e_loops, 1),
+          ms_per_loop_graph=1e3 * wall / max(loops, 1), capture_ms=gs_graph.capture_ms,
+          replays=gs_graph.replays, k1_launches_eager=rollout_25d_cuda.launches,
+          k1_launches_graph=launches, ok=ok)
+    if not ok:
+        raise RuntimeError("the graphed flagship goal-seek differs from the eager one")
+    del eager
 
     # 7b. the CLI's default closed loop (python -m ...cli mode=closed_loop):
     #     4 rovers, K=1000 x H=100, 300 sim steps on its own standalone world,
@@ -1535,6 +1627,35 @@ def main(argv=None) -> int:
                            f"of {len(run.progress)} rovers")
     if not (cl_finite and mean_progress > 0.0):
         raise RuntimeError("the closed loop made no progress or left a non-finite path")
+
+    #     graph_closed_loop: the same episode on the standalone world through
+    #     run_episode, one step graph replayed a sim step and the steps
+    #     eager, from the same generator state: equal path and final state
+    cl_graph = Graphed(tenv.closed_loop_step)
+    cl_runs = {}
+    for name, step_fn in (("graph", cl_graph), ("eager", tenv.closed_loop_step)):
+        state0 = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+        goals_cl = torch.tensor(goals_np, dtype=torch.float32, device=cuda)
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = 0
+        t0 = time.perf_counter()
+        out = tenv.run_episode(cl_cfg, hf, cm, goals_cl, state0,
+                               torch.Generator(device=cuda).manual_seed(0), SIM_STEPS,
+                               step_fn=step_fn)
+        torch.cuda.synchronize()
+        cl_runs[name] = (out, time.perf_counter() - t0, rollout_25d_cuda.launches)
+    equal = _same(cl_runs["graph"][0], cl_runs["eager"][0])
+    ok = (equal and cl_runs["graph"][2] == cl_runs["eager"][2] == 2 * SIM_STEPS
+          and cl_graph.replays == SIM_STEPS - 1)
+    phase("graph_closed_loop", N=ROVERS, K=K, H=H, steps=SIM_STEPS, graph_equals_eager=equal,
+          ms_per_sim_step_eager=1e3 * cl_runs["eager"][1] / SIM_STEPS,
+          ms_per_sim_step_graph=1e3 * cl_runs["graph"][1] / SIM_STEPS,
+          capture_ms=cl_graph.capture_ms, replays=cl_graph.replays,
+          k1_launches_graph=cl_runs["graph"][2], k1_launches_eager=cl_runs["eager"][2],
+          final_positions=cl_runs["graph"][0][0].rovers.position.tolist(), ok=ok)
+    if not ok:
+        raise RuntimeError("the graphed closed loop differs from the eager one")
+    del cl_runs
 
     # 7c. the vectorized env: 4096 rovers, 400 physics steps (bench.py's
     #     bench_vec_env shapes); first 5 turning steps against the CPU's, the
@@ -1610,7 +1731,7 @@ def main(argv=None) -> int:
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside a tick raises
         try:
             for i in range(SIM_CHECK):
-                card_states.append(card_sm.step(noise=card_noise[i]))
+                card_states.append(tenv.clone_state(card_sm.step(noise=card_noise[i])))
         finally:
             torch.cuda.set_sync_debug_mode("default")
         for i in range(SIM_CHECK):
@@ -1628,37 +1749,49 @@ def main(argv=None) -> int:
                              and d["optimal_u"] <= 1e-3 and d["rover_state"] <= 1e-3)
         sim_diffs.append(d)
 
-    seen, flushed, windows = [], {}, []
-    sm = sim_manager(cuda, hf, cm)
-    try:
-        torch.cuda.synchronize()
-        rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
-        for w0 in range(0, SIM_TICKS, SIM_WINDOW):
+    def drive_sim_manager(step_fn=None):
+        """SIM_TICKS ticks over the bus, timed in windows; ``step_fn``
+        replaces the manager's step graph (the eager reference). Returns the
+        manager, the window times, the states flushed after the teleport and
+        the reset, the pose messages and the K1 and K2 launches."""
+        seen, flushed, windows = [], {}, []
+        sm = sim_manager(cuda, hf, cm)
+        if step_fn is not None:
+            sm.step_fn = step_fn
+        try:
             torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for tick in range(w0, w0 + SIM_WINDOW):
-                if tick == 100:
-                    sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "husky_1",
-                                                           "position": SIM_TELEPORT,
-                                                           "heading": (0.0, 1.0, 0.0)})
-                if tick == 200:
-                    sm.bus.publish(Topics.ROBOT_RESET, {"name": "husky_0"})
-                if tick == SIM_TICKS - 10:
-                    sm.bus.subscribe(Topics.POSE_STATE, seen.append)
-                quiet = not sm.bus.has_subscribers(Topics.POSE_STATE)
-                if quiet:
-                    torch.cuda.set_sync_debug_mode("error")
-                try:
-                    state = sm.step()
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-                if tick in (100, 200):
-                    flushed[tick] = state  # read back after the timed run
-            torch.cuda.synchronize()
-            windows.append(1e3 * (time.perf_counter() - t0) / SIM_WINDOW)
-        sim_k1, sim_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
-    finally:
-        sm.close()
+            rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+            gp.gather_probe_cuda.launches = 0
+            for w0 in range(0, SIM_TICKS, SIM_WINDOW):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for tick in range(w0, w0 + SIM_WINDOW):
+                    if tick == 100:
+                        sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "husky_1",
+                                                               "position": SIM_TELEPORT,
+                                                               "heading": (0.0, 1.0, 0.0)})
+                    if tick == 200:
+                        sm.bus.publish(Topics.ROBOT_RESET, {"name": "husky_0"})
+                    if tick == SIM_TICKS - 10:
+                        sm.bus.subscribe(Topics.POSE_STATE, seen.append)
+                    quiet = not sm.bus.has_subscribers(Topics.POSE_STATE)
+                    if quiet:
+                        torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        state = sm.step()
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                    if tick in (100, 200):
+                        # read back after the timed run; the step graph's
+                        # next replay overwrites its outputs
+                        flushed[tick] = tenv.clone_state(state)
+                torch.cuda.synchronize()
+                windows.append(1e3 * (time.perf_counter() - t0) / SIM_WINDOW)
+        finally:
+            sm.close()
+        return sm, windows, flushed, seen, rollout_25d_cuda.launches, edt_minplus_cuda.launches
+
+    sm, windows, flushed, seen, sim_k1, sim_k2 = drive_sim_manager()
     teleported = sm.robots.pose(flushed[100].rovers, "husky_1")
     reset = sm.robots.pose(flushed[200].rovers, "husky_0")
     sim_finite = all(bool(torch.isfinite(t).all()) for t in sm.state.rovers + sm.state.ctrl)
@@ -1679,6 +1812,19 @@ def main(argv=None) -> int:
     if not (sim_ok and sim_finite and pose_ok):
         raise RuntimeError("the simulation manager on the card disagrees with the CPU's, left a "
                            "non-finite state or did not apply its bus requests")
+    #     graph_sim_manager: the same ticks and bus edits with the step eager
+    sm_e, windows_e, flushed_e, seen_e, sim_k1_e, _ = drive_sim_manager(tenv.closed_loop_step)
+    equal = (_same(sm.state, sm_e.state) and all(_same(flushed[t], flushed_e[t]) for t in flushed)
+             and all(np.array_equal(a["positions"], b["positions"]) for a, b in zip(seen, seen_e)))
+    ok = equal and sim_k1_e == sim_k1 and sm.step_fn.replays == SIM_TICKS - 1
+    phase("graph_sim_manager", slots=SIM_SLOTS, ticks=SIM_TICKS, graph_equals_eager=equal,
+          teleport_and_reset_reach_the_graph=pose_ok and equal,
+          ms_per_sim_step_eager=float(np.median(windows_e)), ms_per_sim_step_graph=med,
+          capture_ms=sm.step_fn.capture_ms, replays=sm.step_fn.replays,
+          k1_launches_graph=sim_k1, k1_launches_eager=sim_k1_e, ok=ok)
+    if not ok:
+        raise RuntimeError("the graphed simulation manager differs from the eager one")
+    del sm_e
     if sim_k1 != 2 * SIM_TICKS:
         raise RuntimeError(f"K1 ran {sim_k1} times in {SIM_TICKS} simulation-manager ticks")
 
@@ -1716,6 +1862,24 @@ def main(argv=None) -> int:
                            "did not reach the goal cleanly")
     if ctl_k1 != 2 * ctl.loop or ctl_k1 == 0:
         raise RuntimeError(f"K1 ran {ctl_k1} times in {ctl.loop} controller loops")
+    #     graph_mppi_controller: the same run with step_fn = mppi_step (eager)
+    ctl_e = MPPIController(cfg, hf, cm, GOAL, seed=42)
+    ctl_e.step_fn = mppi_step
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = 0
+    t0 = time.perf_counter()
+    final_e, _, path_e = ctl_e.run(r0, max_loops=3500)
+    torch.cuda.synchronize()
+    ctl_wall_e = time.perf_counter() - t0
+    equal = (ctl_e.loop == ctl.loop and torch.equal(path_e, ctl_path) and _same(final_e, final))
+    ok = equal and rollout_25d_cuda.launches == ctl_k1 and ctl.step_fn.replays == ctl.loop - 1
+    phase("graph_mppi_controller", K=K, H=H, loops_graph=ctl.loop, loops_eager=ctl_e.loop,
+          graph_equals_eager=equal, ms_per_loop_eager=1e3 * ctl_wall_e / max(ctl_e.loop, 1),
+          ms_per_loop_graph=1e3 * ctl_wall / max(ctl.loop, 1),
+          capture_ms=ctl.step_fn.capture_ms, replays=ctl.step_fn.replays,
+          k1_launches_graph=ctl_k1, k1_launches_eager=rollout_25d_cuda.launches, ok=ok)
+    if not ok:
+        raise RuntimeError("the graphed MPPIController run differs from the eager one")
 
     # 7f. the sharded step on torch.distributed ranks, each its own process
     #     on the card (K=1000 x H=100, the flagship world): one NCCL rank,
@@ -1822,13 +1986,28 @@ def main(argv=None) -> int:
     del dems
 
     # 9. the thesis 2D-vs-3D evaluation protocol at full width: K1 for the 3D
-    #    arm's samples and both arms' optimal rollouts, K2 for the costmap
+    #    arm's samples and both arms' optimal rollouts, K2 for the costmap;
+    #    each arm replays its graph of 4 masked steps (the 2D arm's eager
+    #    rollout_2d inside it). Every run's trace is kept for graph_evaluation
+    from unittest import mock
+
+    eval_logs = {"graph": [], "eager": []}
+    run_episode_fn = evaluation._run_episode
+
+    def logged(into):
+        def run(config, *args, **kw):
+            out = run_episode_fn(config, *args, **kw)
+            into.append((config.projection,) + out)
+            return out
+        return run
+
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
     t0 = time.perf_counter()
-    table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
-                                           max_loops=EVAL_MAX_LOOPS, half_width=75.0,
-                                           device=cuda)
+    with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["graph"])):
+        table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
+                                               max_loops=EVAL_MAX_LOOPS, half_width=75.0,
+                                               device=cuda)
     eval_s = time.perf_counter() - t0
     eval_k1, eval_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
     arms = table["per_k"][K]["arms"]
@@ -1849,6 +2028,36 @@ def main(argv=None) -> int:
         raise RuntimeError("the evaluation's costmap build never launched K2")
     if eval_k1 != want_k1:
         raise RuntimeError(f"K1 ran {eval_k1} times in the evaluation, not {want_k1}")
+    #     graph_evaluation: the same protocol with each arm's masked steps
+    #     eager: every run's trace (loops, reached, positions, velocities,
+    #     steps) equal per arm
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = 0
+    with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["eager"])), \
+            mock.patch.object(evaluation, "Graphed", lambda fn: fn):
+        table_e = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
+                                                 max_loops=EVAL_MAX_LOOPS, half_width=75.0,
+                                                 device=cuda)
+    arms_e = table_e["per_k"][K]["arms"]
+    per_arm = {}
+    for proj in ("3d", "2d"):
+        g = [r[1:] for r in eval_logs["graph"] if r[0] == proj]
+        e = [r[1:] for r in eval_logs["eager"] if r[0] == proj]
+        same = len(g) == len(e) > 0 and all(
+            a[:2] == b[:2] and a[4] == b[4] and np.array_equal(a[2], b[2])
+            and np.array_equal(a[3], b[3]) for a, b in zip(g, e))
+        loops_arm = arms[proj]["mean_loops"] * table["config"]["runs_per_arm"]
+        per_arm[proj] = {"graph_equals_eager": same, "loops": loops_arm,
+                         "ms_per_loop_graph": 1e3 * arms[proj]["wall_s"] / max(loops_arm, 1),
+                         "ms_per_loop_eager": 1e3 * arms_e[proj]["wall_s"] / max(loops_arm, 1)}
+    equal = all(a["graph_equals_eager"] for a in per_arm.values())
+    ok = equal and rollout_25d_cuda.launches == eval_k1
+    phase("graph_evaluation", K=K, H=H, max_loops=EVAL_MAX_LOOPS, arms=per_arm,
+          graph_equals_eager=equal, k1_launches_graph=eval_k1,
+          k1_launches_eager=rollout_25d_cuda.launches, ok=ok)
+    if not ok:
+        raise RuntimeError("a graphed evaluation arm differs from the eager one")
+    del eval_logs, table_e
 
     # 10. K3's path: the probe entry point (python -m ...ops.gather_probe)
     gp.gather_probe_cuda.launches = 0
@@ -1914,6 +2123,52 @@ def main(argv=None) -> int:
     if not ok:
         raise RuntimeError("a control step runs more kernels than it should, or a K1 call "
                            "issues other device operations")
+
+    # 12b. graph_launches: the device kernels and the host's launch calls
+    #      of each graphed path, one graph replay against the same work run
+    #      eagerly, per control loop, sim step or chunk (torch.profiler;
+    #      every timed path is above)
+    rec = (torch.zeros((3501, 3), device=cuda), torch.zeros((3501,), device=cuda))
+
+    def seek_args(c, steps):
+        return (c, 3500, hf, cm, goal, robot, ControllerState.create(c, device=cuda),
+                torch.zeros((), dtype=torch.int64, device=cuda),
+                torch.zeros((), dtype=torch.bool, device=cuda), *rec,
+                tuple(noise_d for _ in range(steps)))
+
+    cfg2d = MPPIConfig(num_samples=K, horizon=H, projection="2d")
+    chunk_state, chunk_goal = ls_loop._initial_state(), ls_loop._goal_ctrl()
+    chunk_noise = tuple(noise_d[None] for _ in range(ls_loop.conf.terrain_check_every))
+    cl_state4 = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+    paths = {  # name: (eager call, graphed function, its arguments, loops per call)
+        "goal_seek": (masked_steps, seek_args(cfg, 4), 4),
+        # one step: the profiler drops a few of a 4-step graph's ~47,000
+        # device records per session, so no two sessions agree on a count
+        "evaluation_2d_arm": (masked_steps, seek_args(cfg2d, 1), 1),
+        "mppi_controller": (mppi_step, (cfg, hf, cm, goal, robot, ctrl, noise_d), 1),
+        "closed_loop": (tenv.closed_loop_step,
+                        (cl_cfg, hf, cm, goals_d, cl_state4, None, noise_d4, None), 1),
+        "chunk": (run_chunk, (ls_loop.conf, ls_loop.hf, ls_loop.costmap, ls_loop.origin(),
+                              chunk_state, chunk_goal, None, chunk_noise, None), 1),
+    }
+    graph_counts = {}
+    for name, (fn, args, per) in paths.items():
+        g = Graphed(fn)
+        g(*args)
+        g(*args)  # the warm-up, then the capture and a replay
+        row = {}
+        for kind, call in (("eager", lambda: fn(*args)), ("graph", lambda: g(*args))):
+            call()
+            row[f"device_kernels_{kind}"] = device_kernels(call) / per
+            row[f"launch_calls_{kind}"] = {k: v / per for k, v in launch_calls(call).items()}
+        graph_counts[name] = row
+    ok = all(r["launch_calls_graph"].get("cudaGraphLaunch", 0) > 0
+             and r["device_kernels_graph"] > 0 for r in graph_counts.values())
+    phase("graph_launches", K=K, H=H, per="control loop, sim step or chunk",
+          **graph_counts, ok=ok)
+    if not ok:
+        raise RuntimeError("a graph replay launched no graph, or the profiler saw none of "
+                           "its kernels")
 
     # 13-14. the streamed slice's chunk under the profiler, and a shift
     ls_k1_edge = largescale_profiled(ls_loop)

@@ -93,13 +93,14 @@ def closed_loop_config_from_jax(cfg) -> ClosedLoopConfig:
 
 def loop_state_from_jax(state) -> LoopState:
     """LoopState from the JAX one (arrays through ``np.asarray``); the step
-    index becomes a Python int."""
+    index stays a 0-d int32 tensor."""
     return LoopState(
         rovers=rover_state_from_numpy(*(np.asarray(a) for a in state.rovers)),
         ctrl=controller_state_from_numpy(*(np.asarray(a) for a in state.ctrl)),
         latched_left=_tensor(state.latched_left), latched_right=_tensor(state.latched_right),
         stored_left=_tensor(state.stored_left), stored_right=_tensor(state.stored_right),
-        err_total=_tensor(state.err_total), step_index=int(np.asarray(state.step_index)))
+        err_total=_tensor(state.err_total),
+        step_index=torch.tensor(int(np.asarray(state.step_index)), dtype=torch.int32))
 
 
 def crater_profiles_from_numpy(deformation, marks, height) -> CraterProfiles:
@@ -179,7 +180,7 @@ def largescale_checkpoint_from_jax(loop, path) -> dict:
     payload, meta = loop.load_checkpoint(path)
     state = payload["state"]
     out = {
-        "state": state._replace(step_index=int(state.step_index)),
+        "state": state,
         "costmap": payload["costmap"],
         "crater_blocks": {tuple(int(v) for v in k.split("|")): (v["c"], v["r"])
                           for k, v in payload["craters"].items()},

@@ -17,9 +17,11 @@ from .heightfield import (
     gather_corners,
     grid_lookup,
     height_at,
+    jacobian_slope,
     nearest_height,
     normal_at,
     quad_normal,
+    surface_frame,
     tangent_project,
     wrap_clamp,
 )

@@ -153,3 +153,20 @@ def nearest_height(hf: HeightField, x: Tensor, y: Tensor) -> Tensor:
     (projection_warp.py:338-347)."""
     i, j = corner_cell(hf, x, y)
     return grid_lookup(hf.z, i, j)
+
+
+def surface_frame(hf: HeightField, x: Tensor, y: Tensor, heading: Tensor):
+    """(height, normal, tangent-projected heading) from one corner gather:
+    the three device functions the reference launches per step
+    (projection_warp.py:306-310), the JAX package's fused form."""
+    q = corners_at(hf, x, y)
+    h = bilinear(x, y, q, hf.resolution)
+    n = quad_normal(q, hf.resolution)
+    return h, n, tangent_project(n, heading)
+
+
+def jacobian_slope(hf: HeightField, x: Tensor, y: Tensor) -> Tensor:
+    """Slope magnitude (rad) at (x, y) from the quad normal, for terrain
+    analysis and costmap layers (not in the reference kernel set)."""
+    n = normal_at(hf, x, y)
+    return torch.arccos(torch.clamp(n[..., 2], -1.0, 1.0))

@@ -7,7 +7,9 @@ from . import frames
 from .closed_loop import (
     ClosedLoopConfig,
     LoopState,
+    clone_state,
     closed_loop_step,
+    draw_step_noise,
     init_loop_state,
     loop_noise,
     run_episode,
@@ -28,7 +30,9 @@ from .rover_sim import (
 __all__ = [
     "ClosedLoopConfig",
     "LoopState",
+    "clone_state",
     "closed_loop_step",
+    "draw_step_noise",
     "init_loop_state",
     "loop_noise",
     "run_episode",

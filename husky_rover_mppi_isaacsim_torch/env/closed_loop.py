@@ -14,8 +14,13 @@ vectorized over N rovers:
 
 One sim step is one batched :func:`..mppi.controller.mppi_step` for all N
 rovers (two K1 launches on the card: N x K samples and N optimal rollouts)
-plus one physics step. The step index is a Python int, so the latch test
-never waits for the card; :func:`run_episode` syncs the host not at all.
+plus one physics step. The step index is a 0-d int32 on the rovers' device,
+as in the JAX package, and the latch a ``torch.where`` on it, so the step
+reads nothing back and has one fixed sequence of operations: on the card
+:func:`run_episode` replays it as one CUDA graph per step
+(:class:`..core.graphs.Graphed`, the JAX ``lax.scan`` body), its noise and
+slip drawn outside the graph (:func:`draw_step_noise`) from the same
+generator calls as the eager step's. It syncs the host not at all.
 """
 
 from __future__ import annotations
@@ -26,6 +31,7 @@ from typing import Callable, NamedTuple
 import torch
 from torch import Tensor
 
+from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
 from ..mppi.controller import ControllerState, MPPIConfig, RobotState, mppi_step
 from ..mppi.critics import Costmap
@@ -57,7 +63,7 @@ class LoopState(NamedTuple):
     stored_left: Tensor            # (N,) commanded speeds fed back to MPPI
     stored_right: Tensor
     err_total: Tensor              # (N,) PI integrator
-    step_index: int                # sim steps taken (host-side)
+    step_index: Tensor             # () int32, sim steps taken
 
 
 def init_loop_state(config: ClosedLoopConfig, rovers: RoverState,
@@ -76,7 +82,8 @@ def init_loop_state(config: ClosedLoopConfig, rovers: RoverState,
     )
     return LoopState(rovers=rovers, ctrl=ctrl, latched_left=full(0.0),
                      latched_right=full(0.0), stored_left=full(0.0),
-                     stored_right=full(0.0), err_total=full(0.0), step_index=0)
+                     stored_right=full(0.0), err_total=full(0.0),
+                     step_index=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def loop_noise(generator: torch.Generator, config: MPPIConfig, n: int, dtype=torch.float32,
@@ -89,6 +96,25 @@ def loop_noise(generator: torch.Generator, config: MPPIConfig, n: int, dtype=tor
     return draw.reshape(2, n, k, h).permute(1, 0, 2, 3)
 
 
+def draw_step_noise(config: ClosedLoopConfig, generator: torch.Generator | None, n: int,
+                    dtype=torch.float32, device=None, noise: Tensor | None = None
+                    ) -> tuple[Tensor, Tensor | None]:
+    """The draws of one :func:`closed_loop_step` of ``n`` rovers, made as
+    the eager step makes them, in its order: the exploration noise
+    (:func:`loop_noise`, unless ``noise`` is given), then the ``(2, n)``
+    wheel-slip normals where ``config.rover.slip_std > 0`` (else ``None``).
+    A graphed step takes both as inputs."""
+    if generator is None and (noise is None or config.rover.slip_std > 0.0):
+        raise ValueError("a closed-loop step needs a generator: for the noise unless it is "
+                         "given, and for the wheel slip when slip_std > 0")
+    if noise is None:
+        noise = loop_noise(generator, config.mppi, n, dtype, device)
+    slip = None
+    if config.rover.slip_std > 0.0:
+        slip = torch.randn((2, n), generator=generator, dtype=dtype, device=device)
+    return noise, slip
+
+
 def closed_loop_step(
     config: ClosedLoopConfig,
     hf: HeightField,
@@ -97,6 +123,7 @@ def closed_loop_step(
     state: LoopState,
     generator: torch.Generator | None = None,
     noise: Tensor | None = None,
+    slip_normals: Tensor | None = None,
 ) -> LoopState:
     """One sim step of the full stack for all N rovers: MPPI step ->
     wheel commands -> latch every ``latch_every``-th -> PI trim from the
@@ -104,13 +131,16 @@ def closed_loop_step(
 
     ``noise`` (N, 2, K, H) replays given draws (tests replay JAX's); else
     it comes from ``generator`` (:func:`loop_noise`), which also draws the
-    physics slip when ``config.rover.slip_std > 0``."""
+    physics slip when ``config.rover.slip_std > 0`` unless ``slip_normals``
+    ``(2, N)`` are given (:func:`draw_step_noise` makes both draws)."""
     mcfg = config.mppi
     n = state.rovers.position.shape[0]
     dtype, dev = state.rovers.position.dtype, state.rovers.position.device
-    if generator is None and (noise is None or config.rover.slip_std > 0.0):
+    draws = noise is None or (config.rover.slip_std > 0.0 and slip_normals is None)
+    if generator is None and draws:
         raise ValueError("closed_loop_step needs a generator: for the noise unless "
-                         "it is given, and for the wheel slip when slip_std > 0")
+                         "it is given, and for the wheel slip when slip_std > 0 unless "
+                         "slip_normals are given")
     if noise is None:
         noise = loop_noise(generator, mcfg, n, dtype, dev)
 
@@ -125,19 +155,18 @@ def closed_loop_step(
     right_stored = lin_cmd + ang_cmd * mcfg.robot_radius / 2
 
     # latch every `latch_every` steps, resetting the PI integrator (:477-483)
-    if state.step_index % config.latch_every == 0:
-        latched_left, latched_right = left_stored, right_stored
-        err_total = torch.zeros_like(state.err_total)
-    else:
-        latched_left, latched_right = state.latched_left, state.latched_right
-        err_total = state.err_total
+    latch = (state.step_index % config.latch_every) == 0
+    latched_left = torch.where(latch, left_stored, state.latched_left)
+    latched_right = torch.where(latch, right_stored, state.latched_right)
+    err_total = torch.where(latch, torch.zeros_like(state.err_total), state.err_total)
 
     # PI yaw-rate trim on the latched commands (:500-508)
     err = state.rovers.yaw_rate - ang_cmd
     err_total = err_total + err
     trim = err * config.pi_kp + err_total * config.pi_ki
     rovers = rover_sim.step(config.rover, hf, state.rovers, latched_left + trim,
-                            latched_right - trim, generator=generator)
+                            latched_right - trim, generator=generator,
+                            slip_normals=slip_normals)
 
     # adaptive stds from the measured yaw rate (:510-511)
     yaw2 = rovers.yaw_rate * rovers.yaw_rate
@@ -162,19 +191,39 @@ def run_episode(
     num_steps: int,
     record_every: int = 1,
     noise_source: Callable[[], Tensor] | None = None,
+    step_fn: Callable | None = None,
 ) -> tuple[LoopState, Tensor]:
     """Run ``num_steps`` sim steps with no host sync. Returns the final
     state and the rover positions after steps 0, r, 2r, ... (r =
     ``record_every``), ``(ceil(num_steps / r), N, 2)``: the JAX
     ``path[::record_every]``. Noise comes from ``noise_source()`` when
-    given (tests replay a fixed sequence), else from ``generator``."""
+    given (tests replay a fixed sequence), else from ``generator``.
+
+    ``step_fn`` runs one step: by default a new
+    :class:`..core.graphs.Graphed` :func:`closed_loop_step` (one CUDA graph
+    replay a step on the card, the eager step on the CPU);
+    :func:`closed_loop_step` itself runs the steps eagerly on the card (the
+    reference the graph is held against). The final state is cloned out of
+    the graph's buffers."""
     n = state.rovers.position.shape[0]
     pos = state.rovers.position
+    dtype, dev = pos.dtype, pos.device
     path = torch.empty((-(-num_steps // record_every), n, 2), dtype=pos.dtype,
                        device=pos.device)
+    if step_fn is None:
+        step_fn = Graphed(closed_loop_step)
     for i in range(num_steps):
-        noise = noise_source() if noise_source is not None else None
-        state = closed_loop_step(config, hf, costmap, goals, state, generator, noise)
+        given = noise_source() if noise_source is not None else None
+        noise, slip = draw_step_noise(config, generator, n, dtype, dev, noise=given)
+        state = step_fn(config, hf, costmap, goals, state, None, noise, slip)
         if i % record_every == 0:
             path[i // record_every] = state.rovers.position
-    return state, path
+    return clone_state(state), path
+
+
+def clone_state(state: LoopState) -> LoopState:
+    """A copy of every tensor of ``state`` (a graph's outputs are
+    overwritten by its next replay)."""
+    return LoopState(RoverState(*(t.clone() for t in state.rovers)),
+                     ControllerState(*(t.clone() for t in state.ctrl)),
+                     *(t.clone() for t in state[2:]))

@@ -21,9 +21,14 @@ pieces of glue this module reproduces:
 
 One chunk is ``terrain_check_every`` closed-loop steps on the device with no
 host sync (on the card each step is two launches of kernel K1 on the live
-window); the host then reads five scalars (world position, world heading,
-reached) and runs the terrain cascade. A costmap build is one launch of
-kernel K2.
+window), replayed on the card as one CUDA graph (the JAX ``_make_chunk_fn``,
+largescale_loop.py:318-415): the chunk's noise is drawn before it, and the
+live window, the costmap, the frame origin (a tensor, not the Python floats
+a capture would freeze) and the rebased goal are copied into the graph's
+buffers at every chunk, so block shifts, pre-staged seats and deformation
+stamps between chunks reach it. The host then reads five scalars (world
+position, world heading, reached) and runs the terrain cascade. A costmap
+build is one launch of kernel K2.
 
 Two loops, as in the JAX package. The synchronous one reads each chunk's
 pose before the next chunk and pre-stages a predicted shift (the shifted
@@ -33,7 +38,11 @@ hands every terrain mutation to one worker thread: on the card the worker
 issues its terrain work (block builds, crater stamps, costmaps with their
 K2 launch) on its own CUDA stream, and a shift event carries a CUDA event
 the main stream waits on before the first chunk that reads the new window
-and costmap; poses come back through pinned host buffers. Wheel-track
+and costmap; poses come back through pinned host buffers. The dispatch
+waits while the worker has not yet taken up the pose of the chunk
+``2 * pipeline_depth`` back (the port's bound, not in the JAX loop: a
+graphed chunk runs a sim step in ~1 ms, faster than the cascade, and an
+unbounded lag left the terrain metres behind the rover). Wheel-track
 deformation (``deform``) stamps the live window in place once per chunk and
 always runs the synchronous loop. A traverse checkpoints to one ``.npz``
 file (:mod:`..aux.checkpoint`) and resumes from it: on the synchronous path
@@ -55,6 +64,7 @@ from torch import Tensor
 
 from ..aux import checkpoint as ckpt
 from ..core.device import run_device
+from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
 from ..mppi.critics import Costmap
 from ..ops import measure
@@ -94,7 +104,9 @@ class LargeScaleLoopConf:
     # Chunks kept in flight beyond the one being processed: the host reads
     # the pose only for terrain gating and logging, which tolerates that
     # lag (<= 0.5 m per chunk against the 2 m update gate and the 6 m
-    # lookahead). 0 = the synchronous loop; deformation always runs it.
+    # lookahead). The dispatch also waits while the terrain worker is more
+    # than 2 x pipeline_depth chunks behind. 0 = the synchronous loop;
+    # deformation always runs it.
     pipeline_depth: int = 4
     # Every `checkpoint_every_steps` sim steps the traverse state goes to
     # `checkpoint_path`; `LargeScaleClosedLoop.resume(conf, path)` continues
@@ -154,22 +166,24 @@ def _roll_pass_counts(counts: Tensor, di_px: int, dj_px: int) -> Tensor:
     return torch.where(keep, rolled, torch.zeros_like(rolled))
 
 
-def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap,
-              frame: frames.BlockFrame, state: LoopState, goal_ctrl: Tensor,
-              generator: torch.Generator | None = None,
-              noise: Tensor | None = None) -> tuple[LoopState, Tensor]:
+def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap, origin,
+              state: LoopState, goal_ctrl: Tensor, generator: torch.Generator | None = None,
+              noise=None, slip=None) -> tuple[LoopState, Tensor]:
     """``conf.terrain_check_every`` masked closed-loop steps (N=1) with no
     host sync: once the rover is inside the goal stop box (checked EVERY sim
     step, in the rotated frame: the box is axis-swapped but identical) the
     state freezes under a ``torch.where``, so a long chunk cannot overshoot
     through the box between host polls (MPPI_OO_current.py:670 stop
-    semantics). ``noise`` ``(steps, 1, 2, K, H)`` replays given draws; else
-    each step draws from ``generator``.
+    semantics). ``noise`` ``(steps, 1, 2, K, H)`` (or a sequence of
+    ``(1, 2, K, H)``) replays given draws, ``slip`` a sequence of ``(2, 1)``
+    slip normals; else each step draws from ``generator``. ``origin`` is the
+    controller frame's world origin ``(ox, oy)`` (``frames.BlockFrame.origin``),
+    as floats or, for a CUDA graph of the chunk, as a ``(2,)`` tensor.
 
     Returns the state and a ``(5,)`` tensor: world x, y, world heading x, y,
-    and 1.0 when the stop box was reached. The host-side step index advances
-    by the chunk's steps whether or not the state froze (the JAX package
-    freezes it with the rest; a frozen rover is not stepped further)."""
+    and 1.0 when the stop box was reached. The step index advances by the
+    chunk's steps whether or not the state froze (the JAX package freezes
+    it with the rest; a frozen rover is not stepped further)."""
     tol = conf.goal_tolerance
 
     def in_box(st):
@@ -182,7 +196,8 @@ def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap,
     done = in_box(state)
     for s in range(conf.terrain_check_every):
         new = closed_loop.closed_loop_step(conf.loop, hf, costmap, goal_ctrl, state, generator,
-                                           None if noise is None else noise[s])
+                                           None if noise is None else noise[s],
+                                           None if slip is None else slip[s])
         state = LoopState(RoverState(*keep(state.rovers, new.rovers)),
                           type(new.ctrl)(*keep(state.ctrl, new.ctrl)),
                           *keep(state[2:7], new[2:7]), step_index=new.step_index)
@@ -190,7 +205,7 @@ def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap,
     pos = state.rovers.position[0]
     h = state.rovers.heading[0]
     # rotated block frame -> world (frames.controller_to_world)
-    ox, oy = frame.origin()
+    ox, oy = origin[0], origin[1]
     pose = torch.stack([-pos[1] + ox, pos[0] + oy, -h[1], h[0], done.to(pos.dtype)])
     return state, pose
 
@@ -226,7 +241,8 @@ class _TerrainWorker:
     def __init__(self, loop: "LargeScaleClosedLoop"):
         self.loop = loop
         self._cond = threading.Condition()
-        self._pending = None      # newest submitted pose (coalesced)
+        self._pending = None      # newest submitted (pose, chunk index), coalesced
+        self._started = -1        # chunk index of the newest pose taken up
         self._busy = False
         self._stop = False
         self._events: List[dict] = []
@@ -243,13 +259,23 @@ class _TerrainWorker:
         self._thread = threading.Thread(target=self._run, daemon=True)
         self._thread.start()
 
-    def submit(self, pose) -> None:
-        """Queue a world pose; a not-yet-started older pose is replaced
-        (the cascade gates on 2 m of travel, so only the newest matters, and
-        the streamer never re-anchors backwards off a stale pose)."""
+    def submit(self, pose, chunk: int) -> None:
+        """Queue the world pose after chunk ``chunk``; a not-yet-started
+        older pose is replaced (the cascade gates on 2 m of travel, so only
+        the newest matters, and the streamer never re-anchors backwards off
+        a stale pose)."""
         with self._cond:
-            self._pending = pose
+            self._pending = (pose, chunk)
             self._cond.notify_all()
+
+    def wait_for(self, chunk: int) -> None:
+        """Block while the worker still has work and has not yet taken up
+        the pose of chunk ``chunk`` or a later one: the bound on how far
+        the rover may run ahead of the terrain."""
+        with self._cond:
+            while (self._started < chunk and (self._pending is not None or self._busy)
+                   and self.error is None):
+                self._cond.wait(timeout=0.2)
 
     def pop_events(self) -> List[dict]:
         with self._cond:
@@ -279,8 +305,9 @@ class _TerrainWorker:
                         self._cond.wait()
                     if self._pending is None and self._stop:
                         return
-                    pose, self._pending = self._pending, None
+                    (pose, self._started), self._pending = self._pending, None
                     self._busy = True
+                    self._cond.notify_all()
                 try:
                     if self.error is None:
                         self._process(pose)
@@ -373,6 +400,8 @@ class LargeScaleClosedLoop:
         self.last_state: LoopState | None = None
         self.worker_s = {"terrain_s": 0.0, "prestage_s": 0.0}
         self.dispatched_steps = 0  # sim steps issued by the last run (chunks in flight included)
+        # the chunk: a CUDA graph on the card (run_chunk itself runs it eagerly)
+        self.chunk_fn: Callable = Graphed(run_chunk)
 
     @property
     def frame(self) -> frames.BlockFrame:
@@ -391,13 +420,26 @@ class LargeScaleClosedLoop:
 
     def chunk(self, state: LoopState, goal_ctrl: Tensor, generator: torch.Generator | None = None,
               noise: Tensor | None = None) -> tuple[LoopState, Tensor]:
-        """One :func:`run_chunk` on the live window, costmap and frame; with
-        deformation, then one wheel-track stamp on the live window."""
-        state, pose = run_chunk(self.conf, self.hf, self.costmap, self.frame, state, goal_ctrl,
-                                generator, noise)
+        """One :func:`run_chunk` on the live window, costmap and frame, run
+        by ``chunk_fn`` (on the card one graph replay, whose outputs the
+        next chunk overwrites), its draws made first in the eager chunk's
+        order; with deformation, then one wheel-track stamp on the live
+        window."""
+        n = self.conf.terrain_check_every
+        draws = [closed_loop.draw_step_noise(self.conf.loop, generator, 1, noise=(
+            None if noise is None else noise[s]), device=self.device) for s in range(n)]
+        slips = None if draws[0][1] is None else tuple(d[1] for d in draws)
+        state, pose = self.chunk_fn(self.conf, self.hf, self.costmap, self.origin(), state,
+                                    goal_ctrl, None, tuple(d[0] for d in draws), slips)
         if self.deform_engine is not None:
             self._deform(state)
         return state, pose
+
+    def origin(self) -> Tensor:
+        """The controller frame's world origin ``(ox, oy)`` as a float32
+        ``(2,)`` tensor on the device, made by fills (no host sync)."""
+        ox, oy = self.frame.origin()
+        return torch.stack([self._full(ox), self._full(oy)])
 
     def wheel_stamp_inputs(self, state: LoopState) -> tuple[Tensor, Tensor, Tensor]:
         """The four wheels' world positions ``(4, 2)`` from the rover's world
@@ -765,7 +807,7 @@ class LargeScaleClosedLoop:
                                   "r": np.asarray(blk[1], np.float64).reshape(-1)}
                    for (bx, by), blk in streamer.crater_blocks.items()}
         payload = {
-            "state": state._replace(step_index=np.int32(state.step_index)),
+            "state": state,
             "costmap": self.costmap,
             "craters": craters,
             "path": np.asarray(path_world, np.float64).reshape(-1, 2),
@@ -855,7 +897,7 @@ class LargeScaleClosedLoop:
             loop.lstm.rocks_data = rocks_data
             loop.lstm._last_rocks_position = rp
         state = payload["state"]
-        info = {"state": state._replace(step_index=int(state.step_index)),
+        info = {"state": state,
                 "chunk_idx": meta["chunk_idx"], "steps": meta["steps"],
                 "path": [tuple(p) for p in np.asarray(payload["path"])],
                 "generator_state": payload.get("generator")}
@@ -896,7 +938,7 @@ class LargeScaleClosedLoop:
     def _result(self, reached, steps, block_shifts, costmap_rebuilds, wall, path,
                 shift_latencies, steps_at_steady, t_steady, state, dispatch_times,
                 shift_chunks) -> LargeScaleRunResult:
-        self.last_state = state
+        self.last_state = closed_loop.clone_state(state)  # out of the chunk graph's buffers
         wx, wy = self._world_position(state)
         gap_max, gaps = _dispatch_gaps(dispatch_times, shift_chunks)
         return LargeScaleRunResult(
@@ -1055,7 +1097,7 @@ class LargeScaleClosedLoop:
         steady_after = 240
         t_steady, steps_at_steady = None, 0
         acc = {"dispatch_s": 0.0, "fetch_s": 0.0, "terrain_s": 0.0, "prestage_s": 0.0,
-               "shift_s": 0.0}
+               "shift_s": 0.0, "worker_wait_s": 0.0}
         self.chunk_phase_acc = acc
         ready: deque = deque()   # (chunk index, pinned buffer, CUDA event)
         chunk_idx = dispatched_steps = 0
@@ -1100,7 +1142,7 @@ class LargeScaleClosedLoop:
                 path.append((wx, wy))
             if reached_f:
                 return True
-            worker.submit((wx, wy, hx, hy))
+            worker.submit((wx, wy, hx, hy), ci)
             return False
 
         try:
@@ -1108,6 +1150,13 @@ class LargeScaleClosedLoop:
                 if worker.error is not None:
                     raise worker.error
                 apply_events()
+                # the rover runs at most 2 x pipeline_depth chunks (~0.5 m
+                # each) ahead of the pose the worker has taken up, inside
+                # the 2 m gate + 6 m lookahead the lag budget assumes: a
+                # chunk replayed as a CUDA graph outruns the cascade
+                t_w = time.perf_counter()
+                worker.wait_for(chunk_idx - 2 * depth)
+                acc["worker_wait_s"] += time.perf_counter() - t_w
                 t_a = time.perf_counter()
                 dispatch_times.append(t_a)
                 noise = None if noise_source is None else noise_source(chunk_idx)

@@ -11,6 +11,7 @@ from .controller import (
     goal_seek,
     goal_seek_recorded,
     kinematic_advance,
+    masked_steps,
     mppi_step,
 )
 from .critics import Costmap, CriticWeights, evaluate_trajectories

@@ -26,6 +26,7 @@ import torch
 from torch import Tensor
 
 from ..core.device import run_device
+from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
 from ..dynamics.skid_steer import (
     DiffDriveLimits,
@@ -294,6 +295,7 @@ def goal_seek(
     config: MPPIConfig, hf: HeightField, costmap: Costmap, goal: Tensor,
     robot: RobotState, ctrl: ControllerState, generator: torch.Generator | None,
     max_loops: int = 3500, unroll: int = 4, noise_source: NoiseSource | None = None,
+    steps_fn: Callable | None = None,
 ) -> GoalSeekResult:
     """Goal-seeking loop (MPPI_Controller.run, MPPI_isaac.py:755-806): stop
     when |dx| <= 0.5 and |dy| <= 0.5, or after ``max_loops`` loops.
@@ -301,9 +303,17 @@ def goal_seek(
     Runs ``unroll`` masked control steps between host syncs of the stop
     flag; steps after the stop leave the state frozen, so results equal a
     one-step loop. Noise comes from ``noise_source()`` when given (tests
-    replay a fixed sequence), else from ``generator``."""
+    replay a fixed sequence), else from ``generator``, drawn before each
+    ``unroll`` steps in the order the steps use it.
+
+    ``steps_fn`` runs the ``unroll`` steps: by default a new
+    :class:`..core.graphs.Graphed` of :func:`masked_steps` (one CUDA graph
+    replay on the card, the eager function on the CPU); a caller that
+    replays one graph across episodes passes its own, and
+    :func:`masked_steps` itself runs the steps eagerly on the card (the
+    reference the graph is held against)."""
     r = _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
-                        max_loops, unroll, noise_source, record=False)
+                        max_loops, unroll, noise_source, False, steps_fn)
     return GoalSeekResult(*r[:5])
 
 
@@ -311,53 +321,78 @@ def goal_seek_recorded(
     config: MPPIConfig, hf: HeightField, costmap: Costmap, goal: Tensor,
     robot: RobotState, ctrl: ControllerState, generator: torch.Generator | None,
     max_loops: int = 1500, unroll: int = 4, noise_source: NoiseSource | None = None,
+    steps_fn: Callable | None = None,
 ) -> GoalSeekTrace:
     """:func:`goal_seek` that also records the position and commanded
     velocity of every active loop (consumers slice ``[:loops]``)."""
     robot, ctrl, loops, halt, steps, bp, bv = _goal_seek_loop(
         config, hf, costmap, goal, robot, ctrl, generator, max_loops, unroll,
-        noise_source, record=True)
+        noise_source, True, steps_fn)
     return GoalSeekTrace(robot, ctrl, loops, halt, steps,
                          bp[:max_loops], bv[:max_loops])
 
 
+def goal_reached(position: Tensor, goal: Tensor) -> Tensor:
+    """The stop box |dx| <= 0.5 and |dy| <= 0.5 (MPPI_isaac.py:795), a 0-d
+    bool on the device."""
+    d = torch.abs(position - goal)
+    return (d[0] <= 0.5) & (d[1] <= 0.5)
+
+
+def masked_steps(config: MPPIConfig, max_loops: int, hf: HeightField, costmap: Costmap,
+                 goal: Tensor, robot: RobotState, ctrl: ControllerState, loop: Tensor,
+                 halt: Tensor, positions: Tensor, velocities: Tensor, noises: tuple):
+    """One masked control step per noise ``(2, K, H)`` of ``noises`` (the
+    body of the JAX ``lax.while_loop``, controller.py:556): a step taken
+    after the stop (``halt``) or past ``max_loops`` leaves the state as it
+    was. Records each active loop's position and commanded velocity at
+    index ``loop`` of ``positions`` ``(n, 3)`` and ``velocities`` ``(n,)``
+    in place (``n = 0``: no record). Returns ``(robot, ctrl, loop, halt,
+    positions, velocities)``; reads nothing back to the host."""
+    record = positions.shape[0] > 0
+    for noise in noises:
+        active = ~halt & (loop < max_loops)
+        ctrl2, out = mppi_step(config, hf, costmap, goal, robot, ctrl, noise)
+        robot2 = kinematic_advance(config, robot, out)
+        robot = RobotState(*(torch.where(active, n, o) for n, o in zip(robot2, robot)))
+        ctrl = ControllerState(*(torch.where(active, n, o) for n, o in zip(ctrl2, ctrl)))
+        if record:  # index_copy_: indexing with a device scalar would sync
+            at = loop.view(1)
+            positions.index_copy_(0, at, torch.cat([robot.position, robot.z[None]])[None])
+            v_old = velocities.index_select(0, at)
+            velocities.index_copy_(0, at, torch.where(active, out.linear_velocity, v_old))
+        loop = loop + active.to(torch.int64)
+        halt = goal_reached(robot.position, goal)
+    return robot, ctrl, loop, halt, positions, velocities
+
+
 def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
-                    max_loops, unroll, noise_source, record):
-    """Shared masked loop of :func:`goal_seek` and :func:`goal_seek_recorded`
-    (the JAX ``lax.while_loop`` body, one host sync per ``unroll`` steps)."""
+                    max_loops, unroll, noise_source, record, steps_fn):
+    """Shared loop of :func:`goal_seek` and :func:`goal_seek_recorded`:
+    ``unroll`` masked steps per call of ``steps_fn``, then the loop's one
+    host sync, the stop flag. The state it returns is cloned out of the
+    graph's buffers, which the next replay overwrites."""
     dtype, dev = robot.position.dtype, robot.position.device
     if noise_source is None:
         if generator is None:
             raise ValueError("goal_seek needs a generator or a noise_source")
         noise_source = lambda: sample_noise(  # noqa: E731
             generator, config.num_samples, config.horizon, dtype, dev)
+    if steps_fn is None:
+        steps_fn = Graphed(masked_steps)
     n_buf = max_loops + 1 if record else 0
     bp = torch.zeros((n_buf, 3), dtype=dtype, device=dev)
     bv = torch.zeros((n_buf,), dtype=dtype, device=dev)
-
-    def reached_now(r):
-        d = torch.abs(r.position - goal)
-        return (d[0] <= 0.5) & (d[1] <= 0.5)
-
     loop = torch.zeros((), dtype=torch.int64, device=dev)
-    halt = reached_now(robot)
+    halt = goal_reached(robot.position, goal)
     steps = 0
     while not bool(halt | (loop >= max_loops)):
-        for _ in range(unroll):
-            active = ~halt & (loop < max_loops)
-            ctrl2, out = mppi_step(config, hf, costmap, goal, robot, ctrl, noise_source())
-            steps += 1
-            robot2 = kinematic_advance(config, robot, out)
-            robot = RobotState(*(torch.where(active, n, o) for n, o in zip(robot2, robot)))
-            ctrl = ControllerState(*(torch.where(active, n, o) for n, o in zip(ctrl2, ctrl)))
-            if record:  # index_copy_: indexing with a device scalar would sync
-                at = loop.view(1)
-                bp.index_copy_(0, at, torch.cat([robot.position, robot.z[None]])[None])
-                v_old = bv.index_select(0, at)
-                bv.index_copy_(0, at, torch.where(active, out.linear_velocity, v_old))
-            loop = loop + active.to(torch.int64)
-            halt = reached_now(robot)
-    return robot, ctrl, loop, halt, steps, bp, bv
+        noises = tuple(noise_source() for _ in range(unroll))
+        robot, ctrl, loop, halt, bp, bv = steps_fn(config, max_loops, hf, costmap, goal, robot,
+                                                   ctrl, loop, halt, bp, bv, noises)
+        steps += unroll
+    clone = lambda nt: type(nt)(*(t.clone() for t in nt))  # noqa: E731
+    return clone(robot), clone(ctrl), loop.clone(), halt.clone(), steps, bp.clone(), bv.clone()
 
 
 def loop_generator_seed(seed: int, loop_seed: int) -> int:
@@ -378,7 +413,12 @@ class MPPIController:
     ``loop_generator_seed(seed, n-th loop seed)``.
 
     ``device`` is the card unless the caller names another
-    (:func:`..core.device.run_device`); the world moves there."""
+    (:func:`..core.device.run_device`); the world moves there. A step runs
+    ``step_fn``: a :class:`..core.graphs.Graphed` :func:`mppi_step` (one
+    CUDA graph replay on the card, the JAX package's jitted step,
+    controller.py:625), whose outputs the next step overwrites; setting it
+    to :func:`mppi_step` runs the steps eagerly (the reference the graph is
+    held against)."""
 
     def __init__(self, config: MPPIConfig, hf: HeightField, costmap: Costmap, goal_xy,
                  seed: int = 42, device=None):
@@ -391,17 +431,20 @@ class MPPIController:
         self.seeds = LoopSeedSequence(config.horizon, seed)
         self._generator = torch.Generator(device=self.device)
         self.loop = 0
+        self.step_fn: Callable = Graphed(mppi_step)
 
     def step(self, robot: RobotState, ctrl: ControllerState,
              noise: Tensor | None = None) -> tuple[ControllerState, StepOutput]:
         """One control step; draws the loop noise from the seed stream
-        unless ``noise`` (2, K, H) is given (tests replay JAX's draws)."""
+        unless ``noise`` (2, K, H) is given (tests replay JAX's draws). On
+        the card the outputs are the step graph's buffers: the next step
+        overwrites them."""
         if noise is None:
             self._generator.manual_seed(loop_generator_seed(self.seed, self.seeds.next_seed()))
             noise = sample_noise(self._generator, self.config.num_samples, self.config.horizon,
                                  self.hf.z.dtype, self.device)
         self.loop += 1
-        return mppi_step(self.config, self.hf, self.costmap, self.goal, robot, ctrl, noise)
+        return self.step_fn(self.config, self.hf, self.costmap, self.goal, robot, ctrl, noise)
 
     def run(self, robot: RobotState, max_loops: int = 3500
             ) -> tuple[RobotState, ControllerState, Tensor]:
@@ -409,7 +452,8 @@ class MPPIController:
         test; :func:`goal_seek` syncs once per ``unroll`` loops). Stops when
         |dx| <= 0.5 and |dy| <= 0.5 or after ``max_loops`` loops of this
         controller. Returns the final robot and controller states and the
-        positions visited, ``(loops + 1, 2)``, on the device."""
+        positions visited, ``(loops + 1, 2)``, on the device. What it keeps
+        of a step it clones: the next step's replay overwrites the rest."""
         robot = RobotState(*(t.to(self.device) for t in robot))
         ctrl = ControllerState.create(self.config, self.hf.z.dtype, self.device)
         trajectory = [robot.position]
@@ -417,5 +461,6 @@ class MPPIController:
                and bool((torch.abs(robot.position - self.goal) > 0.5).any())):
             ctrl, out = self.step(robot, ctrl)
             robot = kinematic_advance(self.config, robot, out)
-            trajectory.append(robot.position)
-        return robot, ctrl, torch.stack(trajectory)
+            trajectory.append(robot.position.clone())
+        clone = lambda nt: type(nt)(*(t.clone() for t in nt))  # noqa: E731
+        return clone(robot), clone(ctrl), torch.stack(trajectory)

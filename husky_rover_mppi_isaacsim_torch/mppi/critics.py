@@ -141,6 +141,34 @@ def evaluate_trajectories(
     return cost
 
 
+def goal_angle_critic(x: Tensor, y: Tensor, goal: Tensor, goal_orientation: Tensor,
+                      trajectory: Tensor) -> Tensor:
+    """Terminal-orientation critic (``_goal_angle_critic``,
+    critics_warp.py:4-40), kept but unused in the production sum, like the
+    reference and the JAX package. Within 0.5 m of the goal: |atan(dy/dx) -
+    goal_orientation| of the last trajectory segment (``atan``, not
+    ``atan2``: the reference's quirk, kept)."""
+    dist = torch.sqrt((x - goal[0]) ** 2 + (y - goal[1]) ** 2)
+    p0 = trajectory[..., -2, :]
+    p1 = trajectory[..., -1, :]
+    ang = torch.arctan((p1[..., 1] - p0[..., 1]) / (p1[..., 0] - p0[..., 0]))
+    return torch.where(dist < 0.5, torch.abs(ang - goal_orientation), torch.zeros_like(ang))
+
+
+def path_orientation_critic(x: Tensor, y: Tensor, goal: Tensor, trajectory: Tensor) -> Tensor:
+    """Progress-direction critic (``_path_orientation_critic``,
+    critics_warp.py:43-82), kept but unused in the production sum: a
+    rollout whose last segment points away from the goal costs the negated
+    scalar product over the L1 goal offset."""
+    x_diff = goal[0] - x
+    y_diff = goal[1] - y
+    p0 = trajectory[..., -2, :]
+    p1 = trajectory[..., -1, :]
+    sp = x_diff * (p1[..., 0] - p0[..., 0]) + y_diff * (p1[..., 1] - p0[..., 1])
+    return torch.where(sp <= 0, -sp / (torch.abs(x_diff) + torch.abs(y_diff)),
+                       torch.zeros_like(sp))
+
+
 def softmax_weights(costs: Tensor, temperature: float, min_cost: Tensor | None = None) -> Tensor:
     """``exp(-(c - min c)/T)`` with a two-pass min (critics_warp.py:338-347).
     ``mppi_step`` passes ``min_cost`` (``...``, 1), its minimum (all-reduced

@@ -15,8 +15,11 @@ experiment functions run paired goal-seek episodes per K with the 3D
   with collision-abort and drop-5-greatest.
 
 Each episode runs on the world's device with one host sync per ``unroll``
-steps; its recorded trace comes to the host in one copy, and rescoring runs
-on CPU tensors and numpy. Control noise comes from a ``torch.Generator``
+steps; on the card each arm (K, projection) replays one CUDA graph of
+``unroll`` masked steps across its runs (the JAX runner's jitted
+``goal_seek_recorded``, evaluation.py:301, 455), the 2D arm's eager
+``rollout_2d`` inside it. Its recorded trace comes to the host in one copy,
+and rescoring runs on CPU tensors and numpy. Control noise comes from a ``torch.Generator``
 seeded ``seed * 1000 + run`` (a different stream from the JAX package's
 ``jax.random.key``), or from an injected per-run noise source (tests).
 """
@@ -34,6 +37,7 @@ import numpy as np
 import torch
 
 from ..core.device import run_device
+from ..core.graphs import Graphed
 from ..core.heightfield import HeightField, grid_lookup
 from . import critics as crit
 from .controller import (
@@ -42,6 +46,7 @@ from .controller import (
     NoiseSource,
     RobotState,
     goal_seek_recorded,
+    masked_steps,
 )
 from .critics import Costmap
 
@@ -199,10 +204,12 @@ def _costmap_on_cpu(cm: Costmap) -> Costmap:
 
 def _run_episode(config: MPPIConfig, hf: HeightField, cm: Costmap, goal, robot: RobotState,
                  ctrl: ControllerState, seed: int, run_idx: int, max_loops: int,
-                 noise: RunNoise | None):
-    """One recorded goal-seek episode on the world's device. Returns
-    ``(loops, reached, positions (max_loops, 3), velocities (max_loops,),
-    steps)`` on the host, after one device-to-host copy."""
+                 noise: RunNoise | None, steps_fn: Graphed | None = None):
+    """One recorded goal-seek episode on the world's device, its masked
+    steps run by ``steps_fn`` (the arm's graph; a new one when ``None``).
+    Returns ``(loops, reached,
+    positions (max_loops, 3), velocities (max_loops,), steps)`` on the
+    host, after one device-to-host copy."""
     dtype, dev = robot.position.dtype, robot.position.device
     gen, source = None, None
     if noise is None:
@@ -210,7 +217,8 @@ def _run_episode(config: MPPIConfig, hf: HeightField, cm: Costmap, goal, robot: 
     else:
         source = noise(config.num_samples, run_idx)
     trace = goal_seek_recorded(config, hf, cm, torch.tensor(goal, dtype=dtype, device=dev),
-                               robot, ctrl, gen, max_loops=max_loops, noise_source=source)
+                               robot, ctrl, gen, max_loops=max_loops, noise_source=source,
+                               steps_fn=steps_fn)
     packed = torch.cat([trace.positions.reshape(-1), trace.velocities,
                         trace.loops.to(dtype).view(1), trace.reached.to(dtype).view(1)])
     host = packed.cpu().numpy()  # the run's one device-to-host copy
@@ -269,13 +277,14 @@ def run_2d_vs_3d_experiment(
         finite = {"3d": True, "2d": True}
         for proj in ("3d", "2d"):
             config = MPPIConfig(num_samples=int(k), horizon=horizon, projection=proj)
+            graph = Graphed(masked_steps)  # one per arm, replayed across its runs
             t_arm = time.perf_counter()
             for run_idx, (start, goal) in enumerate(pairs):
                 robot = RobotState.create(start[0], start[1], [1.0, 0.0, 0.0], dtype=dtype,
                                           device=device)
                 ctrl = ControllerState.create(config, dtype, device)
                 loops, hit, pos, vel, n_steps = _run_episode(
-                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise)
+                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise, graph)
                 log = TrajectoryLog(step=run_idx, trajectory=pos[:max(loops, 2)],
                                     linear_velocities=vel[:max(loops, 2)],
                                     start=tuple(start), goal=tuple(goal))
@@ -372,6 +381,7 @@ def run_thesis_protocol_experiment(
             config = MPPIConfig(num_samples=int(k), horizon=horizon, projection=proj,
                                 critic_weights=weights, sigma_base=sigma_base,
                                 slope_critic=slope_critic)
+            graph = Graphed(masked_steps)  # one per arm, replayed across its runs
             scores, n_fail, n_collide, n_steps, finite = [], 0, 0, 0, True
             loops_list, v_means, v_stalls = [], [], []
             t_arm = time.perf_counter()
@@ -380,7 +390,7 @@ def run_thesis_protocol_experiment(
                                           device=device, wheel_speed=1.0)
                 ctrl = ControllerState.create(config, dtype, device, initial_u=1.0)
                 loops, reached, pos, vel, steps = _run_episode(
-                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise)
+                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise, graph)
                 n_steps += steps
                 # the reference CSVs log the start pose as row 0 and the
                 # rescorer drops it (trajectories[1:]); the trace holds only

@@ -7,8 +7,10 @@ includes the host's issue time when a call is shorter than it.
 its replay, so that only the device's time per launch remains.
 :class:`OpLog` records the torch operators a call dispatches,
 :func:`device_kernels` counts the kernels a call runs on the card, and
-:func:`device_time` sums their time there by name, and :func:`issue_ms`
-times calls issued back to back with one synchronize at the end.
+:func:`device_time` sums their time there by name, :func:`launch_calls`
+counts the host's kernel launches and copies (a CUDA graph replay is one),
+and :func:`issue_ms` times calls issued back to back with one synchronize
+at the end.
 """
 
 from __future__ import annotations
@@ -136,6 +138,35 @@ def device_kernels(fn: Callable[[], object], sessions: int = 6) -> int:
         if top > 0 and counts.count(top) >= 2:
             return top
     raise RuntimeError(f"torch.profiler read no kernel count above 0 twice: {counts}")
+
+
+# the CUDA API calls (runtime and `cu*`) that put work on a stream: a kernel
+# launch, a graph replay, an asynchronous copy or set
+LAUNCH_CALLS = frozenset(("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                          "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                          "cudaMemsetAsync"))
+
+
+def launch_calls(fn: Callable[[], object], sessions: int = 2) -> dict:
+    """The host's calls that put work on a stream during one call of
+    ``fn``, by name (:data:`LAUNCH_CALLS`), from ``torch.profiler``'s
+    record of the runtime API; the largest total of ``sessions``
+    sessions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    best: dict = {}
+    for _ in range(sessions):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        counts: dict = {}
+        for e in prof.events():
+            if e.name in LAUNCH_CALLS:
+                counts[e.name] = counts.get(e.name, 0) + 1
+        if sum(counts.values()) > sum(best.values()):
+            best = counts
+    return best
 
 
 def device_time(fn: Callable[[], object], top: int = 8, sessions: int = 3) -> dict:

@@ -44,13 +44,17 @@ ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _L, _L, _P, _L, _L, _P, _L, _P, _L, _P,
 
 class CudaRollout:
     """Callable K1 wrapper. ``launches`` counts kernel launches and nothing
-    else; ``copies`` counts velocity tensors that had to be made contiguous.
-    The library is built at the first CUDA call."""
+    else; a launch issued while the current stream captures a CUDA graph is
+    recorded, not run, and counts in ``captured`` instead (each replay of
+    the graph adds its launches, :mod:`..core.graphs`). ``copies`` counts
+    velocity tensors that had to be made contiguous. The library is built
+    at the first CUDA call."""
 
     source = "rollout.cu"
 
     def __init__(self):
         self.launches = 0
+        self.captured = 0
         self.copies = 0
         self.built: cuda_build.BuiltLibrary | None = None
 
@@ -137,7 +141,10 @@ class CudaRollout:
             int(out.shape[0] == 12), torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"rollout25d_f32 launch failed: cudaError {rc}")
-        self.launches += 1
+        if torch.cuda.is_current_stream_capturing():
+            self.captured += 1
+        else:
+            self.launches += 1
 
 
 def check_inputs(hf: HeightField, position: Tensor, heading: Tensor, lin: Tensor,

@@ -6,10 +6,13 @@ re-design of ``ROS2_SimulationManager``
 reference's loop per tick: ``world.step`` -> lab/robot ``periodic_update`` ->
 ``apply_modifications`` (deferred stage edits, applied only *between*
 physics steps, :216-233) -> deformation hook -> monitor check, all paced by
-a realtime ``Rate``. Here ``world.step`` is one eager
+a realtime ``Rate``. Here ``world.step`` is one
 :func:`~..env.closed_loop.closed_loop_step` over every robot slot at once
-(two K1 launches on the card), and the "stage" edits are slot updates
-queued on the :class:`~..env.robot_manager.RobotManager` by bus subscribers.
+(two K1 launches on the card), replayed on the card as one CUDA graph a
+tick (:class:`~..core.graphs.Graphed`), and the "stage" edits are slot
+updates queued on the :class:`~..env.robot_manager.RobotManager` by bus
+subscribers. The graph copies the state into its buffers at every tick, so
+an edit made between ticks reaches the next one.
 
 A tick copies nothing to the host unless something subscribes to
 ``POSE_STATE``: only then are the poses read back for the message.
@@ -26,7 +29,14 @@ from torch import Tensor
 
 from ..core.device import run_device
 from ..core.heightfield import HeightField
-from ..env.closed_loop import ClosedLoopConfig, LoopState, closed_loop_step, init_loop_state
+from ..core.graphs import Graphed
+from ..env.closed_loop import (
+    ClosedLoopConfig,
+    LoopState,
+    closed_loop_step,
+    draw_step_noise,
+    init_loop_state,
+)
 from ..env.robot_manager import RobotManager
 from ..mppi.critics import Costmap
 from .monitor import ThreadMonitor
@@ -53,8 +63,11 @@ class SimulationManager:
     Exploration noise (and wheel slip, where ``slip_std > 0``) comes from a
     ``torch.Generator`` on the device seeded with ``conf.seed``: not the
     JAX package's draws, which :meth:`step` can replay through ``noise=``.
-    The monitor is a thread: call :meth:`close` (or use the manager as a
-    context manager) when done."""
+    A tick runs ``step_fn``: a :class:`..core.graphs.Graphed`
+    :func:`closed_loop_step` (its outputs, ``state``, are overwritten by the
+    next tick), or :func:`closed_loop_step` itself to run the ticks eagerly
+    on the card. The monitor is a thread: call :meth:`close` (or use the
+    manager as a context manager) when done."""
 
     def __init__(self, conf: SimulationManagerConf, hf: HeightField, costmap: Costmap,
                  robots: RobotManager, goals, bus: Optional[MessageBus] = None,
@@ -72,6 +85,7 @@ class SimulationManager:
         self.generator = torch.Generator(device=self.device).manual_seed(conf.seed)
         self.state = init_loop_state(conf.loop, robots.initial_state(self.hf, dtype=dtype), dtype)
         self.step_count = 0
+        self.step_fn: Callable = Graphed(closed_loop_step)
         self._wire_bus()
         self.monitor = ThreadMonitor(poll_s=conf.monitor_poll_s)
         self.monitor.start()
@@ -97,8 +111,11 @@ class SimulationManager:
         """One sim tick: closed-loop step -> pose publish (only when
         subscribed) -> deferred-edit flush -> deformation hook. ``noise``
         (N, 2, K, H) replays given draws (tests replay JAX's)."""
-        self.state = closed_loop_step(self.conf.loop, self.hf, self.costmap, self.goals,
-                                      self.state, self.generator, noise)
+        pos = self.state.rovers.position
+        noise, slip = draw_step_noise(self.conf.loop, self.generator, pos.shape[0], pos.dtype,
+                                      pos.device, noise=noise)
+        self.state = self.step_fn(self.conf.loop, self.hf, self.costmap, self.goals,
+                                  self.state, None, noise, slip)
         self.step_count += 1
         if self.bus.has_subscribers(Topics.POSE_STATE):
             # a device-to-host copy: paid only when someone listens

@@ -15,4 +15,10 @@ from .costmap import (
 from .orchestrator import LargeScaleConf, LargeScaleTerrainManager
 from .rocks import RockDistConf
 from .smallscale import thesis_statistics_terrain
-from .surface import STANDALONE_CRATER_BUMPS, bump_surface, crater_surface
+from .surface import (
+    STANDALONE_CRATER_BUMPS,
+    bump_surface,
+    crater_surface,
+    imported_surface,
+    surface_heightfield,
+)

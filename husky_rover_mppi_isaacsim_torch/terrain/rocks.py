@@ -94,13 +94,67 @@ def quat_from_normal_and_rand(normal: Tensor, rand: Tensor) -> Tensor:
     return quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
 
 
+def tangent_draws(shape: tuple, generator: torch.Generator | None = None,
+                  dtype=torch.float32, device=None) -> Tensor:
+    """``shape + (3,)`` uniforms in [-1, 1), the random tangent directions
+    of :func:`quat_from_normal_and_rand`, from ``generator`` (on
+    ``device``): the port's draws, not ``jax.random``'s."""
+    return torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
+                      device=device) * 2.0 - 1.0
+
+
+def orientation_from_normal(normal: Tensor, generator: torch.Generator | None = None,
+                            rand: Tensor | None = None, dtype=None) -> Tensor:
+    """A random surface-tangent quaternion (xyzw) per normal: the tangent-
+    frame half of ``_bilinear_interpolation_and_random_orientation`` and
+    ``_get_random_tangent_vector`` (geometry_clipmaps_warp.py:363-422).
+    The tangent directions are ``rand`` (``normal.shape[:-1] + (3,)``, in
+    [-1, 1)) where given, so that a caller can hold the quaternions
+    against the JAX package's from its draws; else the port's draws from
+    ``generator`` (:func:`tangent_draws`), and the quaternions, not the
+    normals, then differ from the JAX package's."""
+    dtype = dtype or normal.dtype
+    if rand is None:
+        rand = tangent_draws(normal.shape[:-1], generator, dtype, normal.device)
+    return quat_from_normal_and_rand(normal.to(dtype), rand.to(normal.device, dtype))
+
+
+def surface_orientation(hf: HeightField, xy: Tensor, generator: torch.Generator | None = None,
+                        rand: Tensor | None = None):
+    """Height, random surface-tangent quaternion (xyzw) and normal per point
+    ``xy`` (N, 2) over a fixed heightfield window; the tangents as in
+    :func:`orientation_from_normal`. Returns ``(height (N,), quaternion
+    (N, 4), normal (N, 3))``."""
+    x, y = xy[:, 0], xy[:, 1]
+    q = hfield.corners_at(hf, x, y)
+    height = hfield.bilinear(x, y, q, hf.resolution)
+    normal = hfield.quad_normal(q, hf.resolution)
+    return height, orientation_from_normal(normal, generator, rand, xy.dtype), normal
+
+
+def provider_orientation(provider, xy, generator: torch.Generator | None = None,
+                         rand: Tensor | None = None):
+    """Height, tangent quaternion and normal from any world-coordinate
+    height provider with vectorized ``get_height(x, y)`` and
+    ``get_normal(x, y)`` (the ``TerrainStreamer`` / ``MapManager``
+    surface): the rock-placement query the reference routes through
+    ``NestedGeometryClipmapManager.get_height_and_random_scale``
+    (nested_geometry_clipmaps_manager.py:220-237). ``xy`` (N, 2), numpy or
+    a tensor, goes to the provider's device; the tangents as in
+    :func:`orientation_from_normal`."""
+    xy = torch.as_tensor(np.asarray(xy) if not isinstance(xy, Tensor) else xy)
+    height = provider.get_height(xy[:, 0], xy[:, 1])
+    normal = provider.get_normal(xy[:, 0], xy[:, 1])
+    return height, orientation_from_normal(normal, generator, rand), normal
+
+
 def block_tangent_draws(seed: int, bx: int, by: int, n: int) -> Tensor:
     """``(n, 3)`` float32 uniforms in [-1, 1) for the rocks of one block, on
     the CPU, from a generator keyed by (seed, block): row i belongs to rock
     i of the block whatever else is sampled with it."""
     state = np.random.SeedSequence((seed, 0x9A07, bx & 0xFFFFFFFF, by & 0xFFFFFFFF))
     gen = torch.Generator().manual_seed(int(state.generate_state(1, np.uint64)[0] >> 1))
-    return torch.rand((n, 3), generator=gen, dtype=torch.float32) * 2.0 - 1.0
+    return tangent_draws((n,), gen)
 
 
 def rock_surface_hf(hf: HeightField, xy: Tensor, rand: Tensor):

@@ -1,14 +1,19 @@
-"""Analytic lunar surfaces for the MPPI stack.
+"""Analytic and imported lunar surfaces for the MPPI stack.
 
-Counterpart of ``bump_surface``, ``crater_surface`` and
-``STANDALONE_CRATER_BUMPS`` in ``husky_rover_mppi_isaacsim_tpu/terrain/
-surface.py`` (displacement_on_surface.py:48-79, MPPI_isaac.py:307-356).
+Counterpart of ``husky_rover_mppi_isaacsim_tpu/terrain/surface.py``:
+``bump_surface``, ``crater_surface`` and ``STANDALONE_CRATER_BUMPS``
+(displacement_on_surface.py:48-79, MPPI_isaac.py:307-356), and
+``imported_surface`` (a window of a DEM ``.npy``, MPPI_isaac.py:283-305)
+with ``surface_heightfield``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 from torch import Tensor
+
+from ..core.heightfield import HeightField
 
 
 def _meshgrid(grid_size: int, half_width: float, dtype, device):
@@ -39,6 +44,23 @@ def crater_surface(grid_size: int, half_width: float, bumps,
         Z = Z + (height - 0.5) * torch.exp(-r2 / (2.0 * width**2))
         Z = Z - (height + 0.5) * torch.exp(-r2 / (2.0 * (width / 2.0) ** 2))
     return Z
+
+
+def imported_surface(path, start: int = 1000, end: int = 2500) -> np.ndarray:
+    """A DEM window from ``.npy`` (MPPI_isaac.py:283-305: rows and columns
+    ``[start:end]`` of a 0.1 m/px LOLA-derived array, 1000:2500 for the
+    150 m ``test_nathan`` map); a file no larger than the window is that
+    window already. Returns the numpy array as stored."""
+    z = np.load(path)
+    if z.shape[0] > end - start:
+        z = z[start:end, start:end]
+    return z
+
+
+def surface_heightfield(z, half_width: float, dtype=None, device=None) -> HeightField:
+    """Wrap a height array in the controller's :class:`HeightField` window,
+    on ``device`` (where ``z`` lies when not given)."""
+    return HeightField.create(z, half_width, dtype=dtype, device=device)
 
 
 # Crater bumps of the standalone 150 m experiments (MPPI_OO_current.py:753-763),

@@ -116,3 +116,31 @@ def test_geometry_matches_jax(rng):
     flat[:5, :2] = 0.0  # zero planar norm keeps the heading as is
     np.testing.assert_allclose(_np(tgeom.update_orientation_2d(t(flat), t(ang), 0.045)),
                                np.asarray(jgeom.update_orientation_2d(flat, ang, 0.045)), atol=ATOL)
+
+
+def test_surface_frame_and_jacobian_slope_match_jax(rng):
+    """``surface_frame`` is the fused height, normal and tangent heading;
+    ``jacobian_slope`` the normal's tilt. Equal where no transcendental
+    enters (the frame is the same gathers and arithmetic as the parts the
+    file holds at 1e-12); ``arccos`` within the file's tolerance."""
+    jf, tf = _fields()
+    xs, ys = _points(rng, 300, 8.0)
+    jx, jy = jnp.asarray(xs), jnp.asarray(ys)
+    tx, ty = torch.from_numpy(xs), torch.from_numpy(ys)
+    heading = rng.normal(size=(300, 3))
+    got = thf.surface_frame(tf, tx, ty, torch.from_numpy(heading))
+    want = jhf.surface_frame(jf, jx, jy, jnp.asarray(heading))
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), np.asarray(b), rtol=0, atol=ATOL)
+    # the fused frame is the unfused sequence, bit for bit
+    q = thf.corners_at(tf, tx, ty)
+    n = thf.quad_normal(q, tf.resolution)
+    for a, b in zip(got, (thf.bilinear(tx, ty, q, tf.resolution), n,
+                          thf.tangent_project(n, torch.from_numpy(heading)))):
+        assert torch.equal(a, b)
+    slope = thf.jacobian_slope(tf, tx, ty)
+    np.testing.assert_allclose(_np(slope), np.asarray(jhf.jacobian_slope(jf, jx, jy)),
+                               rtol=0, atol=ATOL)
+    assert (_np(slope) >= 0.0).all() and (_np(slope) < np.pi / 2).all()
+    from husky_rover_mppi_isaacsim_torch import core as tcore
+    assert tcore.surface_frame is thf.surface_frame and tcore.jacobian_slope is thf.jacobian_slope

@@ -104,3 +104,40 @@ def test_evaluate_softmax_update_match_jax(rng):
                     jcr.weighted_update(jnp.asarray(w.numpy()), jnp.asarray(u1), jnp.asarray(u2))):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-12)
     assert tuple(tcr.CriticWeights()) == tuple(jcr.CriticWeights())
+
+
+@pytest.mark.parametrize("start", [(7.8, 6.1), (0.1, -0.3)])  # inside and outside 0.5 m
+def test_goal_angle_critic_matches_jax(rng, start):
+    """The unused terminal-orientation critic, the reference's ``atan`` (not
+    ``atan2``) kept: within the file's float64 tolerance (a transcendental),
+    and 0 outside the 0.5 m goal radius on both sides."""
+    traj = _trajectories(rng)
+    goal, orientation = np.array([8.0, 6.0]), 0.7
+    got = tcr.goal_angle_critic(_s(start[0]), _s(start[1]), torch.from_numpy(goal),
+                                _s(orientation), torch.from_numpy(traj))
+    want = jcr.goal_angle_critic(jnp.asarray(start[0]), jnp.asarray(start[1]),
+                                 jnp.asarray(goal), jnp.asarray(orientation), jnp.asarray(traj))
+    np.testing.assert_allclose(_np(got), np.asarray(want), rtol=RTOL, atol=0)
+    near = np.hypot(start[0] - goal[0], start[1] - goal[1]) < 0.5
+    assert (_np(got) != 0.0).any() == near
+    # atan folds the segment direction into (-pi/2, pi/2): a segment and its
+    # reverse cost the same, as in the reference
+    rev = traj.copy()
+    rev[:, -2:] = traj[:, -2:][:, ::-1]
+    again = tcr.goal_angle_critic(_s(start[0]), _s(start[1]), torch.from_numpy(goal),
+                                  _s(orientation), torch.from_numpy(rev))
+    np.testing.assert_array_equal(_np(again), _np(got))
+
+
+@pytest.mark.parametrize("goal", [(8.0, 6.0), (-9.0, 0.4)])
+def test_path_orientation_critic_equals_jax(rng, goal):
+    """The unused progress-direction critic: no transcendental, so equal to
+    the JAX package's; segments pointing towards the goal cost 0."""
+    traj = _trajectories(rng)
+    x, y = 0.1, -0.3
+    got = tcr.path_orientation_critic(_s(x), _s(y), torch.tensor(goal, dtype=torch.float64),
+                                      torch.from_numpy(traj))
+    want = jcr.path_orientation_critic(jnp.asarray(x), jnp.asarray(y), jnp.asarray(goal),
+                                       jnp.asarray(traj))
+    np.testing.assert_array_equal(_np(got), np.asarray(want))
+    assert (_np(got) == 0.0).any() and (_np(got) > 0.0).any()

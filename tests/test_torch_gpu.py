@@ -743,3 +743,205 @@ def test_worldbuilders_request_on_card_matches_cpu(cuda):
     atol = float(np.spacing(np.abs(slopes).max()))
     diff = (card["xformOp:orientation"].cpu() - host["xformOp:orientation"]).abs().max()
     assert float(diff) <= atol
+
+
+# -- CUDA graphs (core/graphs.py): each graphed path against its eager self --
+
+
+def _graph_world(device):
+    hf = _crater(device, grid=512, hw=25.0)
+    cm = as_costmap(torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4, 25.0,
+                    device=device)
+    return hf, cm
+
+
+def _tensors(tree):
+    import torch.utils._pytree as pytree
+
+    return [t for t in pytree.tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _all_equal(a, b):
+    ta, tb = _tensors(a), _tensors(b)
+    return len(ta) == len(tb) and all(torch.equal(x, y) for x, y in zip(ta, tb))
+
+
+@pytest.mark.parametrize("projection", ["3d", "2d"])
+def test_graphed_goal_seek_equals_eager_on_card(cuda, projection):
+    """``goal_seek_recorded`` through its graph of 4 masked steps and
+    through ``masked_steps`` eagerly, from the same generator state: the
+    same trace and state bit for bit, K1 twice (3D) or once (2D) per step
+    either way, and every call after the warm-up a replay."""
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+    from husky_rover_mppi_isaacsim_torch.mppi import goal_seek_recorded, masked_steps
+
+    hf, cm = _graph_world(cuda)
+    cfg = MPPIConfig(num_samples=256, horizon=40, projection=projection)
+    goal = torch.tensor([15.0, 12.0], device=cuda)
+    runs, counts = [], []
+    graph = Graphed(masked_steps)
+    for steps_fn in (graph, masked_steps):
+        robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
+        ctrl = ControllerState.create(cfg, device=cuda)
+        before = rollout_25d_cuda.launches
+        runs.append(goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl,
+                                       torch.Generator(device=cuda).manual_seed(5), max_loops=40,
+                                       steps_fn=steps_fn))
+        counts.append(rollout_25d_cuda.launches - before)
+    got, want = runs
+    assert got.steps == want.steps == 40 and _all_equal(got, want)
+    per_step = 2 if projection == "3d" else 1
+    assert counts == [per_step * got.steps] * 2
+    assert graph.replays == got.steps // 4 - 1 and graph.capture_ms > 0
+
+
+def test_graphed_mppi_controller_run_equals_eager_on_card(cuda):
+    """``MPPIController.run`` replaying its step graph and run with
+    ``step_fn = mppi_step``: the same path, final state and loop count."""
+    from husky_rover_mppi_isaacsim_torch.mppi import MPPIController
+
+    hf, cm = _graph_world(cuda)
+    cfg = MPPIConfig(num_samples=256, horizon=40)
+    runs = []
+    for graphed in (True, False):
+        ctl = MPPIController(cfg, hf, cm, (15.0, 12.0), seed=42)
+        if not graphed:
+            ctl.step_fn = mppi_step
+        robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
+        runs.append((ctl.run(robot, max_loops=30), ctl.loop))
+    (got, loops), (want, loops_e) = runs
+    assert loops == loops_e == 30 and _all_equal(got, want)
+
+
+def test_graphed_evaluation_equals_eager_on_card(cuda):
+    """Both arms of the 2D-vs-3D experiment with each arm replaying its
+    graph, and with the masked steps run eagerly: the same table."""
+    from unittest import mock
+
+    kw = dict(ks=(64,), runs_per_arm=2, horizon=20, max_loops=12, half_width=20.0,
+              grid_size=400, costmap_size=200, span_fraction=0.3, device=cuda)
+    got = evaluation.run_2d_vs_3d_experiment(**kw)
+    with mock.patch.object(evaluation, "Graphed", lambda fn: fn):
+        want = evaluation.run_2d_vs_3d_experiment(**kw)
+    for table in (got, want):
+        for arm in ("3d", "2d"):
+            table["per_k"][64]["wall_s"][arm] = 0.0
+    assert got == want
+
+
+def test_graphed_closed_loop_equals_eager_on_card(cuda):
+    """``run_episode`` of 3 rovers over 12 steps (every latch phase; wheel
+    slip drawn outside the graph) replaying one step graph, and with
+    ``closed_loop_step`` eagerly: the same path and final state."""
+    import numpy as np
+
+    hf, cm = _graph_world(cuda)
+    cfg = tenv.ClosedLoopConfig(mppi=MPPIConfig(num_samples=256, horizon=40),
+                                rover=tenv.RoverParams(slip_std=0.05))
+    starts = np.array([[-10.0, -8.0], [5.0, -12.0], [-12.0, 6.0]])
+    goals = torch.tensor([[15.0, 12.0], [-15.0, 10.0], [10.0, -15.0]], device=cuda)
+    runs = []
+    for step_fn in (None, tenv.closed_loop_step):
+        state = tenv.init_loop_state(cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+        before = rollout_25d_cuda.launches
+        runs.append(tenv.run_episode(cfg, hf, cm, goals, state,
+                                     torch.Generator(device=cuda).manual_seed(3), 12,
+                                     step_fn=step_fn))
+        assert rollout_25d_cuda.launches - before == 24
+    assert _all_equal(*runs) and int(runs[0][0].step_index) == 12
+
+
+def test_graphed_sim_manager_equals_eager_on_card(cuda):
+    """SimulationManager ticks replaying the step graph and ticking
+    eagerly, with a teleport and a reset over the bus between ticks: the
+    same states at every tick (the graph copies the edited slots in), and
+    no host sync in a tick."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.shell import (
+        SimulationManager,
+        SimulationManagerConf,
+        Topics,
+    )
+
+    hf, cm = _graph_world(cuda)
+    conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig(
+        mppi=MPPIConfig(num_samples=256, horizon=40)))
+    goals = np.array([[18.0, 15.0], [-15.0, 10.0], [0.0, -18.0]])
+    runs = []
+    for graphed in (True, False):
+        rm = tenv.RobotManager(3)
+        rm.spawn("a", (-10.0, -8.0))
+        rm.spawn("b", (5.0, -12.0), heading=(0.0, 1.0, 0.0))
+        states = []
+        with SimulationManager(conf, hf, cm, rm, goals, device=cuda) as sm:
+            if not graphed:
+                sm.step_fn = tenv.closed_loop_step
+            for tick in range(8):
+                if tick == 3:
+                    sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "a", "position": (3.0, 4.0)})
+                if tick == 5:
+                    sm.bus.publish(Topics.ROBOT_RESET, {"name": "b"})
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    states.append(tenv.clone_state(sm.step()))
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+        runs.append(states)
+    assert all(_all_equal(a, b) for a, b in zip(*runs))
+    a_after = runs[0][3].rovers.position[0]
+    assert torch.equal(a_after, torch.tensor([3.0, 4.0], device=cuda))
+
+
+@pytest.mark.parametrize("deform", [False, True], ids=["plain", "deformed"])
+def test_graphed_chunk_equals_eager_across_a_shift_on_card(cuda, deform):
+    """The synchronous streamed loop at a small size with its chunk graph
+    and with ``chunk_fn = run_chunk``: across a block shift (a new frame
+    origin, window and costmap copied into the graph) and, deformed, with
+    the window stamped between replays, the same path, shifts and final
+    state."""
+    import dataclasses
+
+    from husky_rover_mppi_isaacsim_torch.cli import largescale_conf
+    from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
+
+    tree = {"largescale": dict(block_size=10.0, hr_dem_resolution=0.1, lr_pixel_size=2.0,
+                               hr_dem_num_blocks=1, crater_gen_padding=2.0,
+                               update_every_n_meters=0.25, geo_cm_num_texels_per_level=8,
+                               geo_cm_num_lods=3, terrain_collider_resolution=0.5,
+                               terrain_collider_build_radius=6.0, rock_block_span=1),
+            "mppi": {"num_samples": 64, "horizon": 30}, "start": {"x": 9.7, "y": 1.0},
+            "goal": {"x": 45.0, "y": 8.0}, "max_steps": 120, "deformation": {"enable": deform}}
+    conf = dataclasses.replace(largescale_conf(tree), pipeline_depth=0)
+    runs = []
+    for graphed in (True, False):
+        loop = tls.LargeScaleClosedLoop(conf, device=cuda)
+        if not graphed:
+            loop.chunk_fn = tls.run_chunk
+        res = loop.run()
+        runs.append((res, loop))
+    (got, gl), (want, wl) = runs
+    assert got.block_shifts == want.block_shifts >= 1
+    assert got.steps == want.steps and (got.path_world == want.path_world).all()
+    assert _all_equal(gl.last_state, wl.last_state)
+    assert torch.equal(gl.lstm.map_manager.streamer.window, wl.lstm.map_manager.streamer.window)
+    assert gl.chunk_fn.replays == got.steps // conf.terrain_check_every - 1
+
+
+def test_graphed_capture_failure_raises_on_card(cuda):
+    """A function that reads a value back to the host cannot be captured:
+    the helper raises with the cause and runs nothing eagerly in its place;
+    a call of another shape raises before any capture."""
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+
+    g = Graphed(lambda t: t * float(t.sum()))
+    x = torch.ones(4, device=cuda)
+    assert torch.equal(g(x), x * 4.0)  # the warm-up, eager
+    with pytest.raises(RuntimeError, match="capture failed"):
+        g(x)
+    h = Graphed(lambda t: t * 2.0)
+    h(x)
+    assert torch.equal(h(x + 1.0), (x + 1.0) * 2.0) and h.replays == 1
+    with pytest.raises(ValueError, match="built for"):
+        h(torch.ones(5, device=cuda))

@@ -1,0 +1,249 @@
+"""PyTorch port: the CUDA-graph helper (``core/graphs.py``) on the CPU, and
+what graphing the hot loops changed in the eager code, against the JAX
+package: the closed-loop latch keyed on a device step counter (seven steps,
+every latch phase, wheel slip drawn outside the step), a streamed chunk
+started at a step index that is not a multiple of 3 (as after a resume),
+and the step index through a checkpoint.
+
+On CPU tensors a :class:`Graphed` function is the eager function, so these
+tests run the code the graphs are held against on the card
+(``tests/test_torch_gpu.py``). Tolerances: the closed-loop steps those of
+``tests/test_torch_closed_loop.py`` (float64, 1e-9 over 7 chained steps),
+the chunk that of ``tests/test_torch_largescale.py`` (float32, 2e-3 after
+one chunk).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch import env as tenv
+from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
+from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
+from husky_rover_mppi_isaacsim_tpu import env as jenv
+from husky_rover_mppi_isaacsim_tpu.env import largescale_loop as jls
+from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
+from test_torch_closed_loop import _compare_loop_states, _jax_noise, _world
+from test_torch_largescale import (
+    SEED,
+    _assert_state_close,
+    jax_chunk_noise,
+    loop_confs,
+)
+
+torch.set_num_threads(1)
+
+
+def _goal_seek_inputs(k=16, h=10):
+    (_, _), (thf, tcm) = _world()
+    cfg = tc.MPPIConfig(num_samples=k, horizon=h)
+    robot = tc.RobotState.create(-8.0, -6.0, [1.0, 0.3, 0.0], dtype=torch.float64)
+    ctrl = tc.ControllerState.create(cfg, torch.float64)
+    goal = torch.tensor([6.0, 5.0], dtype=torch.float64)
+    return cfg, thf, tcm, goal, robot, ctrl
+
+
+def test_graphed_on_cpu_returns_what_the_eager_function_returns():
+    """A goal-seek through a :class:`Graphed` ``masked_steps`` equals the
+    same goal-seek through ``masked_steps`` itself, trace and state, and
+    the helper runs nothing on the card (no replay, no capture)."""
+    cfg, hf, cm, goal, robot, ctrl = _goal_seek_inputs()
+    graph = Graphed(tc.masked_steps)
+    runs = []
+    for steps_fn in (graph, tc.masked_steps):
+        gen = torch.Generator().manual_seed(11)
+        runs.append(tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=9,
+                                          steps_fn=steps_fn))
+    got, want = runs
+    assert got.steps == want.steps == 12 and int(got.loops) == 9
+    for a, b in zip(got.robot + got.ctrl + got[2:4] + got[5:],
+                    want.robot + want.ctrl + want[2:4] + want[5:]):
+        assert torch.equal(a, b)
+    assert graph.replays == 0 and graph.capture_ms is None
+    # a second episode through the same helper: the same signature
+    again = tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, torch.Generator().manual_seed(11),
+                                  max_loops=9, steps_fn=graph)
+    assert torch.equal(again.positions, got.positions)
+
+
+def test_graphed_raises_on_a_call_it_was_not_built_for():
+    """Another shape, dtype, constant or tree structure than the first
+    call's raises ``ValueError``, on the CPU as on the card."""
+    cfg, hf, cm, goal, robot, ctrl = _goal_seek_inputs()
+    step = Graphed(tc.mppi_step)
+    noise = torch.randn((2, cfg.num_samples, cfg.horizon), dtype=torch.float64)
+    want = tc.mppi_step(cfg, hf, cm, goal, robot, ctrl, noise)
+    got = step(cfg, hf, cm, goal, robot, ctrl, noise)
+    for a, b in zip(got[0] + got[1][:-1], want[0] + want[1][:-1]):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError, match="built for"):  # another sample count
+        step(cfg, hf, cm, goal, robot, ctrl, noise[:, :8])
+    with pytest.raises(ValueError, match="built for"):  # another dtype
+        step(cfg, hf, cm, goal, robot, ctrl, noise.float())
+    with pytest.raises(ValueError, match="built for"):  # another constant
+        step(tc.MPPIConfig(num_samples=cfg.num_samples, horizon=cfg.horizon, temperature=0.5),
+             hf, cm, goal, robot, ctrl, noise)
+    with pytest.raises(ValueError, match="built for"):  # another structure
+        step(cfg, hf, cm, goal, robot, ctrl, (noise,))
+    # the signature it was built for still runs
+    step(cfg, hf, cm, goal, robot, ctrl, noise)
+
+
+def _jax_slip(key, n):
+    """The slip normals JAX's closed_loop_step draws from ``key``
+    (closed_loop.py:125, rover_sim.py:98-101), as the port's ``(2, N)``."""
+    _, k_phys = jax.random.split(key)
+    k1, k2 = jax.random.split(k_phys)
+    return torch.from_numpy(np.stack([np.asarray(jax.random.normal(k1, (n,), jnp.float64)),
+                                      np.asarray(jax.random.normal(k2, (n,), jnp.float64))]))
+
+
+def test_device_latch_matches_jax_over_seven_steps_with_slip():
+    """The latch is a ``torch.where`` on a 0-d int32 step counter, as JAX's
+    ``jnp.where`` on its device int32: seven chained steps of N=2 rovers hit
+    every latch phase (latches at 0, 3 and 6) and match JAX's jitted step,
+    with JAX's noise and wheel-slip draws given to a :class:`Graphed` step
+    (the card's route) from outside it."""
+    n = 2
+    (jhf, jcm), (thf, tcm) = _world()
+    jcfg = jenv.ClosedLoopConfig(mppi=jc.MPPIConfig(num_samples=16, horizon=12),
+                                 rover=jenv.RoverParams(wheel_tau=0.03, slip_std=0.05))
+    tcfg = convert.closed_loop_config_from_jax(jcfg)
+    assert tcfg.rover.slip_std == 0.05
+    starts = np.array([[-8.0, -6.0], [6.0, -8.0]])
+    goals = -0.6 * starts
+    js = jenv.init_loop_state(jcfg, jenv.RoverState.create(starts, [1.0, 0.0, 0.0], jhf),
+                              jnp.float64)
+    ts = tenv.init_loop_state(tcfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], thf),
+                              torch.float64)
+    assert ts.step_index.dtype == torch.int32 and ts.step_index.shape == ()
+    jstep = jax.jit(lambda s, k: jenv.closed_loop_step(jcfg, jhf, jcm, jnp.asarray(goals), s, k))
+    step = Graphed(tenv.closed_loop_step)
+    key = jax.random.key(2)
+    latched = []
+    for i in range(7):
+        key, sub = jax.random.split(key)
+        js = jstep(js, sub)
+        ts = step(tcfg, thf, tcm, torch.from_numpy(goals), ts, None, _jax_noise(sub, jcfg, n),
+                  _jax_slip(sub, n))
+        _compare_loop_states(ts, js, f"step {i}")
+        latched.append(ts.latched_left.clone())
+        assert ts.step_index.dtype == torch.int32 and int(ts.step_index) == i + 1
+    for a, b in ((0, 1), (1, 2), (3, 4), (4, 5)):
+        assert torch.equal(latched[a], latched[b])
+    assert not torch.equal(latched[2], latched[3]) and not torch.equal(latched[5], latched[6])
+    # the slip draws come from the generator, after the noise, as in the
+    # eager step: drawn outside and given, the step is the same
+    gen_a, gen_b = (torch.Generator().manual_seed(5) for _ in range(2))
+    drawn = tenv.closed_loop_step(tcfg, thf, tcm, torch.from_numpy(goals), ts, gen_a)
+    noise, slip = tenv.draw_step_noise(tcfg, gen_b, n, torch.float64)
+    given = step(tcfg, thf, tcm, torch.from_numpy(goals), ts, None, noise, slip)
+    for a, b in zip(tenv.clone_state(drawn), given):
+        for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
+            assert torch.equal(x, y)
+    with pytest.raises(ValueError, match="generator"):
+        tenv.draw_step_noise(tcfg, None, n, torch.float64, noise=noise)  # slip needs one
+
+
+@pytest.mark.parametrize("start_index", [4, 5])
+def test_chunk_from_a_step_index_off_the_latch_matches_jax(start_index):
+    """A chunk (6 steps) that starts at a step index that is not a multiple
+    of 3, as after a resume: the latches fall inside the chunk at other
+    steps, and the port's chunk, through its :class:`Graphed` chunk, agrees
+    with JAX's chunk program from the same state and noise."""
+    jconf, tconf = loop_confs(False)
+    jloop = jls.LargeScaleClosedLoop(jconf)
+    tloop = tls.LargeScaleClosedLoop(tconf, device="cpu")
+    assert isinstance(tloop.chunk_fn, Graphed)
+    jstate = jloop._initial_state()._replace(step_index=jnp.asarray(start_index, jnp.int32))
+    ox, oy = (np.float32(v + jloop.half_block) for v in (jloop.block_x, jloop.block_y))
+    jstate, *jpose = jloop._chunk_fn(jloop.lstm.map_manager.streamer.window, jloop.costmap,
+                                     jloop._goal_ctrl(), jstate, jax.random.key(SEED),
+                                     np.int32(0), ox, oy)
+    tstate = convert.loop_state_from_jax(jloop._initial_state()._replace(
+        step_index=jnp.asarray(start_index, jnp.int32)))
+    tstate, tpose = tloop.chunk(tstate, tloop._goal_ctrl(), noise=jax_chunk_noise(0))
+    np.testing.assert_allclose(tpose.numpy()[:4], np.asarray(jpose[:4], np.float32), atol=2e-3,
+                               rtol=0)
+    _assert_state_close(tstate, jstate, 2e-3)
+    assert int(tstate.step_index) == int(jstate.step_index) == start_index + 6
+
+
+def test_step_index_survives_a_checkpoint_round_trip(tmp_path):
+    """The device step counter goes to the checkpoint as the JAX package's
+    int32 leaf and comes back on the loop's device as a 0-d int32 tensor,
+    through ``resume`` and through the JAX-file converter."""
+    _, tconf = loop_confs(False)
+    loop = tls.LargeScaleClosedLoop(tconf, device="cpu")
+    state = loop._initial_state()._replace(step_index=torch.tensor(7, dtype=torch.int32))
+    path = tmp_path / "traverse.ckpt"
+    loop.save_checkpoint(path, state, chunk_idx=3, steps=18, path_world=[(0.0, 0.0)])
+    payload, meta = loop.load_checkpoint(path)
+    assert payload["state"].step_index.dtype == torch.int32
+    assert int(payload["state"].step_index) == 7 and meta["steps"] == 18
+    resumed, info = tls.LargeScaleClosedLoop.resume(tconf, path, device="cpu",
+                                                    lstm=loop.lstm)
+    got = info["state"].step_index
+    assert isinstance(got, torch.Tensor) and got.dtype == torch.int32 and int(got) == 7
+    assert convert.largescale_checkpoint_from_jax(resumed, path)["state"].step_index == 7
+    # the resumed state steps on from that phase
+    nxt, _ = resumed.chunk(info["state"], resumed._goal_ctrl(), noise=jax_chunk_noise(1))
+    assert int(nxt.step_index) == 7 + tconf.terrain_check_every
+
+
+def test_run_episode_state_is_cloned_out_of_the_step():
+    """``run_episode`` returns a state of its own: the step function's
+    outputs, which a graph overwrites at its next replay, are cloned."""
+    (_, _), (thf, tcm) = _world()
+    cfg = tenv.ClosedLoopConfig(mppi=tc.MPPIConfig(num_samples=8, horizon=6))
+    state = tenv.init_loop_state(cfg, tenv.RoverState.create(np.zeros((2, 2)), [1.0, 0.0, 0.0],
+                                                            thf), torch.float64)
+    seen = []
+
+    def step(*args):
+        seen.append(tenv.closed_loop_step(*args))
+        return seen[-1]
+
+    final, path = tenv.run_episode(cfg, thf, tcm, torch.ones((2, 2), dtype=torch.float64), state,
+                                   torch.Generator().manual_seed(3), 3, step_fn=step)
+    assert final.rovers.position is not seen[-1].rovers.position
+    assert torch.equal(final.rovers.position, seen[-1].rovers.position)
+    assert torch.equal(path[-1], final.rovers.position) and int(final.step_index) == 3
+
+
+def test_pipelined_dispatch_waits_for_a_slow_terrain_worker(monkeypatch):
+    """With a terrain worker slower than the chunks (each pose's cascade
+    held up 50 ms, as a graphed chunk on the card outruns the cascade), the
+    pipelined loop dispatches a chunk only once the worker has taken up the
+    pose ``2 * pipeline_depth`` chunks back or has nothing left to do, and
+    still runs its steps with the block shift."""
+    import dataclasses
+    import time
+
+    _, tconf = loop_confs(False)
+    conf = dataclasses.replace(tconf, pipeline_depth=2, prestage_shifts=True)
+    loop = tls.LargeScaleClosedLoop(conf, device="cpu")
+    process, wait_for = tls._TerrainWorker._process, tls._TerrainWorker.wait_for
+    seen = []
+
+    def slow(self, pose):
+        time.sleep(0.05)
+        process(self, pose)
+
+    def checked(self, chunk):
+        wait_for(self, chunk)
+        with self._cond:
+            seen.append((chunk, self._started, self._pending is not None or self._busy))
+
+    monkeypatch.setattr(tls._TerrainWorker, "_process", slow)
+    monkeypatch.setattr(tls._TerrainWorker, "wait_for", checked)
+    res = loop.run(noise_source=jax_chunk_noise)
+    assert len(seen) == res.steps // conf.terrain_check_every
+    assert all(started >= chunk or not working for chunk, started, working in seen)
+    assert any(started >= 0 for _, started, _ in seen)  # the worker kept pace
+    assert loop.chunk_phase_acc["worker_wait_s"] > 0.0
+    assert res.block_shifts == 1 and np.isfinite(res.path_world).all()

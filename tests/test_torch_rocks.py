@@ -214,3 +214,64 @@ def test_block_db_matches_jax(tmp_path, rng):
     back.load_from_disk(str(tmp_path / "db"))
     assert sorted(back.keys()) == sorted(keys)
     np.testing.assert_array_equal(back.get((2, 2))["radius"], dbs[1].get((2, 2))["radius"])
+
+
+def test_orientation_functions_match_jax_on_injected_draws(rng):
+    """``orientation_from_normal``, ``surface_orientation`` and
+    ``provider_orientation`` draw their tangents from a ``torch.Generator``
+    (the port's side of the draw); given JAX's draws through ``rand=`` they
+    give JAX's quaternions (within the quaternion math's float32 bound
+    above), and heights and normals equal to JAX's where no transcendental
+    enters."""
+    import jax
+
+    key = jax.random.key(5)
+    # upward normals, as a DEM's are: for a normal pointing down the
+    # rotation is near 180 degrees, w = sqrt(1 + trace) / 2 near 0, and both
+    # packages' float32 quaternions stray ~1e-5 from the float64 one
+    normal = np.abs(rng.normal(size=(40, 3))) * [0.2, 0.2, 1.0] * [1.0, -1.0, 1.0]
+    normal = (normal / np.linalg.norm(normal, axis=-1, keepdims=True)).astype(np.float32)
+    draws = np.asarray(jax.random.uniform(key, (40, 3), jnp.float32, -1.0, 1.0))
+    got = trocks.orientation_from_normal(torch.from_numpy(normal),
+                                         rand=torch.from_numpy(draws.copy()))
+    want = jrocks.orientation_from_normal(jnp.asarray(normal), key)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-6)
+
+    z = rng.normal(0.0, 0.3, (120, 120)).astype(np.float32)
+    jhf, thf = JHeightField.create(jnp.asarray(z), 30.0), THeightField.create(torch.from_numpy(z), 30.0)
+    xy = rng.uniform(-25.0, 25.0, (40, 2)).astype(np.float32)
+    for got, want in ((trocks.surface_orientation(thf, torch.from_numpy(xy),
+                                                  rand=torch.from_numpy(draws.copy())),
+                       jrocks.surface_orientation(jhf, jnp.asarray(xy), key)),):
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=0, atol=1e-6)
+
+    js, ts = _streamers(craters=False)
+    js.update((5.0, 5.0))
+    ts.update((5.0, 5.0))
+    pxy = rng.uniform(-5.0, 15.0, (40, 2))
+    got = trocks.provider_orientation(ts, pxy, rand=torch.from_numpy(draws.copy()))
+    want = jrocks.provider_orientation(js, pxy, key)
+    # the streamers' windows agree to the streaming tests' bound, not bit for bit
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=0, atol=1e-4)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=0, atol=1e-3)
+    np.testing.assert_allclose(np.linalg.norm(got[1].numpy(), axis=-1), 1.0, atol=1e-6)
+    # the same inputs through the port's math: the provider's normal and draws
+    np.testing.assert_array_equal(
+        got[1].numpy(),
+        trocks.quat_from_normal_and_rand(got[2], torch.from_numpy(draws.copy())).numpy())
+
+
+def test_orientation_draws_come_from_the_generator():
+    """Without ``rand`` the tangents are the port's draws: the same
+    generator state gives the same quaternions, another state others."""
+    normal = torch.nn.functional.normalize(torch.randn((30, 3), generator=torch.Generator()
+                                                       .manual_seed(1)), dim=-1)
+    a = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(7))
+    b = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(7))
+    c = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(8))
+    assert torch.equal(a, b) and not torch.equal(a, c)
+    draws = trocks.tangent_draws((30,), torch.Generator().manual_seed(7))
+    assert torch.equal(a, trocks.quat_from_normal_and_rand(normal, draws))
+    assert float(draws.abs().max()) <= 1.0

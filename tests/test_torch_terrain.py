@@ -84,3 +84,24 @@ def test_costmap_750_matches_jax_at_reduced_size():
     assert float(got.half_width) == float(want.half_width) == 75.0
     assert float(got.resolution) == float(want.resolution)
     assert got.cost.dtype == torch.float32
+
+
+@pytest.mark.parametrize("rows", [40, 24])  # a larger file is cut to the window
+def test_imported_surface_and_heightfield_match_jax(tmp_path, rows):
+    """``imported_surface`` reads the same window of a DEM ``.npy`` (written
+    here from a seed) as the JAX package; ``surface_heightfield`` wraps it in
+    the same window, equal field by field."""
+    z = np.random.default_rng(rows).normal(size=(rows, rows)).astype(np.float32)
+    path = tmp_path / "dem.npy"
+    np.save(path, z)
+    got = tsurf.imported_surface(path, start=4, end=28)
+    want = jsurf.imported_surface(str(path), start=4, end=28)
+    np.testing.assert_array_equal(got, want)
+    assert got.shape == (24, 24) and got.dtype == np.float32
+    thf_ = tsurf.surface_heightfield(got, 12.0)
+    jhf_ = jsurf.surface_heightfield(want, 12.0)
+    for a, b in zip(thf_, jhf_):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert thf_.z.device.type == "cpu"
+    from husky_rover_mppi_isaacsim_torch import terrain as tterrain
+    assert tterrain.imported_surface is tsurf.imported_surface
