@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
-(csrc/edt_minplus.cu) and K3 (csrc/gather_probe.cu) from the sources, one
-nvcc each, and the host runtime (csrc/husky_native.cpp) with g++, all
+(csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu) and the port's own crater
+stamp (csrc/crater_stamp.cu) from the sources, one nvcc each, and the host
+runtime (csrc/husky_native.cpp) with g++, all
 started together; holds each kernel against its plain PyTorch version on
 the card, bit for bit (K1 on every channel: the flagship shapes, the K=1
 optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
@@ -31,7 +32,11 @@ width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
 most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
 timed alone; runs K3's probe entry point; and drives the streamed-terrain
 full-stack loop (mode=largescale) at the LargeScaleConf defaults: builds the
-7000^2 window twice (bit-equal), holds K1 on that window at two poses (the
+7000^2 window twice on the crater stamp kernel (bit-equal) and once on the
+stamp's plain slice-add loop (bit-equal to them), holds the stamp kernel
+against that loop on every radius tier of the world's first blocks (and the
+kernel-built block against the route before the kernel: live craters only,
+rendered 256 at a time), holds K1 on that window at two poses (the
 second within one horizon of the window's edge after a block shift) and K2
 at the 875^2 costmap against their plain versions, checks that a shift
 leaves world heights where they were, steps one 12-step chunk on the card
@@ -49,14 +54,21 @@ deformed window bit-equal, a stamp on the card against the CPU); builds the
 the pool's 8 C++ threads, uploaded without a host sync, craters stamped on
 the card) against the device route, the pool's bases on the card against the
 CPU's, K1 on the pool-built window, and drives a synchronous traverse with
-the CLI's override terrain_streamer.native_pool=always, cut to POOL_STEPS.
+the CLI's override terrain_streamer.native_pool=always, cut to POOL_STEPS;
+then the three traverses again on the route before this slice (the plain
+stamp loop, a chunk graph that copies the window at every replay), for the
+stall, worker wait and peak memory beside the new route's. The streamed
+chunk's graph reads the window and costmap in place (graph_chunk times it
+against a graph that copies them).
 K3 is timed
 beside an empty kernel of its grid and block (the launch floor of its
 restated bound). The CLI's paths through its composed cfg/ tree: mode=sdg
 (cfg/mode/sdg.yaml with its camera block on: 10 frames of the 500^2 yard
 with rocks, a 640 x 480 camera marched in 128 steps with cast shadows)
-under both rendering files, timed by phase, and one capture on the card
-held against the CPU's; K1 on the 4000^2 DEM of environment=lunaryard_80m
+under both rendering files, timed by phase (each frame's top-down and
+camera passes replayed as two CUDA graphs), the same 10 frames through the
+eager labeler and the graphed one in turns (every modality equal), and one
+capture on the card held against the CPU's; K1 on the 4000^2 DEM of environment=lunaryard_80m
 bit-equal to its plain version, that yard's goal-seek (-30, -30) -> (30, 30)
 at K=1000 x H=100, and environment=lunalab's 4-rover closed loop; the
 worldbuilders' rock request on that yard DEM (RequestMixer: hard-core Thomas
@@ -75,6 +87,7 @@ the same way.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -83,6 +96,7 @@ import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
+from unittest import mock
 
 K, H, DT = 1000, 100, 0.045
 START, GOAL, HEADING = (-45.0, -40.0), (45.0, 40.0), (1.0, 0.5, 0.0)
@@ -101,6 +115,9 @@ SYNC_STEPS, CKPT_EVERY = 3000, 3600
 # graph_chunk: chunks run eagerly and as a graph replay, in turns, on the
 # second 7000^2 world; a block shift seats a new window half-way
 GRAPH_CHUNKS = 12
+# crater_stamp: the 7000^2 world's first blocks whose radius tiers the
+# stamp kernel is held against its plain loop on
+STAMP_BLOCKS = 3
 BUILD = Path(__file__).resolve().parent / "build"
 CKPT = BUILD / "smoke_traverse.ckpt"
 DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
@@ -201,6 +218,7 @@ def main(argv=None) -> int:
         AutonomousLabeling,
         CameraIntrinsics,
         LabelingConf,
+        rock_capacity,
     )
     from husky_rover_mppi_isaacsim_torch.cli import (
         build_standalone_world,
@@ -256,12 +274,15 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
     from husky_rover_mppi_isaacsim_torch.ops.measure import (
         OpLog,
+        cold_ms,
         cuda_ms,
         device_kernels,
         device_time,
         graph_ms,
         launch_calls,
     )
+    from husky_rover_mppi_isaacsim_torch.ops import crater_stamp_cuda as stamp_module
+    from husky_rover_mppi_isaacsim_torch.ops.crater_stamp_cuda import crater_stamp_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.shell import (
         SimulationManager,
@@ -276,6 +297,8 @@ def main(argv=None) -> int:
         rasterize_obstacles,
         thesis_statistics_terrain,
     )
+    from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
+    from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
     from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
     from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
     from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
@@ -295,16 +318,18 @@ def main(argv=None) -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1, K2 and K3 from the sources, one nvcc each, and the host
-    #    runtime (csrc/husky_native.cpp) with g++, all started together
+    # 2. build K1, K2, K3 and the crater stamp from the sources, one nvcc
+    #    each, and the host runtime (csrc/husky_native.cpp) with g++, all
+    #    started together
     t0 = time.perf_counter()
-    wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda)
+    wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_stamp_cuda)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
         native_ok = host_build.result()
     seconds = round(time.perf_counter() - t0, 3)
-    for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32"), builds):
+    for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
+                            "crater_stamp_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -396,6 +421,152 @@ def main(argv=None) -> int:
                        "bound_by": bound_by, "max_abs_err": err}
         return row
 
+    @contextlib.contextmanager
+    def plain_stamp():
+        """The crater stamp's plain slice-add loop (terrain/craters.py::
+        stamp_patches) in place of its kernel, for the builds it is held
+        against."""
+        with mock.patch.object(stamp_module, "crater_stamp_cuda", tcr.stamp_patches):
+            yield
+
+    @contextlib.contextmanager
+    def route_before():
+        """The streamed loop's route before this slice: the plain stamp loop,
+        and a chunk graph that copies the window and costmap into its own
+        buffers at every replay (no in-place arguments, no seated leaves)."""
+        with plain_stamp(), \
+                mock.patch.object(tls, "Graphed", lambda fn, in_place_args=(): Graphed(fn)), \
+                mock.patch.object(tls.LargeScaleClosedLoop, "_seat_leaves",
+                                  lambda self: (self.hf, self.costmap)):
+            yield
+
+    def stamp_bound(live_patch_px, covered_px):
+        """The stamp's least time: each live patch pixel read once, and each
+        raster pixel that a live patch covers read and written once (bytes
+        over the memory rate); its one add per live patch pixel is far
+        below the float32 rate."""
+        return bound(4 * live_patch_px + 8 * covered_px, live_patch_px, PEAK_FP32_INSTR_S)
+
+    def live_only_block(streamer, field, origin, patch_px):
+        """One tier of a block on the route before the stamp kernel: the
+        live craters alone, rendered 256 at a time, one slice add each."""
+        conf = streamer.conf
+        live = torch.nonzero(field.mask).flatten()
+        field = tcr.CraterField(*(f[live] for f in field))
+        row0, col0 = tcr.crater_placement(field, origin, conf.resolution, conf.block_px,
+                                          conf.pad_px, patch_px)
+        size_px, guard = conf.block_px + 2 * conf.pad_px, patch_px
+        buf = torch.zeros((size_px + 2 * guard,) * 2, device=cuda)
+        for s0 in range(0, live.numel(), 256):
+            sub = tcr.CraterField(*(f[s0:s0 + 256].to(cuda) for f in field))
+            patches = tcr._render_patches(streamer.profiles, sub, conf.resolution, conf.z_scale,
+                                          patch_px)
+            for i in range(patches.shape[0]):
+                r, c = int(row0[s0 + i]), int(col0[s0 + i])
+                buf[r:r + patch_px, c:c + patch_px] += patches[i]
+        dem = buf[guard:guard + size_px, guard:guard + size_px]
+        return dem[conf.pad_px:size_px - conf.pad_px, conf.pad_px:size_px - conf.pad_px]
+
+    def crater_stamp_phase(streamer, blocks=STAMP_BLOCKS):
+        """The crater stamp on the 7000^2 world's first ``blocks`` blocks, for
+        each radius tier: the kernel against its plain slice-add loop on the
+        same patches and placements (torch.equal), the kernel and one
+        index_add_ of every live patch pixel (the library's one call of the
+        same sum, in another order) timed one call at a time on a zeroed
+        raster out of L2, the loop timed; the bound counts the live patches'
+        bytes and a read and a write of the raster pixels they cover, from
+        this run's placements; then each block's craters on the
+        kernel route (render_crater_block, one render and one launch per
+        tier) against the route before it (live craters rendered 256 at a
+        time, one slice add each), torch.equal, both timed on the host
+        clock. Returns the kernel table's row."""
+        conf = streamer.conf
+        tiers, blocks_out, equal, max_err = [], [], True, 0.0
+        for bx, by in list(streamer.block_cache)[:blocks]:
+            origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
+            blk = {"block": [bx, by], "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0, "launches": 0, "plain_launches": 0}
+            fields = [(f, p) for f, p in streamer._block_fields(bx, by) if f.mask.any()]
+            for field, patch_px in fields:
+                n = int(field.mask.sum())
+                sub = tcr.CraterField(*(f.to(cuda) for f in field))
+                patches = tcr._render_patches(streamer.profiles, sub, conf.resolution,
+                                              conf.z_scale, patch_px)
+                place = torch.from_numpy(np.stack(tcr.crater_placement(
+                    field, origin, conf.resolution, conf.block_px, conf.pad_px,
+                    patch_px))).to(cuda)
+                args = (patches, place[0], place[1], sub.mask)
+                side = conf.block_px + 2 * conf.pad_px + 2 * patch_px
+                got = crater_stamp_cuda(torch.zeros((side, side), device=cuda), *args)
+                want = tcr.stamp_patches(torch.zeros((side, side), device=cuda), *args)
+                torch.cuda.synchronize()
+                eq, err = torch.equal(got, want), (got - want).abs().max().item()
+                # timed on a zeroed raster with patches and raster out of
+                # L2, as a block build meets them; the replay of a graph of
+                # launches on one buffer (which stays in L2) beside it
+                buf = torch.zeros((side, side), device=cuda)
+                k_ms = cold_ms(lambda: crater_stamp_cuda.launch(buf, *args), reset=buf.zero_)
+                k_warm = graph_ms(lambda: crater_stamp_cuda.launch(buf, *args))
+                p_ms = cuda_ms(lambda: tcr.stamp_patches(buf, *args), reps=3)
+                live = torch.nonzero(sub.mask).flatten()
+                ar = torch.arange(patch_px, device=cuda)
+                idx = ((place[0][live].long()[:, None, None] + ar[None, :, None]) * side
+                       + place[1][live].long()[:, None, None] + ar[None, None, :]).flatten()
+                vals = patches[live].flatten()
+                lib = torch.zeros((side, side), device=cuda)
+                lib.view(-1).index_add_(0, idx, vals)
+                lib_err = (lib - got).abs().max().item()
+                l_ms = cold_ms(lambda: buf.view(-1).index_add_(0, idx, vals), reset=buf.zero_)
+                covered = torch.zeros(side * side, dtype=torch.bool, device=cuda)
+                covered[idx] = True
+                covered_px = int(covered.sum())
+                b_ms, b_by = stamp_bound(n * patch_px ** 2, covered_px)
+                tiers.append({"block": [bx, by], "capacity": field.mask.shape[0],
+                              "patch_px": patch_px, "live": n, "raster": [side, side],
+                              "covered_px": covered_px, "bit_equal": eq, "max_abs_err": err,
+                              "kernel_ms": k_ms, "kernel_l2_warm_graph_ms": k_warm,
+                              "plain_ms": p_ms, "library_index_add_ms": l_ms,
+                              "library_max_abs_diff": lib_err, "bound_ms": b_ms,
+                              "bound_by": b_by})
+                equal = equal and eq
+                max_err = max(max_err, err)
+                blk["kernel_ms"] += k_ms
+                blk["plain_ms"] += p_ms
+                blk["library_ms"] += l_ms
+                blk["bound_ms"] += b_ms
+                blk["launches"] += 1
+                blk["plain_launches"] += n
+            # the whole block's craters, both routes
+            times = {}
+            for route in ("before", "kernel"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = torch.zeros((conf.block_px, conf.block_px), device=cuda)
+                for field, patch_px in fields:
+                    out = out + (live_only_block(streamer, field, origin, patch_px)
+                                 if route == "before" else tcr.render_crater_block(
+                        streamer.profiles, field, origin, conf.resolution, conf.z_scale,
+                        conf.block_px, conf.pad_px, patch_px=patch_px))
+                torch.cuda.synchronize()
+                times[route] = (1e3 * (time.perf_counter() - t0), out)
+            blk["block_equal_route_before"] = torch.equal(times["kernel"][1], times["before"][1])
+            blk["block_ms_route_before"] = times["before"][0]
+            blk["block_ms_kernel_route"] = times["kernel"][0]
+            equal = equal and blk["block_equal_route_before"]
+            blocks_out.append(blk)
+        ok = equal and bool(tiers) and all(b["launches"] >= 1 for b in blocks_out)
+        phase("crater_stamp", tiers=tiers, blocks=blocks_out, ok=ok)
+        if not ok:
+            raise RuntimeError("the crater stamp kernel disagrees with its plain loop, or a "
+                               "kernel-built block with the route before it")
+        first = blocks_out[0]
+        return {"ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
+                "bound_ms": first["bound_ms"], "bound_by": "bytes",
+                "library_ms": first["library_ms"], "max_abs_err": max_err,
+                "per": "block (its radius tiers' launches)", "block": first["block"],
+                "launches_per_block": first["launches"],
+                "plain_launches_per_block": first["plain_launches"]}
+
     def largescale_timed():
         """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
         window at 0.025 m/px, 875^2 costmap, K=1000 x H=100), the part that
@@ -403,36 +574,47 @@ def main(argv=None) -> int:
         resume, the device rate and the deformed traverse. Returns the loop
         on the first world, K1's and K2's rows and each path's launch
         counts ``{path: (K1, K2)}``."""
-        # 11. the world, built twice from the same seeds
+        # 11. the world, built three times from the same seeds: on the
+        #     crater stamp kernel, on its plain slice-add loop, on the kernel
         conf = largescale_conf({})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        worlds, seconds = [], []
-        for _ in range(2):
+        worlds, seconds, stamps = [], [], []
+        for route in ("kernel", "plain", "kernel"):
+            crater_stamp_cuda.launches = 0
             t0 = time.perf_counter()
-            lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
-            lstm.build()
+            with plain_stamp() if route == "plain" else contextlib.nullcontext():
+                lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
+                lstm.build()
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
+            stamps.append(crater_stamp_cuda.launches)
             worlds.append(lstm)
-        lstm, again = worlds
+        lstm, plain_world, again = worlds
         streamer = lstm.map_manager.streamer
         window = streamer.window
         equal = (torch.equal(window, again.map_manager.streamer.window)
                  and np.array_equal(lstm.extract_rocks_data(), again.extract_rocks_data()))
+        plain_equal = torch.equal(window, plain_world.map_manager.streamer.window)
         craters = sum(len(r) for _, r in streamer.crater_blocks.values())
         phase("largescale_world", window=list(window.shape), window_bytes=window.nbytes,
               resolution_m=conf.terrain.hr_dem_resolution, blocks=len(streamer.block_cache),
               crater_blocks=len(streamer.crater_blocks), craters=craters,
-              rocks=int(lstm.extract_rocks_data().shape[0]), seconds=seconds,
+              rocks=int(lstm.extract_rocks_data().shape[0]), routes=["kernel", "plain", "kernel"],
+              seconds=seconds, seconds_kernel=[seconds[0], seconds[2]],
+              seconds_plain_stamp=seconds[1], crater_stamp_launches=stamps,
               build_phases_s=[w.build_phase_acc for w in worlds], second_build_bit_equal=equal,
+              plain_stamp_build_bit_equal=plain_equal,
               finite=bool(torch.isfinite(window).all()), z_min=window.min().item(),
               z_max=window.max().item(),
-              peak_memory_bytes_two_worlds=torch.cuda.max_memory_allocated())
-        if not equal or tuple(window.shape) != (7000, 7000):
-            raise RuntimeError("two builds of the streamed world differ, or the window is "
-                               "not 7000 x 7000")
-        del worlds
+              peak_memory_bytes_three_worlds=torch.cuda.max_memory_allocated())
+        if (not equal or not plain_equal or tuple(window.shape) != (7000, 7000)
+                or stamps[1] != 0 or not stamps[0] == stamps[2] > 0):
+            raise RuntimeError("two builds of the streamed world differ, the kernel's and the "
+                               "plain stamp's differ, the stamp kernel did not run, or the "
+                               "window is not 7000 x 7000")
+        stamp_row = crater_stamp_phase(streamer)
+        del worlds, plain_world
         graph_chunk(conf, again)
         del again
 
@@ -490,6 +672,7 @@ def main(argv=None) -> int:
                    ("largescale", sync_s0))}
         largescale_resume(dataclasses.replace(conf, pipeline_depth=0, verify_prestage=True),
                           sync_s1, counts)
+        pipe_stamp, sync_s0_stamp = pipe["stamp"], sync_s0["stamp"]
         rate = pipe["loop"].measure_device_rate(chunks=20)
         res = pipe["run"].result
         phase("largescale_device_rate", chunks=20, steps_per_chunk=conf.terrain_check_every,
@@ -500,6 +683,12 @@ def main(argv=None) -> int:
         del pipe, sync_s0
         largescale_deform(conf, counts)
 
+        #     the pipelined traverse on the route before the stamp kernel
+        #     (the plain stamp loop, a chunk graph that copies the window
+        #     every replay)
+        with route_before():
+            run_traverse("largescale_pipelined_route_before", {})
+
         #     the tile pool route: the window built on the pool and on the
         #     card, then a synchronous traverse with the CLI's streamer
         #     override terrain_streamer.native_pool=always
@@ -509,23 +698,29 @@ def main(argv=None) -> int:
             pipeline_depth=0, max_steps=POOL_STEPS)
         pooled = run_traverse("largescale_native_pool", {}, pool_conf)
         counts["largescale_native_pool"] = (pooled["k1"], pooled["k2"])
+        stamp_counts = {"world_build": stamps[0], "largescale_prestage_verify": sync_s1["stamp"],
+                        "largescale_pipelined": pipe_stamp, "largescale": sync_s0_stamp,
+                        "largescale_native_pool": pooled["stamp"]}
         del pooled
-        return loop0, k1_row, k2_row, counts
+        return loop0, k1_row, k2_row, counts, stamp_row, stamp_counts
 
     def graph_chunk(conf, lstm):
         """The streamed chunk at the LargeScaleConf defaults (the 7000^2
         window, K=1000 x H=100, 12 steps) on the second world: GRAPH_CHUNKS
-        chunks from the start, each run eagerly (run_chunk) and as the
-        loop's graph replay from the same state and generator state, in
-        turns; after GRAPH_CHUNKS // 2 chunks the cascade seats the next
-        window, costmap and frame origin (a (25, 25) m block shift), so the
-        later replays read what the helper copied in, not what it captured.
-        State and pose torch.equal after every chunk."""
+        chunks from the start, each run eagerly (run_chunk), as the loop's
+        graph replay (window and costmap read in place) and as a graph that
+        copies every argument into its own buffers (the route before this
+        slice), from the same state and generator state, in turns; after
+        GRAPH_CHUNKS // 2 chunks the cascade seats the next window, costmap
+        and frame origin (a (25, 25) m block shift), so the later replays
+        read what the seat wrote into the leaves, not what they captured.
+        State and pose torch.equal after every chunk, all three ways."""
         loop = LargeScaleClosedLoop(conf, lstm=lstm, device=cuda)
-        graph = loop.chunk_fn
+        graph, copying = loop.chunk_fn, Graphed(run_chunk)
         state, goal_ctrl = loop._initial_state(), loop._goal_ctrl()
         gen = torch.Generator(device=cuda).manual_seed(21)
-        times = {"eager": [], "graph": []}
+        routes = (("eager", run_chunk), ("graph", graph), ("graph_copying", copying))
+        times = {name: [] for name, _ in routes}
         equal, shift, origins = True, None, []
         for c in range(GRAPH_CHUNKS):
             if c == GRAPH_CHUNKS // 2:  # one seat: window, costmap, origin, goal
@@ -533,7 +728,7 @@ def main(argv=None) -> int:
                 state, goal_ctrl, shift = loop._on_block_shift(state, goal_ctrl)
             outs = {}
             draws = gen.get_state()
-            for name, fn in (("eager", run_chunk), ("graph", graph)):
+            for name, fn in routes:
                 gen.set_state(draws)
                 loop.chunk_fn = fn
                 torch.cuda.synchronize()
@@ -541,24 +736,39 @@ def main(argv=None) -> int:
                 outs[name] = loop.chunk(state, goal_ctrl, gen)
                 torch.cuda.synchronize()
                 times[name].append(1e3 * (time.perf_counter() - t0))
-            equal = equal and _same(outs["eager"], outs["graph"])
+            equal = (equal and _same(outs["eager"], outs["graph"])
+                     and _same(outs["eager"], outs["graph_copying"]))
             origins.append(loop.origin().tolist())
             state = tenv.clone_state(outs["graph"][0])
         loop.chunk_fn = graph
         pose = outs["graph"][1].tolist()
+        streamer = loop.lstm.map_manager.streamer
+
+        def buffer_bytes(g):
+            return sum(b.nbytes for b in g._static_in if b is not None)
+
         # the first graph call is the eager warm-up, the second captures
         ok = (equal and shift == (25.0, 25.0) and graph.replays == GRAPH_CHUNKS - 1
-              and all(np.isfinite(pose)))
+              and copying.replays == GRAPH_CHUNKS - 1 and all(np.isfinite(pose))
+              and streamer.window is loop.hf.z is graph._in_place[0]
+              and buffer_bytes(copying) - buffer_bytes(graph) >= streamer.window.nbytes)
         phase("graph_chunk", window=list(loop.hf.z.shape), K=K, H=H,
               steps=conf.terrain_check_every, chunks=GRAPH_CHUNKS, seat_after=GRAPH_CHUNKS // 2,
               shift_m=list(shift) if shift else None, origins=[origins[0], origins[-1]],
               graph_equals_eager=equal,
               ms_per_chunk_eager=float(np.median(times["eager"])),
               ms_per_chunk_graph=float(np.median(times["graph"][2:])),
-              ms_per_chunk_graph_all=times["graph"], capture_ms=graph.capture_ms,
+              ms_per_chunk_graph_copying=float(np.median(times["graph_copying"][2:])),
+              ms_per_chunk_graph_all=times["graph"],
+              ms_per_chunk_graph_copying_all=times["graph_copying"],
+              graph_input_buffer_bytes=buffer_bytes(graph),
+              graph_copying_input_buffer_bytes=buffer_bytes(copying),
+              window_is_the_graph_leaf=streamer.window is graph._in_place[0],
+              capture_ms=graph.capture_ms, capture_ms_copying=copying.capture_ms,
               replays=graph.replays, final_world_pose=pose, ok=ok)
         if not ok:
-            raise RuntimeError("the graphed streamed chunk differs from the eager one")
+            raise RuntimeError("the graphed streamed chunk differs from the eager one, or its "
+                               "window is copied")
 
     def native_pool_builds(conf):
         """The LargeScaleConf window (7 x 7 blocks of 25 m at 0.025 m/px,
@@ -668,10 +878,11 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by the earlier phases' objects
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-        gp.gather_probe_cuda.launches = 0
+        gp.gather_probe_cuda.launches = crater_stamp_cuda.launches = 0
         run = largescale_episode(tree, conf=conf)
         torch.cuda.synchronize()
         k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+        stamp = crater_stamp_cuda.launches
         peak = torch.cuda.max_memory_allocated() - held
         report, res, loop = largescale_report(run), run.result, run.loop
         on_cost, max_cost = path_on_cost(loop, res)
@@ -687,7 +898,8 @@ def main(argv=None) -> int:
         fields = dict(
             K=K, H=H, window=list(loop.hf.z.shape), costmap=list(loop.costmap.cost.shape),
             dispatched_steps=loop.dispatched_steps, k1_launches=k1, k1_expected=k1_expected,
-            k2_launches=k2, k2_expected=k2_expected, costmap_builds=builds,
+            k2_launches=k2, k2_expected=k2_expected, crater_stamp_launches=stamp,
+            worker_blocking_waits=loop.worker_blocking_waits, costmap_builds=builds,
             staged_windows_swapped=streamer.staged_shift_hits,
             staged_windows_verified=streamer.staged_shift_verified,
             seated_costmaps=seated, seated_costmaps_equal_rebuilds=seated_equal,
@@ -707,11 +919,13 @@ def main(argv=None) -> int:
             native_pool=streamer.conf.native_pool, pool_jobs=pool.jobs if pool else 0,
             pool_collect_all_s=pool.collect_s if pool else 0.0,
             costmap_first_path_points=[entry[0] for entry in loop.costmap_log])
+        before = name.endswith("_route_before")  # the plain stamp loop: no kernel launch
         ok = (k1 == k1_expected and k2 == k2_expected and on_cost == 0 and seated_equal
+              and (stamp == 0 if before else stamp > 0)
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
-        if name == "largescale":  # the synchronous traverse without pre-staging, cut
+        if name == "largescale":  # without pre-staging, cut
             ok = ok and res.steps == SYNC_STEPS and res.block_shifts >= 1
         elif name == "largescale_native_pool":  # the tile pool route, cut
             ok = (ok and res.steps == POOL_STEPS and res.block_shifts >= 1 and pool is not None
@@ -724,7 +938,7 @@ def main(argv=None) -> int:
                                "hits, seated costmaps, path cost or kernel counts)")
         if pool is not None:
             streamer.close()
-        return {"run": run, "loop": loop, "k1": k1, "k2": k2,
+        return {"run": run, "loop": loop, "k1": k1, "k2": k2, "stamp": stamp,
                 "steps_per_s": res.steps / res.wall_s}
 
     def largescale_resume(conf, full, counts):
@@ -929,6 +1143,77 @@ def main(argv=None) -> int:
         return k1_on_window(loop, "edge_after_shift", edge,
                             torch.tensor([1.0, -0.4, 0.0], device=cuda))
 
+    def sdg_graph(rendering):
+        """The frames of cfg/mode/sdg.yaml (the camera block on) through the
+        eager labeler (rocks as drawn) and the graphed one (rocks padded to
+        the conf's capacity, each pass one CUDA graph replay) in turns, on
+        the same yards and draws: every modality torch.equal, ms per frame
+        by pass both ways (the median from the third frame on: the graph's
+        first frame is its warm-up, its second the capture), capture ms. Returns the
+        graphed labeler and one frame's inputs, for the profiled counts."""
+        tree = compose(SDG_ARGS + [f"rendering={rendering}"])
+        sdg, settings = tree["sdg"], render_settings_from_cfg(tree)
+        cam_cfg, rock_cfg = sdg["camera"], sdg["rocks"]
+        base = MoonyardConf().base
+        cap = rock_capacity(float(rock_cfg["density"]), base.x_size * base.y_size)
+        labelers = {
+            name: AutonomousLabeling(LabelingConf(num_images=SDG_FRAMES,
+                                                  data_dir=str(BUILD / f"sdg_{name}")),
+                                     settings, rock_capacity=c)
+            for name, c in (("eager", None), ("graph", cap))}
+        gen = MoonyardGenerator(MoonyardConf(), device=cuda)
+        rng = np.random.default_rng(int(tree.get("seed", 42)))
+        res = base.resolution
+        per = {name: {"top_down": [], "camera": []} for name in labelers}
+        equal, rocks = True, []
+        for _ in range(SDG_FRAMES):
+            dem = gen.randomize()
+            yard = BoundingBox(0.0, base.x_size, 0.0, base.y_size)
+            xy, r = hardcore_poisson(rng, yard, (float(rock_cfg["density"]),),
+                                     ((float(rock_cfg["r_min"]), float(rock_cfg["r_max"])),))
+            rocks.append(len(r))
+            az, el = rng.uniform(0, 2 * np.pi), rng.uniform(np.deg2rad(10), np.deg2rad(60))
+            sun = (float(np.cos(el) * np.cos(az)), float(np.cos(el) * np.sin(az)),
+                   float(np.sin(el)))
+            h, w = dem.shape
+            px, py = rng.uniform(0.15, 0.85) * h * res, rng.uniform(0.15, 0.85) * w * res
+            yaw = rng.uniform(0, 2 * np.pi)
+            gz = float(dem[int(px / res), int(py / res)])
+            frame = {}
+            for name, lab in labelers.items():
+                before = dict(lab.seconds)
+                fid = lab.frame
+                top = lab.record(dem, res, sun_direction=sun, rock_xy=xy, rock_radius=r)
+                cam = lab.record_camera(
+                    dem, res, (0.0, 0.0), (px, py), (float(np.cos(yaw)), float(np.sin(yaw))), gz,
+                    intrinsics=CameraIntrinsics(width=int(cam_cfg["width"]),
+                                                height=int(cam_cfg["height"])),
+                    sun_direction=sun, rock_xy=xy, rock_radius=r,
+                    mount_height=float(cam_cfg["mount_height"]),
+                    pitch_deg=float(cam_cfg["pitch_deg"]), steps=int(cam_cfg["steps"]),
+                    cast_shadows=bool(cam_cfg["cast_shadows"]), frame=fid)
+                for k in ("top_down", "camera"):
+                    per[name][k].append(1e3 * (lab.seconds[k] - before[k]))
+                frame[name] = (top, cam)
+            (te, ce), (tg, cg) = frame["eager"], frame["graph"]
+            equal = (equal and te.keys() == tg.keys() and ce.keys() == cg.keys()
+                     and all(np.array_equal(te[k], tg[k]) for k in te)
+                     and all(torch.equal(ce[k], cg[k]) for k in ce))
+        graphs = labelers["graph"]
+        g_td, g_cam = graphs.top_down_fn, graphs.camera_fn
+        ok = (equal and g_td.replays == g_cam.replays == SDG_FRAMES - 1 and max(rocks) <= cap)
+        phase("sdg_graph", rendering=rendering, frames=SDG_FRAMES, dem=[500, 500],
+              camera=[int(cam_cfg["width"]), int(cam_cfg["height"])], rock_capacity=cap,
+              rocks_per_frame=rocks, every_modality_equal=equal,
+              ms_per_frame_eager={k: float(np.median(v[2:])) for k, v in per["eager"].items()},
+              ms_per_frame_graph={k: float(np.median(v[2:])) for k, v in per["graph"].items()},
+              ms_by_frame=per, capture_ms={"top_down": g_td.capture_ms,
+                                           "camera": g_cam.capture_ms},
+              replays={"top_down": g_td.replays, "camera": g_cam.replays}, ok=ok)
+        if not ok:
+            raise RuntimeError(f"the graphed SDG frame ({rendering}) differs from the eager one")
+        return labelers, (dem, res, sun, xy, r, (px, py), yaw, gz, cam_cfg)
+
     def cli_timed():
         """The CLI's paths through its composed cfg/ tree, timed: mode=sdg
         (10 frames, top-down and camera) under both rendering files, one
@@ -939,11 +1224,11 @@ def main(argv=None) -> int:
         def zero_counts():
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-            gp.gather_probe_cuda.launches = 0
+            gp.gather_probe_cuda.launches = crater_stamp_cuda.launches = 0
 
         def counts():
             return {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
-                    "k3": gp.gather_probe_cuda.launches}
+                    "k3": gp.gather_probe_cuda.launches, "stamp": crater_stamp_cuda.launches}
 
         sdg_shapes = {"rgb": (500, 500, 3), "depth": (500, 500), "semantic": (500, 500),
                       "cam_depth": (480, 640), "cam_rgb": (480, 640), "cam_semantic": (480, 640),
@@ -964,7 +1249,8 @@ def main(argv=None) -> int:
             rocks_seen = sum(int((a == 2).any()) for n, a in arrays.items()
                              if n.startswith("semantic"))
             ok = (len(npy) == 7 * SDG_FRAMES and shapes_ok and finite and res["device"] == "cuda"
-                  and len(list(out.glob("camera_*.json"))) == SDG_FRAMES)
+                  and len(list(out.glob("camera_*.json"))) == SDG_FRAMES
+                  and sdg_counts[rendering]["stamp"] == SDG_FRAMES)
             phase("sdg_frames", rendering=rendering, frames=SDG_FRAMES, dem=[500, 500],
                   camera=[640, 480], march_steps=128, cast_shadows=True, wall_s=wall,
                   ms_per_frame=1e3 * wall / SDG_FRAMES,
@@ -975,6 +1261,8 @@ def main(argv=None) -> int:
                   kernel_launches=sdg_counts[rendering], device=res["device"], ok=ok)
             if not ok:
                 raise RuntimeError(f"mode=sdg ({rendering}) wrote wrong or missing frames")
+        sdg_graphed = {rendering: sdg_graph(rendering) for rendering in ("ray_tracing",
+                                                                          "path_tracing")}
 
         # one capture on the card and on the CPU: the same DEM and draws, the
         # path_tracing effects, the camera with rocks and cast shadows
@@ -1108,7 +1396,7 @@ def main(argv=None) -> int:
         if not ok:
             raise RuntimeError("the lab's closed loop ran the wrong kernels or left a non-finite "
                                "path")
-        return sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture
+        return sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture, sdg_graphed
 
     def worldbuilders_rocks(dem):
         """A rock scatter in the form of the reference's lab and yard rock
@@ -1187,25 +1475,56 @@ def main(argv=None) -> int:
             raise RuntimeError("the worldbuilders' rock request differs between the card and "
                                "the CPU")
 
-    def sdg_profiled(sdg_capture):
+    def sdg_profiled(sdg_capture, sdg_graphed):
         """Device kernels of one SDG frame, counted by torch.profiler after
         every timed path: the generator (a fresh one per call, so that
         every call draws alike), then the top-down and the camera capture
-        with fixed draws."""
+        with fixed draws; then one frame's top-down and camera passes
+        through the graphed labeler of each rendering file (its graphs
+        captured by sdg_graph) and through the eager one under
+        path_tracing, device kernels and the host's launch calls."""
         sdg_gens = iter([MoonyardGenerator(MoonyardConf(), device=cuda) for _ in range(8)])
         kernels = {
             "generator": device_kernels(lambda: next(sdg_gens).randomize()),
             "top_down_and_camera": device_kernels(lambda: sdg_capture(cuda, "sdg_profiled")),
         }
         kernels["frame"] = sum(kernels.values())
+        by_pass = {}
+        for rendering, (labelers, inputs) in sdg_graphed.items():
+            dem, res, sun, xy, r, cam_xy, yaw, gz, cam_cfg = inputs
+            for name, lab in labelers.items():
+                if name == "eager" and rendering != "path_tracing":
+                    continue  # ~14,500 kernels a frame: profiled under one file
+                def top(lab=lab):
+                    lab.record(dem, res, sun_direction=sun, rock_xy=xy, rock_radius=r)
+
+                def cam(lab=lab):
+                    lab.record_camera(
+                        dem, res, (0.0, 0.0), cam_xy, (float(np.cos(yaw)), float(np.sin(yaw))),
+                        gz, intrinsics=CameraIntrinsics(width=int(cam_cfg["width"]),
+                                                        height=int(cam_cfg["height"])),
+                        sun_direction=sun, rock_xy=xy, rock_radius=r,
+                        mount_height=float(cam_cfg["mount_height"]),
+                        pitch_deg=float(cam_cfg["pitch_deg"]), steps=int(cam_cfg["steps"]),
+                        cast_shadows=bool(cam_cfg["cast_shadows"]), frame=0)
+
+                by_pass[f"{rendering}_{name}"] = {
+                    k: {"device_kernels": device_kernels(f), "launch_calls": launch_calls(f)}
+                    for k, f in (("top_down", top), ("camera", cam))}
+        ok = kernels["frame"] > 0 and all(
+            v["camera"]["launch_calls"].get("cudaGraphLaunch", 0) > 0
+            for k, v in by_pass.items() if k.endswith("_graph"))
         phase("sdg_launches", **{f"device_kernels_{k}": v for k, v in kernels.items()},
-              march_steps=128, shadow_steps=64, ok=kernels["frame"] > 0)
+              march_steps=128, shadow_steps=64, per_frame_by_pass=by_pass, ok=ok)
+        if not ok:
+            raise RuntimeError("the profiler saw no SDG kernel, or no graph launch of the "
+                               "graphed camera pass")
 
     if only == "largescale":
         largescale_profiled(largescale_timed()[0])
         return 0
     if only == "cli":
-        sdg_profiled(cli_timed()[-1])
+        sdg_profiled(*cli_timed()[-2:])
         return 0
 
     max_err, k1_row = 0.0, {}
@@ -2069,11 +2388,11 @@ def main(argv=None) -> int:
 
     # 10b. the CLI as run.py runs it (its composed cfg/ tree): mode=sdg,
     #      the yard goal-seek and the lab's closed loop
-    sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture = cli_timed()
+    sdg_counts, yard_k1_row, yard_counts, lab_counts, sdg_capture, sdg_graphed = cli_timed()
 
     # 11. the streamed-terrain slice: the world, K1 and K2 at its sizes, the
     #     traverse
-    ls_loop, ls_k1_row, ls_k2_row, ls_counts = largescale_timed()
+    ls_loop, ls_k1_row, ls_k2_row, ls_counts, stamp_row, stamp_counts = largescale_timed()
     # the kernel line's launches: the default streamed path (the CLI's
     # pipelined traverse); every path's count under launches_by_path
     ls_k1, ls_k2 = ls_counts["largescale_pipelined"]
@@ -2174,7 +2493,7 @@ def main(argv=None) -> int:
     ls_k1_edge = largescale_profiled(ls_loop)
 
     # 15. device kernels of one SDG frame (every timed path is above)
-    sdg_profiled(sdg_capture)
+    sdg_profiled(sdg_capture, sdg_graphed)
 
     # The kernel table. K1's and K2's times, bounds and plain times are at
     # the streamed loop's shapes (the 7000^2 window, the 875^2 costmap), with
@@ -2211,6 +2530,18 @@ def main(argv=None) -> int:
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",
         "replaces": "scripts/probe_pallas_gather.py:21",
         "launches": k3_launches, "max_abs_err": k3_err, **k3_row,
+    }, {
+        "name": "crater_stamp", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/crater_stamp.cu",
+        "replaces": None,
+        "replaces_note": ("the port's own kernel for the scan of husky_rover_mppi_isaacsim_tpu/"
+                          "terrain/craters.py:269-294 (render_crater_block's lax.scan of "
+                          "dynamic_update_slice adds); no Pallas kernel there"),
+        "launches": stamp_counts["largescale_pipelined"], **stamp_row,
+        "launches_by_path": {**stamp_counts,
+                             **{f"sdg_{r}": c["stamp"] for r, c in sdg_counts.items()},
+                             "moonyard_standalone": yard_counts["stamp"],
+                             "moonyard_closed_loop": lab_counts["stamp"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,17 @@ the replicator/annotator pipeline of ``src/labeling/``, auto_label.py:174-239
 * a robot-mounted perspective pass: per-pixel rays marched against the DEM
   with rocks as sphere impostors (depth / rgb / semantic / instance).
 
-Everything is eager torch on the DEM's device; the JAX package's
-``lax.scan``s over march steps and rocks are Python loops over device
-tensors with no host sync inside. The rock rasters are computed in float64
-(the rock draws are float64 numpy), as the JAX package computes them with
-64-bit floats enabled. The writer saves ``.npy`` always and a PNG of each
-2-D modality where PIL imports.
+Everything is torch on the DEM's device; the JAX package's ``lax.scan``s
+over march steps and rocks are Python loops over device tensors with no
+host sync inside. A recorder given a rock capacity
+(:class:`AutonomousLabeling`, as ``cli.run_sdg`` makes it) runs each frame
+as two CUDA graphs on the card, the JAX package's compiled passes: the
+top-down pass (:func:`top_down_pass`) and the camera pass
+(:func:`camera_pass`), with the frame's rocks padded to the capacity and
+masked (:func:`pad_rocks`), so that one graph serves every frame. The rock
+rasters are computed in float64 (the rock draws are float64 numpy), as the
+JAX package computes them with 64-bit floats enabled. The writer saves
+``.npy`` always and a PNG of each 2-D modality where PIL imports.
 """
 
 from __future__ import annotations
@@ -28,11 +33,15 @@ import json
 import pathlib
 import time
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 from torch import Tensor
 
+from ..core.graphs import Graphed
 from ..terrain.upsample import bilinear_point_sample
+from .render_fx import apply_post_fx
 
 
 @dataclasses.dataclass
@@ -50,10 +59,16 @@ class LabelingConf:
 
 
 def _scalar(v, like: Tensor) -> Tensor:
-    """``v`` as a 0-d tensor of ``like``'s dtype and device: a division by
-    it is a division (CUDA turns a division by a Python float into a
-    multiply by its reciprocal)."""
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    """``v`` as a tensor of ``like``'s dtype and device: a division by it is
+    a division (CUDA turns a division by a Python float into a multiply by
+    its reciprocal). A number becomes a fill (no host-to-device copy, so a
+    CUDA graph can capture it), a tensor is converted on its device, an
+    array is uploaded."""
+    if isinstance(v, Tensor):
+        return v.to(dtype=like.dtype, device=like.device)
+    if isinstance(v, (int, float)):
+        return torch.full((), float(v), dtype=like.dtype, device=like.device)
+    return torch.as_tensor(np.asarray(v), dtype=like.dtype, device=like.device)
 
 
 def surface_normals(z: Tensor, resolution) -> Tensor:
@@ -116,34 +131,82 @@ def _raster_axes(shape, resolution, origin, device):
             torch.arange(w, **f64) * resolution + origin[1])
 
 
-def _stamp_rocks(rows: Tensor, cols: Tensor, rock_xy, rock_radius) -> Tensor:
+def _f64(v, device) -> Tensor:
+    """Rock draws as float64 on ``device`` (a tensor is converted there)."""
+    if isinstance(v, Tensor):
+        return v.to(dtype=torch.float64, device=device)
+    return torch.as_tensor(np.asarray(v, np.float64), device=device)
+
+
+def _stamp_rocks(rows: Tensor, cols: Tensor, rock_xy, rock_radius, valid=None) -> Tensor:
     """Rock-disk rasterization, one rock at a time (O(H W) memory): 1-based
-    rock ids, 0 where no rock; later rocks win ties."""
-    rocks = torch.as_tensor(np.asarray(rock_xy, np.float64), device=rows.device)
-    radii = torch.as_tensor(np.asarray(rock_radius, np.float64), device=rows.device)
+    rock ids, 0 where no rock; later rocks win ties. ``valid`` (bool per
+    rock) leaves padded slots out: a zero radius would still cover the cell
+    under its centre (``d2 <= 0``)."""
+    rocks, radii = _f64(rock_xy, rows.device), _f64(rock_radius, rows.device)
     out = torch.zeros((rows.shape[0], cols.shape[0]), dtype=torch.int32, device=rows.device)
     for i in range(rocks.shape[0]):
         d2 = (rows[:, None] - rocks[i, 0]) ** 2 + (cols[None, :] - rocks[i, 1]) ** 2
-        out = torch.where(d2 <= radii[i] * radii[i], i + 1, out)
+        inside = d2 <= radii[i] * radii[i]
+        if valid is not None:
+            inside = inside & valid[i]
+        out = torch.where(inside, i + 1, out)
     return out
 
 
 def semantic_mask(shape: tuple, resolution: float, origin, rock_xy, rock_radius,
-                  ground_id: int = 1, rock_id: int = 2, device=None) -> Tensor:
-    """Class-id raster (int32): ground everywhere, rocks stamped as disks."""
+                  ground_id: int = 1, rock_id: int = 2, device=None, valid=None) -> Tensor:
+    """Class-id raster (int32): ground everywhere, rocks stamped as disks
+    (those ``valid`` keeps, where given)."""
     rows, cols = _raster_axes(shape, resolution, origin, device)
     seg = torch.full(tuple(shape), ground_id, dtype=torch.int32, device=device)
     if len(rock_xy) == 0:
         return seg
-    return torch.where(_stamp_rocks(rows, cols, rock_xy, rock_radius) > 0, rock_id, seg)
+    return torch.where(_stamp_rocks(rows, cols, rock_xy, rock_radius, valid) > 0, rock_id, seg)
 
 
 def instance_mask(shape: tuple, resolution: float, origin, rock_xy, rock_radius,
-                  device=None) -> Tensor:
+                  device=None, valid=None) -> Tensor:
     """Per-rock instance ids (int32, 1-based; 0 = background)."""
     if len(rock_xy) == 0:
         return torch.zeros(tuple(shape), dtype=torch.int32, device=device)
-    return _stamp_rocks(*_raster_axes(shape, resolution, origin, device), rock_xy, rock_radius)
+    return _stamp_rocks(*_raster_axes(shape, resolution, origin, device), rock_xy, rock_radius,
+                        valid)
+
+
+class PaddedRocks(NamedTuple):
+    """A frame's rocks padded to a fixed capacity: float64 ``xy``
+    ``(capacity, 2)`` and ``radius`` ``(capacity,)``, the live rocks first
+    in their drawn order (so ids stay 1-based in that order), then zero
+    slots that ``valid`` masks out."""
+
+    xy: Tensor
+    radius: Tensor
+    valid: Tensor
+
+
+def rock_capacity(density: float, area_m2: float) -> int:
+    """Rock slots of one SDG frame: 1.5 x the expected count of the
+    frame's Poisson draw (``density`` per m^2 over ``area_m2``) + 16,
+    rounded up to 16 (the crater tiers' rule at rock scale). The hard-core
+    thinning only removes rocks."""
+    cap = int(area_m2 * density * 1.5) + 16
+    return -(-cap // 16) * 16
+
+
+def pad_rocks(rock_xy, rock_radius, capacity: int, device=None) -> PaddedRocks:
+    """``rock_xy`` / ``rock_radius`` (``None`` for none) padded to
+    ``capacity`` on ``device``. More rocks than the capacity raise: a frame
+    never drops rocks."""
+    xy = np.zeros((0, 2)) if rock_xy is None else np.asarray(rock_xy, np.float64).reshape(-1, 2)
+    r = np.zeros((0,)) if rock_radius is None else np.asarray(rock_radius, np.float64)
+    n = xy.shape[0]
+    if n > capacity or r.shape != (n,):
+        raise ValueError(f"{n} rocks (radii {r.shape}) for a rock capacity of {capacity}")
+    pxy, pr = np.zeros((capacity, 2)), np.zeros((capacity,))
+    pxy[:n], pr[:n] = xy, r
+    valid = np.arange(capacity) < n
+    return PaddedRocks(*(torch.as_tensor(a, device=device) for a in (pxy, pr, valid)))
 
 
 @dataclasses.dataclass
@@ -176,10 +239,28 @@ class CameraIntrinsics:
     def cy(self) -> float:
         return self.height / 2.0
 
+    def pinhole(self, like: Tensor) -> "Pinhole":
+        """The pinhole with ``fx``, ``fy``, ``cx``, ``cy`` as 0-d tensors of
+        ``like``'s dtype on its device: the camera graph's input."""
+        return Pinhole(self.width, self.height,
+                       *(_scalar(v, like) for v in (self.fx, self.fy, self.cx, self.cy)))
+
     def as_dict(self) -> dict:
         return {"width": self.width, "height": self.height, "focal_length": self.focal_length,
                 "horizontal_aperture": self.horizontal_aperture,
                 "fx": self.fx, "fy": self.fy, "cx": self.cx, "cy": self.cy}
+
+
+class Pinhole(NamedTuple):
+    """Image size and pinhole parameters (floats or 0-d tensors): what
+    :func:`render_camera_frame` reads of a :class:`CameraIntrinsics`."""
+
+    width: int
+    height: int
+    fx: object
+    fy: object
+    cx: object
+    cy: object
 
 
 def camera_pose_from_rover(rover_xy, heading_xy, ground_z, mount_height: float = 0.8,
@@ -230,8 +311,8 @@ def camera_raycast(z: Tensor, resolution, origin, cam_pos, cam_R, fx, fy, cx, cy
     h_px, w_px = z.shape
     res = _scalar(resolution, z)
     ox, oy = _scalar(origin[0], z), _scalar(origin[1], z)
-    cam_pos = _scalar(np.asarray(cam_pos), z)
-    d_world = _ray_directions(_scalar(np.asarray(cam_R), z), fx, fy, cx, cy, width, height)
+    cam_pos = _scalar(cam_pos, z)
+    d_world = _ray_directions(_scalar(cam_R, z), fx, fy, cx, cy, width, height)
     ss = torch.linspace(0.05, max_range, steps, dtype=torch.float64,
                         device=z.device).to(z.dtype)
 
@@ -263,12 +344,14 @@ def camera_raycast(z: Tensor, resolution, origin, cam_pos, cam_R, fx, fy, cx, cy
 
 
 def _rock_intersections(cam_pos: Tensor, d_world: Tensor, centers: Tensor, radii: Tensor,
-                        max_range: Tensor):
+                        max_range: Tensor, valid: Tensor | None = None):
     """Nearest ray-sphere hit against half-buried rock impostors (spheres
     centred on the ground surface). ``d_world`` is the unscaled ray
     direction of :func:`camera_raycast`, so ``s`` is the same image-plane
     depth. Returns ``(s, rock_id)`` per pixel, ``inf`` / ``0`` where no rock
-    is hit; one rock at a time (O(H W) memory)."""
+    is hit; one rock at a time (O(H W) memory). ``valid`` (bool per rock)
+    leaves padded slots out: the discriminant of a zero radius can round
+    above 0."""
     a = torch.sum(d_world * d_world, dim=-1)  # > 0
     best_s = torch.full(a.shape, float("inf"), dtype=a.dtype, device=a.device)
     best_id = torch.zeros(a.shape, dtype=torch.int32, device=a.device)
@@ -278,8 +361,10 @@ def _rock_intersections(cam_pos: Tensor, d_world: Tensor, centers: Tensor, radii
         c0 = torch.dot(oc, oc) - radii[i] * radii[i]
         disc = b * b - 4.0 * a * c0
         s_hit = (-b - torch.sqrt(torch.clamp(disc, min=0.0))) / (2.0 * a)
-        valid = (disc > 0) & (s_hit > 0.05) & (s_hit <= max_range)
-        s_hit = torch.where(valid, s_hit, float("inf"))
+        hit = (disc > 0) & (s_hit > 0.05) & (s_hit <= max_range)
+        if valid is not None:
+            hit = hit & valid[i]
+        s_hit = torch.where(hit, s_hit, float("inf"))
         better = s_hit < best_s
         best_s = torch.where(better, s_hit, best_s)
         best_id = torch.where(better, i + 1, best_id)
@@ -287,12 +372,15 @@ def _rock_intersections(cam_pos: Tensor, d_world: Tensor, centers: Tensor, radii
 
 
 def render_camera_frame(z: Tensor, resolution: float, origin, cam_pos, cam_R,
-                        intrinsics: CameraIntrinsics, sun_direction=(0.4, 0.2, 0.9),
+                        intrinsics: CameraIntrinsics | Pinhole, sun_direction=(0.4, 0.2, 0.9),
                         rock_xy=None, rock_radius=None, steps: int = 192,
-                        max_range: float = 40.0, cast_shadows: bool = False) -> dict:
+                        max_range: float = 40.0, cast_shadows: bool = False,
+                        rock_valid: Tensor | None = None) -> dict:
     """Camera-frame modality dict (depth / rgb / semantic / instance / hit)
     from one raycast: the pose-consistent perspective pass
-    (rep_utils.py:108-126 + auto_label.py:174-230)."""
+    (rep_utils.py:108-126 + auto_label.py:174-230). The pose, the
+    intrinsics' pinhole and the sun may be tensors; ``rock_valid`` masks
+    padded rock slots (:class:`PaddedRocks`)."""
     i = intrinsics
     depth, hx, hy, hit = camera_raycast(z, resolution, origin, cam_pos, cam_R, i.fx, i.fy,
                                         i.cx, i.cy, width=i.width, height=i.height,
@@ -308,14 +396,14 @@ def render_camera_frame(z: Tensor, resolution: float, origin, cam_pos, cam_R,
                 "instance": torch.zeros_like(semantic)}
     # rocks occlude: sphere impostors centred on the ground surface compete
     # with the terrain march per ray
-    rocks = _scalar(np.asarray(rock_xy), z)
-    rx, ry, rr = rocks[:, 0], rocks[:, 1], _scalar(np.asarray(rock_radius), z)
+    rocks = _scalar(rock_xy, z)
+    rx, ry, rr = rocks[:, 0], rocks[:, 1], _scalar(rock_radius, z)
     gz = bilinear_point_sample(z, (rx - origin[0]) / res, (ry - origin[1]) / res)
     centers = torch.stack([rx, ry, gz], dim=-1)
-    d_world = _ray_directions(_scalar(np.asarray(cam_R), z), i.fx, i.fy, i.cx, i.cy,
-                              i.width, i.height)
-    cam_p = _scalar(np.asarray(cam_pos), z)
-    s_rock, rock_id = _rock_intersections(cam_p, d_world, centers, rr, _scalar(max_range, z))
+    d_world = _ray_directions(_scalar(cam_R, z), i.fx, i.fy, i.cx, i.cy, i.width, i.height)
+    cam_p = _scalar(cam_pos, z)
+    s_rock, rock_id = _rock_intersections(cam_p, d_world, centers, rr, _scalar(max_range, z),
+                                          rock_valid)
     rock_hit = s_rock < depth  # wins where nearer than the terrain
     depth = torch.where(rock_hit, s_rock, depth)
     hit = hit | rock_hit
@@ -330,6 +418,41 @@ def render_camera_frame(z: Tensor, resolution: float, origin, cam_pos, cam_R,
             "instance": torch.where(rock_hit, rock_id, 0).to(torch.int32)}
 
 
+def top_down_pass(z: Tensor, resolution: float, origin, sun_direction, rocks,
+                  conf: LabelingConf) -> dict:
+    """The device work of one top-down frame, as :meth:`AutonomousLabeling.
+    record` saves it before its post effects: the hillshade (``rgb``), the
+    ``normals`` and the ``semantic`` and ``instance`` rock rasters, each
+    where ``conf`` saves it.
+    ``rocks`` is ``(xy, radius, valid)``: arrays with ``valid`` None, or a
+    :class:`PaddedRocks`. The recorder's CUDA graph replays this function."""
+    out = {}
+    if conf.save_rgb:
+        out["rgb"] = hillshade(z, resolution, sun_direction)
+    if conf.save_normals:
+        out["normals"] = surface_normals(z, resolution)
+    xy, radii, valid = rocks
+    if conf.save_semantics:
+        out["semantic"] = semantic_mask(z.shape, resolution, origin, xy, radii, device=z.device,
+                                        valid=valid)
+    if conf.save_instances:
+        out["instance"] = instance_mask(z.shape, resolution, origin, xy, radii, device=z.device,
+                                        valid=valid)
+    return out
+
+
+def camera_pass(z: Tensor, resolution: float, origin, cam_pos, cam_R, intrinsics,
+                sun_direction, rocks, steps: int, max_range: float, cast_shadows: bool) -> dict:
+    """The device work of one camera frame: :func:`render_camera_frame`
+    with ``rocks`` as in :func:`top_down_pass`; positional, so that the
+    recorder's CUDA graph replays it."""
+    xy, radii, valid = rocks
+    return render_camera_frame(z, resolution, origin, cam_pos, cam_R, intrinsics,
+                               sun_direction=sun_direction, rock_xy=xy, rock_radius=radii,
+                               steps=steps, max_range=max_range, cast_shadows=cast_shadows,
+                               rock_valid=valid)
+
+
 def _host(t: Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
@@ -339,13 +462,25 @@ class AutonomousLabeling:
     ``record`` renders the enabled modalities from the terrain and rocks
     and writes them to the hashed run directory. ``seconds`` sums the time
     spent rendering the top-down and the camera passes (each up to its
-    arrays on the host) and writing."""
+    arrays on the host) and writing.
 
-    def __init__(self, conf: LabelingConf, render_settings=None):
+    With a ``rock_capacity`` every frame's rocks are padded to it
+    (:func:`pad_rocks`; more raise) and the two passes run as
+    :class:`..core.graphs.Graphed` functions, CUDA graphs on the card: the
+    sun, the camera pose and the pinhole go in as tensors; the post effects
+    (:func:`..render_fx.apply_post_fx`) and the writer stay outside. Without
+    one the passes run eagerly on the rocks as given."""
+
+    def __init__(self, conf: LabelingConf, render_settings=None,
+                 rock_capacity: int | None = None):
         self.conf = conf
         # the RTX-style post pipeline on the RGB modality (startSim applies
         # lens flares / motion blur / chromatic aberrations before SDG runs)
         self.render_settings = render_settings
+        self.rock_capacity = rock_capacity
+        graphed = rock_capacity is not None
+        self.top_down_fn = Graphed(top_down_pass) if graphed else top_down_pass
+        self.camera_fn = Graphed(camera_pass) if graphed else camera_pass
         run_hash = hashlib.sha256(str(time.time()).encode()).hexdigest()[:10]
         self.run_dir = pathlib.Path(conf.data_dir) / run_hash
         self.run_dir.mkdir(parents=True, exist_ok=True)
@@ -359,26 +494,19 @@ class AutonomousLabeling:
         numpy arrays."""
         t0 = time.perf_counter()
         z = torch.as_tensor(z)
+        sun, rocks = self._frame_inputs(z, sun_direction, rock_xy, rock_radius)
+        drawn = self.top_down_fn(z, resolution, tuple(origin), sun, rocks, self.conf)
         out = {}
         if self.conf.save_rgb:
-            rgb = hillshade(z, resolution, sun_direction)
+            rgb = drawn["rgb"]
             if self.render_settings is not None:
-                from .render_fx import apply_post_fx
-
                 rgb = apply_post_fx(rgb[..., None].repeat(1, 1, 3), self.render_settings)
             out["rgb"] = rgb
         if self.conf.save_depth:
             out["depth"] = z
-        if self.conf.save_normals:
-            out["normals"] = surface_normals(z, resolution)
-        rocks = rock_xy if rock_xy is not None else np.zeros((0, 2))
-        radii = rock_radius if rock_radius is not None else np.zeros((0,))
-        if self.conf.save_semantics:
-            out["semantic"] = semantic_mask(z.shape, resolution, origin, rocks, radii,
-                                            device=z.device)
-        if self.conf.save_instances:
-            out["instance"] = instance_mask(z.shape, resolution, origin, rocks, radii,
-                                            device=z.device)
+        for name in ("normals", "semantic", "instance"):
+            if name in drawn:
+                out[name] = drawn[name]
         out = {k: _host(v) for k, v in out.items()}
         self.seconds["top_down"] += time.perf_counter() - t0
         self._write(out, pose)
@@ -403,10 +531,16 @@ class AutonomousLabeling:
             self.frame = int(frame)
         cam_pos, cam_R = camera_pose_from_rover(rover_xy, heading_xy, ground_z, mount_height,
                                                 pitch_deg)
-        rendered = render_camera_frame(
-            torch.as_tensor(z), resolution, origin, cam_pos, cam_R, intrinsics,
-            sun_direction=sun_direction, rock_xy=rock_xy, rock_radius=rock_radius,
-            steps=steps, max_range=max_range, cast_shadows=cast_shadows)
+        z = torch.as_tensor(z)
+        sun, rocks = self._frame_inputs(z, sun_direction, rock_xy, rock_radius)
+        pose, pinhole = (cam_pos, cam_R), intrinsics
+        if self.rock_capacity is not None:
+            pose = tuple(_scalar(a, z) for a in pose)
+            pinhole = intrinsics.pinhole(z)
+        rendered = self.camera_fn(z, resolution, tuple(origin), *pose, pinhole, sun, rocks,
+                                  steps, max_range, cast_shadows)
+        if self.rock_capacity is not None:  # the graph's buffers: the next frame overwrites
+            rendered = {k: v.clone() for k, v in rendered.items()}
         out = {f"cam_{k}": _host(v) for k, v in rendered.items() if k != "hit"}
         # finite PNG range: escaped rays render at max_range
         out["cam_depth"] = np.where(np.isfinite(out["cam_depth"]), out["cam_depth"], max_range)
@@ -422,6 +556,16 @@ class AutonomousLabeling:
         else:
             self.frame = saved_frame
         return rendered
+
+    def _frame_inputs(self, z: Tensor, sun_direction, rock_xy, rock_radius):
+        """The sun and the rocks of a frame as the passes take them: as
+        given, or (with a rock capacity) the sun as a tensor and the rocks
+        padded on the DEM's device."""
+        if self.rock_capacity is None:
+            return sun_direction, (np.zeros((0, 2)) if rock_xy is None else rock_xy,
+                                   np.zeros((0,)) if rock_radius is None else rock_radius, None)
+        return (_scalar(sun_direction, z),
+                pad_rocks(rock_xy, rock_radius, self.rock_capacity, z.device))
 
     def _write(self, modalities: dict, pose) -> None:
         """``.npy`` of each modality, and a PNG of each 2-D one where PIL

@@ -38,7 +38,7 @@ import numpy as np
 import torch
 
 from .aux.config import apply_overrides, build_dataclass, instantiate_configs, load_config
-from .aux.labeling import AutonomousLabeling, CameraIntrinsics, LabelingConf
+from .aux.labeling import AutonomousLabeling, CameraIntrinsics, LabelingConf, rock_capacity
 from .aux.render_fx import (
     ChromaticAberrationsConf,
     FlaresConf,
@@ -454,7 +454,9 @@ def run_sdg(tree: dict) -> dict:
     fresh yards from the default ``MoonyardConf`` (the environment group's
     yard is not read, as in the JAX run) on ``device``, each with a
     hardcore-Poisson rock scatter (``sdg.rocks``: density, r_min, r_max;
-    ``false`` turns it off) and a random sun, labeled top-down and, with
+    ``false`` turns it off; padded to ``labeling.rock_capacity`` of the
+    density, so that the labeler's two CUDA graphs serve every frame) and a
+    random sun, labeled top-down and, with
     ``sdg.camera`` (width, height, pitch_deg, mount_height, steps,
     cast_shadows), from a robot-mounted camera. The host draws (rocks,
     sun, camera pose) come from ``numpy.random.default_rng(seed)`` in the
@@ -467,8 +469,13 @@ def run_sdg(tree: dict) -> dict:
     fields = {f.name for f in dataclasses.fields(LabelingConf)}
     conf = LabelingConf(**{k: v for k, v in sdg.items() if k in fields})
     gen = MoonyardGenerator(MoonyardConf(), device=device)
-    labeler = AutonomousLabeling(conf, render_settings_from_cfg(tree))
     cam_cfg, rock_cfg = _section(sdg.get("camera")), _section(sdg.get("rocks", {}))
+    # one rock capacity for every frame (the passes are CUDA graphs on the
+    # card); a frame that draws more rocks raises
+    base = gen.conf.base
+    capacity = 0 if rock_cfg is None else rock_capacity(float(rock_cfg.get("density", 0.08)),
+                                                         base.x_size * base.y_size)
+    labeler = AutonomousLabeling(conf, render_settings_from_cfg(tree), rock_capacity=capacity)
     rng = np.random.default_rng(int(tree.get("seed", 42)))
     res = gen.conf.base.resolution
     generator_s = 0.0

@@ -26,6 +26,14 @@ differ from the first call's raises ``ValueError``: a graph is built for
 one signature. The device alone decides whether a graph runs; there is no
 switch.
 
+``in_place_args`` names positional arguments whose tensors the graph reads
+where they lie: no static buffer, no copy on replay. The caller keeps them
+and updates them in place (the streamed chunk's 7000^2 window and its
+costmap, re-seated by a copy at a block shift, not at every chunk). Every
+call must pass the very tensors of the first call there, on the CPU as on
+the card; another tensor raises ``ValueError``, since the graph would go on
+reading the first one.
+
 Two traps follow from replaying. The outputs are the graph's own buffers:
 the next replay overwrites them, so a caller that keeps an output across
 calls clones it. And whatever the function reads from Python (a float, a
@@ -66,10 +74,14 @@ def _signature(leaves: list) -> tuple:
 class Graphed:
     """``fn`` replayed as one CUDA graph per call on the card, called as it
     is on the CPU (module docstring). ``replays`` counts replays,
-    ``capture_ms`` is the host time of the capture (``None`` before it)."""
+    ``capture_ms`` is the host time of the capture (``None`` before it);
+    the tensors of the positional arguments ``in_place_args`` are read in
+    place and never copied."""
 
-    def __init__(self, fn: Callable[..., Any]):
+    def __init__(self, fn: Callable[..., Any], in_place_args: tuple[int, ...] = ()):
         self.fn = fn
+        self.in_place_args = frozenset(in_place_args)
+        self._in_place: list | None = None  # the in-place arguments' tensors, by identity
         self.replays = 0
         self.capture_ms: float | None = None
         self._spec = None          # (tree structure, signature) of the first call
@@ -82,12 +94,17 @@ class Graphed:
     def __call__(self, *args):
         leaves, tree = pytree.tree_flatten(args)
         spec = (tree, _signature(leaves))
+        in_place = [t for i, a in enumerate(args) if i in self.in_place_args
+                    for t in pytree.tree_leaves(a) if isinstance(t, torch.Tensor)]
         if self._spec is None:
-            self._spec = spec
+            self._spec, self._in_place = spec, in_place
         elif spec != self._spec:
             raise ValueError(f"{self.name}: called with another structure, constant, shape, "
                              f"dtype or device than the graph is built for:\n{spec}\n"
                              f"against\n{self._spec}")
+        elif any(a is not b for a, b in zip(in_place, self._in_place)):
+            raise ValueError(f"{self.name}: an in-place argument {sorted(self.in_place_args)} "
+                             "is another tensor than the first call's; update it in place")
         tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
         if not any(t.is_cuda for t in tensors):
             return self.fn(*args)
@@ -112,11 +129,14 @@ class Graphed:
         return getattr(self.fn, "__qualname__", repr(self.fn))
 
     def _capture(self, leaves: list, tree) -> None:
-        """Allocate the static inputs (each in its first argument's layout)
-        and capture one call of ``fn`` on them on a side stream."""
+        """Allocate the static inputs (each in its first argument's layout;
+        the in-place arguments' tensors are used as they are) and capture one
+        call of ``fn`` on them on a side stream."""
         t0 = time.perf_counter()
         device = next(t.device for t in leaves if isinstance(t, torch.Tensor))
-        self._static_in = [torch.empty_like(t) if isinstance(t, torch.Tensor) else None
+        in_place = {id(t) for t in self._in_place}
+        self._static_in = [torch.empty_like(t)
+                           if isinstance(t, torch.Tensor) and id(t) not in in_place else None
                            for t in leaves]
         args = pytree.tree_unflatten([b if b is not None else t
                                       for b, t in zip(self._static_in, leaves)], tree)

@@ -23,12 +23,15 @@ One chunk is ``terrain_check_every`` closed-loop steps on the device with no
 host sync (on the card each step is two launches of kernel K1 on the live
 window), replayed on the card as one CUDA graph (the JAX ``_make_chunk_fn``,
 largescale_loop.py:318-415): the chunk's noise is drawn before it, and the
-live window, the costmap, the frame origin (a tensor, not the Python floats
-a capture would freeze) and the rebased goal are copied into the graph's
-buffers at every chunk, so block shifts, pre-staged seats and deformation
-stamps between chunks reach it. The host then reads five scalars (world
-position, world heading, reached) and runs the terrain cascade. A costmap
-build is one launch of kernel K2.
+frame origin (a tensor, not the Python floats a capture would freeze) and
+the rebased goal are copied into the graph's buffers at every chunk. The
+window and the costmap are the graph's in-place arguments: it reads them
+where they lie, and a re-seat (a block shift, a pre-staged hit, a resume)
+copies the new window and costmap into them once. The synchronous loop then
+hands the window buffer back to the streamer, so that one 7000^2 window
+lives and deformation stamps reach the graph. The host then reads five
+scalars (world position, world heading, reached) and runs the terrain
+cascade. A costmap build is one launch of kernel K2.
 
 Two loops, as in the JAX package. The synchronous one reads each chunk's
 pose before the next chunk and pre-stages a predicted shift (the shifted
@@ -268,14 +271,18 @@ class _TerrainWorker:
             self._pending = (pose, chunk)
             self._cond.notify_all()
 
-    def wait_for(self, chunk: int) -> None:
+    def wait_for(self, chunk: int) -> bool:
         """Block while the worker still has work and has not yet taken up
         the pose of chunk ``chunk`` or a later one: the bound on how far
-        the rover may run ahead of the terrain."""
+        the rover may run ahead of the terrain. Returns whether it
+        blocked."""
+        blocked = False
         with self._cond:
             while (self._started < chunk and (self._pending is not None or self._busy)
                    and self.error is None):
+                blocked = True
                 self._cond.wait(timeout=0.2)
+        return blocked
 
     def pop_events(self) -> List[dict]:
         with self._cond:
@@ -400,8 +407,14 @@ class LargeScaleClosedLoop:
         self.last_state: LoopState | None = None
         self.worker_s = {"terrain_s": 0.0, "prestage_s": 0.0}
         self.dispatched_steps = 0  # sim steps issued by the last run (chunks in flight included)
-        # the chunk: a CUDA graph on the card (run_chunk itself runs it eagerly)
-        self.chunk_fn: Callable = Graphed(run_chunk)
+        self.worker_blocking_waits = 0  # dispatches of the last pipelined run that waited
+        # the chunk: a CUDA graph on the card (run_chunk itself runs it
+        # eagerly) that reads its window and costmap in place: the leaves
+        # below, which _seat_leaves fills from the live window and costmap
+        self.chunk_fn: Callable = Graphed(run_chunk, in_place_args=(1, 2))
+        self._leaf_hf = self.hf
+        self._leaf_cm = Costmap(*(t.clone() for t in self.costmap))
+        self._seated = (self.hf.z, *self.costmap)
 
     @property
     def frame(self) -> frames.BlockFrame:
@@ -429,7 +442,8 @@ class LargeScaleClosedLoop:
         draws = [closed_loop.draw_step_noise(self.conf.loop, generator, 1, noise=(
             None if noise is None else noise[s]), device=self.device) for s in range(n)]
         slips = None if draws[0][1] is None else tuple(d[1] for d in draws)
-        state, pose = self.chunk_fn(self.conf, self.hf, self.costmap, self.origin(), state,
+        hf, costmap = self._seat_leaves()
+        state, pose = self.chunk_fn(self.conf, hf, costmap, self.origin(), state,
                                     goal_ctrl, None, tuple(d[0] for d in draws), slips)
         if self.deform_engine is not None:
             self._deform(state)
@@ -478,6 +492,34 @@ class LargeScaleClosedLoop:
             *self.wheel_stamp_inputs(state))
 
     # -- window / costmap seating ----------------------------------------------
+
+    def _seat_leaves(self) -> tuple[HeightField, Costmap]:
+        """The chunk graph's window and costmap leaves, holding the live
+        ``hf`` and ``costmap``: copied into them on the current stream when
+        the live ones are other tensors than at the last seat (a shift, a
+        pre-staged hit, a re-seat, a resume), else left as they are. In
+        place writes into the live window (deformation) reach the graph
+        because the synchronous loop seats the leaf itself as the live
+        window (:meth:`_adopt_window`)."""
+        live = (self.hf.z, *self.costmap)
+        if any(a is not b for a, b in zip(live, self._seated)):
+            for leaf, t in zip((self._leaf_hf.z, *self._leaf_cm), live):
+                if leaf is not t:
+                    leaf.copy_(t)
+            self._seated = live
+        return self._leaf_hf, self._leaf_cm
+
+    def _adopt_window(self) -> None:
+        """Synchronous loop, after the streamer's window changed: copy it
+        into the graph's window leaf and hand the leaf back to the streamer
+        as its window (the new tensor is released), so that one window
+        lives and ``hf`` is the leaf. The pipelined loop does not: its
+        streamer belongs to the terrain worker."""
+        streamer, leaf = self.lstm.map_manager.streamer, self._leaf_hf.z
+        if streamer.window is not leaf:
+            leaf.copy_(streamer.window)
+            streamer.window = leaf
+        self.hf = self._leaf_hf
 
     def _window_heightfield(self) -> HeightField:
         """Seat the MPPI heightfield on the live streamed window (:423-431).
@@ -758,7 +800,7 @@ class LargeScaleClosedLoop:
         # re-seat the controller on the live window and the staged or
         # rebuilt costmap
         t0 = time.perf_counter()
-        self.hf = self._window_heightfield()
+        self._adopt_window()
         t1 = time.perf_counter()
         self.costmap, hit = self._seat_costmap(bx, by, update_pos)
         if hit:
@@ -881,7 +923,7 @@ class LargeScaleClosedLoop:
                              (anchor[1] + n_off) * bs + bs / 2.0))
             assert streamer.anchor == anchor, (streamer.anchor, anchor)
         loop.block_x, loop.block_y = meta["block_x"], meta["block_y"]
-        loop.hf = loop._window_heightfield()
+        loop._adopt_window()
         loop.costmap = payload["costmap"]
         loop.lstm.last_update_coordinates = tuple(meta["last_update"])
         loop.prestage_hits = meta["prestage_hits"]
@@ -1110,6 +1152,7 @@ class LargeScaleClosedLoop:
         self.costmap_log = [(chunk_idx, self.costmap, self.frame, self.lstm._last_rocks_position)]
         dispatch_times: List[float] = []
         shift_chunks: List[int] = []
+        self.worker_blocking_waits = 0
         worker = _TerrainWorker(self)
         t0 = time.perf_counter()
 
@@ -1155,7 +1198,8 @@ class LargeScaleClosedLoop:
                 # the 2 m gate + 6 m lookahead the lag budget assumes: a
                 # chunk replayed as a CUDA graph outruns the cascade
                 t_w = time.perf_counter()
-                worker.wait_for(chunk_idx - 2 * depth)
+                if worker.wait_for(chunk_idx - 2 * depth):
+                    self.worker_blocking_waits += 1
                 acc["worker_wait_s"] += time.perf_counter() - t_w
                 t_a = time.perf_counter()
                 dispatch_times.append(t_a)

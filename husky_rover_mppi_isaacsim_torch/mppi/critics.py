@@ -44,6 +44,10 @@ class Costmap(NamedTuple):
     half_width: Tensor
     resolution: Tensor
 
+    @property
+    def size(self) -> int:
+        return self.cost.shape[-1]
+
 
 def path_follow_critic(x: Tensor, y: Tensor, goal: Tensor, trajectory: Tensor,
                        horizon_m: Tensor) -> Tensor:

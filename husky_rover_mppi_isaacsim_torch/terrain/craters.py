@@ -9,10 +9,14 @@ The profile tables and the metadata are drawn on the host with numpy and
 scipy in the JAX package's draw order, so one seed gives both packages the
 same craters.
 
-:func:`render_crater_block` renders the craters as fixed-size patches in
-chunks (plain torch on the tables' device) and stamps them into the raster
-one by one, in crater order, with in-place slice adds. The order is fixed,
-so two builds of one DEM are bit-equal on the card too; a scatter with
+:func:`render_crater_block` renders every slot of a (capacity-padded)
+field as a fixed-size patch (plain torch on the tables' device) and stamps
+the live ones into the raster in slot order: on the card in one launch of
+the crater stamp kernel (``ops/crater_stamp_cuda.py``), the counterpart of
+the JAX package's one-program scan; on the CPU through its plain version,
+:func:`stamp_patches`, one in-place slice add per live slot. Either way
+each pixel sums the same values in the same order, so two builds of one
+DEM are bit-equal on the card too; a scatter with
 ``index_put_(accumulate=True)`` would add with float atomics in no fixed
 order. Placement is computed on the host from the metadata.
 """
@@ -198,30 +202,31 @@ def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: fl
     return torch.where(keep, h, torch.zeros_like(h))
 
 
-def render_crater_block(
-    profiles: CraterProfiles, field: CraterField, block_origin, resolution: float,
-    z_scale: float, block_px: int, pad_px: int, patch_px: int = 128, chunk: int = 256,
-    upload=None,
-) -> Tensor:
-    """Render all craters of ``field`` into one ``(block_px, block_px)``
-    float32 block raster on the tables' device (CraterBuilder.
-    generate_craters, crater_generation.py:182-221); row = x, col = y.
+def stamp_patches(buf: Tensor, patches: Tensor, row0: Tensor, col0: Tensor,
+                  mask: Tensor) -> Tensor:
+    """The plain crater stamp: for every slot ``s`` with ``mask[s]``, in slot
+    order, one in-place slice add ``buf[row0[s]:, col0[s]:][:P, :P] +=
+    patches[s]``; masked slots are skipped. Placements must put every live
+    patch inside ``buf``. Returns ``buf``. The CPU's route, and the
+    reference the stamp kernel is held against on the card."""
+    p = patches.shape[-1]
+    rows, cols = row0.tolist(), col0.tolist()
+    for i in torch.nonzero(mask.cpu()).flatten().tolist():
+        r, c = rows[i], cols[i]
+        buf[r:r + p, c:c + p] += patches[i]
+    return buf
 
-    Placement truncates like the reference (:169-176) and is computed on the
-    host in float32. The raster carries a patch-sized guard band, so a patch
-    that overhangs the padded block is cut off, not moved; a crater whose
-    patch leaves the guard band too is clamped into it, as in the JAX
-    package. Masked craters are skipped (they render as zeros there).
-    ``upload`` moves each chunk of the (host) field to the tables' device
-    (default: ``Tensor.to``; the streamer passes its pinned
-    :class:`..core.device.HostUploader`)."""
-    dev = profiles.height.device
-    if upload is None:
-        upload = lambda t: t.to(dev)  # noqa: E731
+
+def crater_placement(field: CraterField, block_origin, resolution: float, block_px: int,
+                     pad_px: int, patch_px: int) -> tuple[np.ndarray, np.ndarray]:
+    """Each slot's patch corner ``(row0, col0)`` (int32, host) in the
+    guarded raster of :func:`render_crater_block`, whose side is
+    ``block_px + 2 * pad_px + 2 * patch_px``: truncated like the reference
+    (:169-176) in float32, offset by the patch-sized guard band, and clamped
+    into the raster (craters.py:229-230 of the JAX package)."""
     size_px = block_px + 2 * pad_px
     guard = patch_px
     hi = size_px + 2 * guard - patch_px
-
     coords = field.coordinates.cpu().numpy().astype(np.float32)
     origin = np.asarray(block_origin, np.float32)
     res = np.float32(resolution)
@@ -229,18 +234,56 @@ def render_crater_block(
     cpy = np.floor((coords[:, 1] - origin[1]) / res)
     row0 = np.clip((cpx + pad_px - patch_px // 2).astype(np.int32) + guard, 0, hi)
     col0 = np.clip((cpy + pad_px - patch_px // 2).astype(np.int32) + guard, 0, hi)
-    mask = field.mask.cpu().numpy()
+    return row0.astype(np.int32), col0.astype(np.int32)
 
+
+def render_crater_block(
+    profiles: CraterProfiles, field: CraterField, block_origin, resolution: float,
+    z_scale: float, block_px: int, pad_px: int, patch_px: int = 128, chunk: int | None = None,
+    upload=None,
+) -> Tensor:
+    """Render all craters of ``field`` into one ``(block_px, block_px)``
+    float32 block raster on the tables' device (CraterBuilder.
+    generate_craters, crater_generation.py:182-221); row = x, col = y.
+
+    Every slot of the field renders as a patch, ``chunk`` slots per
+    :func:`_render_patches` call (all of them in one call by default), and
+    the live slots are stamped in one call of the crater stamp: one kernel
+    launch on the card, :func:`stamp_patches` on the CPU. A field with no
+    live slot renders nothing. Placement truncates like the reference
+    (:169-176) and is computed on the host in float32, then handed to the
+    stamp as int32 tensors on the device. The raster carries a patch-sized
+    guard band, so a patch that overhangs the padded block is cut off, not
+    moved; a crater whose patch leaves the guard band too is clamped into
+    it, as in the JAX package. Masked slots render as zeros and are not
+    stamped. ``upload`` moves the (host) field and the placements to the
+    tables' device (default: ``Tensor.to``; the streamer passes its pinned
+    :class:`..core.device.HostUploader`)."""
+    from ..ops.crater_stamp_cuda import crater_stamp_cuda
+
+    dev = profiles.height.device
+    if upload is None:
+        upload = lambda t: t.to(dev)  # noqa: E731
+    size_px = block_px + 2 * pad_px
+    guard = patch_px
+    row0, col0 = crater_placement(field, block_origin, resolution, block_px, pad_px, patch_px)
     buf = torch.zeros((size_px + 2 * guard,) * 2, dtype=torch.float32, device=dev)
-    for s in range(0, mask.shape[0], chunk):
-        live = np.flatnonzero(mask[s:s + chunk])
-        if live.size == 0:
-            continue
-        sub = CraterField(*(upload(f[s:s + chunk]) for f in field))
-        patches = _render_patches(profiles, sub, resolution, z_scale, patch_px)
-        for i in live.tolist():
-            r, c = int(row0[s + i]), int(col0[s + i])
-            buf[r:r + patch_px, c:c + patch_px] += patches[i]
+    mask = field.mask.cpu()
+    if mask.any():
+        slots = mask.shape[0]
+        sub = CraterField(*(upload(f) for f in field))
+        step = slots if chunk is None else chunk
+        if step >= slots:
+            patches = _render_patches(profiles, sub, resolution, z_scale, patch_px)
+        else:  # slots of an all-masked chunk are never stamped: left unrendered
+            patches = torch.empty((slots, patch_px, patch_px), dtype=torch.float32, device=dev)
+            for s in range(0, slots, step):
+                if mask[s:s + step].any():
+                    part = CraterField(*(f[s:s + step] for f in sub))
+                    patches[s:s + step] = _render_patches(profiles, part, resolution, z_scale,
+                                                          patch_px)
+        place = upload(torch.from_numpy(np.stack([row0, col0])))
+        crater_stamp_cuda(buf, patches, place[0], place[1], sub.mask)
     dem = buf[guard:guard + size_px, guard:guard + size_px]
     return dem[pad_px:size_px - pad_px, pad_px:size_px - pad_px]
 

@@ -151,7 +151,8 @@ class MoonyardGenerator:
         side = max(self.x_px, self.y_px)
         craters = render_crater_block(self.profiles, field, (0.0, 0.0),
                                       self.conf.base.resolution, self.conf.z_scale,
-                                      block_px=side, pad_px=0, patch_px=self._patch_px)
+                                      block_px=side, pad_px=0, patch_px=self._patch_px,
+                                      chunk=256)
         return dem + craters[:dem.shape[0], :dem.shape[1]]
 
 

@@ -336,10 +336,14 @@ class TerrainStreamer:
         block borders, CraterDB.get_block_data_with_neighbors), filtered to
         craters fully inside the padded raster (``check_if_crater_is_in_
         block``, crater_generation.py:169-181), then split into radius
-        tiers. Returns ``[(field, patch_px), ...]`` with one unpadded
-        :class:`CraterField` of CPU tensors per tier that has craters (the
-        JAX package pads each to its capacity with masked entries, which
-        render as zeros)."""
+        tiers. Returns ``[(field, patch_px), ...]``: one :class:`CraterField`
+        of CPU tensors per tier of :attr:`_tier_specs`, padded to the tier's
+        capacity with masked slots after the live ones, as in the JAX
+        package, so that a tier's stamp always has the shape
+        ``(capacity, patch_px)``. A padded slot is zero but for its xy
+        factor, 1 as :func:`randomize_metadata` pads it (JAX pads 0: its
+        render divides by it, and ``torch.take`` refuses the NaN index that
+        follows, where ``jnp.take`` clamps)."""
         cc = self.conf.crater
         conf = self.conf
         coords, radius = [], []
@@ -380,8 +384,11 @@ class TerrainStreamer:
         out = []
         for i, (_r_hi, cap, patch_px) in enumerate(specs):
             sel = np.flatnonzero(tier == i)[:cap]
-            if sel.size:
-                out.append((CraterField(*(torch.from_numpy(f[sel]) for f in meta)), patch_px))
+            field = CraterField(*(np.zeros((cap,) + f.shape[1:], f.dtype) for f in meta))
+            field.xy_factor[:] = 1.0
+            for dst, src in zip(field, meta):
+                dst[:sel.shape[0]] = src[sel]
+            out.append((CraterField(*(torch.from_numpy(f) for f in field)), patch_px))
         return out
 
     # --- block building -----------------------------------------------------
@@ -471,10 +478,10 @@ class TerrainStreamer:
         if conf.generate_craters:
             origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
             for field, patch_px in self._block_fields(bx, by):
-                hr = hr + render_crater_block(
-                    self.profiles, field, origin, conf.resolution, conf.z_scale,
-                    conf.block_px, conf.pad_px, patch_px=patch_px, chunk=256,
-                    upload=self._upload)
+                if field.mask.any():  # one render and one stamp launch per tier
+                    hr = hr + render_crater_block(
+                        self.profiles, field, origin, conf.resolution, conf.z_scale,
+                        conf.block_px, conf.pad_px, patch_px=patch_px, upload=self._upload)
         hr = hr.contiguous()
         if len(self.block_cache) >= conf.max_cached_blocks:
             self.block_cache.pop(next(iter(self.block_cache)))

@@ -5,7 +5,8 @@ profiler's device events. This script runs many one-call sessions of a K1
 call (one kernel) and of a chain of eager operators (two kernels each), and
 prints the histogram of the counts a single session reads, then the counts
 ``device_kernels`` returns for the same calls (it reads sessions until the
-largest count has been read twice). Needs one CUDA card and builds K1:
+largest count has been read twice, or returns the largest of its
+sessions). Needs one CUDA card and builds K1:
 
     python3 scripts/torch_profiler_drops.py [--sessions 60]
 

@@ -141,3 +141,12 @@ def test_path_orientation_critic_equals_jax(rng, goal):
                                        jnp.asarray(traj))
     np.testing.assert_array_equal(_np(got), np.asarray(want))
     assert (_np(got) == 0.0).any() and (_np(got) > 0.0).any()
+
+
+@pytest.mark.parametrize("size", [32, 75])
+def test_costmap_size_matches_jax(rng, size):
+    """``Costmap.size`` is the cost grid's side, as JAX's property
+    (mppi/critics.py:50-52) gives it (exact: an int)."""
+    jcm, tcm = _world(rng, size=size)
+    assert type(tcm.size) is int
+    assert tcm.size == jcm.size == size

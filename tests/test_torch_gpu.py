@@ -11,7 +11,11 @@ against the CPU's; the simulation manager's ticks on the card against the
 CPU's, ``MPPIController.step`` and the one-rank sharded step bit-equal to
 ``mppi_step`` on the card; the last host libraries: the streamer's tile
 pool route on the card (no host sync, its bases equal to the CPU's) and a
-worldbuilders request on the card against the CPU.
+worldbuilders request on the card against the CPU; the CUDA graphs of the
+loops against their eager runs; the crater stamp kernel
+(csrc/crater_stamp.cu) bit-equal to its plain slice-add loop at the
+streamed tiers' shapes and in a streamed window, the SDG frame's two graphs
+against the eager labeler, and a graph's in-place argument.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -945,3 +949,127 @@ def test_graphed_capture_failure_raises_on_card(cuda):
     assert torch.equal(h(x + 1.0), (x + 1.0) * 2.0) and h.replays == 1
     with pytest.raises(ValueError, match="built for"):
         h(torch.ones(5, device=cuda))
+
+
+STAMP_TIERS = [(192, 208, 40), (256, 128, 120), (1600, 48, 1000)]
+
+
+@pytest.mark.parametrize("capacity,patch_px,live", STAMP_TIERS, ids=["208", "128", "48"])
+def test_crater_stamp_kernel_matches_plain_on_card(cuda, capacity, patch_px, live):
+    """The stamp kernel against its plain slice-add loop at the streamed
+    tiers' (capacity, patch) shapes, on a guarded 1800 + 2P raster that
+    already holds values: overlapping patches, masked slots between live
+    ones, placements on the raster's edges; bit-equal, one launch."""
+    from husky_rover_mppi_isaacsim_torch.ops.crater_stamp_cuda import crater_stamp_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain.craters import stamp_patches
+
+    g = torch.Generator(device=cuda).manual_seed(patch_px)
+    side = 1800 + 2 * patch_px
+    patches = torch.randn((capacity, patch_px, patch_px), generator=g, device=cuda)
+    hi = side - patch_px
+    row0 = torch.randint(0, hi + 1, (capacity,), generator=g, device=cuda, dtype=torch.int32)
+    col0 = torch.randint(0, hi + 1, (capacity,), generator=g, device=cuda, dtype=torch.int32)
+    row0[:4] = torch.tensor([0, hi, 0, hi], dtype=torch.int32, device=cuda)
+    col0[:4] = torch.tensor([0, 0, hi, hi], dtype=torch.int32, device=cuda)
+    row0[4:40] = row0[4]  # a pile of patches on one spot
+    col0[4:40] = col0[4]
+    mask = torch.rand((capacity,), generator=g, device=cuda) < live / capacity
+    mask[:8] = True
+    base = torch.randn((side, side), generator=g, device=cuda)
+    before = crater_stamp_cuda.launches
+    got = crater_stamp_cuda(base.clone(), patches, row0, col0, mask)
+    torch.cuda.synchronize()
+    assert crater_stamp_cuda.launches == before + 1
+    want = stamp_patches(base.clone(), patches, row0, col0, mask)
+    assert torch.equal(got, want) and not torch.equal(got, base)
+
+
+def test_streamed_blocks_on_the_stamp_kernel_equal_the_plain_loop_on_card(cuda):
+    """A small streamed window built with the stamp kernel and with its
+    plain slice-add loop in its place: the same window, bit for bit; the
+    kernel launches once per radius tier with craters, the loop never."""
+    import contextlib
+    from unittest import mock
+
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.ops import crater_stamp_cuda as stamp_module
+    from husky_rover_mppi_isaacsim_torch.terrain import streaming as tstream
+    from husky_rover_mppi_isaacsim_torch.terrain.craters import stamp_patches
+    from husky_rover_mppi_isaacsim_torch.terrain.map_manager import synthetic_lola_dem
+
+    conf = tstream.StreamerConf(block_size=10.0, resolution=0.025, lr_resolution=2.0,
+                                num_blocks=1, pad_size=2.0, seed=57, native_pool="never")
+    lr = synthetic_lola_dem(256, 2.0, seed=42)
+    windows, launches = [], []
+    for plain in (False, True):
+        stamp_module.crater_stamp_cuda.launches = 0
+        with (mock.patch.object(stamp_module, "crater_stamp_cuda", stamp_patches) if plain
+              else contextlib.nullcontext()):
+            s = tstream.TerrainStreamer(conf, lr, device=cuda)
+            s.update((5.0, 5.0))
+            s.update((16.0, 5.0))  # a shift: entering blocks stamped too
+        windows.append(s.window)
+        launches.append(stamp_module.crater_stamp_cuda.launches)
+    assert torch.equal(*windows) and launches[1] == 0
+    assert 0 < launches[0] <= len(s._tier_specs) * len(s.block_cache)
+    assert np.isfinite(windows[0].cpu().numpy()).all()
+
+
+@pytest.mark.parametrize("rendering", ["ray_tracing", "path_tracing"])
+def test_sdg_frame_graphs_equal_eager_on_card(cuda, tmp_path, rendering):
+    """Three SDG frames (the 500^2 yard, a different rock count each, the
+    camera with cast shadows) through the eager labeler and through the
+    graphed one (rocks padded to the conf's capacity): every modality
+    equal; the top-down and camera passes replayed as graphs from the
+    second frame on."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch import cli
+    from husky_rover_mppi_isaacsim_torch.aux import labeling as lab
+    from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
+    from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
+
+    settings = cli.render_settings_from_cfg(cli.compose([f"rendering={rendering}"]))
+    cap = lab.rock_capacity(0.08, 100.0)
+    labelers = {name: lab.AutonomousLabeling(
+        lab.LabelingConf(data_dir=str(tmp_path / name), save_instances=True), settings,
+        rock_capacity=c) for name, c in (("eager", None), ("graph", cap))}
+    gen = MoonyardGenerator(MoonyardConf(), device=cuda)
+    rng = np.random.default_rng(5)
+    counts = set()
+    for frame in range(3):
+        dem = gen.randomize()
+        xy, r = hardcore_poisson(rng, BoundingBox(0.0, 10.0, 0.0, 10.0), (0.08,), ((0.08, 0.4),))
+        counts.add(len(r))
+        sun = (0.3 * frame - 0.4, 0.4, 0.5)
+        outs = {}
+        for name, labeler in labelers.items():
+            top = labeler.record(dem, 0.02, sun_direction=sun, rock_xy=xy, rock_radius=r)
+            cam = labeler.record_camera(dem, 0.02, (0.0, 0.0), (3.0 + frame, 4.0), (0.6, 0.8),
+                                        float(dem[150, 200]), lab.CameraIntrinsics(160, 120),
+                                        sun_direction=sun, rock_xy=xy, rock_radius=r, steps=128,
+                                        cast_shadows=True, frame=frame)
+            outs[name] = top, cam
+        (te, ce), (tg, cg) = outs["eager"], outs["graph"]
+        assert te.keys() == tg.keys() and all(np.array_equal(te[k], tg[k]) for k in te)
+        assert ce.keys() == cg.keys() and all(torch.equal(ce[k], cg[k]) for k in ce)
+    graphed = labelers["graph"]
+    assert graphed.top_down_fn.replays == graphed.camera_fn.replays == 2 and len(counts) > 1
+
+
+def test_graphed_chunk_reads_its_window_in_place_on_card(cuda):
+    """A graph's in-place argument is read where it lies: a write into it
+    after the capture reaches the next replay with no copy (the graph holds
+    no buffer of it), and another tensor in its place raises."""
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+
+    g = Graphed(lambda w, s: (w * s).sum(), in_place_args=(0,))
+    w, s = torch.ones((64, 64), device=cuda), torch.full((), 2.0, device=cuda)
+    g(w, s)
+    g(w, s)  # the capture
+    w.add_(1.0)
+    assert float(g(w, s)) == 2.0 * 2.0 * 64 * 64 and g.replays == 2
+    assert all(b is None or b.data_ptr() != w.data_ptr() for b in g._static_in)
+    with pytest.raises(ValueError, match="in-place"):
+        g(w.clone(), s)

@@ -247,3 +247,81 @@ def test_pipelined_dispatch_waits_for_a_slow_terrain_worker(monkeypatch):
     assert any(started >= 0 for _, started, _ in seen)  # the worker kept pace
     assert loop.chunk_phase_acc["worker_wait_s"] > 0.0
     assert res.block_shifts == 1 and np.isfinite(res.path_world).all()
+
+
+def test_graphed_in_place_argument_is_read_where_it_lies():
+    """An in-place argument reaches the function as the caller's tensor
+    itself (never a copy), so a write into it between calls is what the
+    next call reads; a call with another tensor there, even an equal one,
+    raises ``ValueError``, while the other arguments may be new tensors."""
+    seen = []
+
+    def fn(window, scale):
+        seen.append(window)
+        return window.sum() * scale
+
+    window = torch.arange(12.0).reshape(3, 4)
+    step = Graphed(fn, in_place_args=(0,))
+    assert float(step(window, torch.tensor(1.0))) == 66.0
+    window.add_(1.0)  # a re-seat: the caller writes in place
+    assert float(step(window, torch.tensor(2.0))) == 2 * 78.0
+    assert all(w is window for w in seen)
+    with pytest.raises(ValueError, match="in-place"):
+        step(window.clone(), torch.tensor(1.0))
+    # an argument that is not in place may be any tensor of the signature
+    copying = Graphed(fn)
+    copying(window, torch.tensor(1.0))
+    assert float(copying(window.clone(), torch.tensor(1.0))) == 78.0
+
+
+@pytest.mark.parametrize("depth", [0, 2], ids=["sync", "pipelined"])
+def test_chunk_reads_the_seated_window_and_costmap_in_place(depth):
+    """Every chunk of a traverse across a block shift gets the loop's one
+    window leaf and one costmap leaf (the graph's in-place arguments),
+    holding exactly the live window and costmap of that chunk; the
+    synchronous loop hands the leaf back to the streamer, so that after the
+    shift the streamer's window is the leaf (one window lives)."""
+    import dataclasses
+
+    _, tconf = loop_confs(False)
+    conf = dataclasses.replace(tconf, pipeline_depth=depth, prestage_shifts=True)
+    loop = tls.LargeScaleClosedLoop(conf, device="cpu")
+    leaves = (loop._leaf_hf, loop._leaf_cm)
+    checked = []
+
+    def chunk_fn(conf_, hf, costmap, *rest):
+        checked.append(hf is leaves[0] and costmap is leaves[1]
+                       and torch.equal(hf.z, loop.hf.z)
+                       and all(torch.equal(a, b) for a, b in zip(costmap, loop.costmap)))
+        return tls.run_chunk(conf_, hf, costmap, *rest)
+
+    loop.chunk_fn = chunk_fn
+    res = loop.run(noise_source=jax_chunk_noise)
+    assert res.block_shifts >= 1 and checked and all(checked)
+    streamer = loop.lstm.map_manager.streamer
+    if depth == 0:
+        assert streamer.window is loop._leaf_hf.z
+    else:
+        assert torch.equal(streamer.window, loop._leaf_hf.z)
+    # the leaf-reading graph is the loop's default chunk function
+    assert tls.LargeScaleClosedLoop(conf, lstm=loop.lstm, device="cpu").chunk_fn.in_place_args \
+        == {1, 2}
+
+
+def test_pipelined_loop_counts_its_blocking_waits(monkeypatch):
+    """``worker_blocking_waits`` counts the dispatches that waited for the
+    terrain worker: none is counted by a worker that never holds the loop
+    up (its waits return at once), every one by a worker that always does."""
+    import dataclasses
+
+    _, tconf = loop_confs(False)
+    conf = dataclasses.replace(tconf, pipeline_depth=2, prestage_shifts=True)
+    counts = {}
+    for blocks in (False, True):
+        loop = tls.LargeScaleClosedLoop(conf, device="cpu")
+        monkeypatch.setattr(tls._TerrainWorker, "wait_for", lambda self, chunk: blocks)
+        loop.run(noise_source=jax_chunk_noise)
+        counts[blocks] = (loop.worker_blocking_waits,
+                          loop.dispatched_steps // conf.terrain_check_every)
+    assert counts[False][0] == 0
+    assert counts[True][0] == counts[True][1] > 0

@@ -271,3 +271,129 @@ def test_dem_to_mesh_grid_equals_jax():
                     jss.dem_to_mesh_grid(z, 0.1)):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+
+
+def _centred_rocks(capacity=32):
+    """The test's rocks plus one centred exactly on a raster cell at
+    (2.0, 3.0) m (the trap a zero-radius padded slot would hit: ``d2 <= 0``
+    is true under its centre), and the padded set of ``capacity`` slots."""
+    xy, r = _rocks()
+    xy = np.concatenate([xy, [[40 * RES, 60 * RES]]])
+    r = np.concatenate([r, [0.3]])
+    return xy, r, tlab.pad_rocks(xy, r, capacity)
+
+
+@pytest.mark.parametrize("origin", [(0.0, 0.0), (-3.2, 1.7)])
+def test_padded_rocks_leave_the_masks_equal(origin):
+    """Rocks padded to a capacity with masked zero slots (one at the
+    origin's cell) give the semantic and instance rasters of the unpadded
+    call, ids 1-based in the live order, and still JAX's; without the mask
+    a padded slot would claim the cell under it."""
+    xy, r, padded = _centred_rocks()
+    assert padded.xy.shape == (32, 2) and int(padded.valid.sum()) == len(r)
+    shape = (240, 180)
+    rows, cols = tlab._raster_axes(shape, RES, origin, None)
+    got = tlab._stamp_rocks(rows, cols, padded.xy, padded.radius, padded.valid)
+    want = tlab._stamp_rocks(rows, cols, xy, r)
+    assert torch.equal(got, want) and int(want.max()) == len(r)
+    for t_fn, j_fn in ((tlab.semantic_mask, jlab.semantic_mask),
+                       (tlab.instance_mask, jlab.instance_mask)):
+        got = t_fn(shape, RES, origin, padded.xy, padded.radius, valid=padded.valid)
+        assert torch.equal(got, t_fn(shape, RES, origin, xy, r))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(j_fn(shape, RES, origin, xy, r)))
+    if origin == (0.0, 0.0):  # a padded slot at (0, 0) sits on cell (0, 0)
+        unmasked = tlab._stamp_rocks(rows, cols, padded.xy, padded.radius)
+        assert int(unmasked[0, 0]) == 32 and int(want[0, 0]) == 0
+
+
+def test_padded_rocks_leave_the_camera_frame_equal():
+    """``_rock_intersections`` and ``render_camera_frame`` with padded,
+    masked rock slots are ``torch.equal`` to the unpadded calls (with and
+    without cast shadows, and with no live rock at all), and the frame
+    still matches JAX's as in ``test_render_camera_frame_matches_jax``."""
+    z = _dem()
+    cam_pos, cam_R = _pose(0)
+    xy, r, padded = _centred_rocks()
+    intr = tlab.CameraIntrinsics(width=64, height=48)
+    d_world = tlab._ray_directions(torch.tensor(cam_R, dtype=torch.float32), intr.fx, intr.fy,
+                                   intr.cx, intr.cy, 64, 48)
+    centers = torch.from_numpy(np.concatenate([padded.xy.numpy(), np.full((32, 1), 0.05)],
+                                              axis=1).astype(np.float32))
+    cam = torch.from_numpy(np.float32(cam_pos))
+    radii = padded.radius.float()
+    got = tlab._rock_intersections(cam, d_world, centers, radii, torch.tensor(40.0),
+                                   padded.valid)
+    want = tlab._rock_intersections(cam, d_world, centers[:len(r)], radii[:len(r)],
+                                    torch.tensor(40.0))
+    assert all(torch.equal(a, b) for a, b in zip(got, want)) and int(want[1].max()) > 0
+    for shadows in (False, True):
+        kw = dict(sun_direction=SUNS[1], steps=64, cast_shadows=shadows)
+        got = tlab.render_camera_frame(torch.from_numpy(z), RES, (0.0, 0.0), cam_pos, cam_R,
+                                       intr, rock_xy=padded.xy, rock_radius=padded.radius,
+                                       rock_valid=padded.valid, **kw)
+        want = tlab.render_camera_frame(torch.from_numpy(z), RES, (0.0, 0.0), cam_pos, cam_R,
+                                        intr, rock_xy=xy, rock_radius=r, **kw)
+        assert set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want)
+        jwant = {k: np.asarray(v) for k, v in jlab.render_camera_frame(
+            z, RES, (0.0, 0.0), cam_pos, cam_R, jlab.CameraIntrinsics(width=64, height=48),
+            rock_xy=xy, rock_radius=r, **kw).items()}
+        got = {k: v.numpy() for k, v in got.items()}
+        assert (got["hit"] == jwant["hit"]).mean() >= HIT_SHARE and (jwant["instance"] > 0).any()
+        _assert_depths(got["depth"], jwant["depth"], got["instance"], jwant["instance"])
+        _assert_rgb(got["rgb"], jwant["rgb"], got["instance"], jwant["instance"])
+    none = tlab.pad_rocks(None, None, 32)
+    got = tlab.render_camera_frame(torch.from_numpy(z), RES, (0.0, 0.0), cam_pos, cam_R, intr,
+                                   rock_xy=none.xy, rock_radius=none.radius,
+                                   rock_valid=none.valid, steps=64)
+    want = tlab.render_camera_frame(torch.from_numpy(z), RES, (0.0, 0.0), cam_pos, cam_R, intr,
+                                    steps=64)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_a_frame_over_the_rock_capacity_raises(tmp_path):
+    """A frame never drops rocks: more than the capacity raise, in
+    ``pad_rocks`` and in a recorder built with that capacity; the capacity
+    rule gives the SDG conf's 10 m yard at 0.08 rocks/m^2 32 slots."""
+    xy, r = _rocks(n=12)
+    assert tlab.pad_rocks(xy, r, 12).valid.all()
+    with pytest.raises(ValueError, match="capacity"):
+        tlab.pad_rocks(xy, r, 11)
+    assert tlab.rock_capacity(0.08, 100.0) == 32
+    labeler = tlab.AutonomousLabeling(tlab.LabelingConf(data_dir=str(tmp_path)),
+                                      rock_capacity=8)
+    with pytest.raises(ValueError, match="capacity"):
+        labeler.record(torch.from_numpy(_dem()), RES, rock_xy=xy, rock_radius=r)
+
+
+@pytest.mark.parametrize("fx", [False, True], ids=["ray_tracing", "path_tracing"])
+def test_recorder_with_a_rock_capacity_writes_what_the_eager_one_writes(tmp_path, fx):
+    """Two frames (different rock counts) through the recorder's passes
+    with padded rocks (the card's CUDA graphs; here the same functions
+    eagerly) and through the eager recorder: every array equal, under
+    render settings without and with post effects."""
+    from husky_rover_mppi_isaacsim_torch.aux import render_fx
+
+    settings = render_fx.RenderSettings()
+    for key in ("/rtx/post/chromaticAberration/enabled", "/rtx/post/lensFlares/enabled",
+                "/rtx/post/motionblur/enabled"):
+        settings.set(key, fx)
+    z = torch.from_numpy(_dem())
+    runs = {}
+    for name, capacity in (("eager", None), ("padded", 32)):
+        conf = tlab.LabelingConf(data_dir=str(tmp_path / name), save_instances=True,
+                                 save_normals=True)
+        labeler = tlab.AutonomousLabeling(conf, settings, rock_capacity=capacity)
+        for i, n in enumerate((12, 5)):
+            xy, r = _rocks(seed=i, n=n)
+            labeler.record(z, RES, sun_direction=SUNS[i], rock_xy=xy, rock_radius=r)
+            labeler.record_camera(z, RES, (0.0, 0.0), (3.0, 2.0), (1.0, 0.6), float(z[60, 40]),
+                                  intrinsics=tlab.CameraIntrinsics(width=32, height=24),
+                                  sun_direction=SUNS[i], rock_xy=xy, rock_radius=r, steps=48,
+                                  cast_shadows=True, frame=i)
+        runs[name] = labeler.run_dir
+    names = sorted(p.name for p in runs["eager"].iterdir())
+    assert sorted(p.name for p in runs["padded"].iterdir()) == names and len(names) > 10
+    for n in names:
+        if n.endswith(".npy"):
+            np.testing.assert_array_equal(np.load(runs["padded"] / n), np.load(runs["eager"] / n),
+                                          err_msg=n)

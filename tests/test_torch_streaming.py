@@ -102,7 +102,14 @@ def test_built_block_matches_jax(craters):
         tiers_t, tiers_j = ts._block_fields(0, 0), js._block_fields(0, 0)
         assert ts._tier_specs == js._tier_specs
         n_j = [int(np.asarray(f.mask).sum()) for f, _ in tiers_j]
-        assert [f.mask.shape[0] for f, _ in tiers_t] == [n for n in n_j if n]
+        # one tier each, padded to JAX's capacity, the live rows first
+        assert [(f.mask.shape[0], p) for f, p in tiers_t] == [
+            (f.mask.shape[0], p) for f, p in tiers_j] == [(c, p) for _, c, p in ts._tier_specs]
+        assert [int(f.mask.sum()) for f, _ in tiers_t] == n_j
+        for (ft, _), (fj, _), n in zip(tiers_t, tiers_j, n_j):
+            assert bool(ft.mask[:n].all()) and not bool(ft.mask[n:].any())
+            for a, b in zip(ft, fj):
+                np.testing.assert_array_equal(a.numpy()[:n], np.asarray(b)[:n])
         assert sum(n_j) > 20
 
 
