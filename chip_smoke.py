@@ -4,7 +4,8 @@
 
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu) and the port's own crater
-stamp (csrc/crater_stamp.cu) from the sources, one nvcc each, and the host
+block kernel (csrc/crater_block.cu, also once with -fmad=false for the check
+of its libdevice functions) from the sources, one nvcc each, and the host
 runtime (csrc/husky_native.cpp) with g++, all
 started together; holds each kernel against its plain PyTorch version on
 the card, bit for bit (K1 on every channel: the flagship shapes, the K=1
@@ -32,11 +33,13 @@ width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
 most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
 timed alone; runs K3's probe entry point; and drives the streamed-terrain
 full-stack loop (mode=largescale) at the LargeScaleConf defaults: builds the
-7000^2 window twice on the crater stamp kernel (bit-equal) and once on the
-stamp's plain slice-add loop (bit-equal to them), holds the stamp kernel
-against that loop on every radius tier of the world's first blocks (and the
-kernel-built block against the route before the kernel: live craters only,
-rendered 256 at a time), holds K1 on that window at two poses (the
+7000^2 window twice on the crater block kernel (bit-equal) and once on its
+plain version (every slot rendered as a patch, the live ones added by
+slice adds; bit-equal to them), holds the kernel against its plain version
+on every radius tier of the world's first blocks and on each whole block
+(timing the padded render it replaced beside it, and checking the
+kernel's atan2f, expf, cosf and sinf against torch's in both -fmad builds),
+holds K1 on that window at two poses (the
 second within one horizon of the window's edge after a block shift) and K2
 at the 875^2 costmap against their plain versions, checks that a shift
 leaves world heights where they were, steps one 12-step chunk on the card
@@ -55,9 +58,10 @@ the pool's 8 C++ threads, uploaded without a host sync, craters stamped on
 the card) against the device route, the pool's bases on the card against the
 CPU's, K1 on the pool-built window, and drives a synchronous traverse with
 the CLI's override terrain_streamer.native_pool=always, cut to POOL_STEPS;
-then the three traverses again on the route before this slice (the plain
-stamp loop, a chunk graph that copies the window at every replay), for the
-stall, worker wait and peak memory beside the new route's. The streamed
+and drives the pipelined traverse once more with JAX's pacing (no wait on
+the terrain worker), held to the criteria for removing the port's dispatch
+bound (reached, the bounded run's block shifts, at least its pre-stage hits,
+one costmap rebuild per shift) and reported beside the bounded run. The streamed
 chunk's graph reads the window and costmap in place (graph_chunk times it
 against a graph that copies them).
 K3 is timed
@@ -115,9 +119,9 @@ SYNC_STEPS, CKPT_EVERY = 3000, 3600
 # graph_chunk: chunks run eagerly and as a graph replay, in turns, on the
 # second 7000^2 world; a block shift seats a new window half-way
 GRAPH_CHUNKS = 12
-# crater_stamp: the 7000^2 world's first blocks whose radius tiers the
-# stamp kernel is held against its plain loop on
-STAMP_BLOCKS = 3
+# crater_block: the 7000^2 world's first blocks whose radius tiers the
+# crater block kernel is held against its plain version on
+CRATER_BLOCKS = 3
 BUILD = Path(__file__).resolve().parent / "build"
 CKPT = BUILD / "smoke_traverse.ckpt"
 DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
@@ -181,6 +185,15 @@ PEAK_FP32_INSTR_S = PEAK_FP32_S / 2
 # float32 operations of one K1 sample-step with wheel tracks, counted from
 # csrc/rollout.cu (divisions and square roots as one each): an upper bound
 K1_FLOPS_PER_STEP = 150
+# operations of the crater block kernel per (slot, pixel) pair inside a
+# crater's rotated square, counted from csrc/crater_block.cu with each
+# division, square root, atan2f and expf as one: the square tests 5, the
+# rotation 6, the rotated-square test 4, theta 3, three table lookups 13
+# each (clamp 2, scale, floor, convert, index min, two subtractions, two
+# loads, two products, a sum), the marks 2, m 6, the envelope 7 (two
+# tests, one branch), the marks' add 3, the height's division and
+# products 3, the accumulation 1
+CRATER_OPS_PER_PAIR = 79
 
 
 def bound(bytes_moved, ops, op_rate):
@@ -281,8 +294,8 @@ def main(argv=None) -> int:
         graph_ms,
         launch_calls,
     )
-    from husky_rover_mppi_isaacsim_torch.ops import crater_stamp_cuda as stamp_module
-    from husky_rover_mppi_isaacsim_torch.ops.crater_stamp_cuda import crater_stamp_cuda
+    from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as block_module
+    from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.shell import (
         SimulationManager,
@@ -318,18 +331,21 @@ def main(argv=None) -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1, K2, K3 and the crater stamp from the sources, one nvcc
-    #    each, and the host runtime (csrc/husky_native.cpp) with g++, all
-    #    started together
+    # 2. build K1, K2, K3 and the crater block kernel from the sources, one
+    #    nvcc each, the crater block's source once more with -fmad=false
+    #    (its libdevice functions are checked in both builds), and the host
+    #    runtime (csrc/husky_native.cpp) with g++, all started together
     t0 = time.perf_counter()
-    wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_stamp_cuda)
+    crater_libm_off = block_module.CudaCraterBlock(fmad=False)
+    wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_block_cuda,
+                crater_libm_off)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
         native_ok = host_build.result()
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
-                            "crater_stamp_f32"), builds):
+                            "crater_block_f32", "crater_block_f32 (-fmad=false)"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -422,150 +438,192 @@ def main(argv=None) -> int:
         return row
 
     @contextlib.contextmanager
-    def plain_stamp():
-        """The crater stamp's plain slice-add loop (terrain/craters.py::
-        stamp_patches) in place of its kernel, for the builds it is held
-        against."""
-        with mock.patch.object(stamp_module, "crater_stamp_cuda", tcr.stamp_patches):
+    def plain_block():
+        """The crater block's plain version (terrain/craters.py::
+        crater_block_plain: every slot rendered as a (P, P) patch, the live
+        ones added by the slice-add stamp) in place of its kernel, for the
+        builds it is held against."""
+        with mock.patch.object(block_module, "crater_block_cuda", tcr.crater_block_plain):
             yield
 
-    @contextlib.contextmanager
-    def route_before():
-        """The streamed loop's route before this slice: the plain stamp loop,
-        and a chunk graph that copies the window and costmap into its own
-        buffers at every replay (no in-place arguments, no seated leaves)."""
-        with plain_stamp(), \
-                mock.patch.object(tls, "Graphed", lambda fn, in_place_args=(): Graphed(fn)), \
-                mock.patch.object(tls.LargeScaleClosedLoop, "_seat_leaves",
-                                  lambda self: (self.hf, self.costmap)):
-            yield
+    def crater_work(field, row0, col0, res, patch_px, side, tables):
+        """A tier's work from this run's placements: the (slot, pixel) pairs
+        inside the live slots' squares (cut to their patch windows), the
+        raster pixels those squares cover (their union), and the bytes the
+        function must move: a read and a write of each covered pixel, each
+        live slot's nine columns and each table row a live slot uses."""
+        live = np.flatnonzero(field.mask.cpu().numpy())
+        half = block_module.half_px(field.radius.cpu().numpy()[live], res)
+        c = patch_px // 2
+        lo, hi = np.maximum(c - half, 0), np.minimum(c + half, patch_px - 1)
+        pairs = int(((hi - lo + 1) ** 2).sum())
+        r0, c0 = row0.cpu().numpy()[live] + lo, col0.cpu().numpy()[live] + lo
+        r1, c1 = row0.cpu().numpy()[live] + hi + 1, col0.cpu().numpy()[live] + hi + 1
+        diff = np.zeros((side + 1, side + 1), np.int32)  # 2-D difference array
+        for rr, cc, sign in ((r0, c0, 1), (r0, c1, -1), (r1, c0, -1), (r1, c1, 1)):
+            np.add.at(diff, (rr, cc), sign)
+        covered = int((diff.cumsum(0).cumsum(1) > 0).sum())
+        rows = sum(np.unique(ids.cpu().numpy()[live]).size
+                   for ids in (field.deformation_id, field.marks_id, field.profile_id))
+        moved = 8 * covered + 36 * live.size + rows * tables.shape[-1] * 4
+        return pairs, covered, moved
 
-    def stamp_bound(live_patch_px, covered_px):
-        """The stamp's least time: each live patch pixel read once, and each
-        raster pixel that a live patch covers read and written once (bytes
-        over the memory rate); its one add per live patch pixel is far
-        below the float32 rate."""
-        return bound(4 * live_patch_px + 8 * covered_px, live_patch_px, PEAK_FP32_INSTR_S)
-
-    def live_only_block(streamer, field, origin, patch_px):
-        """One tier of a block on the route before the stamp kernel: the
-        live craters alone, rendered 256 at a time, one slice add each."""
+    def crater_libm(streamer, field, patch_px):
+        """The kernel's four libdevice functions, in its -fmad=true build
+        and in a -fmad=false build of the same source, op by op against
+        torch.atan2 / exp / cos / sin on the arguments that rendering this
+        tier's live craters passes them (captured from _render_patches on
+        the card): elements that differ and the largest difference in
+        float32 ulps, per build and function."""
         conf = streamer.conf
         live = torch.nonzero(field.mask).flatten()
-        field = tcr.CraterField(*(f[live] for f in field))
-        row0, col0 = tcr.crater_placement(field, origin, conf.resolution, conf.block_px,
-                                          conf.pad_px, patch_px)
-        size_px, guard = conf.block_px + 2 * conf.pad_px, patch_px
-        buf = torch.zeros((size_px + 2 * guard,) * 2, device=cuda)
-        for s0 in range(0, live.numel(), 256):
-            sub = tcr.CraterField(*(f[s0:s0 + 256].to(cuda) for f in field))
-            patches = tcr._render_patches(streamer.profiles, sub, conf.resolution, conf.z_scale,
-                                          patch_px)
-            for i in range(patches.shape[0]):
-                r, c = int(row0[s0 + i]), int(col0[s0 + i])
-                buf[r:r + patch_px, c:c + patch_px] += patches[i]
-        dem = buf[guard:guard + size_px, guard:guard + size_px]
-        return dem[conf.pad_px:size_px - conf.pad_px, conf.pad_px:size_px - conf.pad_px]
+        sub = tcr.CraterField(*(f[live].to(cuda) for f in field))
+        args = {name: [] for name in ("atan2", "exp", "cos", "sin")}
 
-    def crater_stamp_phase(streamer, blocks=STAMP_BLOCKS):
-        """The crater stamp on the 7000^2 world's first ``blocks`` blocks, for
-        each radius tier: the kernel against its plain slice-add loop on the
-        same patches and placements (torch.equal), the kernel and one
-        index_add_ of every live patch pixel (the library's one call of the
-        same sum, in another order) timed one call at a time on a zeroed
-        raster out of L2, the loop timed; the bound counts the live patches'
-        bytes and a read and a write of the raster pixels they cover, from
-        this run's placements; then each block's craters on the
-        kernel route (render_crater_block, one render and one launch per
-        tier) against the route before it (live craters rendered 256 at a
-        time, one slice add each), torch.equal, both timed on the host
-        clock. Returns the kernel table's row."""
+        def recorder(name, fn):
+            def call(*a):
+                args[name].append(tuple(t.detach().clone() for t in a))
+                return fn(*a)
+            return call
+
+        with contextlib.ExitStack() as stack:
+            for name in args:
+                stack.enter_context(mock.patch.object(torch, name,
+                                                      recorder(name, getattr(torch, name))))
+            tcr._render_patches(streamer.profiles, sub, conf.resolution, conf.z_scale, patch_px)
+        out = {}
+        for label, wrapper in (("fmad_true", crater_block_cuda), ("fmad_false", crater_libm_off)):
+            row = {}
+            for name, calls in args.items():
+                diff, ulps, count = 0, 0, 0
+                for a in calls:
+                    a = tuple(t.contiguous().flatten() for t in a)
+                    got, want = wrapper.libm(name, *a), getattr(torch, name)(*a)
+                    bad = got != want
+                    diff += int(bad.sum())
+                    count += got.numel()
+                    if bad.any():
+                        gi, wi = got[bad].view(torch.int32), want[bad].view(torch.int32)
+                        ulps = max(ulps, int((gi.long() - wi.long()).abs().max()))
+                row[name] = {"values": count, "differ": diff, "max_ulps": ulps}
+            out[label] = row
+        return out
+
+    def crater_block_phase(streamer, blocks=CRATER_BLOCKS):
+        """The crater block kernel on the 7000^2 world's first ``blocks``
+        blocks, for each radius tier: the kernel against its plain version
+        (every slot rendered as a patch by _render_patches, the live ones
+        added by stamp_patches) on the same field and placements,
+        torch.equal; the kernel timed one launch at a time on a zeroed
+        raster out of L2 (cold_ms), the plain version and its padded
+        _render_patches alone (the render the kernel replaced) timed beside
+        it; the bound from this
+        run's placements (covered pixels, (slot, pixel) pairs). Then each
+        block's craters through render_crater_block on the kernel and on
+        the plain version, torch.equal, both timed on the host clock, with
+        the kernel route's launches and the device memory it allocated above
+        the raster (no (slots, P, P) patch tensor). The first block's tiers
+        also check the kernel's libdevice functions in both -fmad builds
+        (crater_libm). Returns the kernel table's row."""
         conf = streamer.conf
-        tiers, blocks_out, equal, max_err = [], [], True, 0.0
+        res, z_scale = conf.resolution, conf.z_scale
+        tiers, blocks_out, equal, max_err, libm = [], [], True, 0.0, {}
         for bx, by in list(streamer.block_cache)[:blocks]:
             origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
-            blk = {"block": [bx, by], "kernel_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bound_ms": 0.0, "launches": 0, "plain_launches": 0}
+            blk = {"block": [bx, by], "kernel_ms": 0.0, "plain_ms": 0.0, "render_ms": 0.0,
+                   "bound_ms": 0.0, "launches": 0, "pairs": 0, "covered_px": 0}
             fields = [(f, p) for f, p in streamer._block_fields(bx, by) if f.mask.any()]
             for field, patch_px in fields:
                 n = int(field.mask.sum())
-                sub = tcr.CraterField(*(f.to(cuda) for f in field))
-                patches = tcr._render_patches(streamer.profiles, sub, conf.resolution,
-                                              conf.z_scale, patch_px)
-                place = torch.from_numpy(np.stack(tcr.crater_placement(
-                    field, origin, conf.resolution, conf.block_px, conf.pad_px,
-                    patch_px))).to(cuda)
-                args = (patches, place[0], place[1], sub.mask)
                 side = conf.block_px + 2 * conf.pad_px + 2 * patch_px
-                got = crater_stamp_cuda(torch.zeros((side, side), device=cuda), *args)
-                want = tcr.stamp_patches(torch.zeros((side, side), device=cuda), *args)
+                row0, col0 = tcr.crater_placement(field, origin, res, conf.block_px,
+                                                  conf.pad_px, patch_px)
+                bins = block_module.TileBins(*(torch.from_numpy(a).to(cuda) for a in
+                                               block_module.tile_bins(
+                                                   row0, col0, field.radius.numpy(),
+                                                   field.mask.numpy(), res, patch_px, side)))
+                sub = tcr.CraterField(*(f.to(cuda) for f in field))
+                r0, c0 = torch.from_numpy(row0).to(cuda), torch.from_numpy(col0).to(cuda)
+                args = (streamer.profiles, sub, r0, c0, res, z_scale, patch_px)
+                got = crater_block_cuda(torch.zeros((side, side), device=cuda), *args,
+                                        bins=bins)
+                want = tcr.crater_block_plain(torch.zeros((side, side), device=cuda), *args)
                 torch.cuda.synchronize()
                 eq, err = torch.equal(got, want), (got - want).abs().max().item()
-                # timed on a zeroed raster with patches and raster out of
-                # L2, as a block build meets them; the replay of a graph of
-                # launches on one buffer (which stays in L2) beside it
+                if not blocks_out:  # the first block's tiers
+                    libm[patch_px] = crater_libm(streamer, field, patch_px)
                 buf = torch.zeros((side, side), device=cuda)
-                k_ms = cold_ms(lambda: crater_stamp_cuda.launch(buf, *args), reset=buf.zero_)
-                k_warm = graph_ms(lambda: crater_stamp_cuda.launch(buf, *args))
-                p_ms = cuda_ms(lambda: tcr.stamp_patches(buf, *args), reps=3)
-                live = torch.nonzero(sub.mask).flatten()
-                ar = torch.arange(patch_px, device=cuda)
-                idx = ((place[0][live].long()[:, None, None] + ar[None, :, None]) * side
-                       + place[1][live].long()[:, None, None] + ar[None, None, :]).flatten()
-                vals = patches[live].flatten()
-                lib = torch.zeros((side, side), device=cuda)
-                lib.view(-1).index_add_(0, idx, vals)
-                lib_err = (lib - got).abs().max().item()
-                l_ms = cold_ms(lambda: buf.view(-1).index_add_(0, idx, vals), reset=buf.zero_)
-                covered = torch.zeros(side * side, dtype=torch.bool, device=cuda)
-                covered[idx] = True
-                covered_px = int(covered.sum())
-                b_ms, b_by = stamp_bound(n * patch_px ** 2, covered_px)
+                k_ms = cold_ms(lambda: crater_block_cuda.launch(buf, *args, bins),
+                               reset=buf.zero_)
+                p_ms = cuda_ms(lambda: tcr.crater_block_plain(buf, *args), reps=3)
+                r_ms = cuda_ms(lambda: tcr._render_patches(streamer.profiles, sub, res, z_scale,
+                                                           patch_px), reps=3)
+                pairs, covered, moved = crater_work(field, r0, c0, res, patch_px, side,
+                                                    streamer.profiles.height)
+                b_ms, b_by = bound(moved, CRATER_OPS_PER_PAIR * pairs, PEAK_FP32_INSTR_S)
                 tiers.append({"block": [bx, by], "capacity": field.mask.shape[0],
                               "patch_px": patch_px, "live": n, "raster": [side, side],
-                              "covered_px": covered_px, "bit_equal": eq, "max_abs_err": err,
-                              "kernel_ms": k_ms, "kernel_l2_warm_graph_ms": k_warm,
-                              "plain_ms": p_ms, "library_index_add_ms": l_ms,
-                              "library_max_abs_diff": lib_err, "bound_ms": b_ms,
-                              "bound_by": b_by})
+                              "tiles": int(bins.tile_ids.numel()),
+                              "tile_entries": int(bins.slots.numel()), "pairs": pairs,
+                              "covered_px": covered, "bytes": moved, "bit_equal": eq,
+                              "max_abs_err": err, "kernel_ms": k_ms, "plain_ms": p_ms,
+                              "padded_render_ms": r_ms, "bound_ms": b_ms, "bound_by": b_by})
                 equal = equal and eq
                 max_err = max(max_err, err)
-                blk["kernel_ms"] += k_ms
-                blk["plain_ms"] += p_ms
-                blk["library_ms"] += l_ms
-                blk["bound_ms"] += b_ms
-                blk["launches"] += 1
-                blk["plain_launches"] += n
-            # the whole block's craters, both routes
+                for key, val in (("kernel_ms", k_ms), ("plain_ms", p_ms), ("render_ms", r_ms),
+                                 ("bound_ms", b_ms), ("pairs", pairs), ("covered_px", covered)):
+                    blk[key] += val
+                if b_ms >= max((t["bound_ms"] for t in tiers[:-1] if t["block"] == [bx, by]),
+                               default=0.0):
+                    blk["bound_by"] = b_by  # the tier with the largest bound
+            # the whole block's craters through render_crater_block, both ways
             times = {}
-            for route in ("before", "kernel"):
+            for route in ("kernel", "plain"):
                 torch.cuda.synchronize()
+                crater_block_cuda.launches = 0
+                torch.cuda.reset_peak_memory_stats()
+                held = torch.cuda.memory_allocated()
                 t0 = time.perf_counter()
                 out = torch.zeros((conf.block_px, conf.block_px), device=cuda)
-                for field, patch_px in fields:
-                    out = out + (live_only_block(streamer, field, origin, patch_px)
-                                 if route == "before" else tcr.render_crater_block(
-                        streamer.profiles, field, origin, conf.resolution, conf.z_scale,
-                        conf.block_px, conf.pad_px, patch_px=patch_px))
+                with plain_block() if route == "plain" else contextlib.nullcontext():
+                    for field, patch_px in fields:
+                        out = out + tcr.render_crater_block(
+                            streamer.profiles, field, origin, res, z_scale, conf.block_px,
+                            conf.pad_px, patch_px=patch_px)
                 torch.cuda.synchronize()
-                times[route] = (1e3 * (time.perf_counter() - t0), out)
-            blk["block_equal_route_before"] = torch.equal(times["kernel"][1], times["before"][1])
-            blk["block_ms_route_before"] = times["before"][0]
-            blk["block_ms_kernel_route"] = times["kernel"][0]
-            equal = equal and blk["block_equal_route_before"]
+                times[route] = (1e3 * (time.perf_counter() - t0), out,
+                                torch.cuda.max_memory_allocated() - held,
+                                crater_block_cuda.launches)
+            blk["block_equal_plain"] = torch.equal(times["kernel"][1], times["plain"][1])
+            blk["block_ms_kernel_route"], blk["block_ms_plain_route"] = (times["kernel"][0],
+                                                                         times["plain"][0])
+            blk["launches"] = times["kernel"][3]
+            blk["allocated_bytes_kernel_route"] = times["kernel"][2]
+            blk["allocated_bytes_plain_route"] = times["plain"][2]
+            # the largest guarded raster a tier allocates, against the
+            # smallest patch tensor a tier's render would
+            raster = max(4 * (conf.block_px + 2 * conf.pad_px + 2 * p) ** 2 for _, p in fields)
+            patches = min(4 * f.mask.shape[0] * p * p for f, p in fields)
+            blk["no_patch_tensor"] = times["kernel"][2] < raster + patches
+            equal = (equal and blk["block_equal_plain"] and blk["no_patch_tensor"]
+                     and blk["launches"] == len(fields) and times["plain"][3] == 0)
             blocks_out.append(blk)
-        ok = equal and bool(tiers) and all(b["launches"] >= 1 for b in blocks_out)
-        phase("crater_stamp", tiers=tiers, blocks=blocks_out, ok=ok)
+        libm_ok = all(r["differ"] == 0 for t in libm.values() for r in t["fmad_true"].values())
+        ok = equal and bool(tiers) and libm_ok
+        phase("crater_libm", per_tier_patch_px=libm, ok=libm_ok)
+        phase("crater_block", tiers=tiers, blocks=blocks_out, ops_per_pair=CRATER_OPS_PER_PAIR,
+              ok=ok)
         if not ok:
-            raise RuntimeError("the crater stamp kernel disagrees with its plain loop, or a "
-                               "kernel-built block with the route before it")
+            raise RuntimeError("the crater block kernel disagrees with its plain version, a "
+                               "libdevice function with torch's, or a block launched other "
+                               "than once per tier or allocated a patch tensor")
         first = blocks_out[0]
         return {"ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
-                "bound_ms": first["bound_ms"], "bound_by": "bytes",
-                "library_ms": first["library_ms"], "max_abs_err": max_err,
+                "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
+                "library_ms": None, "max_abs_err": max_err,
+                "padded_render_ms": first["render_ms"],
                 "per": "block (its radius tiers' launches)", "block": first["block"],
-                "launches_per_block": first["launches"],
-                "plain_launches_per_block": first["plain_launches"]}
+                "launches_per_block": first["launches"]}
 
     def largescale_timed():
         """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
@@ -575,20 +633,21 @@ def main(argv=None) -> int:
         on the first world, K1's and K2's rows and each path's launch
         counts ``{path: (K1, K2)}``."""
         # 11. the world, built three times from the same seeds: on the
-        #     crater stamp kernel, on its plain slice-add loop, on the kernel
+        #     crater block kernel, on its plain version (render + slice-add
+        #     stamp), on the kernel
         conf = largescale_conf({})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         worlds, seconds, stamps = [], [], []
         for route in ("kernel", "plain", "kernel"):
-            crater_stamp_cuda.launches = 0
+            crater_block_cuda.launches = 0
             t0 = time.perf_counter()
-            with plain_stamp() if route == "plain" else contextlib.nullcontext():
+            with plain_block() if route == "plain" else contextlib.nullcontext():
                 lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
                 lstm.build()
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
-            stamps.append(crater_stamp_cuda.launches)
+            stamps.append(crater_block_cuda.launches)
             worlds.append(lstm)
         lstm, plain_world, again = worlds
         streamer = lstm.map_manager.streamer
@@ -602,18 +661,18 @@ def main(argv=None) -> int:
               crater_blocks=len(streamer.crater_blocks), craters=craters,
               rocks=int(lstm.extract_rocks_data().shape[0]), routes=["kernel", "plain", "kernel"],
               seconds=seconds, seconds_kernel=[seconds[0], seconds[2]],
-              seconds_plain_stamp=seconds[1], crater_stamp_launches=stamps,
+              seconds_plain_block=seconds[1], crater_block_launches=stamps,
               build_phases_s=[w.build_phase_acc for w in worlds], second_build_bit_equal=equal,
-              plain_stamp_build_bit_equal=plain_equal,
+              plain_block_build_bit_equal=plain_equal,
               finite=bool(torch.isfinite(window).all()), z_min=window.min().item(),
               z_max=window.max().item(),
               peak_memory_bytes_three_worlds=torch.cuda.max_memory_allocated())
         if (not equal or not plain_equal or tuple(window.shape) != (7000, 7000)
                 or stamps[1] != 0 or not stamps[0] == stamps[2] > 0):
             raise RuntimeError("two builds of the streamed world differ, the kernel's and the "
-                               "plain stamp's differ, the stamp kernel did not run, or the "
-                               "window is not 7000 x 7000")
-        stamp_row = crater_stamp_phase(streamer)
+                               "plain version's differ, the crater block kernel did not run, "
+                               "or the window is not 7000 x 7000")
+        stamp_row = crater_block_phase(streamer)
         del worlds, plain_world
         graph_chunk(conf, again)
         del again
@@ -673,6 +732,8 @@ def main(argv=None) -> int:
         largescale_resume(dataclasses.replace(conf, pipeline_depth=0, verify_prestage=True),
                           sync_s1, counts)
         pipe_stamp, sync_s0_stamp = pipe["stamp"], sync_s0["stamp"]
+        pipe_res, pipe_waits = pipe["run"].result, pipe["loop"].worker_blocking_waits
+        pipe_res_wait = pipe["loop"].chunk_phase_acc["worker_wait_s"]
         rate = pipe["loop"].measure_device_rate(chunks=20)
         res = pipe["run"].result
         phase("largescale_device_rate", chunks=20, steps_per_chunk=conf.terrain_check_every,
@@ -683,11 +744,28 @@ def main(argv=None) -> int:
         del pipe, sync_s0
         largescale_deform(conf, counts)
 
-        #     the pipelined traverse on the route before the stamp kernel
-        #     (the plain stamp loop, a chunk graph that copies the window
-        #     every replay)
-        with route_before():
-            run_traverse("largescale_pipelined_route_before", {})
+        #     the pipelined traverse again with JAX's pacing: pipeline_depth
+        #     chunks in flight and no wait on the terrain worker (the port's
+        #     dispatch bound off), for the bound's removal criteria
+        with mock.patch.object(tls._TerrainWorker, "wait_for", lambda self, chunk: False):
+            unbounded = run_traverse("largescale_pipelined_unbounded", {})
+        criteria = {
+            "reached": unbounded["run"].result.reached,
+            "block_shifts": [pipe_res.block_shifts, unbounded["run"].result.block_shifts],
+            "prestage_hits": [pipe_res.prestage_hits, unbounded["run"].result.prestage_hits],
+            "costmap_rebuilds_equal_block_shifts": (unbounded["run"].result.costmap_rebuilds
+                                                    == unbounded["run"].result.block_shifts)}
+        criteria["met"] = (criteria["reached"] and criteria["costmap_rebuilds_equal_block_shifts"]
+                           and criteria["block_shifts"][1] == criteria["block_shifts"][0]
+                           and criteria["prestage_hits"][1] >= criteria["prestage_hits"][0])
+        phase("dispatch_bound", bounded="largescale_pipelined",
+              unbounded="largescale_pipelined_unbounded", removal_criteria=criteria,
+              worker_wait_s=[pipe_res_wait, unbounded["loop"].chunk_phase_acc["worker_wait_s"]],
+              worker_blocking_waits=[pipe_waits, unbounded["loop"].worker_blocking_waits],
+              ok=True)
+        counts["largescale_pipelined_unbounded"] = (unbounded["k1"], unbounded["k2"])
+        unbounded_stamp = unbounded["stamp"]
+        del unbounded
 
         #     the tile pool route: the window built on the pool and on the
         #     card, then a synchronous traverse with the CLI's streamer
@@ -700,6 +778,7 @@ def main(argv=None) -> int:
         counts["largescale_native_pool"] = (pooled["k1"], pooled["k2"])
         stamp_counts = {"world_build": stamps[0], "largescale_prestage_verify": sync_s1["stamp"],
                         "largescale_pipelined": pipe_stamp, "largescale": sync_s0_stamp,
+                        "largescale_pipelined_unbounded": unbounded_stamp,
                         "largescale_native_pool": pooled["stamp"]}
         del pooled
         return loop0, k1_row, k2_row, counts, stamp_row, stamp_counts
@@ -878,11 +957,11 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by the earlier phases' objects
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-        gp.gather_probe_cuda.launches = crater_stamp_cuda.launches = 0
+        gp.gather_probe_cuda.launches = crater_block_cuda.launches = 0
         run = largescale_episode(tree, conf=conf)
         torch.cuda.synchronize()
         k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
-        stamp = crater_stamp_cuda.launches
+        stamp = crater_block_cuda.launches
         peak = torch.cuda.max_memory_allocated() - held
         report, res, loop = largescale_report(run), run.result, run.loop
         on_cost, max_cost = path_on_cost(loop, res)
@@ -898,7 +977,7 @@ def main(argv=None) -> int:
         fields = dict(
             K=K, H=H, window=list(loop.hf.z.shape), costmap=list(loop.costmap.cost.shape),
             dispatched_steps=loop.dispatched_steps, k1_launches=k1, k1_expected=k1_expected,
-            k2_launches=k2, k2_expected=k2_expected, crater_stamp_launches=stamp,
+            k2_launches=k2, k2_expected=k2_expected, crater_block_launches=stamp,
             worker_blocking_waits=loop.worker_blocking_waits, costmap_builds=builds,
             staged_windows_swapped=streamer.staged_shift_hits,
             staged_windows_verified=streamer.staged_shift_verified,
@@ -919,19 +998,21 @@ def main(argv=None) -> int:
             native_pool=streamer.conf.native_pool, pool_jobs=pool.jobs if pool else 0,
             pool_collect_all_s=pool.collect_s if pool else 0.0,
             costmap_first_path_points=[entry[0] for entry in loop.costmap_log])
-        before = name.endswith("_route_before")  # the plain stamp loop: no kernel launch
-        ok = (k1 == k1_expected and k2 == k2_expected and on_cost == 0 and seated_equal
-              and (stamp == 0 if before else stamp > 0)
+        ok = (k1 == k1_expected and k2 == k2_expected and seated_equal and stamp > 0
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
-        if name == "largescale":  # without pre-staging, cut
+        if name == "largescale_pipelined_unbounded":
+            pass  # an experiment: its reach, shifts, hits and path are reported, not required
+        elif name == "largescale":  # without pre-staging, cut
             ok = ok and res.steps == SYNC_STEPS and res.block_shifts >= 1
         elif name == "largescale_native_pool":  # the tile pool route, cut
             ok = (ok and res.steps == POOL_STEPS and res.block_shifts >= 1 and pool is not None
                   and pool.jobs >= len(streamer.block_cache))
         else:
             ok = ok and res.reached and res.block_shifts >= 2 and res.prestage_hits >= 1
+        if name != "largescale_pipelined_unbounded":
+            ok = ok and on_cost == 0
         phase(name, **report, **fields, ok=ok)
         if not ok:
             raise RuntimeError(f"{name}: the traverse is wrong (reached, shifts, pre-stage "
@@ -1224,11 +1305,11 @@ def main(argv=None) -> int:
         def zero_counts():
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-            gp.gather_probe_cuda.launches = crater_stamp_cuda.launches = 0
+            gp.gather_probe_cuda.launches = crater_block_cuda.launches = 0
 
         def counts():
             return {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
-                    "k3": gp.gather_probe_cuda.launches, "stamp": crater_stamp_cuda.launches}
+                    "k3": gp.gather_probe_cuda.launches, "stamp": crater_block_cuda.launches}
 
         sdg_shapes = {"rgb": (500, 500, 3), "depth": (500, 500), "semantic": (500, 500),
                       "cam_depth": (480, 640), "cam_rgb": (480, 640), "cam_semantic": (480, 640),
@@ -2308,8 +2389,6 @@ def main(argv=None) -> int:
     #    arm's samples and both arms' optimal rollouts, K2 for the costmap;
     #    each arm replays its graph of 4 masked steps (the 2D arm's eager
     #    rollout_2d inside it). Every run's trace is kept for graph_evaluation
-    from unittest import mock
-
     eval_logs = {"graph": [], "eager": []}
     run_episode_fn = evaluation._run_episode
 
@@ -2531,12 +2610,13 @@ def main(argv=None) -> int:
         "replaces": "scripts/probe_pallas_gather.py:21",
         "launches": k3_launches, "max_abs_err": k3_err, **k3_row,
     }, {
-        "name": "crater_stamp", "route": "cuda",
-        "source": "husky_rover_mppi_isaacsim_torch/csrc/crater_stamp.cu",
+        "name": "crater_block", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/crater_block.cu",
         "replaces": None,
-        "replaces_note": ("the port's own kernel for the scan of husky_rover_mppi_isaacsim_tpu/"
-                          "terrain/craters.py:269-294 (render_crater_block's lax.scan of "
-                          "dynamic_update_slice adds); no Pallas kernel there"),
+        "replaces_note": ("the port's own kernel for the one jitted program of "
+                          "husky_rover_mppi_isaacsim_tpu/terrain/craters.py:227-296 "
+                          "(render_crater_block: a lax.scan that renders each chunk's patches "
+                          "and scans dynamic_update_slice adds); no Pallas kernel there"),
         "launches": stamp_counts["largescale_pipelined"], **stamp_row,
         "launches_by_path": {**stamp_counts,
                              **{f"sdg_{r}": c["stamp"] for r, c in sdg_counts.items()},

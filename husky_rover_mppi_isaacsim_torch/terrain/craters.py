@@ -9,16 +9,18 @@ The profile tables and the metadata are drawn on the host with numpy and
 scipy in the JAX package's draw order, so one seed gives both packages the
 same craters.
 
-:func:`render_crater_block` renders every slot of a (capacity-padded)
-field as a fixed-size patch (plain torch on the tables' device) and stamps
-the live ones into the raster in slot order: on the card in one launch of
-the crater stamp kernel (``ops/crater_stamp_cuda.py``), the counterpart of
-the JAX package's one-program scan; on the CPU through its plain version,
-:func:`stamp_patches`, one in-place slice add per live slot. Either way
-each pixel sums the same values in the same order, so two builds of one
-DEM are bit-equal on the card too; a scatter with
-``index_put_(accumulate=True)`` would add with float atomics in no fixed
-order. Placement is computed on the host from the metadata.
+:func:`render_crater_block` adds every live crater of a (capacity-padded)
+field into a guarded block raster in slot order, through the crater block
+wrapper (``ops/crater_block_cuda.py``): on the card one launch of the
+crater block kernel, the counterpart of the JAX package's one-program scan,
+which computes each covered pixel's height in registers (no patch tensor);
+on the CPU its plain version, :func:`crater_block_plain`: every slot
+rendered as a fixed-size patch (:func:`_render_patches`), the live ones
+added by :func:`stamp_patches`, one in-place slice add each. Either way each
+pixel sums the same values in the same order, so two builds of one DEM are
+bit-equal on the card too; a scatter with ``index_put_(accumulate=True)``
+would add with float atomics in no fixed order. Placement and the tile
+lists are computed on the host from the metadata.
 """
 
 from __future__ import annotations
@@ -207,14 +209,38 @@ def stamp_patches(buf: Tensor, patches: Tensor, row0: Tensor, col0: Tensor,
     """The plain crater stamp: for every slot ``s`` with ``mask[s]``, in slot
     order, one in-place slice add ``buf[row0[s]:, col0[s]:][:P, :P] +=
     patches[s]``; masked slots are skipped. Placements must put every live
-    patch inside ``buf``. Returns ``buf``. The CPU's route, and the
-    reference the stamp kernel is held against on the card."""
+    patch inside ``buf``. Returns ``buf``. The stamp of
+    :func:`crater_block_plain`."""
     p = patches.shape[-1]
     rows, cols = row0.tolist(), col0.tolist()
     for i in torch.nonzero(mask.cpu()).flatten().tolist():
         r, c = rows[i], cols[i]
         buf[r:r + p, c:c + p] += patches[i]
     return buf
+
+
+def crater_block_plain(buf: Tensor, profiles: CraterProfiles, field: CraterField, row0: Tensor,
+                       col0: Tensor, resolution: float, z_scale: float, patch_px: int,
+                       bins=None, chunk: int | None = None) -> Tensor:
+    """The plain crater block, the route the crater block kernel is held
+    against: every slot of ``field`` rendered as a ``(patch_px, patch_px)``
+    patch by :func:`_render_patches` (``chunk`` slots per call; all of them
+    in one call by default; an all-masked chunk is not rendered) and the
+    live ones added into ``buf`` by :func:`stamp_patches` in slot order, in
+    place. ``bins`` (the kernel's tile lists) is not used. Returns ``buf``."""
+    slots = field.mask.shape[0]
+    step = slots if chunk is None else chunk
+    if step >= slots:
+        patches = _render_patches(profiles, field, resolution, z_scale, patch_px)
+    else:  # slots of an all-masked chunk are never stamped: left unrendered
+        mask = field.mask.cpu()
+        patches = torch.empty((slots, patch_px, patch_px), dtype=torch.float32, device=buf.device)
+        for s in range(0, slots, step):
+            if mask[s:s + step].any():
+                part = CraterField(*(f[s:s + step] for f in field))
+                patches[s:s + step] = _render_patches(profiles, part, resolution, z_scale,
+                                                      patch_px)
+    return stamp_patches(buf, patches, row0, col0, field.mask)
 
 
 def crater_placement(field: CraterField, block_origin, resolution: float, block_px: int,
@@ -246,44 +272,43 @@ def render_crater_block(
     float32 block raster on the tables' device (CraterBuilder.
     generate_craters, crater_generation.py:182-221); row = x, col = y.
 
-    Every slot of the field renders as a patch, ``chunk`` slots per
-    :func:`_render_patches` call (all of them in one call by default), and
-    the live slots are stamped in one call of the crater stamp: one kernel
-    launch on the card, :func:`stamp_patches` on the CPU. A field with no
-    live slot renders nothing. Placement truncates like the reference
-    (:169-176) and is computed on the host in float32, then handed to the
-    stamp as int32 tensors on the device. The raster carries a patch-sized
-    guard band, so a patch that overhangs the padded block is cut off, not
-    moved; a crater whose patch leaves the guard band too is clamped into
-    it, as in the JAX package. Masked slots render as zeros and are not
-    stamped. ``upload`` moves the (host) field and the placements to the
-    tables' device (default: ``Tensor.to``; the streamer passes its pinned
+    The live slots are added into a zeroed guarded raster in slot order by
+    one call of the crater block wrapper: on the card one kernel launch,
+    which allocates no patch tensor; on the CPU :func:`crater_block_plain`,
+    which renders ``chunk`` slots per :func:`_render_patches` call (all of
+    them in one call by default). A field with no live slot renders
+    nothing. Placement truncates like the reference (:169-176) and is
+    computed on the host in float32, the live slots are binned by raster
+    tile on the host too (``ops.crater_block_cuda.tile_bins``, which the
+    kernel reads and the CPU route ignores), and both go to the device as
+    int32 tensors. The raster carries a
+    patch-sized guard band, so a patch that overhangs the padded block is
+    cut off, not moved; a crater whose patch leaves the guard band too is
+    clamped into it, as in the JAX package. ``upload`` moves the (host)
+    field, the placements and the tile lists to the tables' device
+    (default: ``Tensor.to``; the streamer passes its pinned
     :class:`..core.device.HostUploader`)."""
-    from ..ops.crater_stamp_cuda import crater_stamp_cuda
+    from ..ops.crater_block_cuda import TileBins, crater_block_cuda, tile_bins
 
     dev = profiles.height.device
     if upload is None:
         upload = lambda t: t.to(dev)  # noqa: E731
     size_px = block_px + 2 * pad_px
     guard = patch_px
+    side = size_px + 2 * guard
     row0, col0 = crater_placement(field, block_origin, resolution, block_px, pad_px, patch_px)
-    buf = torch.zeros((size_px + 2 * guard,) * 2, dtype=torch.float32, device=dev)
+    buf = torch.zeros((side, side), dtype=torch.float32, device=dev)
     mask = field.mask.cpu()
     if mask.any():
-        slots = mask.shape[0]
         sub = CraterField(*(upload(f) for f in field))
-        step = slots if chunk is None else chunk
-        if step >= slots:
-            patches = _render_patches(profiles, sub, resolution, z_scale, patch_px)
-        else:  # slots of an all-masked chunk are never stamped: left unrendered
-            patches = torch.empty((slots, patch_px, patch_px), dtype=torch.float32, device=dev)
-            for s in range(0, slots, step):
-                if mask[s:s + step].any():
-                    part = CraterField(*(f[s:s + step] for f in sub))
-                    patches[s:s + step] = _render_patches(profiles, part, resolution, z_scale,
-                                                          patch_px)
-        place = upload(torch.from_numpy(np.stack([row0, col0])))
-        crater_stamp_cuda(buf, patches, place[0], place[1], sub.mask)
+        bins = tile_bins(row0, col0, field.radius.cpu().numpy(), mask.numpy(), resolution,
+                         patch_px, side)
+        # the placements and the tile lists in one upload
+        ints = [row0, col0, *bins]
+        flat = upload(torch.from_numpy(np.concatenate(ints).astype(np.int32)))
+        parts = torch.split(flat, [a.shape[0] for a in ints])
+        crater_block_cuda(buf, profiles, sub, parts[0], parts[1], resolution, z_scale, patch_px,
+                          bins=TileBins(*parts[2:]), chunk=chunk)
     dem = buf[guard:guard + size_px, guard:guard + size_px]
     return dem[pad_px:size_px - pad_px, pad_px:size_px - pad_px]
 

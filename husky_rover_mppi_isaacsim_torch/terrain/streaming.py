@@ -478,7 +478,7 @@ class TerrainStreamer:
         if conf.generate_craters:
             origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
             for field, patch_px in self._block_fields(bx, by):
-                if field.mask.any():  # one render and one stamp launch per tier
+                if field.mask.any():  # one crater block launch per tier on the card
                     hr = hr + render_crater_block(
                         self.profiles, field, origin, conf.resolution, conf.z_scale,
                         conf.block_px, conf.pad_px, patch_px=patch_px, upload=self._upload)

@@ -1,8 +1,9 @@
-"""PyTorch port: the crater stamp on the CPU (its plain version, which the
-card's stamp kernel is held bit-equal to by ``chip_smoke.py`` and
-``tests/test_torch_gpu.py``) and the capacity-padded radius tiers that feed
-it, against the JAX package and against the port's earlier route (live
-craters only, patches rendered 256 at a time, one slice add each).
+"""PyTorch port: the crater stamp on the CPU (``stamp_patches``, the stamp
+of the crater block's plain version, which the card's crater block kernel
+is held bit-equal to by ``chip_smoke.py`` and ``tests/test_torch_gpu.py``)
+and the capacity-padded radius tiers that feed it, against the JAX package
+and against the port's earlier route (live craters only, patches rendered
+256 at a time, one slice add each).
 
 Tolerances: the stamp of a padded tier is ``torch.equal`` to the live-only
 loop (the same float32 adds in the same order; one intra-op thread, so that
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
-from husky_rover_mppi_isaacsim_torch.ops.crater_stamp_cuda import crater_stamp_cuda
+from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
 from husky_rover_mppi_isaacsim_torch.terrain import map_manager as tmap
 from husky_rover_mppi_isaacsim_torch.terrain import streaming as tstream
@@ -65,7 +66,8 @@ def _live_only_loop(profiles, field, origin, resolution, z_scale, block_px, pad_
                           (48, (0.4, 1.1), 300, 512)], ids=["208", "128", "48"])
 def test_padded_tier_stamp_equals_the_live_only_loop_and_jax(patch_px, r_range, n, capacity):
     """A tier padded to its capacity, masked slots last, rendered in one
-    call and stamped in one call of the stamp (the CPU's plain version):
+    call and stamped in one call of the crater block wrapper (the CPU's
+    plain version: render, then stamp):
     ``torch.equal`` to the live-only loop, and JAX's block renderer on the
     same padded field within ``CRATER_ATOL``; some craters overhang the
     block and its pad."""
@@ -79,9 +81,9 @@ def test_padded_tier_stamp_equals_the_live_only_loop_and_jax(patch_px, r_range, 
     field = convert.crater_field_from_numpy(*(np.asarray(a) for a in jfield))
     assert int(field.mask.sum()) == n and not bool(field.mask[n:].any())
     origin = (0.5, -0.25)
-    before = crater_stamp_cuda.launches
+    before = crater_block_cuda.launches
     got = tcr.render_crater_block(prof, field, origin, res, 1.1, block_px, pad_px, patch_px)
-    assert crater_stamp_cuda.launches == before  # the CPU runs the plain version
+    assert crater_block_cuda.launches == before  # the CPU runs the plain version
     want = _live_only_loop(prof, field, origin, res, 1.1, block_px, pad_px, patch_px)
     assert got.shape == want.shape == (block_px, block_px) and got.abs().max() > 0.1
     assert torch.equal(got, want)
@@ -96,10 +98,10 @@ def test_padded_tier_stamp_equals_the_live_only_loop_and_jax(patch_px, r_range, 
 
 
 def test_stamp_adds_live_slots_in_slot_order():
-    """The plain stamp, through the wrapper on the CPU: overlapping patches
-    summed in slot order (float32 rounding shows the order), masked slots
-    skipped, placements at the raster's edges; the wrapper refuses what the
-    kernel does not take."""
+    """The plain stamp: overlapping patches summed in slot order (float32
+    rounding shows the order), masked slots skipped, placements at the
+    raster's edges; the crater block wrapper, whose plain version stamps
+    through it, refuses what the kernel does not take."""
     rng = np.random.default_rng(3)
     p, slots = 6, 9
     patches = torch.from_numpy(rng.normal(0.0, 1.0, (slots, p, p)).astype(np.float32))
@@ -108,7 +110,7 @@ def test_stamp_adds_live_slots_in_slot_order():
     col0 = torch.tensor([0, 2, 1, 10, 10, 3, 0, 4, 2], dtype=torch.int32)
     mask = torch.tensor([1, 1, 1, 1, 1, 0, 1, 1, 0], dtype=torch.bool)
     buf = torch.zeros((16, 16), dtype=torch.float32)
-    assert crater_stamp_cuda(buf, patches, row0, col0, mask) is buf
+    assert tcr.stamp_patches(buf, patches, row0, col0, mask) is buf
     want = np.zeros((16, 16), np.float32)
     for s in range(slots):
         if mask[s]:
@@ -117,12 +119,15 @@ def test_stamp_adds_live_slots_in_slot_order():
     np.testing.assert_array_equal(buf.numpy(), want)
     # slot 5 is masked: where only it would land, nothing did
     assert float(buf[8, 8]) == float(patches[7, 4, 4])
+    prof = tcr.build_profiles(4, seed=1)
+    field = tcr.randomize_metadata(np.random.default_rng(1), rng.uniform(0, 1, (slots, 2)),
+                                   rng.uniform(0.1, 0.2, slots), 4, slots)
     with pytest.raises(TypeError, match="int32"):
-        crater_stamp_cuda(buf, patches, row0.long(), col0, mask)
+        crater_block_cuda(buf, prof, field, row0.long(), col0, 0.05, 1.0, p)
     with pytest.raises(TypeError, match="float32"):
-        crater_stamp_cuda(buf.double(), patches, row0, col0, mask)
+        crater_block_cuda(buf.double(), prof, field, row0, col0, 0.05, 1.0, p)
     with pytest.raises(ValueError, match="slots"):
-        crater_stamp_cuda(buf, patches, row0[:4], col0, mask)
+        crater_block_cuda(buf, prof, field, row0[:4], col0, 0.05, 1.0, p)
 
 
 def test_tier_specs_at_the_largescale_defaults():

@@ -12,9 +12,11 @@ CPU's, ``MPPIController.step`` and the one-rank sharded step bit-equal to
 ``mppi_step`` on the card; the last host libraries: the streamer's tile
 pool route on the card (no host sync, its bases equal to the CPU's) and a
 worldbuilders request on the card against the CPU; the CUDA graphs of the
-loops against their eager runs; the crater stamp kernel
-(csrc/crater_stamp.cu) bit-equal to its plain slice-add loop at the
-streamed tiers' shapes and in a streamed window, the SDG frame's two graphs
+loops against their eager runs; the crater block kernel
+(csrc/crater_block.cu) bit-equal to its plain version (render, then the
+slice-add stamp) at the streamed tiers' shapes, for overlapping craters,
+in a streamed window and on an SDG yard field, its libdevice functions
+against torch's, and its wrapper's refusals; the SDG frame's two graphs
 against the eager labeler, and a graph's in-place argument.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
@@ -22,6 +24,8 @@ imports no jax, so it also runs where jax is not installed:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+
+import contextlib
 
 import pytest
 import torch
@@ -954,48 +958,160 @@ def test_graphed_capture_failure_raises_on_card(cuda):
 STAMP_TIERS = [(192, 208, 40), (256, 128, 120), (1600, 48, 1000)]
 
 
+def _crater_tier(device, capacity, patch_px, live, seed, side):
+    """A radius tier at a streamed tier's (capacity, patch) shape: radii of
+    its range at 0.025 m/px, random placements inside a ``side``-pixel
+    raster (the first four on its corners, 36 piled on one spot), masked
+    slots between live ones; tables of 100 profiles."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
+
+    rng = np.random.default_rng(seed)
+    r_hi = (patch_px - 4) / 2 * 0.025
+    field = tcr.randomize_metadata(rng, rng.uniform(0, 1, (capacity, 2)),
+                                   rng.uniform(r_hi / 2, r_hi, capacity), 100, capacity)
+    mask = rng.random(capacity) < live / capacity
+    mask[:8] = True
+    field = field._replace(mask=torch.from_numpy(mask))
+    hi = side - patch_px
+    row0 = rng.integers(0, hi + 1, capacity).astype(np.int32)
+    col0 = rng.integers(0, hi + 1, capacity).astype(np.int32)
+    row0[:4], col0[:4] = [0, hi, 0, hi], [0, 0, hi, hi]
+    row0[4:40], col0[4:40] = row0[4], col0[4]
+    prof = tcr.build_profiles(100, seed=seed, device=device)
+    return (prof, type(field)(*(f.to(device) for f in field)),
+            torch.from_numpy(row0).to(device), torch.from_numpy(col0).to(device))
+
+
 @pytest.mark.parametrize("capacity,patch_px,live", STAMP_TIERS, ids=["208", "128", "48"])
 def test_crater_stamp_kernel_matches_plain_on_card(cuda, capacity, patch_px, live):
-    """The stamp kernel against its plain slice-add loop at the streamed
-    tiers' (capacity, patch) shapes, on a guarded 1800 + 2P raster that
-    already holds values: overlapping patches, masked slots between live
-    ones, placements on the raster's edges; bit-equal, one launch."""
-    from husky_rover_mppi_isaacsim_torch.ops.crater_stamp_cuda import crater_stamp_cuda
-    from husky_rover_mppi_isaacsim_torch.terrain.craters import stamp_patches
+    """The crater block kernel against its plain version (every slot
+    rendered as a patch, the live ones added by the slice-add stamp) at the
+    streamed tiers' (capacity, patch) shapes, on a guarded 1800 + 2P raster
+    that already holds values: overlapping craters, masked slots between
+    live ones, placements on the raster's edges; bit-equal, one launch, no
+    patch tensor allocated."""
+    from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain.craters import crater_block_plain
 
-    g = torch.Generator(device=cuda).manual_seed(patch_px)
     side = 1800 + 2 * patch_px
-    patches = torch.randn((capacity, patch_px, patch_px), generator=g, device=cuda)
-    hi = side - patch_px
-    row0 = torch.randint(0, hi + 1, (capacity,), generator=g, device=cuda, dtype=torch.int32)
-    col0 = torch.randint(0, hi + 1, (capacity,), generator=g, device=cuda, dtype=torch.int32)
-    row0[:4] = torch.tensor([0, hi, 0, hi], dtype=torch.int32, device=cuda)
-    col0[:4] = torch.tensor([0, 0, hi, hi], dtype=torch.int32, device=cuda)
-    row0[4:40] = row0[4]  # a pile of patches on one spot
-    col0[4:40] = col0[4]
-    mask = torch.rand((capacity,), generator=g, device=cuda) < live / capacity
-    mask[:8] = True
-    base = torch.randn((side, side), generator=g, device=cuda)
-    before = crater_stamp_cuda.launches
-    got = crater_stamp_cuda(base.clone(), patches, row0, col0, mask)
+    prof, field, row0, col0 = _crater_tier(cuda, capacity, patch_px, live, patch_px, side)
+    base = torch.randn((side, side), generator=torch.Generator(device=cuda).manual_seed(1),
+                       device=cuda)
+    got = base.clone()
     torch.cuda.synchronize()
-    assert crater_stamp_cuda.launches == before + 1
-    want = stamp_patches(base.clone(), patches, row0, col0, mask)
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    before = crater_block_cuda.launches
+    crater_block_cuda(got, prof, field, row0, col0, 0.025, 1.0, patch_px)
+    torch.cuda.synchronize()
+    assert crater_block_cuda.launches == before + 1
+    assert torch.cuda.max_memory_allocated() - held < capacity * patch_px * patch_px * 4 // 4
+    want = crater_block_plain(base.clone(), prof, field, row0, col0, 0.025, 1.0, patch_px)
     assert torch.equal(got, want) and not torch.equal(got, base)
 
 
+def test_crater_block_overlapping_craters_on_card(cuda):
+    """Thirty large craters of the 208^2 tier on nearly one spot, with the
+    z scale and the resolution of the thesis terrain: every pixel sums up to
+    30 heights, in slot order, bit-equal to the plain version."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain.craters import crater_block_plain
+
+    prof, field, row0, col0 = _crater_tier(cuda, 64, 208, 64, 3, 600)
+    rng = np.random.default_rng(5)
+    row0 = torch.from_numpy(rng.integers(190, 200, 64).astype(np.int32)).to(cuda)
+    col0 = torch.from_numpy(rng.integers(190, 200, 64).astype(np.int32)).to(cuda)
+    base = torch.zeros((600, 600), device=cuda)
+    got = crater_block_cuda(base.clone(), prof, field, row0, col0, 0.1, 1.3, 208)
+    want = crater_block_plain(base.clone(), prof, field, row0, col0, 0.1, 1.3, 208)
+    assert torch.equal(got, want) and float(got.abs().max()) > 0.1
+
+
+def test_crater_block_libm_matches_torch_on_card(cuda):
+    """The kernel's atan2f, expf, cosf and sinf (its -fmad=true build) give
+    torch's bits on the arguments a crater render produces: atan2 over
+    rotated pixel offsets, exp over the envelope's -0.5 d^2, cos and sin
+    over whole-degree rotations."""
+    import math
+
+    from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    ang = torch.arange(360, dtype=torch.float32, device=cuda) * 0.017453292519943295
+    off = torch.arange(-104, 104, dtype=torch.float32, device=cuda)
+    ca, sa = torch.cos(ang)[:, None, None], torch.sin(ang)[:, None, None]
+    ur = (ca * off[None, :, None] + sa * off[None, None, :]).flatten()
+    vr = ((-sa) * off[None, :, None] + ca * off[None, None, :]).flatten()
+    d = torch.rand((1 << 20,), generator=g, device=cuda) * 40.0
+    e = -0.5 * (d * d)
+    assert torch.equal(crater_block_cuda.libm("atan2", ur, vr), torch.atan2(ur, vr))
+    assert torch.equal(crater_block_cuda.libm("exp", e), torch.exp(e))
+    assert torch.equal(crater_block_cuda.libm("cos", ang), torch.cos(ang))
+    assert torch.equal(crater_block_cuda.libm("sin", ang), torch.sin(ang))
+    assert math.isfinite(float(ur.abs().max()))
+
+
+def test_crater_block_wrapper_raises_on_card(cuda):
+    """On the card the wrapper launches or raises: a float64 raster, a
+    raster that is not square or not contiguous, int64 placements, tile
+    lists of another dtype and columns on the CPU are refused."""
+    from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import TileBins, crater_block_cuda
+
+    prof, field, row0, col0 = _crater_tier(cuda, 64, 48, 32, 7, 200)
+    buf = torch.zeros((200, 200), device=cuda)
+    args = (0.025, 1.0, 48)
+    with pytest.raises(TypeError, match="float32"):
+        crater_block_cuda(buf.double(), prof, field, row0, col0, *args)
+    with pytest.raises(ValueError, match="square"):
+        crater_block_cuda(buf[:, :150], prof, field, row0, col0, *args)
+    with pytest.raises(ValueError, match="contiguous"):
+        crater_block_cuda(buf.t(), prof, field, row0, col0, *args)
+    with pytest.raises(TypeError, match="int32"):
+        crater_block_cuda(buf, prof, field, row0.long(), col0, *args)
+    with pytest.raises(ValueError, match="devices"):
+        crater_block_cuda(buf, prof, type(field)(*(f.cpu() for f in field)), row0, col0, *args)
+    bad = TileBins(*(torch.zeros(n, dtype=torch.int64, device=cuda) for n in (1, 2, 1)))
+    with pytest.raises(ValueError, match="int32"):
+        crater_block_cuda(buf, prof, field, row0, col0, *args, bins=bad)
+    assert not bool(buf.any())
+
+
+def test_crater_block_sdg_field_on_card(cuda):
+    """The SDG yard's crater field (cfg/mode/sdg.yaml's 500^2 moonyard at
+    0.02 m/px, its whole field in one launch) through ``MoonyardGenerator``
+    against the same generator on the plain version: the same DEM."""
+    from unittest import mock
+
+    from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as block_module
+    from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
+    from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
+
+    dems, launches = [], []
+    for plain in (False, True):
+        block_module.crater_block_cuda.launches = 0
+        with (mock.patch.object(block_module, "crater_block_cuda", tcr.crater_block_plain)
+              if plain else contextlib.nullcontext()):
+            dems.append(MoonyardGenerator(MoonyardConf(), device=cuda).randomize())
+        launches.append(block_module.crater_block_cuda.launches)
+    assert torch.equal(*dems) and launches == [1, 0]
+
+
 def test_streamed_blocks_on_the_stamp_kernel_equal_the_plain_loop_on_card(cuda):
-    """A small streamed window built with the stamp kernel and with its
-    plain slice-add loop in its place: the same window, bit for bit; the
-    kernel launches once per radius tier with craters, the loop never."""
-    import contextlib
+    """A small streamed window built with the crater block kernel and with
+    its plain version (render, then the slice-add stamp) in its place: the
+    same window, bit for bit; the kernel launches once per radius tier with
+    craters, the plain version never."""
     from unittest import mock
 
     import numpy as np
 
-    from husky_rover_mppi_isaacsim_torch.ops import crater_stamp_cuda as stamp_module
+    from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as block_module
+    from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
     from husky_rover_mppi_isaacsim_torch.terrain import streaming as tstream
-    from husky_rover_mppi_isaacsim_torch.terrain.craters import stamp_patches
     from husky_rover_mppi_isaacsim_torch.terrain.map_manager import synthetic_lola_dem
 
     conf = tstream.StreamerConf(block_size=10.0, resolution=0.025, lr_resolution=2.0,
@@ -1003,14 +1119,14 @@ def test_streamed_blocks_on_the_stamp_kernel_equal_the_plain_loop_on_card(cuda):
     lr = synthetic_lola_dem(256, 2.0, seed=42)
     windows, launches = [], []
     for plain in (False, True):
-        stamp_module.crater_stamp_cuda.launches = 0
-        with (mock.patch.object(stamp_module, "crater_stamp_cuda", stamp_patches) if plain
-              else contextlib.nullcontext()):
+        block_module.crater_block_cuda.launches = 0
+        with (mock.patch.object(block_module, "crater_block_cuda", tcr.crater_block_plain)
+              if plain else contextlib.nullcontext()):
             s = tstream.TerrainStreamer(conf, lr, device=cuda)
             s.update((5.0, 5.0))
-            s.update((16.0, 5.0))  # a shift: entering blocks stamped too
+            s.update((16.0, 5.0))  # a shift: entering blocks rendered too
         windows.append(s.window)
-        launches.append(stamp_module.crater_stamp_cuda.launches)
+        launches.append(block_module.crater_block_cuda.launches)
     assert torch.equal(*windows) and launches[1] == 0
     assert 0 < launches[0] <= len(s._tier_specs) * len(s.block_cache)
     assert np.isfinite(windows[0].cpu().numpy()).all()

@@ -76,8 +76,10 @@ SLICE_8 = ("env.robot_manager", "shell", "shell.pubsub", "shell.rate", "shell.mo
 SLICE_9 = ("native", "worldbuilders", "worldbuilders.types", "worldbuilders.samplers",
            "worldbuilders.layers", "worldbuilders.clippers", "worldbuilders.mixer",
            "compat", "compat.numpy_oracle", "compat.warp_oracle")
-# the loops' CUDA graphs and the crater stamp kernel's wrapper
-SLICE_11 = ("core.graphs", "ops.crater_stamp_cuda")
+# the loops' CUDA graphs
+SLICE_11 = ("core.graphs",)
+# the crater block kernel's wrapper
+SLICE_12 = ("ops.crater_block_cuda",)
 
 
 def test_package_imports_without_jax():
@@ -87,7 +89,7 @@ def test_package_imports_without_jax():
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
                for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8 + SLICE_9
-               + SLICE_11), names
+               + SLICE_11 + SLICE_12), names
 
 
 def test_chip_smoke_imports_neither_jax_nor_yaml():
