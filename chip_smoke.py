@@ -3,12 +3,17 @@
     python3 chip_smoke.py
 
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
-(csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu) and the port's own crater
+(csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu), the port's own crater
 block kernel (csrc/crater_block.cu, also once with -fmad=false for the check
-of its libdevice functions) from the sources, one nvcc each, and the host
-runtime (csrc/husky_native.cpp) with g++, all
+of its libdevice functions) and its planar rollout kernel
+(csrc/rollout_2d.cu, the 2D arm's sample rollout) from the sources, one
+nvcc each, and the host runtime (csrc/husky_native.cpp) with g++, all
 started together; holds each kernel against its plain PyTorch version on
-the card, bit for bit (K1 on every channel: the flagship shapes, the K=1
+the card, bit for bit (the planar rollout kernel on both outputs at K=1000,
+500 and 350 x H=100 on the thesis DEM and on the crater DEM, a ragged K=33
+x H=37 shape, a start off the DEM, N=4 rovers in one launch against
+one-rover launches, and its cosf / sinf against torch's on the run's
+arguments; K1 on every channel: the flagship shapes, the K=1
 optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
 rovers in one launch against one-rover launches; K1's branch-free division
 and square root against `/` and sqrtf on 2^36 operand pairs and every
@@ -29,9 +34,14 @@ MPPIController's run on the flagship (its step bit-equal to mppi_step), and
 the sharded step on torch.distributed ranks in their own processes (one
 NCCL rank bit-equal to mppi_step, two gloo ranks sharing the card, the
 rover x sample meshes, the scaling sweep's report); runs the thesis 2D-vs-3D evaluation protocol at full
-width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, at
-most EVAL_MAX_LOOPS loops), with the eager 2D rollout that bounds its 2D arm
-timed alone; runs K3's probe entry point; and drives the streamed-terrain
+width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, the
+protocol's 3500-loop cap), graphed and eager, with the plain 2D rollout
+timed alone and the 2D arm's graph timed on the planar rollout kernel
+against the same graph on the plain rollout it replaced; runs the thesis
+drivers (mppi/thesis_runs.py: the r04 table with its wheel-critic
+ablation, the r05 calibration and full run, the episode experiment) at 6
+runs per arm, one K and one terrain scale under the full loop cap; runs
+K3's probe entry point; and drives the streamed-terrain
 full-stack loop (mode=largescale) at the LargeScaleConf defaults: builds the
 7000^2 window twice on the crater block kernel (bit-equal) and once on its
 plain version (every slot rendered as a patch, the live ones added by
@@ -105,10 +115,15 @@ from unittest import mock
 K, H, DT = 1000, 100, 0.045
 START, GOAL, HEADING = (-45.0, -40.0), (45.0, 40.0), (1.0, 0.5, 0.0)
 REPS = 7
-# Control-loop cap of each evaluation run, below the protocol's 3500: the 2D
-# arm's eager rollout_2d is host-bound, ~140 ms per loop at K=1000 x H=100
-# on an H100 80GB HBM3 at 700 W, so 700 loops keep the phase near 100 s.
-EVAL_MAX_LOOPS = 700
+# Control-loop cap of each evaluation run: the protocol's own. With the 2D
+# arm's sample rollout one launch of the planar rollout kernel, both arms'
+# graphs take well under a millisecond a loop.
+EVAL_MAX_LOOPS = 3500
+# the thesis drivers' phase: runs per arm (the protocol refuses 5 or fewer),
+# its one terrain scale (the one EVAL_R05_CALIB.json picked) and its 2D
+# arm's before/after timing: control loops graphed on the kernel and on the
+# plain rollout_2d
+DRIVER_RUNS, DRIVER_Z_SCALE, ARM_2D_LOOPS = 6, 0.7, 200
 ROVERS, SIM_STEPS = 4, 300          # the CLI's closed-loop defaults
 # The streamed traverses. The synchronous one without pre-staging is cut
 # to SYNC_STEPS sim steps (past its first block shift); the prestage-verify
@@ -185,6 +200,13 @@ PEAK_FP32_INSTR_S = PEAK_FP32_S / 2
 # float32 operations of one K1 sample-step with wheel tracks, counted from
 # csrc/rollout.cu (divisions and square roots as one each): an upper bound
 K1_FLOPS_PER_STEP = 150
+# float32 instructions of one planar rollout sample-step, counted from
+# csrc/rollout_2d.cu with each division, square root, cosf, sinf and trunc
+# as one: the velocity products 2, update_position 12, the rotation with
+# its cosf and sinf 8, its norm 4, the guard and its divisions 3, the cell
+# index 7, the fractions 6, the bilinear weights and sum 13 (the integer
+# index arithmetic not counted)
+ROLLOUT_2D_OPS_PER_STEP = 55
 # operations of the crater block kernel per (slot, pixel) pair inside a
 # crater's rotated square, counted from csrc/crater_block.cu with each
 # division, square root, atan2f and expf as one: the square tests 5, the
@@ -264,6 +286,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
     from husky_rover_mppi_isaacsim_torch.mppi import (
         ControllerState,
+        CriticWeights,
         MPPIConfig,
         MPPIController,
         RobotState,
@@ -296,7 +319,10 @@ def main(argv=None) -> int:
     )
     from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as block_module
     from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
+    from husky_rover_mppi_isaacsim_torch.ops import rollout_2d_cuda as r2_module
+    from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
+    from husky_rover_mppi_isaacsim_torch.mppi import thesis_runs
     from husky_rover_mppi_isaacsim_torch.shell import (
         SimulationManager,
         SimulationManagerConf,
@@ -304,6 +330,7 @@ def main(argv=None) -> int:
     )
     from husky_rover_mppi_isaacsim_torch.terrain import (
         STANDALONE_CRATER_BUMPS,
+        as_costmap,
         costmap_750,
         crater_surface,
         generate_obstacles,
@@ -331,21 +358,23 @@ def main(argv=None) -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1, K2, K3 and the crater block kernel from the sources, one
-    #    nvcc each, the crater block's source once more with -fmad=false
-    #    (its libdevice functions are checked in both builds), and the host
-    #    runtime (csrc/husky_native.cpp) with g++, all started together
+    # 2. build K1, K2, K3, the crater block kernel and the planar rollout
+    #    kernel from the sources, one nvcc each, the crater block's source
+    #    once more with -fmad=false (its libdevice functions are checked in
+    #    both builds), and the host runtime (csrc/husky_native.cpp) with
+    #    g++, all started together
     t0 = time.perf_counter()
     crater_libm_off = block_module.CudaCraterBlock(fmad=False)
     wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_block_cuda,
-                crater_libm_off)
+                crater_libm_off, rollout_2d_cuda)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
         native_ok = host_build.result()
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
-                            "crater_block_f32", "crater_block_f32 (-fmad=false)"), builds):
+                            "crater_block_f32", "crater_block_f32 (-fmad=false)",
+                            "rollout2d_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -1737,6 +1766,114 @@ def main(argv=None) -> int:
     phase("rollout_2d_plain", K=K, H=H,
           ms=cuda_ms(lambda: rollout_2d(hf, pos, heading, lin, ang, DT)))
 
+    # 3b. the planar rollout kernel against the plain rollout_2d on the
+    #     card, both outputs bit for bit: the 2D arm's K values x H=100 on
+    #     the thesis DEM and on the crater DEM, a ragged shape, a start off
+    #     the DEM, and N=4 rovers in one launch against one-rover launches.
+    #     Timed as a CUDA-graph replay of 20 launches. Its cosf and sinf
+    #     against torch's on the arguments the plain version passes them
+    #     here and in one real 2D control step on the thesis world
+    thesis_hf = HeightField.create(thesis_statistics_terrain(device=cuda), 75.0)
+    thetas = []
+
+    cos_fn = torch.cos
+
+    def recorded_plain(*args):
+        """The plain rollout_2d, the angles it takes cos and sin of (one
+        tensor a step, w * dt) kept."""
+        def cos(t):
+            thetas.append(t.clone())
+            return cos_fn(t)
+
+        with mock.patch.object(torch, "cos", cos):
+            return rollout_2d(*args)
+
+    def r2_bound(hf_, got, start, n, k, h):
+        """Velocities in, both outputs out, 4 B per DEM cell read (the
+        corners of every step's cell), the poses; the instructions of
+        ROLLOUT_2D_OPS_PER_STEP per sample-step."""
+        rows, cols = hf_.z.shape
+        xy = got[0][..., :2].reshape(-1, 2)
+        i, j = corner_cell(hf_, xy[:, 0], xy[:, 1])
+        cells = torch.unique(torch.cat([wrap_clamp(j + dj, rows) * cols + wrap_clamp(i + di, cols)
+                                        for di, dj in ((0, 0), (1, 0), (0, 1), (1, 1))]))
+        moved = (2 + 6) * n * k * h * 4 + 4 * int(cells.numel()) + 4 * n * 5
+        return bound(moved, ROLLOUT_2D_OPS_PER_STEP * n * k * h, PEAK_FP32_INSTR_S)
+
+    r2_rows, r2_err, r2_row = [], 0.0, {}
+    r2_cases = [(dem, k, h, start) for dem in ("thesis_1500", "crater_1500")
+                for k, h, start in ((1000, 100, START), (500, 100, START), (350, 100, START))]
+    r2_cases += [("thesis_1500", 33, 37, START), ("thesis_1500", K, H, (-78.0, 77.0))]
+    for dem, k, h, start in r2_cases:
+        hf_ = thesis_hf if dem == "thesis_1500" else hf
+        p = torch.tensor(start, device=cuda)
+        lin = torch.rand((k, h), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((k, h), generator=gen, device=cuda) * 2.0 - 1.0
+        got = rollout_2d_cuda(hf_, p, heading, lin, ang, DT)
+        want = recorded_plain(hf_, p[None], heading[None], lin, ang, DT)
+        torch.cuda.synchronize()
+        equal = [torch.equal(a, b) for a, b in zip(got, want)]
+        err = [(a - b).abs().max().item() for a, b in zip(got, want)]
+        out = torch.empty((2, k, h, 3), device=cuda)
+        t_graph = graph_ms(lambda: rollout_2d_cuda.launch(hf_, p, heading, lin, ang, out, DT))
+        t_plain = cuda_ms(lambda: rollout_2d(hf_, p[None], heading[None], lin, ang, DT), reps=3)
+        bound_ms, bound_by = r2_bound(hf_, got, p, 1, k, h)
+        row = {"dem": dem, "K": k, "H": h, "start": list(start),
+               "bit_equal": equal, "max_abs_err": err, "ms": t_graph, "plain_ms": t_plain,
+               "bound_ms": bound_ms, "bound_by": bound_by}
+        phase("rollout_2d_vs_plain", **row, ok=all(equal))
+        if not all(equal):
+            raise RuntimeError(f"the planar rollout kernel disagrees with rollout_2d: {row}")
+        r2_err = max([r2_err] + err)
+        r2_rows.append(row)
+        if (dem, k, h, start) == ("thesis_1500", K, H, START):
+            r2_row = {k_: row[k_] for k_ in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    #     N=4 rovers in one launch against four one-rover launches and the
+    #     plain batched rollout
+    for k, h in ((K, H), (33, 37)):
+        lin = torch.rand((ROVERS, k, h), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((ROVERS, k, h), generator=gen, device=cuda) * 2.0 - 1.0
+        got = rollout_2d_cuda(thesis_hf, pos_n, head_n, lin, ang, DT)
+        ones = [rollout_2d_cuda(thesis_hf, pos_n[n], head_n[n], lin[n], ang[n], DT)
+                for n in range(ROVERS)]
+        want = recorded_plain(thesis_hf, pos_n[:, None], head_n[:, None], lin, ang, DT)
+        torch.cuda.synchronize()
+        one_equal = all(torch.equal(a[n], b) for n, one in enumerate(ones)
+                        for a, b in zip(got, one))
+        plain_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+        out = torch.empty((2, ROVERS, k, h, 3), device=cuda)
+        t_batched = graph_ms(lambda: rollout_2d_cuda.launch(thesis_hf, pos_n, head_n, lin, ang,
+                                                             out, DT))
+        ok = one_equal and plain_equal
+        phase("rollout_2d_batched", N=ROVERS, K=k, H=h, bit_equal_to_one_rover=one_equal,
+              bit_equal_to_plain=plain_equal, ms=t_batched, ok=ok)
+        if not ok:
+            raise RuntimeError(f"the planar rollout kernel's rover axis is wrong at K={k}")
+
+    #     one real 2D control step on the thesis world (its sample rollout
+    #     on the plain version), for the angles a control step passes
+    cfg2d_step = MPPIConfig(num_samples=K, horizon=H, projection="2d")
+    thesis_cm_small = as_costmap(torch.zeros((150, 150)), 75.0, device=cuda)
+    with mock.patch.object(r2_module.CudaRollout2d, "__call__",
+                           lambda self, hf_, p, h_, lin, ang, dt: recorded_plain(
+                               hf_, p[..., None, :], h_[..., None, :], lin, ang, dt)):
+        mppi_step(cfg2d_step, thesis_hf, thesis_cm_small, torch.tensor(GOAL, device=cuda),
+                  RobotState.create(-60.0, 10.0, HEADING, device=cuda, wheel_speed=1.0),
+                  ControllerState.create(cfg2d_step, device=cuda, initial_u=1.0),
+                  torch.randn((2, K, H), generator=gen, device=cuda))
+    theta = torch.cat([t.flatten() for t in thetas]).contiguous()
+    libm = {}
+    for name in ("cos", "sin"):
+        got, want = rollout_2d_cuda.libm(name, theta), getattr(torch, name)(theta)
+        libm[name] = {"values": theta.numel(), "differ": int((got != want).sum())}
+    libm_ok = all(v["differ"] == 0 for v in libm.values())
+    phase("rollout_2d_libm", build="-fmad=false", theta_min=theta.min().item(),
+          theta_max=theta.max().item(), **libm, ok=libm_ok)
+    if not libm_ok:
+        raise RuntimeError("the planar rollout kernel's cosf / sinf differ from torch's")
+    del thetas, theta
+
     # 4. K2 against its plain version on the card, bit for bit: the
     #    standalone and thesis occupancies, random maps whose sides are not
     #    multiples of K2's 64 x 64 tile (875 columns: rows not 16-byte
@@ -2386,9 +2523,10 @@ def main(argv=None) -> int:
     del dems
 
     # 9. the thesis 2D-vs-3D evaluation protocol at full width: K1 for the 3D
-    #    arm's samples and both arms' optimal rollouts, K2 for the costmap;
-    #    each arm replays its graph of 4 masked steps (the 2D arm's eager
-    #    rollout_2d inside it). Every run's trace is kept for graph_evaluation
+    #    arm's samples and both arms' optimal rollouts, the planar rollout
+    #    kernel for the 2D arm's samples, K2 for the costmap; each arm
+    #    replays its graph of 4 masked steps. Every run's trace is kept for
+    #    graph_evaluation
     eval_logs = {"graph": [], "eager": []}
     run_episode_fn = evaluation._run_episode
 
@@ -2400,7 +2538,7 @@ def main(argv=None) -> int:
         return run
 
     torch.cuda.synchronize()
-    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
     t0 = time.perf_counter()
     with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["graph"])):
         table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
@@ -2408,6 +2546,7 @@ def main(argv=None) -> int:
                                                device=cuda)
     eval_s = time.perf_counter() - t0
     eval_k1, eval_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+    eval_r2 = rollout_2d_cuda.launches
     arms = table["per_k"][K]["arms"]
     for proj, arm in arms.items():
         loops = arm["mean_loops"] * table["config"]["runs_per_arm"]
@@ -2416,9 +2555,12 @@ def main(argv=None) -> int:
               reached=table["config"]["runs_per_arm"] - arm["failed"],
               completed=arm["completed"], collided=arm["collided"], failed=arm["failed"],
               mean_loops=arm["mean_loops"], steps=arm["steps"], finite=arm["finite"],
-              wall_s=arm["wall_s"], ms_per_loop=1e3 * arm["wall_s"] / max(loops, 1))
+              wall_s=arm["wall_s"], episode_s=arm["episode_s"],
+              ms_per_loop=1e3 * arm["wall_s"] / max(loops, 1),
+              ms_per_step_in_episodes=1e3 * arm["episode_s"] / max(arm["steps"], 1))
     want_k1 = 2 * arms["3d"]["steps"] + arms["2d"]["steps"]
     phase("evaluation_launches", k1_launches=eval_k1, k1_expected=want_k1,
+          rollout_2d_launches=eval_r2, rollout_2d_expected=arms["2d"]["steps"],
           k2_launches=eval_k2, seconds=eval_s, critics=table["per_k"][K]["critics"])
     if not all(arm["finite"] for arm in arms.values()):
         raise RuntimeError("the evaluation recorded a non-finite trace")
@@ -2426,11 +2568,14 @@ def main(argv=None) -> int:
         raise RuntimeError("the evaluation's costmap build never launched K2")
     if eval_k1 != want_k1:
         raise RuntimeError(f"K1 ran {eval_k1} times in the evaluation, not {want_k1}")
+    if eval_r2 != arms["2d"]["steps"] or eval_r2 == 0:
+        raise RuntimeError(f"the planar rollout kernel ran {eval_r2} times in the evaluation, "
+                           f"not once per 2D step ({arms['2d']['steps']})")
     #     graph_evaluation: the same protocol with each arm's masked steps
     #     eager: every run's trace (loops, reached, positions, velocities,
     #     steps) equal per arm
     torch.cuda.synchronize()
-    rollout_25d_cuda.launches = 0
+    rollout_25d_cuda.launches = rollout_2d_cuda.launches = 0
     with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["eager"])), \
             mock.patch.object(evaluation, "Graphed", lambda fn: fn):
         table_e = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
@@ -2449,13 +2594,122 @@ def main(argv=None) -> int:
                          "ms_per_loop_graph": 1e3 * arms[proj]["wall_s"] / max(loops_arm, 1),
                          "ms_per_loop_eager": 1e3 * arms_e[proj]["wall_s"] / max(loops_arm, 1)}
     equal = all(a["graph_equals_eager"] for a in per_arm.values())
-    ok = equal and rollout_25d_cuda.launches == eval_k1
+    ok = (equal and rollout_25d_cuda.launches == eval_k1
+          and rollout_2d_cuda.launches == eval_r2)
     phase("graph_evaluation", K=K, H=H, max_loops=EVAL_MAX_LOOPS, arms=per_arm,
           graph_equals_eager=equal, k1_launches_graph=eval_k1,
-          k1_launches_eager=rollout_25d_cuda.launches, ok=ok)
+          k1_launches_eager=rollout_25d_cuda.launches, rollout_2d_launches_graph=eval_r2,
+          rollout_2d_launches_eager=rollout_2d_cuda.launches, ok=ok)
     if not ok:
         raise RuntimeError("a graphed evaluation arm differs from the eager one")
     del eval_logs, table_e
+
+    #     the 2D arm's graph on the planar rollout kernel and on the plain
+    #     rollout_2d it replaced (the graph then holds its ~2,500 ops a
+    #     step), in turns plain, kernel, kernel, plain: ms per loop and
+    #     graph nodes per loop, the two traces equal. The thesis world, the
+    #     protocol's first 2D run for ARM_2D_LOOPS loops
+    thesis_z = thesis_statistics_terrain(device=cuda)
+    thesis_world = (HeightField.create(thesis_z, 75.0),
+                    costmap_750(half_width=75.0, size=1500, use_exact_edt=True, device=cuda))
+    start2d, goal2d, head2d = evaluation.thesis_pairs(1, 75.0, 42)[0]
+    cfg2d_arm = MPPIConfig(num_samples=K, horizon=H, projection="2d",
+                           critic_weights=CriticWeights(slope_wheels=35.5), sigma_base=0.3,
+                           slope_critic="body")
+
+    def plain_2d(self, hf_, p, h_, lin, ang, dt):
+        """The wrapper's call on the plain rollout_2d (patched over
+        CudaRollout2d.__call__, so that the graphs still count the wrapper's
+        launches: none)."""
+        return rollout_2d(hf_, p[..., None, :], h_[..., None, :], lin, ang, dt)
+
+    def arm_2d(route):
+        """The 2D arm's graph on ``route`` ("kernel" or "plain"): one
+        episode to warm up and capture, then the same episode timed (graph
+        replays only)."""
+        graph = Graphed(masked_steps)
+        ctx = (mock.patch.object(r2_module.CudaRollout2d, "__call__", plain_2d)
+               if route == "plain" else contextlib.nullcontext())
+        with ctx:
+            for timed in (False, True):
+                rollout_2d_cuda.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                trace = goal_seek_recorded(
+                    cfg2d_arm, *thesis_world,
+                    torch.tensor(goal2d, dtype=torch.float32, device=cuda),
+                    RobotState.create(*start2d, head2d, device=cuda, wheel_speed=1.0),
+                    ControllerState.create(cfg2d_arm, device=cuda, initial_u=1.0),
+                    torch.Generator(device=cuda).manual_seed(42000), max_loops=ARM_2D_LOOPS,
+                    steps_fn=graph)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        return trace, {"route": route, "ms_per_loop": 1e3 * wall / max(int(trace.loops), 1),
+                       "loops": int(trace.loops), "steps": trace.steps,
+                       "rollout_2d_launches": rollout_2d_cuda.launches,
+                       "capture_ms": graph.capture_ms}
+
+    arm_runs = [arm_2d(route) for route in ("plain", "kernel", "kernel", "plain")]
+    arm_equal = all(_same(arm_runs[0][0], r[0]) for r in arm_runs[1:])
+    arm_ok = arm_equal and all(
+        r["rollout_2d_launches"] == (r["steps"] if r["route"] == "kernel" else 0)
+        for _, r in arm_runs)
+    phase("evaluation_2d_arm_graph", K=K, H=H, loops=ARM_2D_LOOPS, start=list(start2d),
+          runs=[r for _, r in arm_runs], traces_equal=arm_equal, ok=arm_ok)
+    if not arm_ok:
+        raise RuntimeError("the 2D arm's graph on the planar rollout kernel differs from the "
+                           "graph on the plain rollout_2d")
+    del arm_runs, thesis_world, thesis_z
+
+    #     the thesis drivers (mppi/thesis_runs.py, the bodies of
+    #     scripts/torch_run_*.py) at DRIVER_RUNS runs per arm, one K and
+    #     one terrain scale, the full loop cap: each table's summary, its
+    #     launches, and its record of the card
+    def driver_arms(name, table_d):
+        """(every arm's steps and finite flags, the table's summary)."""
+        if name == "eval_experiment":
+            rows = [{a: {"steps": v["steps"][a], "finite": v["finite"][a]} for a in ("3d", "2d")}
+                    for v in table_d["per_k"].values()]
+            return rows, {k: v["collisions"] for k, v in table_d["per_k"].items()}
+        if name == "eval_r05_calib":
+            return ([e["arms"] for e in table_d["sweep"]],
+                    [e["collision_free_pct"] for e in table_d["sweep"]])
+        rows = [v["arms"] for v in table_d["per_k"].values()]
+        rows += [v["arms"] for k_, v in table_d.get("ablation", {}).items() if k_ != "question"]
+        return rows, thesis_runs.arm_summary(table_d["per_k"])
+
+    drivers = {
+        "thesis_eval": lambda: thesis_runs.thesis_eval(DRIVER_RUNS, ks=(K,), ablation_k=K),
+        "eval_r05_calib": lambda: thesis_runs.eval_r05_calib(z_scales=(DRIVER_Z_SCALE,), k=K,
+                                                             runs_per_arm=DRIVER_RUNS),
+        "eval_r05_full": lambda: thesis_runs.eval_r05_full(DRIVER_Z_SCALE, DRIVER_RUNS,
+                                                           ks=(K,)),
+        "eval_experiment": lambda: thesis_runs.eval_experiment(DRIVER_RUNS, ks=(K,)),
+    }
+    driver_counts = {}
+    for name, driver in drivers.items():
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
+        t0 = time.perf_counter()
+        table_d = driver()
+        wall = time.perf_counter() - t0
+        counts = {"k1": rollout_25d_cuda.launches, "rollout_2d": rollout_2d_cuda.launches,
+                  "k2": edt_minplus_cuda.launches}
+        rows, summary = driver_arms(name, table_d)
+        steps = {a: sum(r[a]["steps"] for r in rows) for a in ("3d", "2d")}
+        finite = all(r[a]["finite"] for r in rows for a in ("3d", "2d"))
+        config = table_d["config"]
+        ok = (finite and counts["rollout_2d"] == steps["2d"] > 0
+              and counts["k1"] == 2 * steps["3d"] + steps["2d"]
+              and config["kernel_routes"] == {"rollout_3d": "cuda", "rollout_2d": "cuda"}
+              and "NVIDIA" in config["device"]["name"])
+        driver_counts[name] = counts["rollout_2d"]
+        phase("thesis_drivers", driver=name, runs_per_arm=DRIVER_RUNS, K=K,
+              z_scale=DRIVER_Z_SCALE if name.startswith("eval_r05") else None,
+              summary=summary, steps=steps, launches=counts, device=config["device"],
+              kernel_routes=config["kernel_routes"], wall_s=wall, finite=finite, ok=ok)
+        if not ok:
+            raise RuntimeError(f"the thesis driver {name} failed on the card")
 
     # 10. K3's path: the probe entry point (python -m ...ops.gather_probe)
     gp.gather_probe_cuda.launches = 0
@@ -2538,11 +2792,18 @@ def main(argv=None) -> int:
     chunk_state, chunk_goal = ls_loop._initial_state(), ls_loop._goal_ctrl()
     chunk_noise = tuple(noise_d[None] for _ in range(ls_loop.conf.terrain_check_every))
     cl_state4 = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+    def masked_steps_plain_2d(*args):
+        """The 2D arm's steps with the plain rollout_2d in place of the
+        planar rollout kernel, as before the kernel."""
+        with mock.patch.object(r2_module.CudaRollout2d, "__call__", plain_2d):
+            return masked_steps(*args)
+
     paths = {  # name: (eager call, graphed function, its arguments, loops per call)
         "goal_seek": (masked_steps, seek_args(cfg, 4), 4),
         # one step: the profiler drops a few of a 4-step graph's ~47,000
         # device records per session, so no two sessions agree on a count
         "evaluation_2d_arm": (masked_steps, seek_args(cfg2d, 1), 1),
+        "evaluation_2d_arm_plain_rollout": (masked_steps_plain_2d, seek_args(cfg2d, 1), 1),
         "mppi_controller": (mppi_step, (cfg, hf, cm, goal, robot, ctrl, noise_d), 1),
         "closed_loop": (tenv.closed_loop_step,
                         (cl_cfg, hf, cm, goals_d, cl_state4, None, noise_d4, None), 1),
@@ -2609,6 +2870,17 @@ def main(argv=None) -> int:
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",
         "replaces": "scripts/probe_pallas_gather.py:21",
         "launches": k3_launches, "max_abs_err": k3_err, **k3_row,
+    }, {
+        "name": "rollout_2d", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/rollout_2d.cu",
+        "replaces": None,
+        "replaces_note": ("the port's own kernel for the compiled lax.scan of "
+                          "husky_rover_mppi_isaacsim_tpu/mppi/rollout.py:254-297 (rollout_2d, "
+                          "inside the jitted goal-seek loop); no Pallas kernel there"),
+        "launches": eval_r2, "max_abs_err": r2_err, "library_ms": None, **r2_row,
+        "shape": "K=1000 x H=100, thesis DEM 1500 x 1500", "cases": r2_rows,
+        "launches_by_path": {"evaluation": eval_r2,
+                             **{f"thesis_drivers_{k}": v for k, v in driver_counts.items()}},
     }, {
         "name": "crater_block", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/crater_block.cu",

@@ -41,9 +41,10 @@ frame origin, the shape of a tensor) is frozen at capture: a value that
 changes between calls must come in as a tensor.
 
 Kernel launch counts: a kernel wrapper counts only the launches it issues
-outside a capture (``ops/rollout_cuda.py``, the ``captured`` counter for
-those recorded into a graph); every replay adds the launches its graph
-holds to the wrapper's ``launches``, since a replay launches them.
+outside a capture (``ops/rollout_cuda.py``, ``ops/rollout_2d_cuda.py``; the
+``captured`` counter for those recorded into a graph); every replay adds the
+launches its graph holds to the wrapper's ``launches``, since a replay
+launches them.
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ import torch.utils._pytree as pytree
 def _counted() -> tuple:
     """The kernel wrappers whose launches a captured function may hold
     (imported here: the wrappers' modules import ``core``)."""
-    from ..ops import rollout_cuda
+    from ..ops import rollout_2d_cuda, rollout_cuda
 
-    return (rollout_cuda.rollout_25d_cuda,)
+    return (rollout_cuda.rollout_25d_cuda, rollout_2d_cuda.rollout_2d_cuda)
 
 
 def _signature(leaves: list) -> tuple:

@@ -3,8 +3,10 @@
 Counterpart of ``husky_rover_mppi_isaacsim_tpu/mppi/controller.py``
 (MPPI_isaac.py:402-806). The rollout engine follows the device: on CUDA
 tensors both rollouts of a step go through kernel K1
-(:mod:`..ops.rollout_cuda`), on CPU tensors through the plain
-:func:`.rollout.rollout_25d`. There is no engine switch in the config.
+(:mod:`..ops.rollout_cuda`), and the 2D projection's sample rollout
+through the planar rollout kernel (:mod:`..ops.rollout_2d_cuda`); on CPU
+tensors through the plain :func:`.rollout.rollout_25d` and
+:func:`.rollout.rollout_2d`. There is no engine switch in the config.
 
 :func:`mppi_step` and :func:`kinematic_advance` also take N rovers at once:
 every state field, the goal and the noise with a leading rover axis (the
@@ -34,10 +36,9 @@ from ..dynamics.skid_steer import (
     wheel_lag_matmul,
     wheel_lag_scan,
 )
-from ..ops import rollout_cuda
+from ..ops import rollout_2d_cuda, rollout_cuda
 from . import critics as crit
 from .critics import Costmap, CriticWeights
-from .rollout import rollout_2d
 from .sampling import InputLimits, LoopSeedSequence, perturb, sample_noise
 
 
@@ -191,8 +192,8 @@ def mppi_step(
 
     # 3. K rollouts (projection_warp.py:284-350)
     if config.projection == "2d":
-        traj, _ = rollout_2d(hf, robot.position[..., None, :], robot.heading[..., None, :],
-                             lin, ang, config.dt)
+        traj, _ = rollout_2d_cuda.rollout_2d_cuda(hf, robot.position, robot.heading, lin, ang,
+                                                  config.dt)
         lw = rw = traj  # no wheel tracks: the wheel critic degrades to body
     else:
         # body-slope mode never reads the wheel tracks: K1 skips them and

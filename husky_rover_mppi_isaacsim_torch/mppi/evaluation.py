@@ -5,8 +5,8 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/mppi/evaluation.py``
 logged runs are re-scored through the critics, collisions counted against
 the costmap, and run populations compared with trimmed means. The two
 experiment functions run paired goal-seek episodes per K with the 3D
-(surface-riding, kernel K1 on the card) and the 2D (planar, eager
-``rollout_2d``) projection:
+(surface-riding, kernel K1 on the card) and the 2D (planar, the planar
+rollout kernel ``csrc/rollout_2d.cu`` on the card) projection:
 
 * :func:`run_2d_vs_3d_experiment` (``protocol=episode``): the crater DEM and
   the 750² costmap, episode-total rescoring, trimmed means;
@@ -17,11 +17,12 @@ experiment functions run paired goal-seek episodes per K with the 3D
 Each episode runs on the world's device with one host sync per ``unroll``
 steps; on the card each arm (K, projection) replays one CUDA graph of
 ``unroll`` masked steps across its runs (the JAX runner's jitted
-``goal_seek_recorded``, evaluation.py:301, 455), the 2D arm's eager
-``rollout_2d`` inside it. Its recorded trace comes to the host in one copy,
-and rescoring runs on CPU tensors and numpy. Control noise comes from a ``torch.Generator``
-seeded ``seed * 1000 + run`` (a different stream from the JAX package's
-``jax.random.key``), or from an injected per-run noise source (tests).
+``goal_seek_recorded``, evaluation.py:301, 455), one planar rollout
+launch a step inside the 2D arm's. Its recorded trace comes to the host in
+one copy, and rescoring runs on CPU tensors and numpy. Control noise comes
+from a ``torch.Generator`` seeded ``seed * 1000 + run`` (a different stream
+from the JAX package's ``jax.random.key``), or from an injected per-run
+noise source (tests).
 """
 
 from __future__ import annotations
@@ -348,7 +349,8 @@ def run_thesis_protocol_experiment(
     means. ``base_noise`` is handed to the terrain
     (:func:`..terrain.smallscale.thesis_statistics_terrain`). Beside the JAX
     table's entries, each arm reports ``wall_s``, ``steps`` and ``finite``
-    as in :func:`run_2d_vs_3d_experiment`."""
+    as in :func:`run_2d_vs_3d_experiment`, and ``episode_s``, the part of
+    ``wall_s`` spent in the episodes (the rest is the host's rescoring)."""
     from ..terrain import costmap_750, thesis_statistics_terrain
 
     device = run_device(device)
@@ -383,14 +385,16 @@ def run_thesis_protocol_experiment(
                                 slope_critic=slope_critic)
             graph = Graphed(masked_steps)  # one per arm, replayed across its runs
             scores, n_fail, n_collide, n_steps, finite = [], 0, 0, 0, True
-            loops_list, v_means, v_stalls = [], [], []
+            loops_list, v_means, v_stalls, episode_s = [], [], [], 0.0
             t_arm = time.perf_counter()
             for run_idx, (start, goal, heading) in enumerate(pairs):
+                t_run = time.perf_counter()
                 robot = RobotState.create(start[0], start[1], heading, dtype=dtype,
                                           device=device, wheel_speed=1.0)
                 ctrl = ControllerState.create(config, dtype, device, initial_u=1.0)
                 loops, reached, pos, vel, steps = _run_episode(
                     config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise, graph)
+                episode_s += time.perf_counter() - t_run
                 n_steps += steps
                 # the reference CSVs log the start pose as row 0 and the
                 # rescorer drops it (trajectories[1:]); the trace holds only
@@ -419,7 +423,7 @@ def run_thesis_protocol_experiment(
                 "completed": len(scores), "mean_loops": float(np.mean(loops_list)),
                 "mean_velocity": float(np.mean(v_means)),
                 "stall_fraction": float(np.mean(v_stalls)),
-                "wall_s": wall, "steps": n_steps, "finite": finite,
+                "wall_s": wall, "episode_s": episode_s, "steps": n_steps, "finite": finite,
             }
             print(f"[thesis-eval] K={k} {proj}: {len(pairs)} runs in {wall:.0f}s, "
                   f"completed={len(scores)}, collided={n_collide}, failed={n_fail}",

@@ -311,7 +311,8 @@ def test_thesis_protocol_matches_jax(monkeypatch):
     assert sum(a["completed"] for a in arms.values()) > 0  # the rescoring branch ran
     _close(got["per_k"][K], {"arms": arms, "critics": critics}, THESIS_RTOL)
     for arm in got["per_k"][K]["arms"].values():
-        assert set(arm) == set(arms["3d"]) | {"wall_s", "steps", "finite"} and arm["finite"]
+        assert set(arm) == set(arms["3d"]) | {"wall_s", "episode_s", "steps", "finite"}
+        assert arm["finite"] and 0.0 < arm["episode_s"] <= arm["wall_s"]
     assert got["config"]["slope_critic"] == "body" and got["config"]["runs_per_arm"] == RUNS
 
 

@@ -17,7 +17,11 @@ loops against their eager runs; the crater block kernel
 slice-add stamp) at the streamed tiers' shapes, for overlapping craters,
 in a streamed window and on an SDG yard field, its libdevice functions
 against torch's, and its wrapper's refusals; the SDG frame's two graphs
-against the eager labeler, and a graph's in-place argument.
+against the eager labeler, and a graph's in-place argument; the planar
+rollout kernel (csrc/rollout_2d.cu) bit-equal to the plain ``rollout_2d``
+(one rover and N rovers, on and off the thesis DEM), one launch per call
+and per 2D control step, its cosf / sinf against torch's, and the thesis
+drivers (mppi/thesis_runs.py) at a small size on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -47,6 +51,7 @@ from husky_rover_mppi_isaacsim_torch.ops import edt
 from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
 from husky_rover_mppi_isaacsim_torch.ops import measure
 from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
+from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import (
     STANDALONE_CRATER_BUMPS,
@@ -144,6 +149,40 @@ def test_k1_call_is_one_launch_and_no_other_device_op(cuda):
     rollout_25d_cuda(hf, pos, heading, lin.transpose(1, 2).contiguous().transpose(1, 2), ang,
                      0.045)
     assert rollout_25d_cuda.copies == copies + 1
+
+
+def test_rollout_2d_call_is_one_launch_and_no_other_device_op(cuda):
+    """A call dispatches no torch operator but the output's ``empty``, runs
+    one kernel, reads strided poses in place, and copies only velocities
+    whose (K, H) part is not contiguous; what K1 refuses it refuses. It runs
+    beside K1's test, before the tests that drive threads, side streams and
+    rank processes: after those, torch.profiler in the same process read no
+    device record of any call (H100 80GB HBM3, torch 2.11)."""
+    hf = _thesis_hf(cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    lin = torch.rand((4, 64, 100), generator=g, device=cuda)
+    ang = torch.rand((4, 64, 100), generator=g, device=cuda) - 0.5
+    prev = rollout_2d_cuda(hf, torch.zeros((4, 2), device=cuda),
+                           torch.tensor([[1.0, 0.0, 0.0]] * 4, device=cuda), lin, ang, 0.045)
+    pos, heading = prev[0][:, 0, 0, :2], prev[1][:, 0, 0]
+    assert not pos.is_contiguous() and not heading.is_contiguous()
+    copies = rollout_2d_cuda.copies
+    with measure.OpLog() as log:
+        rollout_2d_cuda(hf, pos, heading, lin, ang, 0.045)
+    assert [str(f) for f in log.device_ops] == ["aten.empty.memory_format"]
+    assert rollout_2d_cuda.copies == copies
+    assert measure.device_kernels(lambda: rollout_2d_cuda(hf, pos, heading, lin, ang,
+                                                          0.045)) == 1
+    rollout_2d_cuda(hf, pos, heading, lin.transpose(1, 2).contiguous().transpose(1, 2), ang,
+                    0.045)
+    assert rollout_2d_cuda.copies == copies + 1
+    with pytest.raises(TypeError, match="float32"):
+        rollout_2d_cuda(hf, pos.double(), heading.double(), lin.double(), ang.double(), 0.045)
+    long = torch.ones((4, 2, 257), device=cuda)
+    with pytest.raises(ValueError, match="horizons up to 256"):
+        rollout_2d_cuda(hf, pos, heading, long, long, 0.045)
+    with pytest.raises(ValueError, match="devices"):
+        rollout_2d_cuda(hf, pos.cpu(), heading, lin, ang, 0.045)
 
 
 def test_step_runs_about_200_kernels_on_card(cuda):
@@ -404,13 +443,14 @@ def test_thesis_dem_builds_bit_equal_on_card(cuda):
 def test_evaluation_run_on_card_launches_k1_and_k2(cuda):
     """K1 runs twice per 3D-arm step (samples + optimal rollout) and once
     per 2D-arm step (the optimal rollout); K2 once, for the costmap."""
-    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
     table = evaluation.run_2d_vs_3d_experiment(
         ks=(64,), runs_per_arm=1, horizon=20, max_loops=10, half_width=20.0, grid_size=400,
         costmap_size=200, span_fraction=0.3, device=cuda)
     entry = table["per_k"][64]
     assert entry["steps"]["3d"] > 0 and entry["finite"] == {"3d": True, "2d": True}
     assert rollout_25d_cuda.launches == 2 * entry["steps"]["3d"] + entry["steps"]["2d"]
+    assert rollout_2d_cuda.launches == entry["steps"]["2d"]  # the 2D arm's samples
     assert edt_minplus_cuda.launches == 1
 
 
@@ -791,15 +831,16 @@ def test_graphed_goal_seek_equals_eager_on_card(cuda, projection):
     for steps_fn in (graph, masked_steps):
         robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
         ctrl = ControllerState.create(cfg, device=cuda)
-        before = rollout_25d_cuda.launches
+        before = rollout_25d_cuda.launches, rollout_2d_cuda.launches
         runs.append(goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl,
                                        torch.Generator(device=cuda).manual_seed(5), max_loops=40,
                                        steps_fn=steps_fn))
-        counts.append(rollout_25d_cuda.launches - before)
+        counts.append((rollout_25d_cuda.launches - before[0],
+                       rollout_2d_cuda.launches - before[1]))
     got, want = runs
     assert got.steps == want.steps == 40 and _all_equal(got, want)
-    per_step = 2 if projection == "3d" else 1
-    assert counts == [per_step * got.steps] * 2
+    per_step = (2, 0) if projection == "3d" else (1, 1)  # K1, the planar rollout kernel
+    assert counts == [tuple(n * got.steps for n in per_step)] * 2
     assert graph.replays == got.steps // 4 - 1 and graph.capture_ms > 0
 
 
@@ -1189,3 +1230,88 @@ def test_graphed_chunk_reads_its_window_in_place_on_card(cuda):
     assert all(b is None or b.data_ptr() != w.data_ptr() for b in g._static_in)
     with pytest.raises(ValueError, match="in-place"):
         g(w.clone(), s)
+
+
+# -- the planar rollout kernel (csrc/rollout_2d.cu) and the thesis drivers --
+
+
+def _thesis_hf(device, size_m=40.0):
+    hw = size_m / 2
+    return HeightField.create(thesis_statistics_terrain(size_m=size_m, device=device), hw)
+
+
+# (rovers, samples, horizon, start off the DEM): the 2D arm's K values, a
+# ragged shape and a start beyond the window's corner
+ROLLOUT_2D_CASES = [(1, 1000, 100, False), (1, 500, 100, False), (1, 350, 100, False),
+                    (1, 33, 37, False), (1, 1000, 100, True), (4, 1000, 100, False),
+                    (4, 33, 37, True)]
+
+
+@pytest.mark.parametrize("n,k,h,off_map", ROLLOUT_2D_CASES)
+def test_rollout_2d_kernel_matches_plain_on_card(cuda, n, k, h, off_map):
+    """Both outputs bit-equal to the plain rollout_2d in one launch; N
+    rovers in one launch equal N one-rover launches."""
+    hf = _thesis_hf(cuda)
+    g = torch.Generator(device=cuda).manual_seed(k + h + n)
+    lin = torch.rand((n, k, h), generator=g, device=cuda) * 2.0
+    ang = torch.rand((n, k, h), generator=g, device=cuda) * 2.0 - 1.0
+    pos = torch.rand((n, 2), generator=g, device=cuda) * 30.0 - 15.0
+    if off_map:  # beyond the 20 m half width, near the (-20, 20) corner
+        pos = pos / 15.0 + torch.tensor([-21.0, 21.0], device=cuda)
+    heading = torch.rand((n, 3), generator=g, device=cuda) - 0.5
+    if n == 1:
+        lin, ang, pos, heading = lin[0], ang[0], pos[0], heading[0]
+    before = rollout_2d_cuda.launches
+    got = rollout_2d_cuda(hf, pos, heading, lin, ang, 0.045)
+    torch.cuda.synchronize()
+    assert rollout_2d_cuda.launches == before + 1
+    want = tro.rollout_2d(hf, pos[..., None, :], heading[..., None, :], lin, ang, 0.045)
+    for a, b in zip(got, want):
+        assert a.shape == lin.shape + (3,) and a.is_contiguous()
+        assert torch.equal(a, b)
+    if n > 1:
+        for i in range(n):
+            one = rollout_2d_cuda(hf, pos[i], heading[i], lin[i], ang[i], 0.045)
+            assert all(torch.equal(a[i], b) for a, b in zip(got, one))
+
+
+def test_rollout_2d_libm_matches_torch_on_card(cuda):
+    """The kernel's cosf and sinf give torch's bits on w * dt over the
+    angular velocities a control step can command, and beyond."""
+    w = torch.linspace(-4.0, 4.0, 1 << 20, device=cuda)
+    theta = (w * 0.045).contiguous()
+    for op in ("cos", "sin"):
+        assert torch.equal(rollout_2d_cuda.libm(op, theta), getattr(torch, op)(theta))
+
+
+def test_thesis_drivers_run_on_card(cuda, monkeypatch):
+    """Each driver of mppi/thesis_runs.py at a small size on the card (6
+    runs per arm, K=64, H=20, a 40 m map with the protocol's band cut to
+    fit): finite traces, the kernel routes, and the card's record."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.mppi import thesis_runs as tr
+
+    def pairs(runs_per_arm, half_width, seed):
+        rng = np.random.default_rng(seed)
+        return [(rng.uniform(-12.0, -8.0, 2), rng.uniform(8.0, 12.0, 2), [1.0, 0.3, 0.0])
+                for _ in range(runs_per_arm)]
+
+    monkeypatch.setattr(evaluation, "thesis_pairs", pairs)
+    kw = dict(horizon=20, half_width=20.0, device=cuda)
+    rollout_2d_cuda.launches = 0
+    tables = {
+        "r04": tr.thesis_eval(6, ks=(64,), ablation_k=64, max_loops=40, **kw),
+        "calib": tr.eval_r05_calib(z_scales=(0.7,), k=64, runs_per_arm=6, max_loops=40, **kw),
+        "r05": tr.eval_r05_full(0.7, runs_per_arm=6, ks=(64,), max_loops=40, **kw),
+        "eval": tr.eval_experiment(6, ks=(64,), max_loops=40, horizon=20, half_width=20.0,
+                                   grid_size=400, costmap_size=200, device=cuda),
+    }
+    assert rollout_2d_cuda.launches > 0
+    for name, table in tables.items():
+        config = table["config"]
+        assert config["kernel_routes"] == {"rollout_3d": "cuda", "rollout_2d": "cuda"}
+        assert "NVIDIA" in config["device"]["name"] and config["device"]["power_limit"]
+    for table in (tables["r04"], tables["r05"]):
+        assert all(arm["finite"] for arm in table["per_k"][64]["arms"].values())
+    assert tables["r05"]["collision_free_pct"] == tr.arm_summary(tables["r05"]["per_k"])

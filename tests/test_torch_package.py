@@ -80,6 +80,10 @@ SLICE_9 = ("native", "worldbuilders", "worldbuilders.types", "worldbuilders.samp
 SLICE_11 = ("core.graphs",)
 # the crater block kernel's wrapper
 SLICE_12 = ("ops.crater_block_cuda",)
+# the planar rollout kernel's wrapper and the thesis drivers' bodies
+SLICE_13 = ("ops.rollout_2d_cuda", "mppi.thesis_runs")
+# the thesis drivers' mains, which import the port from scripts/
+DRIVER_SCRIPTS = ("torch_run_thesis_eval", "torch_run_eval_r05", "torch_run_eval_experiment")
 
 
 def test_package_imports_without_jax():
@@ -89,7 +93,21 @@ def test_package_imports_without_jax():
     names = out[2].split(",")
     assert all(f"husky_rover_mppi_isaacsim_torch.{m}" in names
                for m in SLICE_2 + SLICE_3 + SLICE_5 + SLICE_6 + SLICE_7 + SLICE_8 + SLICE_9
-               + SLICE_11 + SLICE_12), names
+               + SLICE_11 + SLICE_12 + SLICE_13), names
+
+
+def test_driver_scripts_import_without_jax():
+    """The thesis drivers' mains (scripts/torch_run_*.py) import neither
+    jax, PyYAML nor the JAX package, run as the card's machine runs them."""
+    code = ("import runpy, sys\n"
+            "sys.modules['jax'] = None; sys.modules['yaml'] = None\n"
+            f"for name in {DRIVER_SCRIPTS!r}:\n"
+            "    runpy.run_path(f'scripts/{name}.py', run_name='driver')\n"
+            "print([m for m in sys.modules if m.startswith(('jax', 'yaml', "
+            "'husky_rover_mppi_isaacsim_tpu')) and sys.modules[m] is not None])")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120, check=True).stdout.split()
+    assert out == ["[]"], out
 
 
 def test_chip_smoke_imports_neither_jax_nor_yaml():
