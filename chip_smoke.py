@@ -13,10 +13,11 @@ the card, bit for bit (the planar rollout kernel on both outputs at K=1000,
 500 and 350 x H=100 on the thesis DEM and on the crater DEM, a ragged K=33
 x H=37 shape, a start off the DEM, N=4 rovers in one launch against
 one-rover launches, and its cosf / sinf against torch's on the run's
-arguments; K1 on every channel: the flagship shapes, the K=1
+arguments; its time beside the byte bound and the floor of its H-step
+heading chain; K1 on every channel: the flagship shapes, the K=1
 optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
-rovers in one launch against one-rover launches; K1's branch-free division
-and square root against `/` and sqrtf on 2^36 operand pairs and every
+rovers in one launch against one-rover launches; the branch-free division
+and square root of K1 and the planar rollout kernel against `/` and sqrtf on 2^36 operand pairs and every
 float32 operand; K1 on 8 samples against the float64 Warp-semantics
 oracle, compat.warp_oracle); times each kernel back to
 back and as one CUDA-graph replay of 20 launches (device time without the
@@ -207,6 +208,18 @@ K1_FLOPS_PER_STEP = 150
 # index 7, the fractions 6, the bilinear weights and sum 13 (the integer
 # index arithmetic not counted)
 ROLLOUT_2D_OPS_PER_STEP = 55
+# dependent operations of one step of the planar rollout kernel's heading
+# chain, counted from csrc/rollout_2d.cu (turn() in the Fast form): the
+# rotation's product and difference 2, the norm's products and sum 2, the
+# square root's rsqrt and its three corrections 4, the reciprocal's rcp and
+# its two refinements 3, the quotient and its two corrections 3, the
+# signed-zero select 1
+ROLLOUT_2D_CHAIN_DEPTH = 15
+# the chain floor counts each dependent operation at 4 cycles, the latency
+# between an FP32 add, multiply or FMA and its dependent (an rsqrt or rcp
+# takes longer, so the floor is a lower bound), at the card's highest SM
+# clock as nvidia-smi reports it (clocks.max.sm)
+DEPENDENT_OP_CYCLES = 4
 # operations of the crater block kernel per (slot, pixel) pair inside a
 # crater's rotated square, counted from csrc/crater_block.cu with each
 # division, square root, atan2f and expf as one: the square tests 5, the
@@ -1672,8 +1685,9 @@ def main(argv=None) -> int:
             k1_row = {"ms": t_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
                       "bound_by": bound_by}
 
-    # K1's branch-free divisions and square roots against `/` and sqrtf:
-    # 2^36 hashed division operand pairs, every float32 square-root operand
+    # the branch-free divisions and square roots of csrc/hopper_common.cuh
+    # (K1's and the planar rollout kernel's) against `/` and sqrtf: 2^36
+    # hashed division operand pairs, every float32 square-root operand
     t0 = time.perf_counter()
     arith = rollout_25d_cuda.check_arithmetic(cuda, pairs=1 << 36)
     ok = (arith["divisions_differing"] == 0 and arith["roots_differing"] == 0
@@ -1770,7 +1784,9 @@ def main(argv=None) -> int:
     #     card, both outputs bit for bit: the 2D arm's K values x H=100 on
     #     the thesis DEM and on the crater DEM, a ragged shape, a start off
     #     the DEM, and N=4 rovers in one launch against one-rover launches.
-    #     Timed as a CUDA-graph replay of 20 launches. Its cosf and sinf
+    #     Timed as a CUDA-graph replay of 20 launches, beside the byte bound
+    #     and the chain floor (H x ROLLOUT_2D_CHAIN_DEPTH dependent
+    #     operations). Its cosf and sinf
     #     against torch's on the arguments the plain version passes them
     #     here and in one real 2D control step on the thesis world
     thesis_hf = HeightField.create(thesis_statistics_terrain(device=cuda), 75.0)
@@ -1800,6 +1816,14 @@ def main(argv=None) -> int:
         moved = (2 + 6) * n * k * h * 4 + 4 * int(cells.numel()) + 4 * n * 5
         return bound(moved, ROLLOUT_2D_OPS_PER_STEP * n * k * h, PEAK_FP32_INSTR_S)
 
+    max_sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
+
+    def r2_chain_floor(h):
+        """A lower bound in ms of one sample's H dependent heading steps."""
+        return 1e3 * h * ROLLOUT_2D_CHAIN_DEPTH * DEPENDENT_OP_CYCLES / max_sm_hz
+
     r2_rows, r2_err, r2_row = [], 0.0, {}
     r2_cases = [(dem, k, h, start) for dem in ("thesis_1500", "crater_1500")
                 for k, h, start in ((1000, 100, START), (500, 100, START), (350, 100, START))]
@@ -1821,7 +1845,8 @@ def main(argv=None) -> int:
         row = {"dem": dem, "K": k, "H": h, "start": list(start),
                "bit_equal": equal, "max_abs_err": err, "ms": t_graph, "plain_ms": t_plain,
                "bound_ms": bound_ms, "bound_by": bound_by}
-        phase("rollout_2d_vs_plain", **row, ok=all(equal))
+        phase("rollout_2d_vs_plain", **row, chain_floor_ms=r2_chain_floor(h),
+              max_sm_clock_hz=max_sm_hz, ok=all(equal))
         if not all(equal):
             raise RuntimeError(f"the planar rollout kernel disagrees with rollout_2d: {row}")
         r2_err = max([r2_err] + err)

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
 
 constexpr int TILE_X = 64;           // output columns per block
@@ -58,53 +60,6 @@ constexpr int CONSUMERS = GROUPS_X * (TILE_Y / ROWS);   // 128 threads
 constexpr int THREADS = CONSUMERS + 32;                 // + the producer warp
 constexpr int TILE_K = 32;           // y' rows of g2 per stage
 constexpr int STAGES = 3;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void bar_init(uint64_t* bar, int count) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)), "r"(count)
-                 : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive(uint64_t* bar) {
-    asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_addr(bar)) : "memory");
-}
-
-__device__ __forceinline__ void bar_arrive_tx(uint64_t* bar, uint32_t bytes) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(bar)),
-                 "r"(bytes)
-                 : "memory");
-}
-
-// Wait until the phase of parity `parity` of `bar` has completed. A phase
-// that never completes is a fault: trap after ~10 s instead of hanging.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-    const uint32_t addr = smem_addr(bar);
-    const long long start = clock64();
-    uint32_t done = 0;
-    while (true) {
-        asm volatile(
-            "{\n\t.reg .pred p;\n\t"
-            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
-            "selp.u32 %0, 1, 0, p;\n\t}"
-            : "=r"(done)
-            : "r"(addr), "r"(parity)
-            : "memory");
-        if (done) return;
-        if (clock64() - start > 20000000000LL) __trap();
-    }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
-                                          uint64_t* bar) {
-    asm volatile(
-        "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-        "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
-        "l"(src), "r"(bytes), "r"(smem_addr(bar))
-        : "memory");
-}
 
 // The running minimum over candidates c0 = o0 + g0 and c1 = o1 + g1. Every
 // candidate is a non-negative, non-NaN float32 (the 1e12 sentinel and the

@@ -4,8 +4,9 @@ Sources in ``husky_rover_mppi_isaacsim_torch/csrc`` have a plain C interface.
 The CUDA ones are compiled with ``nvcc`` for ``sm_90a`` (:func:`build`), the
 host runtime ``husky_native.cpp`` with ``g++`` (:func:`build_host`), at first
 use into ``build/torch_kernels/`` at the repository root (listed in
-``.gitignore``), under a name keyed by a hash of the source and the flags,
-and loaded with ctypes. Each build writes a file of its own process and
+``.gitignore``), under a name keyed by a hash of the source, the local
+headers it includes (``#include "..."``, such as ``csrc/hopper_common.cuh``)
+and the flags, and loaded with ctypes. Each build writes a file of its own process and
 renames it into place, so that a concurrent loader never sees a partial
 library. Nothing is built when a module is imported.
 """
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -60,10 +62,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def source_bytes(src: Path, seen: set[Path] | None = None) -> bytes:
+    """``src`` followed by every local header it includes (``#include
+    "..."``, found beside the including file), recursively, each once."""
+    seen = set() if seen is None else seen
+    src = src.resolve()
+    seen.add(src)
+    text = src.read_bytes()
+    out = [text]
+    for name in _LOCAL_INCLUDE.findall(text):
+        header = (src.parent / name.decode()).resolve()
+        if header not in seen and header.is_file():
+            out.append(source_bytes(header, seen))
+    return b"".join(out)
+
+
 def _build_cached(src: Path, compiler, flags) -> BuiltLibrary:
     """Compile ``src`` with ``compiler()`` and ``flags`` unless a library of
-    the same source and flags is built, then load it."""
-    key = hashlib.sha256(src.read_bytes() + " ".join(flags).encode())
+    the same source, local headers and flags is built, then load it."""
+    key = hashlib.sha256(source_bytes(src) + " ".join(flags).encode())
     out = BUILD_DIR / f"lib{src.stem}_{key.hexdigest()[:16]}.so"
     seconds, log = 0.0, ""
     if not out.exists():

@@ -1,16 +1,18 @@
-"""Time the design steps of kernels K1 and K2 of the PyTorch port against a
-checkout of an earlier version of the port, and K3's two block shapes, on one
-NVIDIA GPU.
+"""Time the design steps of kernels K1 and K2 and of the planar rollout kernel
+of the PyTorch port against a checkout of an earlier version of the port, and
+K3's two block shapes, on one NVIDIA GPU.
 
     python3 scripts/torch_kernel_variants.py --parent DIR [--out FILE]
     python3 scripts/torch_kernel_variants.py --only k3 [--out FILE]
+    python3 scripts/torch_kernel_variants.py --only planar --parent DIR [--out FILE]
 
 ``DIR`` holds an earlier checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``); its
 ``husky_rover_mppi_isaacsim_torch/csrc/{rollout,edt_minplus}.cu`` are the
-"parent" kernels, called with their own contract (a start heading already
-projected on the start cell, velocities transposed to (H, K)). K1 is timed
-in four variants at the shapes of the rollout paths:
+"parent" kernels, called with their own contract: an early K1 takes a start
+heading already projected on the start cell and velocities transposed to
+(H, K), a K1 whose entry has per-rover strides this checkout's contract.
+K1 is timed in four variants at the shapes of the rollout paths:
 
 * ``parent``: the earlier kernel alone, its inputs prepared beforehand;
 * ``stage1``: inputs staged in shared memory and the start projection in
@@ -36,10 +38,21 @@ graph replay in its production shape (8 blocks of 128 threads) and as one
 block of 1024 threads (``scripts/kernel_steps/gather_probe_1024.cu``), each
 beside an empty kernel of the same grid and block (the launch floor) and the
 one-call ``table[j, i]``, in turns; ``--only k3`` runs that part alone and
-needs no parent checkout. The register report of
-each build and a summary of each kernel's SASS (``cuobjdump -sass``) are
-printed too. Each result is one JSON line; all of them also go to ``FILE`` (default
-``build/kernel_variants.json``).
+needs no parent checkout. The planar rollout kernel (``csrc/rollout_2d.cu``)
+is timed the same two ways at K in {1, 350, 500, 1000} x H = 100 on the
+1500^2 thesis DEM, in turns: the parent's ``rollout_2d.cu`` (one thread per
+sample), the variants of ``scripts/kernel_steps/rollout_2d_steps.cu`` (32
+samples per block; 8 store warps; the chain cut into a heading and a
+position warp) and this checkout's kernel, each held bit-equal to the last,
+and that one to the plain ``rollout_2d``; then
+this kernel alone by graph replay at K = 1000 over horizons from 1 to 256
+(the slope is a step's cost). ``--only planar`` runs that part alone. The
+register report of each build and a summary of each kernel's SASS
+(``cuobjdump -sass``) are printed too. Each result is one JSON line; all of
+them also go to ``FILE`` (default ``build/kernel_variants.json``). A variant
+(the parent included) that is not bit-equal to what it is held to stops the
+run with an error, after its line is printed: a parent called with the
+wrong argument list shows there.
 """
 
 from __future__ import annotations
@@ -63,6 +76,12 @@ H, DT = 100, 0.045
 K1_SHAPES = [(1, 1000, H, True), (1, 1000, H, False), (1, 1, H, False),
              (4, 1000, H, True), (4, 1000, H, False), (4, 1, H, False),
              (1, 33, 37, True), (4, 33, 37, True)]
+# the planar rollout kernel: the 2D arm's K values and the K = 1 launch floor
+PLANAR_KS = (1, 350, 500, 1000)
+# rollout2d_variant_f32's variants (scripts/kernel_steps/rollout_2d_steps.cu)
+PLANAR_VARIANTS = {"s32_w8": 1, "s16_w8": 2, "position_warp": 3}
+# the production kernel's horizon sweep at K = 1000: a step's cost is the slope
+PLANAR_SWEEP_HS = (1, 8, 25, 50, 100, 150, 200, 256)
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PARENT_K1_ARGTYPES = [_P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                       ctypes.c_float, _I, _P]
@@ -73,14 +92,23 @@ def _ok(rc: int) -> None:
         raise RuntimeError(f"kernel launch failed: cudaError {rc}")
 
 
+def require_equal(phase: str, equal: dict) -> None:
+    """Stop the run where a variant's output is not bit-equal to its reference."""
+    wrong = [v for v, same in equal.items() if not same]
+    if wrong:
+        raise RuntimeError(f"{phase}: not bit-equal: {', '.join(wrong)}")
+
+
 def build_steps(cuda_build, kernel_source: str, steps_source: str):
     """Build ``csrc/<kernel_source>`` with ``scripts/kernel_steps/
     <steps_source>`` appended, as one source (so the library's cache key
-    covers both)."""
+    covers both), its local headers included from ``csrc/`` by path."""
     src = ROOT / "build" / "kernel_steps" / steps_source
     src.parent.mkdir(parents=True, exist_ok=True)
-    src.write_text((cuda_build.CSRC / kernel_source).read_text() + "\n"
-                   + (STEPS / steps_source).read_text())
+    kernel = re.sub(r'^#include "([^"/]+)"',
+                    lambda m: f'#include "{cuda_build.CSRC / m.group(1)}"',
+                    (cuda_build.CSRC / kernel_source).read_text(), flags=re.MULTILINE)
+    src.write_text(kernel + "\n" + (STEPS / steps_source).read_text())
     return cuda_build.build(src)
 
 
@@ -109,10 +137,10 @@ def sass_summary(lib: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--only", choices=["k3"])
+    ap.add_argument("--only", choices=["k3", "planar"])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_variants.json")
     args = ap.parse_args(argv)
-    if args.only is None and args.parent is None:
+    if args.only != "k3" and args.parent is None:
         ap.error("--parent is required unless --only k3 is given")
 
     import torch
@@ -148,6 +176,16 @@ def main(argv=None) -> int:
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     cuda = torch.device("cuda")
 
+    def finish():
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps(results, indent=1))
+        return 0
+
+    if args.only == "planar":
+        planar_variants(args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc",
+                        emit, cuda, stream)
+        return finish()
+
     # K3: 8 blocks of 128 threads (production) against one block of 1024,
     # each beside its empty kernel and the one-call table[j, i]
     k3 = gp.gather_probe_cuda.load()
@@ -173,16 +211,16 @@ def main(argv=None) -> int:
         times[v].append(graph_ms(k3_variants[v]))
     torch.cuda.synchronize()
     want = gp.gather_getitem(table, idx_i, idx_j)
+    equal = {v: torch.equal(outs[v], want) for v in outs}
     emit(phase="k3_variants", lanes=gp.K, table=[gp.P, gp.P], graph_ms=times,
-         bit_equal={v: torch.equal(outs[v], want) for v in outs},
-         ptxas=[ln.strip() for ln in (k3.log + k3_steps.log).splitlines()
-                if "registers" in ln])
+         bit_equal=equal, ptxas=[ln.strip() for ln in (k3.log + k3_steps.log).splitlines()
+                                 if "registers" in ln])
+    require_equal("k3_variants", equal)
     if args.only == "k3":
-        args.out.parent.mkdir(parents=True, exist_ok=True)
-        args.out.write_text(json.dumps(results, indent=1))
-        return 0
+        return finish()
 
     parent_src = args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc"
+    planar_variants(parent_src, emit, cuda, stream)
     new_k1, new_k2 = rollout_25d_cuda.load(), edt_minplus_cuda.load()
     steps_k1 = build_steps(cuda_build, "rollout.cu", "rollout_steps.cu")
     steps_k2 = build_steps(cuda_build, "edt_minplus.cu", "edt_fmin.cu")
@@ -192,7 +230,9 @@ def main(argv=None) -> int:
     steps_k2.lib.edt_minplus_fmin_f32.restype = _I
     old_k1 = cuda_build.build(parent_src / "rollout.cu")
     old_k2 = cuda_build.build(parent_src / "edt_minplus.cu")
-    old_k1.lib.rollout25d_f32.argtypes = PARENT_K1_ARGTYPES
+    # a parent K1 whose entry has per-rover strides takes this checkout's arguments
+    k1_same_contract = "long long pos_sn" in (parent_src / "rollout.cu").read_text()
+    old_k1.lib.rollout25d_f32.argtypes = ARGTYPES if k1_same_contract else PARENT_K1_ARGTYPES
     old_k1.lib.rollout25d_f32.restype = _I
     old_k2.lib.edt_minplus_f32.argtypes = [_P, _P, _I, _I, _P]
     old_k2.lib.edt_minplus_f32.restype = _I
@@ -218,7 +258,18 @@ def main(argv=None) -> int:
         head0 = start_heading(hf, pos, head).contiguous()
         lin_t, ang_t = lin.transpose(1, 2).contiguous(), ang.transpose(1, 2).contiguous()
 
+        def k1_args(o):
+            """This checkout's K1 entry arguments, writing into ``o``."""
+            return (hf.z.data_ptr(), 1500, 1500, hf.resolution.data_ptr(), hf.x_min.data_ptr(),
+                    hf.y_min.data_ptr(), pos.data_ptr(), pos.stride(0), pos.stride(1),
+                    head.data_ptr(), head.stride(0), head.stride(1), lin.data_ptr(),
+                    lin.stride(0), ang.data_ptr(), ang.stride(0), o.data_ptr(), n, k, h, DT,
+                    int(wheels), stream())
+
         def parent(o=outs["parent"]):
+            if k1_same_contract:
+                _ok(old_k1.lib.rollout25d_f32(*k1_args(o)))
+                return
             _ok(old_k1.lib.rollout25d_f32(
                 hf.z.data_ptr(), 1500, 1500, hf.resolution.data_ptr(), hf.x_min.data_ptr(),
                 hf.y_min.data_ptr(), pos.data_ptr(), head0.data_ptr(), lin_t.data_ptr(),
@@ -226,11 +277,7 @@ def main(argv=None) -> int:
 
         def stage(number, o):
             def run():
-                a = (hf.z.data_ptr(), 1500, 1500, hf.resolution.data_ptr(), hf.x_min.data_ptr(),
-                     hf.y_min.data_ptr(), pos.data_ptr(), pos.stride(0), pos.stride(1),
-                     head.data_ptr(), head.stride(0), head.stride(1), lin.data_ptr(),
-                     lin.stride(0), ang.data_ptr(), ang.stride(0), o.data_ptr(), n, k, h, DT,
-                     int(wheels), stream())
+                a = k1_args(o)
                 _ok(new_k1.lib.rollout25d_f32(*a) if number == 3
                     else steps_k1.lib.rollout25d_stage_f32(*a, number))
             return run
@@ -245,6 +292,7 @@ def main(argv=None) -> int:
         equal = {v: torch.equal(outs[v], outs["stage3"]) for v in names[:3]}
         emit(phase="k1_variants", N=n, K=k, H=h, wheels=wheels, bit_equal_to_stage3=equal,
              **times)
+        require_equal("k1_variants", equal)
 
     def occupancy(size):
         raster = rasterize_obstacles(generate_obstacles(), half_width=75.0, size=size,
@@ -270,13 +318,83 @@ def main(argv=None) -> int:
             times[v]["back_to_back_ms"].append(cuda_ms(k2(v)))
             times[v]["graph_ms"].append(graph_ms(k2(v)))
         torch.cuda.synchronize()
-        emit(phase="k2_variants", map=name, shape=list(g2.shape),
-             bit_equal_to_dpx={v: torch.equal(outs[v], outs["dpx"]) for v in ("parent", "fmin")},
+        equal = {v: torch.equal(outs[v], outs["dpx"]) for v in ("parent", "fmin")}
+        emit(phase="k2_variants", map=name, shape=list(g2.shape), bit_equal_to_dpx=equal,
              **times)
+        require_equal("k2_variants", equal)
 
-    args.out.parent.mkdir(parents=True, exist_ok=True)
-    args.out.write_text(json.dumps(results, indent=1))
-    return 0
+    return finish()
+
+
+def planar_variants(parent_src: Path, emit, cuda, stream) -> None:
+    """The planar rollout kernel: builds, then each K of PLANAR_KS timed in
+    turns (parent, variants, this kernel, and back), held bit-equal."""
+    import torch
+
+    from husky_rover_mppi_isaacsim_torch.core import HeightField
+    from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d
+    from husky_rover_mppi_isaacsim_torch.ops import cuda_build
+    from husky_rover_mppi_isaacsim_torch.ops.measure import cuda_ms, graph_ms
+    from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import ARGTYPES, rollout_2d_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain import thesis_statistics_terrain
+
+    new = rollout_2d_cuda.load()
+    steps = build_steps(cuda_build, "rollout_2d.cu", "rollout_2d_steps.cu")
+    steps.lib.rollout2d_variant_f32.argtypes = ARGTYPES + [_I]
+    steps.lib.rollout2d_variant_f32.restype = _I
+    old = cuda_build.build(parent_src / "rollout_2d.cu")
+    old.lib.rollout2d_f32.argtypes = ARGTYPES
+    old.lib.rollout2d_f32.restype = _I
+    for name, built in (("planar", new), ("planar_steps", steps), ("planar_parent", old)):
+        emit(phase="build", kernel=name, nvcc_seconds=built.seconds,
+             ptxas=[ln.strip() for ln in built.log.splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln],
+             sass=sass_summary(built.path))
+
+    hf = HeightField.create(thesis_statistics_terrain(device=cuda), 75.0)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    pos = torch.tensor([-60.0, 10.0], device=cuda)  # the 2D arm's start band
+    head = torch.tensor([0.8, 0.6, 0.0], device=cuda)
+    names = ("parent", *PLANAR_VARIANTS, "this")
+    for k in PLANAR_KS:
+        lin = torch.rand((k, H), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((k, H), generator=gen, device=cuda) * 2.0 - 1.0
+        outs = {v: torch.zeros((2, k, H, 3), device=cuda) for v in names}
+
+        def call(v):
+            def run():
+                a = (hf.z.data_ptr(), hf.z.shape[0], hf.z.shape[1], hf.resolution.data_ptr(),
+                     hf.x_min.data_ptr(), hf.y_min.data_ptr(), pos.data_ptr(), 0, pos.stride(0),
+                     head.data_ptr(), 0, head.stride(0), lin.data_ptr(), 0, ang.data_ptr(), 0,
+                     outs[v].data_ptr(), 1, k, H, DT, stream())
+                if v == "parent":
+                    _ok(old.lib.rollout2d_f32(*a))
+                elif v == "this":
+                    _ok(new.lib.rollout2d_f32(*a))
+                else:
+                    _ok(steps.lib.rollout2d_variant_f32(*a, PLANAR_VARIANTS[v]))
+            return run
+
+        times = {v: {"back_to_back_ms": [], "graph_ms": []} for v in names}
+        for v in names + names[::-1]:
+            times[v]["back_to_back_ms"].append(cuda_ms(call(v), inner=20))
+            times[v]["graph_ms"].append(graph_ms(call(v)))
+        want = rollout_2d(hf, pos[None], head[None], lin, ang, DT)
+        torch.cuda.synchronize()
+        this = outs["this"]
+        equal = {v: torch.equal(outs[v], this) for v in names[:-1]}
+        plain = all(torch.equal(a, b) for a, b in zip(this, want))
+        emit(phase="planar_variants", K=k, H=H, dem=list(hf.z.shape),
+             bit_equal_to_this=equal, this_bit_equal_to_plain=plain, **times)
+        require_equal("planar_variants", {**equal, "this_to_plain": plain})
+
+    sweep = {}
+    for h in PLANAR_SWEEP_HS:
+        lin = torch.rand((1000, h), generator=gen, device=cuda) * 2.0
+        ang = torch.rand((1000, h), generator=gen, device=cuda) * 2.0 - 1.0
+        out = torch.empty((2, 1000, h, 3), device=cuda)
+        sweep[h] = graph_ms(lambda: rollout_2d_cuda.launch(hf, pos, head, lin, ang, out, DT))
+    emit(phase="planar_horizons", K=1000, graph_ms=sweep)
 
 
 if __name__ == "__main__":

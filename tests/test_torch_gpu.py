@@ -19,7 +19,9 @@ in a streamed window and on an SDG yard field, its libdevice functions
 against torch's, and its wrapper's refusals; the SDG frame's two graphs
 against the eager labeler, and a graph's in-place argument; the planar
 rollout kernel (csrc/rollout_2d.cu) bit-equal to the plain ``rollout_2d``
-(one rover and N rovers, on and off the thesis DEM), one launch per call
+(one rover and N rovers, on and off the thesis DEM, K from 1 to 1000 by
+horizons from 1 to 256, start headings at the edges of its fast
+arithmetic's range and a zero planar heading), one launch per call
 and per 2D control step, its cosf / sinf against torch's, and the thesis
 drivers (mppi/thesis_runs.py) at a small size on the card.
 
@@ -1241,10 +1243,16 @@ def _thesis_hf(device, size_m=40.0):
 
 
 # (rovers, samples, horizon, start off the DEM): the 2D arm's K values, a
-# ragged shape and a start beyond the window's corner
+# ragged shape and a start beyond the window's corner; then K = 1 and 33
+# (most of a block's samples dead) and the horizon's edges: H = 1 is one
+# partial ring chunk, H = 37 gives slices that are not 16-byte aligned
+# (staged by plain loads, the tables built one step at a time), H = 256 is
+# MAX_HORIZON (the most shared memory)
 ROLLOUT_2D_CASES = [(1, 1000, 100, False), (1, 500, 100, False), (1, 350, 100, False),
                     (1, 33, 37, False), (1, 1000, 100, True), (4, 1000, 100, False),
                     (4, 33, 37, True)]
+ROLLOUT_2D_CASES += [(1, k, h, False) for k in (1, 33, 350, 1000) for h in (1, 37, 100, 256)
+                     if (1, k, h, False) not in ROLLOUT_2D_CASES]
 
 
 @pytest.mark.parametrize("n,k,h,off_map", ROLLOUT_2D_CASES)
@@ -1273,6 +1281,48 @@ def test_rollout_2d_kernel_matches_plain_on_card(cuda, n, k, h, off_map):
         for i in range(n):
             one = rollout_2d_cuda(hf, pos[i], heading[i], lin[i], ang[i], 0.045)
             assert all(torch.equal(a[i], b) for a, b in zip(got, one))
+
+
+# start headings scaled by 2^e: their norms fall below, inside and beyond
+# the fast forms' moderate range [2^-60, 2^60), and e = -66 squares to
+# subnormals. The rotation keeps a heading's length, so the start heading
+# sets the norms the guard and the divisions see (velocities cannot make
+# them tiny); some samples stand still (v = 0) or do not turn (w = 0)
+HEADING_SCALE_EXPS = [-66, -62, -61, -60, -59, 58, 59, 60, 61, 63]
+
+
+@pytest.mark.parametrize("e", HEADING_SCALE_EXPS)
+def test_rollout_2d_kernel_at_the_fast_forms_edges_on_card(cuda, e):
+    """Chunks whose operands leave the moderate range take the exact
+    recompute; both outputs stay bit-equal to the plain rollout_2d."""
+    hf = _thesis_hf(cuda)
+    g = torch.Generator(device=cuda).manual_seed(e + 100)
+    lin = torch.rand((64, 24), generator=g, device=cuda) * 2.0
+    ang = torch.rand((64, 24), generator=g, device=cuda) * 2.0 - 1.0
+    lin[::4] = 0.0
+    ang[1::4] = 0.0
+    pos = torch.tensor([3.0, -4.0], device=cuda)
+    heading = torch.tensor([0.6, -0.8, 0.3], device=cuda) * 2.0 ** e
+    got = rollout_2d_cuda(hf, pos, heading, lin, ang, 0.045)
+    want = tro.rollout_2d(hf, pos[None], heading[None], lin, ang, 0.045)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert torch.isfinite(got[0]).all()
+
+
+def test_rollout_2d_kernel_keeps_a_zero_planar_heading_on_card(cuda):
+    """A vertical start heading rotates to a planar norm of exactly 0: the
+    guard keeps the zero heading (one step: a second would divide 0 by 0)."""
+    hf = _thesis_hf(cuda)
+    lin = torch.linspace(0.0, 2.0, 40, device=cuda)[:, None]
+    ang = torch.linspace(-1.0, 1.0, 40, device=cuda)[:, None]
+    pos = torch.tensor([-2.0, 5.0], device=cuda)
+    heading = torch.tensor([0.0, 0.0, 0.5], device=cuda)
+    got = rollout_2d_cuda(hf, pos, heading, lin, ang, 0.045)
+    want = tro.rollout_2d(hf, pos[None], heading[None], lin, ang, 0.045)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert (got[1] == 0).all() and torch.equal(got[0][..., :2], pos.expand(40, 1, 2))
 
 
 def test_rollout_2d_libm_matches_torch_on_card(cuda):

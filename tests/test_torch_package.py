@@ -249,6 +249,34 @@ def test_converters_keep_values_and_dtypes():
     assert rs.heading.shape == (3,) and float(rs.z[0]) == 1.0
 
 
+def test_build_key_covers_local_headers(tmp_path):
+    """A source's build key reads each local header it includes, once and
+    recursively, so that a changed header rebuilds every kernel using it."""
+    (tmp_path / "inner.cuh").write_text("int inner;\n")
+    (tmp_path / "outer.cuh").write_text('#include "inner.cuh"\nint outer;\n')
+    src = tmp_path / "k.cu"
+    src.write_text('#include <stdint.h>\n#include "outer.cuh"\n #include "inner.cuh"\nint k;\n')
+    got = cuda_build.source_bytes(src)
+    assert got == (src.read_bytes() + (tmp_path / "outer.cuh").read_bytes()
+                   + (tmp_path / "inner.cuh").read_bytes())
+    (tmp_path / "inner.cuh").write_text("int inner2;\n")
+    assert cuda_build.source_bytes(src) != got
+
+
+@pytest.mark.parametrize("source", ["rollout.cu", "rollout_2d.cu", "edt_minplus.cu"])
+def test_kernels_share_one_copy_of_the_device_helpers(source):
+    """K1, K2 and the planar rollout kernel take the barriers and the fast
+    and exact arithmetic from csrc/hopper_common.cuh (so the fast forms'
+    check in K1's library covers the planar kernel's too), and the header
+    is part of their build keys."""
+    text = (cuda_build.CSRC / source).read_text()
+    header = (cuda_build.CSRC / "hopper_common.cuh").read_bytes()
+    assert '#include "hopper_common.cuh"' in text
+    for name in ("struct Fast", "struct Exact", "void bar_wait", "void bulk_load"):
+        assert name not in text
+    assert header in cuda_build.source_bytes(cuda_build.CSRC / source)
+
+
 def test_kernel_build_refuses_without_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_build, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr("torch.utils.cpp_extension.CUDA_HOME", None)

@@ -78,6 +78,42 @@ def test_wrapper_on_cpu_equals_plain_and_jax(rng, start):
     assert (heads[..., 2] == 0).all()
 
 
+# start headings scaled by 2^e around the edges of the kernel's fast-form
+# range [2^-60, 2^60) (tests/test_torch_gpu.py holds the kernel there);
+# every square stays a normal float32, so XLA's flushing of subnormals on
+# the CPU cannot tell the two packages apart
+@pytest.mark.parametrize("e", [-60, -59, 58, 59, 60, 61])
+def test_wrapper_on_cpu_at_heading_scales_equals_plain_and_jax(rng, e):
+    jf, tf = _world(rng)
+    pos, heading, lin, ang = _inputs(rng, h=16)
+    heading = (np.asarray([0.6, -0.8, 0.3]) * 2.0 ** e).astype(np.float32)
+    lin[::3] = 0.0
+    t = [torch.from_numpy(a) for a in (pos, heading, lin, ang)]
+    got = r2.rollout_2d_cuda(tf, *t, 0.045)
+    want = tro.rollout_2d(tf, t[0][None], t[1][None], t[2], t[3], 0.045)
+    jwant = jro.rollout_2d(jf, *(jnp.asarray(a) for a in (pos, heading, lin, ang)), 0.045)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    (traj, heads), (jtraj, jheads) = got, [np.asarray(a) for a in jwant]
+    np.testing.assert_allclose(traj[..., :2].numpy(), jtraj[..., :2], rtol=0, atol=XY_ATOL)
+    np.testing.assert_allclose(heads.numpy(), jheads, rtol=0, atol=HEADING_ATOL)
+    assert np.isfinite(traj.numpy()).all()
+
+
+def test_wrapper_on_cpu_keeps_a_zero_planar_heading(rng):
+    """A vertical start heading rotates to a planar norm of exactly 0: both
+    packages keep the zero heading, and the rover does not move."""
+    jf, tf = _world(rng)
+    pos, _, lin, ang = _inputs(rng, h=1)
+    heading = np.asarray([0.0, 0.0, 0.5], np.float32)
+    t = [torch.from_numpy(a) for a in (pos, heading, lin, ang)]
+    traj, heads = r2.rollout_2d_cuda(tf, *t, 0.045)
+    jtraj, jheads = jro.rollout_2d(jf, *(jnp.asarray(a) for a in (pos, heading, lin, ang)), 0.045)
+    assert (heads == 0).all() and (np.asarray(jheads) == 0).all()
+    assert torch.equal(traj[..., :2], t[0].expand(lin.shape[0], 1, 2))
+    np.testing.assert_array_equal(traj[..., :2].numpy(), np.asarray(jtraj)[..., :2])
+
+
 def test_rover_axis_equals_one_rover_calls(rng):
     """N rovers in one call equal N one-rover calls, for K1's pose layout
     ``(N, 2)`` and the plain version's ``(N, 1, 2)`` alike."""
