@@ -15,9 +15,10 @@ x H=37 shape, a start off the DEM, N=4 rovers in one launch against
 one-rover launches, and its cosf / sinf against torch's on the run's
 arguments; its time beside the byte bound and the floor of its H-step
 heading chain; K1 on every channel: the flagship shapes, the K=1
-optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM, and N=4
-rovers in one launch against one-rover launches; the branch-free division
-and square root of K1 and the planar rollout kernel against `/` and sqrtf on 2^36 operand pairs and every
+optimal rollout, a ragged K=33 x H=37 shape, a start off the DEM,
+bench_torch.py's large batch (K=16384 x H=64, with and without the wheel
+tracks) and its K=1 x H=64 optimal rollout, and N=4 rovers in one launch against one-rover launches; the
+branch-free division and square root of K1 and the planar rollout kernel against `/` and sqrtf on 2^36 operand pairs and every
 float32 operand; K1 on 8 samples against the float64 Warp-semantics
 oracle, compat.warp_oracle); times each kernel back to
 back and as one CUDA-graph replay of 20 launches (device time without the
@@ -28,9 +29,14 @@ each (a K1 call dispatches no torch operator but the output's empty); drives
 the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on the 150 m
 crater map with the 750-obstacle costmap), the CLI's default closed loop (4
 rovers, 300 sim steps, the same world and widths) and 4096 simulated rovers
-for 400 physics steps; drives the host shell's SimulationManager (5 robot
-slots, 300 ticks over its message bus: spawns, a teleport, a reset, a pose
-subscriber; its first ticks on the card against the CPU's), the
+for 400 physics steps; holds bench_torch.py's graphs against their eager
+runs (its K=16384 x H=64 control loops under both slope critics, its vec
+env's graph of 100 steps over 400 steps) and runs its measurement in this
+process (bench.py's line, printed as it is: control loops, vec env,
+goal-seek, closed loop and five 100 m traverses at 48-step chunks), after
+the streamed-terrain slice and before the first profiler trace; drives the
+host shell's SimulationManager (5 robot slots, 300 ticks over its message
+bus: spawns, a teleport, a reset, a pose subscriber; its first ticks on the card against the CPU's), the
 MPPIController's run on the flagship (its step bit-equal to mppi_step), and
 the sharded step on torch.distributed ranks in their own processes (one
 NCCL rank bit-equal to mppi_step, two gloo ranks sharing the card, the
@@ -146,6 +152,10 @@ DEFORM_START, DEFORM_GOAL, DEFORM_STEPS = (24.0, 0.5), (30.0, 0.5), 480
 # (which excludes what earlier phases still hold)
 UNSTAGED_TRAVERSE_PEAK_BYTES = 1.71e9
 VEC_ROVERS, VEC_STEPS = 4096, 400   # bench.py's vec-env shapes
+# bench.py's large batch (bench_torch.py: K1 at 512 blocks of 32 samples)
+# and its control loops' start; bench_graphs holds BENCH_LOOPS of them
+# graphed against eager, and the vec env's graph of VEC_BLOCK steps
+BENCH_K, BENCH_H, BENCH_START, BENCH_LOOPS, VEC_BLOCK = 16384, 64, (-60.0, -60.0), 8, 100
 # the simulation manager's run: 5 robot slots (3 robots spawned over the
 # bus), 300 ticks timed in windows of 30, its first 5 ticks against the CPU;
 # the teleport target of tick 100
@@ -310,6 +320,7 @@ def main(argv=None) -> int:
         mppi_step,
     )
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
+    from husky_rover_mppi_isaacsim_torch.mppi.sampling import sample_noise
     from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
     from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d, rollout_25d
     from husky_rover_mppi_isaacsim_torch.ops.edt import (
@@ -356,6 +367,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.terrain.point_process import BoundingBox, hardcore_poisson
     from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
     from shard_ranks import run_ranks
+    import bench_torch
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
@@ -1650,10 +1662,13 @@ def main(argv=None) -> int:
         sdg_profiled(*cli_timed()[-2:])
         return 0
 
-    max_err, k1_row = 0.0, {}
+    max_err, k1_row, k1_bench = 0.0, {}, {}
     cases = [("flagship", K, H, True, START), ("flagship", K, H, False, START),
              ("optimal", 1, H, False, START), ("ragged", 33, 37, True, START),
-             ("off_dem", K, H, True, (-78.0, 77.0))]
+             ("off_dem", K, H, True, (-78.0, 77.0)),
+             ("bench", BENCH_K, BENCH_H, True, BENCH_START),
+             ("bench", BENCH_K, BENCH_H, False, BENCH_START),
+             ("bench_optimal", 1, BENCH_H, False, BENCH_START)]
     for name, k, h, wheels, start in cases:
         p = torch.tensor(start, device=cuda)
         lin = torch.rand((k, h), generator=gen, device=cuda) * 2.0
@@ -1684,6 +1699,11 @@ def main(argv=None) -> int:
         if name == "flagship" and wheels:
             k1_row = {"ms": t_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
                       "bound_by": bound_by}
+        row = {"ms": t_graph, "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by}
+        if name == "bench":
+            k1_bench["wheels" if wheels else "body"] = row
+        elif name == "bench_optimal":  # the optimal rollout of every K=16384 x H=64 loop
+            k1_bench["optimal"] = row
 
     # the branch-free divisions and square roots of csrc/hopper_common.cuh
     # (K1's and the planar rollout kernel's) against `/` and sqrtf: 2^36
@@ -2262,6 +2282,65 @@ def main(argv=None) -> int:
     if not (vec_finite and vec_close):
         raise RuntimeError("the vectorized env on the card disagrees with the CPU's")
 
+    # 7c'. bench_graphs: bench_torch.py's graphs against their eager runs,
+    #      bit for bit. Its control loops at K=16384 x H=64 under both slope
+    #      critics: BENCH_LOOPS loops as one graph replay against the same
+    #      loops eagerly on the same noise (K1 twice a loop either way); its
+    #      vec env: the graph of VEC_BLOCK physics steps called until
+    #      VEC_STEPS steps (the warm-up, the capture, replays) against
+    #      VEC_STEPS eager steps
+    bench_goal = torch.tensor([65.0, 60.0], device=cuda)
+    bench_graph_rows = {}
+    for critic in ("wheels", "body"):
+        bcfg = MPPIConfig(num_samples=BENCH_K, horizon=BENCH_H, exact=False, slope_critic=critic)
+        brobot = RobotState.create(*BENCH_START, HEADING, device=cuda)
+        bctrl = ControllerState.create(bcfg, device=cuda)
+        bgen = torch.Generator(device=cuda).manual_seed(50)
+        bnoise = tuple(sample_noise(bgen, BENCH_K, BENCH_H, device=cuda)
+                       for _ in range(BENCH_LOOPS))
+        bargs = (bcfg, hf, cm, bench_goal, brobot, bctrl, bnoise)
+        bgraph = Graphed(bench_torch.control_loops, in_place_args=bench_torch.LOOPS_IN_PLACE)
+        bgraph(*bargs)  # the warm-up, eager
+        torch.cuda.synchronize()
+        rollout_25d_cuda.launches = 0
+        got = bgraph(*bargs)  # the capture and one replay
+        torch.cuda.synchronize()
+        graph_k1 = rollout_25d_cuda.launches
+        rollout_25d_cuda.launches = 0
+        want = bench_torch.control_loops(*bargs)
+        torch.cuda.synchronize()
+        eager_k1 = rollout_25d_cuda.launches
+        equal = _same(got, want)
+        t_graph = cuda_ms(lambda: bgraph(*bargs)) / BENCH_LOOPS
+        t_eager = cuda_ms(lambda: bench_torch.control_loops(*bargs)) / BENCH_LOOPS
+        ok = equal and graph_k1 == eager_k1 == 2 * BENCH_LOOPS
+        bench_graph_rows[critic] = {"graph_equals_eager": equal, "k1_launches_graph": graph_k1,
+                                    "k1_launches_eager": eager_k1, "ms_per_loop_graph": t_graph,
+                                    "ms_per_loop_eager": t_eager,
+                                    "capture_ms": bgraph.capture_ms, "ok": ok}
+        del got, want, bgraph, bnoise
+    vec_graph = Graphed(bench_torch.vec_env_steps, in_place_args=(1,))
+    vec_b0, vec_cmd = bench_torch.vec_env_start(hf, VEC_ROVERS)
+    vec_got = vec_b0
+    for _ in range(VEC_STEPS // VEC_BLOCK):
+        vec_got = vec_graph(params, hf, vec_got, vec_cmd, VEC_BLOCK)
+    vec_want = bench_torch.vec_env_steps(params, hf, vec_b0, vec_cmd, VEC_STEPS)
+    torch.cuda.synchronize()
+    vec_equal, vec_replays = _same(vec_got, vec_want), vec_graph.replays
+    vec_graph_ms = cuda_ms(lambda: vec_graph(params, hf, vec_b0, vec_cmd, VEC_BLOCK)) / VEC_BLOCK
+    vec_eager_ms = cuda_ms(lambda: bench_torch.vec_env_steps(params, hf, vec_b0, vec_cmd,
+                                                             VEC_BLOCK)) / VEC_BLOCK
+    vec_ok = vec_equal and vec_replays == VEC_STEPS // VEC_BLOCK - 1
+    phase("bench_graphs", K=BENCH_K, H=BENCH_H, loops=BENCH_LOOPS, start=list(BENCH_START),
+          control_loops=bench_graph_rows, vec_env={
+              "N": VEC_ROVERS, "steps": VEC_STEPS, "block": VEC_BLOCK,
+              "graph_equals_eager": vec_equal, "ms_per_step_graph": vec_graph_ms,
+              "ms_per_step_eager": vec_eager_ms, "capture_ms": vec_graph.capture_ms,
+              "ok": vec_ok})
+    if not (vec_ok and all(r["ok"] for r in bench_graph_rows.values())):
+        raise RuntimeError("a graph of bench_torch.py differs from its eager run")
+    del vec_got, vec_want, vec_graph
+
     # 7d. the host shell's SimulationManager on the flagship world: 5 robot
     #     slots at ClosedLoopConfig() (K=1000 x H=100). First its first
     #     SIM_CHECK ticks on the card against the same ticks on the CPU, the
@@ -2755,6 +2834,31 @@ def main(argv=None) -> int:
     # pipelined traverse); every path's count under launches_by_path
     ls_k1, ls_k2 = ls_counts["largescale_pipelined"]
 
+    # 11b. bench: bench_torch.py's measurement in this process (what
+    #      `python3 bench_torch.py` prints), its line printed as it is; it
+    #      fails on a missing or extra key and on a traverse that did not
+    #      reach its goal. Its launches go to the kernel line's
+    #      launches_by_path
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = crater_block_cuda.launches = 0
+    t0 = time.perf_counter()
+    bench_line = bench_torch.measure(cuda)
+    torch.cuda.synchronize()
+    bench_s = time.perf_counter() - t0
+    bench_counts = {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
+                    "stamp": crater_block_cuda.launches}
+    print(json.dumps(bench_line), flush=True)
+    detail = bench_line["detail"]
+    keys_ok = (set(detail) == bench_torch.DETAIL_KEYS
+               and set(detail["largescale_streamed"]) == bench_torch.LARGESCALE_KEYS)
+    reached = detail["largescale_streamed"]["reached"]
+    ok = keys_ok and reached and all(bench_counts[k] > 0 for k in ("k1", "k2", "stamp"))
+    phase("bench", seconds=bench_s, keys_ok=keys_ok, reached=reached,
+          value=bench_line["value"], launches=bench_counts, ok=ok)
+    if not ok:
+        raise RuntimeError("bench_torch.py's line lacks a key or has one too many, or its "
+                           "traverse did not reach the goal")
+
     # 12. device kernels of one control step (flagship shapes) and of one
     #     closed-loop step (N=4), counted by torch.profiler (it fails if the
     #     profiler records no kernel), with the torch operators each
@@ -2875,12 +2979,14 @@ def main(argv=None) -> int:
         "shape": "K=1000 x H=100, wheels, DEM 7000 x 7000",
         "edge_after_shift": ls_k1_edge, "dem_1500": k1_row,
         "dem_4000_moonyard": yard_k1_row,
+        # "optimal": the bench loops' K=1 x H=64 rollout
+        "bench_16384": {"K": BENCH_K, "H": BENCH_H, "dem": [1500, 1500], **k1_bench},
         "launches_by_path": {**{k: v[0] for k, v in ls_counts.items()}, "goal_seek": launches,
                              "closed_loop": cl_k1, "evaluation": eval_k1,
                              "moonyard_standalone": yard_counts["k1"],
                              "moonyard_closed_loop": lab_counts["k1"],
                              "sim_manager": sim_k1, "mppi_controller": ctl_k1,
-                             "sharded_step_per_rank": shard_k1,
+                             "sharded_step_per_rank": shard_k1, "bench": bench_counts["k1"],
                              **{f"sdg_{r}": c["k1"] for r, c in sdg_counts.items()}},
     }, {
         "name": "edt_minplus", "route": "cuda",
@@ -2889,7 +2995,7 @@ def main(argv=None) -> int:
         "launches": ls_k2, "max_abs_err": ls_k2_err, "library_ms": None, **ls_k2_row,
         "shape": "875 x 875", "map_1500": k2_row,
         "launches_by_path": {**{k: v[1] for k, v in ls_counts.items()}, "world": world_k2,
-                             "evaluation": eval_k2},
+                             "evaluation": eval_k2, "bench": bench_counts["k2"]},
     }, {
         "name": "gather_probe", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/gather_probe.cu",
@@ -2918,7 +3024,8 @@ def main(argv=None) -> int:
         "launches_by_path": {**stamp_counts,
                              **{f"sdg_{r}": c["stamp"] for r, c in sdg_counts.items()},
                              "moonyard_standalone": yard_counts["stamp"],
-                             "moonyard_closed_loop": lab_counts["stamp"]},
+                             "moonyard_closed_loop": lab_counts["stamp"],
+                             "bench": bench_counts["stamp"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,8 @@ CPU's, ``MPPIController.step`` and the one-rank sharded step bit-equal to
 ``mppi_step`` on the card; the last host libraries: the streamer's tile
 pool route on the card (no host sync, its bases equal to the CPU's) and a
 worldbuilders request on the card against the CPU; the CUDA graphs of the
-loops against their eager runs; the crater block kernel
+loops against their eager runs (bench_torch.py's K=16384 x H=64 control
+loops and its 4096-rover vec env among them); the crater block kernel
 (csrc/crater_block.cu) bit-equal to its plain version (render, then the
 slice-add stamp) at the streamed tiers' shapes, for overlapping craters,
 in a streamed window and on an SDG yard field, its libdevice functions
@@ -81,11 +82,14 @@ def _crater(device, grid=1500, hw=75.0):
 
 
 # (rovers, samples, horizon, wheels, start off the DEM): the flagship's and
-# the closed loop's launches, and ragged shapes whose velocity slices are
-# not 16-byte aligned (K = 33, H = 37)
+# the closed loop's launches, ragged shapes whose velocity slices are not
+# 16-byte aligned (K = 33, H = 37), and bench_torch.py's large batch (K =
+# 16384 x H = 64: 512 blocks, 12 or 6 x 64 x 16384 floats out) with its
+# optimal rollout (K = 1 x H = 64)
 K1_CASES = [(1, 1000, 100, True, False), (1, 1000, 100, False, False), (1, 1, 100, False, False),
             (4, 1000, 100, True, False), (4, 1, 100, False, False), (1, 33, 37, True, False),
-            (4, 33, 37, False, False), (1, 33, 37, True, True), (4, 1000, 100, True, True)]
+            (4, 33, 37, False, False), (1, 33, 37, True, True), (4, 1000, 100, True, True),
+            (1, 16384, 64, True, False), (1, 16384, 64, False, False), (1, 1, 64, False, False)]
 
 
 @pytest.mark.parametrize("n,k,h,wheels,off_map", K1_CASES)
@@ -900,6 +904,55 @@ def test_graphed_closed_loop_equals_eager_on_card(cuda):
                                      step_fn=step_fn))
         assert rollout_25d_cuda.launches - before == 24
     assert _all_equal(*runs) and int(runs[0][0].step_index) == 12
+
+
+@pytest.mark.parametrize("slope_critic", ["wheels", "body"])
+def test_bench_control_loops_graph_equals_eager_on_card(cuda, slope_critic):
+    """bench_torch.py's control loops at its large batch (K=16384 x H=64),
+    8 loops replayed as one graph against the same loops run eagerly on the
+    same noise: bit for bit, K1 twice a loop either way."""
+    import bench_torch as bt
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+    from husky_rover_mppi_isaacsim_torch.mppi.sampling import sample_noise
+
+    hf, cm = bt.build_world(cuda)
+    cfg = MPPIConfig(num_samples=16384, horizon=64, exact=False, slope_critic=slope_critic)
+    goal = torch.tensor([65.0, 60.0], device=cuda)
+    robot = RobotState.create(-60.0, -60.0, [1.0, 0.5, 0.0], device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(50)
+    noises = tuple(sample_noise(gen, 16384, 64, device=cuda) for _ in range(8))
+    graph = Graphed(bt.control_loops, in_place_args=bt.LOOPS_IN_PLACE)
+    graph(cfg, hf, cm, goal, robot, ctrl, noises)  # the warm-up, eager
+    before = rollout_25d_cuda.launches
+    got = graph(cfg, hf, cm, goal, robot, ctrl, noises)  # the capture and a replay
+    replayed = rollout_25d_cuda.launches - before
+    before = rollout_25d_cuda.launches
+    want = bt.control_loops(cfg, hf, cm, goal, robot, ctrl, noises)
+    torch.cuda.synchronize()
+    assert replayed == rollout_25d_cuda.launches - before == 16
+    assert graph.replays == 1 and _all_equal(got, want)
+    assert not torch.equal(got[0].position, robot.position)
+
+
+def test_bench_vec_env_graph_equals_eager_on_card(cuda):
+    """bench_torch.py's vec env, 4096 rovers: a graph of 100 physics steps
+    called 4 times (the warm-up, then the capture and 3 replays) against
+    400 eager steps, bit for bit."""
+    import bench_torch as bt
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+
+    hf = _crater(cuda)
+    state, cmd = bt.vec_env_start(hf, 4096)
+    params = tenv.RoverParams()
+    graph = Graphed(bt.vec_env_steps, in_place_args=(1,))
+    got = state
+    for _ in range(4):
+        got = graph(params, hf, got, cmd, 100)
+    want = bt.vec_env_steps(params, hf, state, cmd, 400)
+    torch.cuda.synchronize()
+    assert graph.replays == 3 and _all_equal(got, want)
+    assert float((got.position - state.position).abs().max()) > 1.0
 
 
 def test_graphed_sim_manager_equals_eager_on_card(cuda):
