@@ -36,9 +36,11 @@ beside the times are derived from the median times. Nothing here runs
 ``torch.profiler``: a trace slows the paths timed after it in the same
 process.
 
-Noise comes from ``torch.Generator``s, not JAX's threefry: the goal-seek's
-loop count and the traverse's step count and shifts are the port's own
-sample, not a replay of the JAX bench's.
+Control noise comes from ``torch.Generator``s, not JAX's threefry: the
+goal-seek's loop count and the traverse's step count and shifts are the
+port's own sample, not a replay of the JAX bench's. The vec env's starts are
+JAX's draw (``core.jax_random``), the closed loop's start and goal bench.py's
+numpy draw: both are bench.py's.
 """
 
 from __future__ import annotations
@@ -54,6 +56,7 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch import native
 from husky_rover_mppi_isaacsim_torch.cli import build_standalone_world, use_full_fp32_matmul
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.core.device import run_device
 from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
 from husky_rover_mppi_isaacsim_torch.env import rover_sim
@@ -208,9 +211,10 @@ def vec_env_steps(params: RoverParams, hf, state: RoverState, cmd, n: int) -> Ro
 
 
 def vec_env_start(hf, num_rovers: int) -> tuple[RoverState, torch.Tensor]:
-    """bench.py's vec-env start: rovers at U(-50, 50)^2 (from numpy, seed
-    0), heading +x, standing on the DEM; the wheel command 1.5 m/s."""
-    pos = np.random.default_rng(0).uniform(-50.0, 50.0, (num_rovers, 2))
+    """bench.py's vec-env start (bench.py:128-129): rovers at
+    ``jax.random.uniform(key(0), (N, 2), float32, -50, 50)``, heading +x,
+    standing on the DEM; the wheel command 1.5 m/s."""
+    pos = jr.uniform(jr.key(0, hf.z.device), (num_rovers, 2), DTYPE, -50.0, 50.0)
     state = RoverState.create(pos, [1.0, 0.0, 0.0], hf)
     return state, torch.full((num_rovers,), 1.5, dtype=hf.z.dtype, device=hf.z.device)
 

@@ -40,7 +40,15 @@ bus: spawns, a teleport, a reset, a pose subscriber; its first ticks on the card
 MPPIController's run on the flagship (its step bit-equal to mppi_step), and
 the sharded step on torch.distributed ranks in their own processes (one
 NCCL rank bit-equal to mppi_step, two gloo ranks sharing the card, the
-rover x sample meshes, the scaling sweep's report); runs the thesis 2D-vs-3D evaluation protocol at full
+rover x sample meshes, the scaling sweep's report); runs graft_entry_torch.py (its
+entry step on the card with K1's two launches counted, each held against
+the plain rollout bit for bit, the script in its own process, and its
+dryrun_multichip(2) on two gloo ranks sharing the card); draws JAX's
+world streams (core.jax_random: the thesis DEM's base-noise grids and
+bench_torch.py's vec-env starts) on the card, torch.equal to the CPU's,
+builds the seed-42 thesis DEM at z 0.7 on the card and on the CPU (each
+DEM's statistics EVAL_r05.json's, the JAX package's terrain) and the SDG
+yard on both, held within the crater heights' float32 bound; runs the thesis 2D-vs-3D evaluation protocol at full
 width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, the
 protocol's 3500-loop cap), graphed and eager, with the plain 2D rollout
 timed alone and the 2D arm's graph timed on the planar rollout kernel
@@ -78,7 +86,9 @@ the CLI's override terrain_streamer.native_pool=always, cut to POOL_STEPS;
 and drives the pipelined traverse once more with JAX's pacing (no wait on
 the terrain worker), held to the criteria for removing the port's dispatch
 bound (reached, the bounded run's block shifts, at least its pre-stage hits,
-one costmap rebuild per shift) and reported beside the bounded run. The streamed
+one costmap rebuild per shift) and reported beside the bounded run, then
+both again at bench_torch.py's 48-step chunks (the bound, counted in sim
+steps, is 8 chunks at 12 steps and 6 at 48). The streamed
 chunk's graph reads the window and costmap in place (graph_chunk times it
 against a graph that copies them).
 K3 is timed
@@ -138,6 +148,9 @@ ROVERS, SIM_STEPS = 4, 300          # the CLI's closed-loop defaults
 # the checkout's ignored build/ directory; the deformed traverse starts 1 m
 # before the x = 25 m block border.
 SYNC_STEPS, CKPT_EVERY = 3000, 3600
+# dispatch_bound: the pipelined traverse bounded and unbounded at
+# bench_torch.py's chunk of 48 sim steps too
+CHUNK_48 = 48
 # graph_chunk: chunks run eagerly and as a graph replay, in turns, on the
 # second 7000^2 world; a block shift seats a new window half-way
 GRAPH_CHUNKS = 12
@@ -198,6 +211,10 @@ WB_MPP, WB_SEED = 0.02, 11
 # rollout tests' bound (tests/test_torch_rollout.py) on trajectory,
 # headings and wheel xy, with >= 98% of wheel heights equal
 ORACLE_SAMPLES, ORACLE_ATOL, ORACLE_WHEEL_Z_SHARE = 8, 5e-4, 0.98
+# a DEM built on the card against the same DEM built on the CPU: the float32
+# crater heights' bound of tests/test_torch_smallscale.py (CRATER_ATOL; the
+# libraries' atan2 and exp differ in the last bits)
+DEM_ATOL = 2e-6
 
 
 # one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes per second,
@@ -368,6 +385,13 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.terrain.smallscale import MoonyardConf, MoonyardGenerator
     from shard_ranks import run_ranks
     import bench_torch
+    import graft_entry_torch
+    from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
+    from husky_rover_mppi_isaacsim_torch.ops import rollout_cuda as rollout_cuda_module
+    from husky_rover_mppi_isaacsim_torch.terrain.smallscale import (
+        BaseTerrainGeneratorConf,
+        draw_base_noise,
+    )
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
@@ -786,8 +810,6 @@ def main(argv=None) -> int:
         largescale_resume(dataclasses.replace(conf, pipeline_depth=0, verify_prestage=True),
                           sync_s1, counts)
         pipe_stamp, sync_s0_stamp = pipe["stamp"], sync_s0["stamp"]
-        pipe_res, pipe_waits = pipe["run"].result, pipe["loop"].worker_blocking_waits
-        pipe_res_wait = pipe["loop"].chunk_phase_acc["worker_wait_s"]
         rate = pipe["loop"].measure_device_rate(chunks=20)
         res = pipe["run"].result
         phase("largescale_device_rate", chunks=20, steps_per_chunk=conf.terrain_check_every,
@@ -795,31 +817,52 @@ def main(argv=None) -> int:
               steady_sim_steps_per_s=res.steady_steps / max(res.steady_wall_s, 1e-9),
               sync_prestaged_sim_steps_per_s=sync_s1["steps_per_s"],
               sync_plain_sim_steps_per_s=sync_s0["steps_per_s"])
-        del pipe, sync_s0
+        del sync_s0
         largescale_deform(conf, counts)
 
         #     the pipelined traverse again with JAX's pacing: pipeline_depth
         #     chunks in flight and no wait on the terrain worker (the port's
-        #     dispatch bound off), for the bound's removal criteria
-        with mock.patch.object(tls._TerrainWorker, "wait_for", lambda self, chunk: False):
-            unbounded = run_traverse("largescale_pipelined_unbounded", {})
-        criteria = {
-            "reached": unbounded["run"].result.reached,
-            "block_shifts": [pipe_res.block_shifts, unbounded["run"].result.block_shifts],
-            "prestage_hits": [pipe_res.prestage_hits, unbounded["run"].result.prestage_hits],
-            "costmap_rebuilds_equal_block_shifts": (unbounded["run"].result.costmap_rebuilds
-                                                    == unbounded["run"].result.block_shifts)}
-        criteria["met"] = (criteria["reached"] and criteria["costmap_rebuilds_equal_block_shifts"]
-                           and criteria["block_shifts"][1] == criteria["block_shifts"][0]
-                           and criteria["prestage_hits"][1] >= criteria["prestage_hits"][0])
-        phase("dispatch_bound", bounded="largescale_pipelined",
-              unbounded="largescale_pipelined_unbounded", removal_criteria=criteria,
-              worker_wait_s=[pipe_res_wait, unbounded["loop"].chunk_phase_acc["worker_wait_s"]],
-              worker_blocking_waits=[pipe_waits, unbounded["loop"].worker_blocking_waits],
-              ok=True)
+        #     dispatch bound off), for the bound's removal criteria; then the
+        #     bounded and the unbounded traverse at bench_torch.py's 48-step
+        #     chunks (the bound in sim steps: 6 chunks there, 8 at 12 steps)
+        def unbounded_run(name, conf_=None):
+            with mock.patch.object(tls._TerrainWorker, "wait_for", lambda self, chunk: False):
+                return run_traverse(name, {}, conf_)
+
+        def removal_criteria(bounded, unbounded):
+            b, u = bounded["run"].result, unbounded["run"].result
+            crit_ = {"reached": u.reached, "block_shifts": [b.block_shifts, u.block_shifts],
+                     "prestage_hits": [b.prestage_hits, u.prestage_hits],
+                     "costmap_rebuilds_equal_block_shifts": u.costmap_rebuilds == u.block_shifts}
+            crit_["met"] = (crit_["reached"] and crit_["costmap_rebuilds_equal_block_shifts"]
+                            and u.block_shifts == b.block_shifts
+                            and u.prestage_hits >= b.prestage_hits)
+            loops = (bounded["loop"], unbounded["loop"])
+            return {"removal_criteria": crit_,
+                    "worker_wait_s": [lp.chunk_phase_acc["worker_wait_s"] for lp in loops],
+                    "worker_blocking_waits": [lp.worker_blocking_waits for lp in loops],
+                    "steps": [b.steps, u.steps], "wall_s": [b.wall_s, u.wall_s]}
+
+        unbounded = unbounded_run("largescale_pipelined_unbounded")
+        at_12 = removal_criteria(pipe, unbounded)
         counts["largescale_pipelined_unbounded"] = (unbounded["k1"], unbounded["k2"])
         unbounded_stamp = unbounded["stamp"]
         del unbounded
+        conf_48 = dataclasses.replace(conf, terrain_check_every=CHUNK_48)
+        bounded_48 = run_traverse(f"largescale_pipelined_{CHUNK_48}", {}, conf_48)
+        unbounded_48 = unbounded_run(f"largescale_pipelined_unbounded_{CHUNK_48}", conf_48)
+        at_48 = removal_criteria(bounded_48, unbounded_48)
+        for name_, run_ in ((f"largescale_pipelined_{CHUNK_48}", bounded_48),
+                            (f"largescale_pipelined_unbounded_{CHUNK_48}", unbounded_48)):
+            counts[name_] = (run_["k1"], run_["k2"])
+        phase("dispatch_bound", worker_slack_steps=tls.WORKER_SLACK_STEPS,
+              bound_chunks={str(n_): tls.dispatch_bound_chunks(conf.pipeline_depth, n_)
+                            for n_ in (conf.terrain_check_every, CHUNK_48)},
+              bounded=["largescale_pipelined", f"largescale_pipelined_{CHUNK_48}"],
+              unbounded=["largescale_pipelined_unbounded",
+                         f"largescale_pipelined_unbounded_{CHUNK_48}"],
+              chunk_steps={str(conf.terrain_check_every): at_12, str(CHUNK_48): at_48}, ok=True)
+        del pipe, bounded_48, unbounded_48
 
         #     the tile pool route: the window built on the pool and on the
         #     card, then a synchronous traverse with the CLI's streamer
@@ -1056,8 +1099,10 @@ def main(argv=None) -> int:
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
-        if name == "largescale_pipelined_unbounded":
+        if name.startswith("largescale_pipelined_unbounded"):
             pass  # an experiment: its reach, shifts, hits and path are reported, not required
+        elif name.endswith(f"_{CHUNK_48}"):  # the bounded loop at 48-step chunks
+            ok = ok and res.reached
         elif name == "largescale":  # without pre-staging, cut
             ok = ok and res.steps == SYNC_STEPS and res.block_shifts >= 1
         elif name == "largescale_native_pool":  # the tile pool route, cut
@@ -1065,7 +1110,8 @@ def main(argv=None) -> int:
                   and pool.jobs >= len(streamer.block_cache))
         else:
             ok = ok and res.reached and res.block_shifts >= 2 and res.prestage_hits >= 1
-        if name != "largescale_pipelined_unbounded":
+        if not name.startswith("largescale_pipelined_unbounded") and not name.endswith(
+                f"_{CHUNK_48}"):
             ok = ok and on_cost == 0
         phase(name, **report, **fields, ok=ok)
         if not ok:
@@ -2614,6 +2660,58 @@ def main(argv=None) -> int:
     if shard_k1 != [2, 2, 2]:
         raise RuntimeError(f"the sharded step's ranks launched K1 {shard_k1} times, not twice each")
 
+    # 7g. graft_entry_torch.py, the counterpart of __graft_entry__.py:
+    #     entry()'s step (K=1000 x H=100 on its 256^2 crater world) on the
+    #     card with K1's launches counted (2: the samples and the optimal
+    #     rollout), each K1 call held against the plain rollout on its inputs
+    #     bit for bit, as k1_vs_plain holds it; the script itself in its own
+    #     process (it prints "entry OK"); and dryrun_multichip(2), the
+    #     sharded multi-rover step on a (2, 1) mesh of two gloo ranks sharing
+    #     the card, every rover held against mppi_step by the function
+    entry_fn, entry_args = graft_entry_torch.entry()
+    k1_calls = []
+
+    def k1_recorded(hf_, pos, head, lin, ang, dt, wheels=True):
+        got = rollout_25d_cuda(hf_, pos, head, lin, ang, dt, wheels=wheels)
+        k1_calls.append(((hf_, pos, head, lin, ang, dt), wheels, got))
+        return got
+
+    torch.cuda.synchronize()
+    rollout_25d_cuda.launches = 0
+    with mock.patch.object(rollout_cuda_module, "rollout_25d_cuda", k1_recorded):
+        entry_ctrl, entry_out = entry_fn(*entry_args)
+    torch.cuda.synchronize()
+    entry_k1 = rollout_25d_cuda.launches
+    entry_equal, entry_err = True, 0.0
+    for (hf_, pos, head, lin, ang, dt), wheels, got in k1_calls:
+        want = rollout_25d(hf_, pos[..., None, :], head[..., None, :], lin, ang, dt,
+                           wheels=wheels)
+        entry_equal = entry_equal and all(torch.equal(a, b) for a, b in zip(got, want))
+        entry_err = max([entry_err] + [(a - b).abs().max().item() for a, b in zip(got, want)])
+    entry_ms = cuda_ms(lambda: entry_fn(*entry_args), reps=5)
+    t0 = time.perf_counter()
+    script = subprocess.run([sys.executable, str(Path(__file__).resolve().parent
+                                                 / "graft_entry_torch.py")],
+                            capture_output=True, text=True, timeout=300)
+    script_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dryrun = graft_entry_torch.dryrun_multichip(2, device=cuda)
+    dryrun_s = time.perf_counter() - t0
+    entry_ok = (entry_equal and entry_k1 == 2 and len(k1_calls) == 2
+                and bool(torch.isfinite(entry_out.costs).all())
+                and all(bool(torch.isfinite(t).all()) for t in entry_ctrl)
+                and script.returncode == 0 and script.stdout.strip().splitlines()[-1:] == [
+                    "entry OK"]
+                and dryrun["mesh"] == [2, 1] and dryrun["k1_launches_per_rank"] == [2, 2])
+    phase("graft_entry", K=K, H=H, k1_launches=entry_k1, k1_calls_bit_equal_to_plain=entry_equal,
+          max_abs_err=entry_err, step_ms=entry_ms, script_returncode=script.returncode,
+          script_stdout=script.stdout.strip()[-200:], script_seconds=script_s,
+          dryrun_multichip=dryrun, dryrun_seconds=dryrun_s, ok=entry_ok)
+    if not entry_ok:
+        raise RuntimeError("graft_entry_torch.py: the entry step's K1 calls differ from the "
+                           f"plain rollout, K1 ran {entry_k1} times, the script failed "
+                           f"({script.stderr[-2000:]}), or the dry run is wrong")
+
     # 8. the thesis statistics DEM, built twice on the card: bit-equal
     t0 = time.perf_counter()
     dems = [thesis_statistics_terrain(device=cuda) for _ in range(2)]
@@ -2625,6 +2723,58 @@ def main(argv=None) -> int:
     if not dem_equal:
         raise RuntimeError("two builds of the thesis DEM on the card differ")
     del dems
+
+    # 8b. JAX's world draws (core.jax_random) on the card: the thesis DEM's
+    #     base-noise grids at z = 0.7 and bench_torch.py's 4096 vec-env
+    #     starts drawn on the card, torch.equal to the same draws on the CPU
+    #     (float64 grids reported beside them); the seed-42 thesis DEM at
+    #     z = 0.7 built on the card and on the CPU, each DEM's statistics
+    #     EVAL_r05.json's at its printed digits (the JAX package's terrain),
+    #     the two DEMs within the crater heights' float32 bound; the default
+    #     moonyard DEM (the SDG yard) on the card against the CPU's, at that
+    #     bound (the crater atan2 / exp differ in the last bits)
+    thesis_conf = BaseTerrainGeneratorConf(x_size=150.0, y_size=150.0, resolution=0.1,
+                                           max_elevation=1.2 * DRIVER_Z_SCALE,
+                                           min_elevation=-1.2 * DRIVER_Z_SCALE, seed=42)
+
+    def world_draws(dev, dtype=torch.float32):
+        k = jr.split(jr.key(42, dev))[1]  # MoonyardGenerator's first randomize
+        grids = draw_base_noise(k, thesis_conf, dtype=dtype)
+        starts = jr.uniform(jr.key(0, dev), (VEC_ROVERS, 2), dtype, -50.0, 50.0)
+        return [t.cpu() for t in (*grids, starts)]
+
+    draws_card, draws_cpu = world_draws(cuda), world_draws(cpu)
+    draws_equal = all(torch.equal(a, b) for a, b in zip(draws_card, draws_cpu))
+    draws64_equal = all(torch.equal(a, b) for a, b in zip(world_draws(cuda, torch.float64),
+                                                         world_draws(cpu, torch.float64)))
+    jax_stats = json.loads((Path(__file__).resolve().parent / "EVAL_r05.json").read_text())[
+        "terrain_stats"]
+    crater_block_cuda.launches = 0
+    t0 = time.perf_counter()
+    thesis_dems = {dev.type: thesis_statistics_terrain(
+        seed=42, z_scale=DRIVER_Z_SCALE, max_elevation=1.2 * DRIVER_Z_SCALE,
+        min_elevation=-1.2 * DRIVER_Z_SCALE, device=dev).cpu() for dev in (cuda, cpu)}
+    thesis_s = time.perf_counter() - t0
+    stats = {d: {"z_scale": DRIVER_Z_SCALE, **thesis_runs.terrain_statistics(z.numpy())}
+             for d, z in thesis_dems.items()}
+    thesis_err = (thesis_dems["cuda"] - thesis_dems["cpu"]).abs().max().item()
+    yard = {dev.type: MoonyardGenerator(MoonyardConf(), device=dev).randomize().cpu()
+            for dev in (cuda, cpu)}
+    jax_random_stamps = crater_block_cuda.launches
+    yard_err = (yard["cuda"] - yard["cpu"]).abs().max().item()
+    jax_random_ok = (draws_equal and stats["cuda"] == stats["cpu"] == jax_stats
+                     and thesis_err <= DEM_ATOL and yard_err <= DEM_ATOL
+                     and jax_random_stamps > 0)
+    phase("jax_random", draws=[list(t.shape) for t in draws_card], draws_equal_card_cpu=draws_equal,
+          float64_draws_equal_card_cpu=draws64_equal, terrain_stats_card=stats["cuda"],
+          terrain_stats_cpu=stats["cpu"], terrain_stats_eval_r05=jax_stats,
+          thesis_dem_max_abs_diff_card_cpu=thesis_err, thesis_dem_builds_seconds=thesis_s,
+          yard_dem=list(yard["cuda"].shape), yard_dem_max_abs_diff_card_cpu=yard_err,
+          dem_atol=DEM_ATOL, crater_block_launches=jax_random_stamps, ok=jax_random_ok)
+    if not jax_random_ok:
+        raise RuntimeError("JAX's world draws differ between the card and the CPU, or the "
+                           "thesis DEM's statistics are not EVAL_r05.json's")
+    del thesis_dems, yard
 
     # 9. the thesis 2D-vs-3D evaluation protocol at full width: K1 for the 3D
     #    arm's samples and both arms' optimal rollouts, the planar rollout
@@ -2987,6 +3137,8 @@ def main(argv=None) -> int:
                              "moonyard_closed_loop": lab_counts["k1"],
                              "sim_manager": sim_k1, "mppi_controller": ctl_k1,
                              "sharded_step_per_rank": shard_k1, "bench": bench_counts["k1"],
+                             "graft_entry": entry_k1,
+                             "dryrun_multichip_per_rank": dryrun["k1_launches_per_rank"],
                              **{f"sdg_{r}": c["k1"] for r, c in sdg_counts.items()}},
     }, {
         "name": "edt_minplus", "route": "cuda",
@@ -3025,7 +3177,7 @@ def main(argv=None) -> int:
                              **{f"sdg_{r}": c["stamp"] for r, c in sdg_counts.items()},
                              "moonyard_standalone": yard_counts["stamp"],
                              "moonyard_closed_loop": lab_counts["stamp"],
-                             "bench": bench_counts["stamp"]},
+                             "bench": bench_counts["stamp"], "jax_random": jax_random_stamps},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -42,10 +42,12 @@ issues its terrain work (block builds, crater stamps, costmaps with their
 K2 launch) on its own CUDA stream, and a shift event carries a CUDA event
 the main stream waits on before the first chunk that reads the new window
 and costmap; poses come back through pinned host buffers. The dispatch
-waits while the worker has not yet taken up the pose of the chunk
-``2 * pipeline_depth`` back (the port's bound, not in the JAX loop: a
-graphed chunk runs a sim step in ~1 ms, faster than the cascade, and an
-unbounded lag left the terrain metres behind the rover). Wheel-track
+waits while the worker has not yet taken up a pose older than the
+pipeline's own lag (``pipeline_depth + 1`` chunks) plus
+``WORKER_SLACK_STEPS`` sim steps (:func:`dispatch_bound_chunks`; the
+port's bound, not in the JAX loop: a graphed chunk runs a sim step in
+~1 ms, faster than the cascade, and an unbounded lag left the terrain
+metres behind the rover). Wheel-track
 deformation (``deform``) stamps the live window in place once per chunk and
 always runs the synchronous loop. A traverse checkpoints to one ``.npz``
 file (:mod:`..aux.checkpoint`) and resumes from it: on the synchronous path
@@ -79,6 +81,25 @@ from .closed_loop import ClosedLoopConfig, LoopState
 from .rover_sim import RoverState
 
 
+# The terrain worker's slack in the pipelined loop, in sim steps: beyond the
+# pipeline's own lag of pipeline_depth + 1 chunks (the newest pose the host
+# has read is that old when it dispatches), the dispatch waits while the
+# worker has not yet taken up a pose more than this many steps older. 36
+# steps (0.6 s at the 60 Hz physics step, <= 1.2 m at 2 m/s) keep the
+# 12-step loop's bound of 8 chunks at depth 4; the 48-step loop of
+# bench_torch.py's traverse gets 6 chunks (288 steps, <= 9.6 m), not 8
+# (384 steps, <= 12.8 m).
+WORKER_SLACK_STEPS = 36
+
+
+def dispatch_bound_chunks(pipeline_depth: int, chunk_steps: int) -> int:
+    """How many chunks the pipelined dispatch may run ahead of the pose
+    the terrain worker has taken up: the pipeline's own lag of
+    ``pipeline_depth + 1`` chunks and :data:`WORKER_SLACK_STEPS` sim steps,
+    rounded up to whole chunks of ``chunk_steps``."""
+    return pipeline_depth + 1 + -(-WORKER_SLACK_STEPS // chunk_steps)
+
+
 @dataclasses.dataclass
 class LargeScaleLoopConf:
     """Full-stack run configuration (the ``__main__`` parameters of
@@ -106,10 +127,11 @@ class LargeScaleLoopConf:
     prestage_lookahead_m: float = 6.0
     # Chunks kept in flight beyond the one being processed: the host reads
     # the pose only for terrain gating and logging, which tolerates that
-    # lag (<= 0.5 m per chunk against the 2 m update gate and the 6 m
-    # lookahead). The dispatch also waits while the terrain worker is more
-    # than 2 x pipeline_depth chunks behind. 0 = the synchronous loop;
-    # deformation always runs it.
+    # lag (a 12-step chunk is 0.2 s, <= 0.4 m at 2 m/s, against the 2 m
+    # update gate and the 6 m lookahead). The dispatch also waits while the
+    # terrain worker is more than WORKER_SLACK_STEPS sim steps behind that
+    # lag (dispatch_bound_chunks). 0 = the synchronous loop; deformation
+    # always runs it.
     pipeline_depth: int = 4
     # Every `checkpoint_every_steps` sim steps the traverse state goes to
     # `checkpoint_path`; `LargeScaleClosedLoop.resume(conf, path)` continues
@@ -1128,6 +1150,7 @@ class LargeScaleClosedLoop:
             generator = self._generator(_resume)
         n = conf.terrain_check_every
         depth = conf.pipeline_depth
+        bound = dispatch_bound_chunks(depth, n)
         cuda = self.device.type == "cuda"
         pinned = [torch.empty(5, dtype=torch.float32, pin_memory=cuda) for _ in range(depth + 1)]
 
@@ -1193,12 +1216,11 @@ class LargeScaleClosedLoop:
                 if worker.error is not None:
                     raise worker.error
                 apply_events()
-                # the rover runs at most 2 x pipeline_depth chunks (~0.5 m
-                # each) ahead of the pose the worker has taken up, inside
-                # the 2 m gate + 6 m lookahead the lag budget assumes: a
-                # chunk replayed as a CUDA graph outruns the cascade
+                # the rover runs at most `bound` chunks ahead of the pose
+                # the worker has taken up: a chunk replayed as a CUDA graph
+                # outruns the cascade
                 t_w = time.perf_counter()
-                if worker.wait_for(chunk_idx - 2 * depth):
+                if worker.wait_for(chunk_idx - bound):
                     self.worker_blocking_waits += 1
                 acc["worker_wait_s"] += time.perf_counter() - t_w
                 t_a = time.perf_counter()

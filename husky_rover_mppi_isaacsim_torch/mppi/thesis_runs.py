@@ -13,9 +13,11 @@ card's name and power limit as ``nvidia-smi`` reports them).
 
 Every function runs on the card unless ``device`` names another device,
 and raises where the card is asked for and there is none
-(:func:`..core.device.run_device`). Control noise and the thesis DEM's base
-noise come from ``torch.Generator``s, so a run on the card is a fresh
-sample of the JAX protocol, not a replay of its artifacts.
+(:func:`..core.device.run_device`). The thesis DEM is the JAX package's:
+its base noise is JAX's draw (:mod:`..core.jax_random`), on the CPU and on
+the card alike. Control noise comes from ``torch.Generator``s, so a run on
+the card is a fresh sample of the JAX protocol on JAX's terrain, not a
+replay of its artifacts.
 :func:`output_path` refuses the JAX artifacts' names: the thin ``main``s in
 ``scripts/torch_run_*.py`` write ``EVAL_torch*.json`` instead.
 """

@@ -26,8 +26,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
-from ..core import heightfield as hfield
-from .rocks import rock_surface_hf
+from .rocks import surface_orientation
 from .upsample import bicubic_point_sample, bilinear_point_sample
 
 
@@ -163,15 +162,12 @@ class NestedClipmap:
     def sample(self, center):
         return self.fine.sample(center), self.coarse.sample(center)
 
-    def get_height_and_random_orientation(self, xy: Tensor, generator: torch.Generator,
+    def get_height_and_random_orientation(self, xy: Tensor, key: Tensor,
                                           hf) -> tuple[Tensor, Tensor, Tensor]:
         """Rock-placement query (get_height_and_random_scale,
         nested_geometry_clipmaps_manager.py:220-237) against the
         :class:`HeightField` ``hf``: per point of ``xy`` (N, 2) the bilinear
         height (N,), a random surface-tangent quaternion xyzw (N, 4) and the
-        quad normal (N, 3). The tangent draw is ``(N, 3)`` uniforms in
-        [-1, 1) from ``generator`` (on ``xy``'s device): not JAX's draw."""
-        rand = torch.rand((xy.shape[0], 3), generator=generator, dtype=xy.dtype,
-                          device=xy.device) * 2.0 - 1.0
-        height, quat = rock_surface_hf(hf, xy, rand)
-        return height, quat, hfield.normal_at(hf, xy[:, 0], xy[:, 1])
+        quad normal (N, 3). The tangent draw is JAX's from ``key`` (a
+        :mod:`..core.jax_random` key; :func:`.rocks.surface_orientation`)."""
+        return surface_orientation(hf, xy, key)

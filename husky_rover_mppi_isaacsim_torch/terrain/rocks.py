@@ -10,12 +10,11 @@ half of ``rock_manager.py``):
 * height + surface-tangent quaternion per rock are one vectorized query on
   the terrain's device (:func:`rock_surface_window` against a streamed
   window, :func:`rock_surface_hf` against a fixed heightfield);
-* the quaternion's random tangent direction comes from a CPU
-  ``torch.Generator`` keyed by (seed, block), one (n, 3) draw per block:
-  a rock's draw depends on its block and its index in it, never on which
-  blocks share a batch. ``jax.random``'s stream cannot be reproduced, so
-  the quaternions differ from the JAX package's; the math
-  (:func:`quat_from_normal_and_rand`) is the same;
+* the quaternion's random tangent direction is the JAX package's draw
+  (``_per_rock_rand``): ``jax.random``'s stream keyed by (seed, block,
+  index in the block) through :mod:`..core.jax_random`, so a rock's draw
+  depends on its block and its index in it, never on which blocks share a
+  batch, and the quaternions are the JAX package's;
 * blocks are stored through the native fixed-accuracy codec
   (:func:`.database.pack_native`) at the reference's ZFP tolerance 1e-3,
   as the JAX package stores them: what comes back
@@ -35,6 +34,7 @@ from torch import Tensor
 
 from ..core import geometry as geom
 from ..core import heightfield as hfield
+from ..core import jax_random as jr
 from ..core.heightfield import HeightField
 from . import point_process as pp
 from .database import pack_native, unpack_array
@@ -94,32 +94,31 @@ def quat_from_normal_and_rand(normal: Tensor, rand: Tensor) -> Tensor:
     return quat / torch.linalg.norm(quat, dim=-1, keepdim=True)
 
 
-def tangent_draws(shape: tuple, generator: torch.Generator | None = None,
-                  dtype=torch.float32, device=None) -> Tensor:
-    """``shape + (3,)`` uniforms in [-1, 1), the random tangent directions
-    of :func:`quat_from_normal_and_rand`, from ``generator`` (on
-    ``device``): the port's draws, not ``jax.random``'s."""
-    return torch.rand(tuple(shape) + (3,), generator=generator, dtype=dtype,
-                      device=device) * 2.0 - 1.0
+def tangent_draws(shape: tuple, key: Tensor, dtype=torch.float32) -> Tensor:
+    """``shape + (3,)`` uniforms in [-1, 1) on the key's device, the random
+    tangent directions of :func:`quat_from_normal_and_rand`: JAX's draw
+    ``jax.random.uniform(key, shape + (3,), dtype, -1, 1)``
+    (rocks.py:99)."""
+    return jr.uniform(key, tuple(shape) + (3,), dtype, -1.0, 1.0)
 
 
-def orientation_from_normal(normal: Tensor, generator: torch.Generator | None = None,
+def orientation_from_normal(normal: Tensor, key: Tensor | None = None,
                             rand: Tensor | None = None, dtype=None) -> Tensor:
     """A random surface-tangent quaternion (xyzw) per normal: the tangent-
     frame half of ``_bilinear_interpolation_and_random_orientation`` and
     ``_get_random_tangent_vector`` (geometry_clipmaps_warp.py:363-422).
     The tangent directions are ``rand`` (``normal.shape[:-1] + (3,)``, in
-    [-1, 1)) where given, so that a caller can hold the quaternions
-    against the JAX package's from its draws; else the port's draws from
-    ``generator`` (:func:`tangent_draws`), and the quaternions, not the
-    normals, then differ from the JAX package's."""
+    [-1, 1)) where given, else JAX's draws from ``key`` (a
+    :mod:`..core.jax_random` key, :func:`tangent_draws`)."""
     dtype = dtype or normal.dtype
     if rand is None:
-        rand = tangent_draws(normal.shape[:-1], generator, dtype, normal.device)
+        if key is None:
+            raise ValueError("orientation_from_normal needs a key or rand")
+        rand = tangent_draws(normal.shape[:-1], key.to(normal.device), dtype)
     return quat_from_normal_and_rand(normal.to(dtype), rand.to(normal.device, dtype))
 
 
-def surface_orientation(hf: HeightField, xy: Tensor, generator: torch.Generator | None = None,
+def surface_orientation(hf: HeightField, xy: Tensor, key: Tensor | None = None,
                         rand: Tensor | None = None):
     """Height, random surface-tangent quaternion (xyzw) and normal per point
     ``xy`` (N, 2) over a fixed heightfield window; the tangents as in
@@ -129,10 +128,10 @@ def surface_orientation(hf: HeightField, xy: Tensor, generator: torch.Generator 
     q = hfield.corners_at(hf, x, y)
     height = hfield.bilinear(x, y, q, hf.resolution)
     normal = hfield.quad_normal(q, hf.resolution)
-    return height, orientation_from_normal(normal, generator, rand, xy.dtype), normal
+    return height, orientation_from_normal(normal, key, rand, xy.dtype), normal
 
 
-def provider_orientation(provider, xy, generator: torch.Generator | None = None,
+def provider_orientation(provider, xy, key: Tensor | None = None,
                          rand: Tensor | None = None):
     """Height, tangent quaternion and normal from any world-coordinate
     height provider with vectorized ``get_height(x, y)`` and
@@ -145,16 +144,19 @@ def provider_orientation(provider, xy, generator: torch.Generator | None = None,
     xy = torch.as_tensor(np.asarray(xy) if not isinstance(xy, Tensor) else xy)
     height = provider.get_height(xy[:, 0], xy[:, 1])
     normal = provider.get_normal(xy[:, 0], xy[:, 1])
-    return height, orientation_from_normal(normal, generator, rand), normal
+    return height, orientation_from_normal(normal, key, rand), normal
 
 
-def block_tangent_draws(seed: int, bx: int, by: int, n: int) -> Tensor:
-    """``(n, 3)`` float32 uniforms in [-1, 1) for the rocks of one block, on
-    the CPU, from a generator keyed by (seed, block): row i belongs to rock
-    i of the block whatever else is sampled with it."""
-    state = np.random.SeedSequence((seed, 0x9A07, bx & 0xFFFFFFFF, by & 0xFFFFFFFF))
-    gen = torch.Generator().manual_seed(int(state.generate_state(1, np.uint64)[0] >> 1))
-    return tangent_draws((n,), gen)
+def rock_tangent_draws(seed: int, blk, idx, dtype=torch.float32) -> Tensor:
+    """``(N, 3)`` tangent draws of rocks keyed by (seed, block, index in the
+    block), JAX's ``_per_rock_rand`` (rocks.py:103-112): row r is
+    ``uniform(fold_in(fold_in(fold_in(key(seed), bx), by), i), (3,),
+    dtype, -1, 1)`` for ``blk[r] = (bx, by)`` and ``idx[r] = i``, on the
+    CPU. A row depends on its rock alone, never on the batch."""
+    blk = torch.as_tensor(np.asarray(blk, np.int64)).reshape(-1, 2)
+    idx = torch.as_tensor(np.asarray(idx, np.int64)).reshape(-1)
+    k = jr.fold_in(jr.fold_in(jr.fold_in(jr.key(seed), blk[:, 0]), blk[:, 1]), idx)
+    return jr.uniform(k, (3,), dtype, -1.0, 1.0)
 
 
 def rock_surface_hf(hf: HeightField, xy: Tensor, rand: Tensor):
@@ -247,7 +249,7 @@ class RockSampler:
         missing = [k for k in keys if k not in self.db]
         if not missing:
             return
-        metas, xs, rands = [], [], []
+        metas, xs, blks, idxs = [], [], [], []
         for bx, by in missing:
             rng = self._block_rng(bx, by)
             xy = sample_block_positions(rng, self.conf, bx, by)
@@ -258,10 +260,14 @@ class RockSampler:
             metas.append(((bx, by), xy, scale_xyz, ids))
             if n:
                 xs.append(np.asarray(xy, np.float64))
-                rands.append(block_tangent_draws(self.conf.seed, bx, by, n))
+                blks.append(np.tile([bx, by], (n, 1)))
+                idxs.append(np.arange(n))
         if xs:
-            h_all, q_all = self._surface_query(np.concatenate(xs).astype(np.float32),
-                                               torch.cat(rands))
+            # JAX draws in the fixed window's dtype, float32 against a stream
+            dtype = self.hf.z.dtype if isinstance(self.hf, HeightField) else torch.float32
+            rand = rock_tangent_draws(self.conf.seed, np.concatenate(blks),
+                                      np.concatenate(idxs), dtype)
+            h_all, q_all = self._surface_query(np.concatenate(xs).astype(np.float32), rand)
         cursor = 0
         for key, xy, scale_xyz, ids in metas:
             n = xy.shape[0]

@@ -6,14 +6,16 @@ Counterpart of ``BaseTerrainGeneratorConf``, ``random_base_terrain``,
 ``husky_rover_mppi_isaacsim_tpu/terrain/smallscale.py``
 (terrain_generation.py:456-590).
 
-One documented divergence: the JAX package draws the two base-noise grids
-(the low-resolution 4x4, 5x5 or 3x3 grid and the 100x100 grid) with
-``jax.random``. Here they come from a ``torch.Generator`` seeded with the
-terrain seed, or are injected as tensors (``base_noise``), so the port's
-thesis DEM is the same procedure with a different base-noise stream. The
+The two base-noise grids (the low-resolution 4x4, 5x5 or 3x3 grid and the
+100x100 grid) are JAX's ``jax.random`` draws, made by
+:mod:`..core.jax_random` on the DEM's device and bit-equal there to JAX's
+in float32: a seed gives the JAX package's base noise on the CPU and on the
+card alike. The grids can also be injected as tensors (``base_noise``). The
 craters come from numpy with the JAX package's seed and draw order and are
-the same craters. The mesh export (``dem_to_mesh_grid``) stays on the host
-in numpy, as in the JAX package.
+the same craters; their float32 heights may differ from JAX's (and the
+card's from the CPU's) in the last bits of ``atan2`` and ``exp``. The mesh
+export (``dem_to_mesh_grid``) stays on the host in numpy, as in the JAX
+package.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import jax_random as jr
 from ..core.device import run_device
 from .craters import (
     CraterProfiles,
@@ -67,25 +70,35 @@ def base_noise_shapes(is_lab: bool = False, is_yard: bool = False) -> tuple:
     return ((3, 3) if is_lab else (5, 5) if is_yard else (4, 4)), (100, 100)
 
 
+def draw_base_noise(key: Tensor, conf: BaseTerrainGeneratorConf, is_lab: bool = False,
+                    is_yard: bool = False, dtype=torch.float32) -> tuple[Tensor, Tensor]:
+    """The two base-noise grids of :func:`base_noise_shapes`, JAX's draws
+    from ``key`` (a :mod:`..core.jax_random` key; smallscale.py:73-95) on
+    its device: ``k1, k2 = split(key)``, the low-resolution grid uniform in
+    ``[min, max)`` from ``k1``, the 100x100 grid in ``[0.01 min, 0.01
+    max)`` from ``k2``, in ``dtype``."""
+    lo, hi = conf.min_elevation, conf.max_elevation
+    k1, k2 = jr.split(key)
+    low_shape, high_shape = base_noise_shapes(is_lab, is_yard)
+    return (jr.uniform(k1, low_shape, dtype, lo, hi),
+            jr.uniform(k2, high_shape, dtype, lo * 0.01, hi * 0.01))
+
+
 def random_base_terrain(
-    conf: BaseTerrainGeneratorConf, generator: torch.Generator | None = None,
-    is_lab: bool = False, is_yard: bool = False, base_noise=None,
-    dtype=torch.float32, device=None,
+    key: Tensor | None, conf: BaseTerrainGeneratorConf, is_lab: bool = False,
+    is_yard: bool = False, base_noise=None, dtype=torch.float32, device=None,
 ) -> Tensor:
     """Low + high-frequency noise terrain (generateRandomTerrain,
-    terrain_generation.py:475-504). ``base_noise``: the two grids as tensors
-    of :func:`base_noise_shapes`, already in ``[min, max)`` and
-    ``[0.01 min, 0.01 max)``; else drawn uniform from ``generator``."""
+    terrain_generation.py:475-504) on ``device``, its grids JAX's draws
+    from ``key`` (:func:`draw_base_noise`). ``base_noise``: the two grids as
+    tensors of :func:`base_noise_shapes`, drawn already; then ``key`` is not
+    read."""
     x_px = int(conf.x_size / conf.resolution)
     y_px = int(conf.y_size / conf.resolution)
-    lo, hi = conf.min_elevation, conf.max_elevation
     if base_noise is None:
-        if generator is None:
-            raise ValueError("random_base_terrain needs a generator or base_noise")
-        shapes = base_noise_shapes(is_lab, is_yard)
-        base_noise = [a + (b - a) * torch.rand(s, generator=generator, dtype=dtype,
-                                               device=device)
-                      for s, a, b in zip(shapes, (lo, 0.01 * lo), (hi, 0.01 * hi))]
+        if key is None:
+            raise ValueError("random_base_terrain needs a key or base_noise")
+        base_noise = draw_base_noise(key.to(device), conf, is_lab, is_yard, dtype)
     low, high = (torch.as_tensor(t, dtype=dtype, device=device) for t in base_noise)
     if is_lab:
         lr = torch.zeros((4, 4), dtype=dtype, device=device)
@@ -114,15 +127,16 @@ class MoonyardGenerator:
     """GenerateProceduralMoonYard (terrain_generation.py:505-590): base noise
     + hardcore-Poisson craters; ``randomize`` returns a fresh DEM on
     ``device`` (default: the card, see :func:`..core.device.run_device`).
-    Craters come from ``np.random.default_rng(seed)``, the base
-    noise from a ``torch.Generator`` seeded with the same seed."""
+    Craters come from ``np.random.default_rng(seed)``, the base noise from
+    ``jax_random.key(seed)``, split at each ``randomize`` as JAX's
+    smallscale.py:119, 135 split it."""
 
     def __init__(self, conf: MoonyardConf, dtype=torch.float32, device=None):
         self.conf = conf
         self.dtype = dtype
         self.device = run_device(device)
         self.rng = np.random.default_rng(conf.base.seed)
-        self.generator = torch.Generator(device=self.device).manual_seed(conf.base.seed)
+        self.key = jr.key(conf.base.seed, self.device)
         self.profiles: CraterProfiles = build_profiles(
             conf.crater.num_profiles, conf.crater.seed, device=self.device)
         self.x_px = int(conf.base.x_size / conf.base.resolution)
@@ -137,9 +151,10 @@ class MoonyardGenerator:
     def randomize(self, base_noise=None) -> Tensor:
         """New base terrain + crater field (randomize,
         terrain_generation.py:546-558); ``base_noise`` as in
-        :func:`random_base_terrain`."""
-        dem = random_base_terrain(self.conf.base, self.generator, self.conf.is_lab,
-                                  self.conf.is_yard, base_noise, self.dtype, self.device)
+        :func:`random_base_terrain` (the key is split all the same)."""
+        self.key, k = jr.split(self.key)
+        dem = random_base_terrain(k, self.conf.base, self.conf.is_lab, self.conf.is_yard,
+                                  base_noise, self.dtype, self.device)
         cc = self.conf.crater
         region = BoundingBox(0.0, self.conf.base.x_size, 0.0, self.conf.base.y_size)
         coords, radius = hardcore_poisson(self.rng, region, cc.densities, cc.radius_ranges,

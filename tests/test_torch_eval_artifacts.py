@@ -5,7 +5,9 @@ one CUDA card), ``EVAL_torch_R05_CALIB.json`` (``... calib``) and
 ``EVAL_torch.json`` (``scripts/torch_run_eval_experiment.py``). The checks
 are of consistency, not of direction: each table is its protocol's, every
 run is counted once, the summary is the one ``thesis_runs.arm_summary``
-gives, every recorded trace was finite. Which arm wins is not asserted."""
+gives, every recorded trace was finite; the r05 and calibration tables'
+terrain is the JAX package's (its statistics equal to ``EVAL_r05.json``'s
+and ``EVAL_R05_CALIB.json``'s). Which arm wins is not asserted."""
 
 import json
 import re
@@ -50,6 +52,13 @@ def test_r05_counts_every_run_once(r05):
             assert 0.0 < arm["episode_s"] <= arm["wall_s"]
 
 
+def test_r05_terrain_is_the_jax_packages(r05):
+    """The card's run drove on the JAX package's terrain: the seed-42 DEM
+    at z = 0.7 has ``EVAL_r05.json``'s statistics, digit for digit."""
+    want = json.loads((REPO / "EVAL_r05.json").read_text())["terrain_stats"]
+    assert r05["terrain_stats"] == want
+
+
 def test_r05_summary_is_arm_summary(r05):
     assert r05["collision_free_pct"] == thesis_runs.arm_summary(r05["per_k"])
 
@@ -74,6 +83,16 @@ def test_calib_is_the_calibration_sweep(calib):
             assert arm["completed"] + arm["collided"] + arm["failed"] == 16 and arm["finite"]
         assert entry["collision_free_pct"] == thesis_runs.arm_summary(
             {"350": {"arms": entry["arms"]}})
+
+
+def test_calib_terrain_is_the_jax_packages(calib):
+    """Each z_scale's thesis DEM of the calibration sweep has the
+    statistics of ``EVAL_R05_CALIB.json``'s, digit for digit."""
+    keys = ("z_scale", "rms_slope_deg", "slope_p50_deg", "slope_p90_deg", "slope_p99_deg",
+            "rms_height_m", "height_span_m")
+    want = json.loads((REPO / "EVAL_R05_CALIB.json").read_text())["sweep"]
+    assert [{k: e[k] for k in keys} for e in calib["sweep"]] == [
+        {k: e[k] for k in keys} for e in want]
 
 
 @pytest.fixture(scope="module")
@@ -112,3 +131,24 @@ def test_episode_experiment_is_its_protocol():
     for row in table["per_k"].values():
         assert row["finite"] == {"3d": True, "2d": True}
         assert all(0 <= row["reached"][a] <= RUNS and row["steps"][a] > 0 for a in ("3d", "2d"))
+
+
+def test_compare_eval_counts_and_fisher_p():
+    """``scripts/torch_compare_eval.py``: one row per K and arm with both
+    tables' counts, and Fisher's two-sided exact p equal to scipy's."""
+    import importlib.util
+
+    from scipy.stats import fisher_exact
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_compare_eval", REPO / "scripts" / "torch_compare_eval.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for table in ([8, 56], [3, 61]), ([0, 64], [5, 59]), ([6, 58], [6, 58]), ([1, 15], [9, 7]):
+        assert abs(mod.fisher_exact_p(*table[0], *table[1])
+                   - fisher_exact(list(table))[1]) < 1e-12
+    rows = mod.compare(json.loads((REPO / "EVAL_torch_r05.json").read_text()),
+                       json.loads((REPO / "EVAL_r05.json").read_text()))
+    assert sorted((r["K"], r["arm"]) for r in rows) == sorted(
+        (k, a) for k in (350, 500, 1000) for a in ("3d", "2d"))
+    assert all(r["runs"] == [RUNS, RUNS] and 0.0 < r["fisher_p"] <= 1.0 for r in rows)

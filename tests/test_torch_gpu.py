@@ -23,8 +23,10 @@ rollout kernel (csrc/rollout_2d.cu) bit-equal to the plain ``rollout_2d``
 (one rover and N rovers, on and off the thesis DEM, K from 1 to 1000 by
 horizons from 1 to 256, start headings at the edges of its fast
 arithmetic's range and a zero planar heading), one launch per call
-and per 2D control step, its cosf / sinf against torch's, and the thesis
-drivers (mppi/thesis_runs.py) at a small size on the card.
+and per 2D control step, its cosf / sinf against torch's, the thesis
+drivers (mppi/thesis_runs.py) at a small size on the card, JAX's world
+draws (core/jax_random.py) on the card equal to the CPU's, and
+graft_entry_torch.py's entry step and dry run on the card.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -444,6 +446,30 @@ def test_thesis_dem_builds_bit_equal_on_card(cuda):
     b = thesis_statistics_terrain(size_m=40.0, device=cuda)
     assert a.shape == (400, 400) and a.is_cuda and torch.isfinite(a).all()
     assert torch.equal(a, b)
+
+
+def test_jax_random_draws_on_card_equal_the_cpu(cuda):
+    """JAX's world stream (``core.jax_random``) gives the same values on
+    the card as on the CPU: the thesis DEM's base-noise grids, a batch of
+    rock tangents (fold_in over negative block indices) and
+    bench_torch.py's 4096 vec-env starts, in float32 and float64."""
+    from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
+    from husky_rover_mppi_isaacsim_torch.terrain import smallscale
+
+    conf = smallscale.BaseTerrainGeneratorConf(x_size=150.0, y_size=150.0, resolution=0.1,
+                                               max_elevation=0.84, min_elevation=-0.84)
+    blk = torch.tensor([[3, -2], [3, -2], [-1, 5]])
+    for dtype in (torch.float32, torch.float64):
+        got = {}
+        for dev in (cuda, torch.device("cpu")):
+            k = jr.split(jr.key(42, dev))[1]
+            rocks = jr.fold_in(jr.fold_in(jr.fold_in(jr.key(67, dev), blk[:, 0].to(dev)),
+                                          blk[:, 1].to(dev)), torch.arange(3, device=dev))
+            got[dev.type] = [t.cpu() for t in (
+                *smallscale.draw_base_noise(k, conf, dtype=dtype),
+                jr.uniform(rocks, (3,), dtype, -1.0, 1.0),
+                jr.uniform(jr.key(0, dev), (4096, 2), dtype, -50.0, 50.0))]
+        assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"])), dtype
 
 
 def test_evaluation_run_on_card_launches_k1_and_k2(cuda):
@@ -1418,3 +1444,21 @@ def test_thesis_drivers_run_on_card(cuda, monkeypatch):
     for table in (tables["r04"], tables["r05"]):
         assert all(arm["finite"] for arm in table["per_k"][64]["arms"].values())
     assert tables["r05"]["collision_free_pct"] == tr.arm_summary(tables["r05"]["per_k"])
+
+
+def test_graft_entry_on_card(cuda, tmp_path):
+    """``graft_entry_torch.py``: ``entry()``'s step on the card launches K1
+    twice (samples and optimal rollout) with finite outputs, and
+    ``dryrun_multichip(2)`` holds its two gloo ranks on the card to
+    ``mppi_step`` (raises otherwise)."""
+    import graft_entry_torch
+
+    fn, args = graft_entry_torch.entry()
+    assert args[0].z.is_cuda
+    rollout_25d_cuda.launches = 0
+    ctrl, out = fn(*args)
+    torch.cuda.synchronize()
+    assert rollout_25d_cuda.launches == 2
+    assert torch.isfinite(out.costs).all() and all(torch.isfinite(t).all() for t in ctrl)
+    report = graft_entry_torch.dryrun_multichip(2, device=cuda, workdir=tmp_path)
+    assert report["mesh"] == [2, 1] and report["k1_launches_per_rank"] == [2, 2]

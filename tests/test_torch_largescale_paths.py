@@ -94,6 +94,29 @@ def test_pipelined_loop_reaches_the_goal_with_rebuilt_costmaps():
     assert len(res.shift_dispatch_gaps_s) == 1
 
 
+def test_dispatch_bound_is_counted_in_sim_steps(monkeypatch):
+    """The pipelined dispatch waits on the terrain worker while it is more
+    than the pipeline's own lag (``pipeline_depth + 1`` chunks) and
+    ``WORKER_SLACK_STEPS`` sim steps behind: at 12-step chunks and depth 4
+    the bound is the 8 chunks (96 steps) it was when it was counted in
+    chunks; at 48-step chunks the slack stays one chunk, not three."""
+    assert tls.dispatch_bound_chunks(4, 12) == 8
+    assert tls.dispatch_bound_chunks(4, 48) == 6
+    for depth in (1, 2, 4):
+        for n in (6, 12, 36, 48, 100):
+            slack = (tls.dispatch_bound_chunks(depth, n) - depth - 1) * n
+            assert tls.WORKER_SLACK_STEPS <= slack < tls.WORKER_SLACK_STEPS + n
+    # the loop hands the worker its bound: chunk i waits on chunk i - 9
+    # (depth 2 and 6-step chunks: 3 chunks of lag and 36 steps of slack)
+    waits = []
+    wait_for = tls._TerrainWorker.wait_for
+    monkeypatch.setattr(tls._TerrainWorker, "wait_for",
+                        lambda self, chunk: waits.append(chunk) or wait_for(self, chunk))
+    loop = tls.LargeScaleClosedLoop(conf(pipeline_depth=2, max_steps=120), device="cpu")
+    loop.run(record_path=False)
+    assert waits == [i - 9 for i in range(120 // 6)]
+
+
 def test_pipelined_worker_error_surfaces():
     """A failure inside the terrain worker thread surfaces from ``run()``
     (tests/test_largescale_loop.py:391-409), within a bound."""

@@ -145,6 +145,27 @@ def test_bench_torch_imports_neither_jax_nor_yaml():
     assert out == ["[]"], out
 
 
+def test_graft_entry_torch_imports_neither_jax_nor_yaml():
+    """``graft_entry_torch.py``, the counterpart of ``__graft_entry__.py``
+    that runs on the card: every import statement names neither jax,
+    PyYAML nor the JAX package, and importing it loads none of them."""
+    import ast
+
+    tree = ast.parse((REPO / "graft_entry_torch.py").read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module for n in ast.walk(tree) if isinstance(n, ast.ImportFrom) and n.module]
+    assert "husky_rover_mppi_isaacsim_torch.mppi" in names and "shard_ranks" in names
+    assert not [m for m in names if m.split(".")[0] in ("jax", "yaml",
+                                                          "husky_rover_mppi_isaacsim_tpu")]
+    out = subprocess.run([sys.executable, "-c", (
+        "import sys; sys.modules['jax'] = None; sys.modules['yaml'] = None\n"
+        "import graft_entry_torch\n"
+        "print([m for m in sys.modules if m.startswith(('jax', 'yaml', "
+        "'husky_rover_mppi_isaacsim_tpu')) and sys.modules[m] is not None])")],
+        cwd=REPO, capture_output=True, text=True, timeout=120, check=True).stdout.split()
+    assert out == ["[]"], out
+
+
 def test_shard_ranks_imports_neither_jax_nor_yaml():
     """``shard_ranks.py``, the rank harness that chip_smoke.py starts on the
     card, imports only torch and the port, also when run as a rank."""

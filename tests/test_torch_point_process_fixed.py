@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.terrain import point_process as tpp
 from husky_rover_mppi_isaacsim_torch.terrain.clipmap import NestedClipmap as TNested
 from husky_rover_mppi_isaacsim_tpu.core.heightfield import HeightField as JHeightField
@@ -137,7 +138,7 @@ def test_get_height_and_random_orientation_matches_jax():
     jh, jq, jn = JNested(None, None).get_height_and_random_orientation(
         jnp.asarray(xy), jax.random.key(0), jhf)
     th, tq, tn = TNested(None, None).get_height_and_random_orientation(
-        torch.from_numpy(xy), torch.Generator().manual_seed(0), thf)
+        torch.from_numpy(xy), jr.key(0), thf)
     assert th.shape == (64,) and tq.shape == (64, 4) and tn.shape == (64, 3)
     np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=0, atol=1e-12)
     np.testing.assert_allclose(tn.numpy(), np.asarray(jn), rtol=0, atol=1e-12)
@@ -148,7 +149,10 @@ def test_get_height_and_random_orientation_matches_jax():
     ex = np.tile([1.0, 0.0, 0.0], (64, 1))
     np.testing.assert_allclose(_quat_rotate(q, ez), n, rtol=0, atol=1e-9)
     np.testing.assert_allclose(np.sum(_quat_rotate(q, ex) * n, axis=-1), 0.0, rtol=0, atol=1e-9)
-    # another generator seed turns the rocks about the same normals
+    # the tangent draws are JAX's (float64: within one ulp), so the
+    # quaternions are JAX's too
+    np.testing.assert_allclose(q, np.asarray(jq), rtol=0, atol=1e-12)
+    # another key turns the rocks about the same normals
     _, tq2, _ = TNested(None, None).get_height_and_random_orientation(
-        torch.from_numpy(xy), torch.Generator().manual_seed(1), thf)
+        torch.from_numpy(xy), jr.key(1), thf)
     assert not torch.allclose(tq, tq2)

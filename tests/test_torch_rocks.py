@@ -23,6 +23,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.core.heightfield import HeightField as THeightField
 from husky_rover_mppi_isaacsim_torch.terrain import database as tdb
 from husky_rover_mppi_isaacsim_torch.terrain import point_process as tpp
@@ -136,9 +137,13 @@ def test_quaternion_math_matches_jax_on_injected_draws(rng):
 
 
 def test_tangent_draws_do_not_depend_on_the_batch():
-    a = trocks.block_tangent_draws(67, 3, -2, 9)
-    assert torch.equal(a, trocks.block_tangent_draws(67, 3, -2, 9))
-    assert not torch.equal(a, trocks.block_tangent_draws(67, -2, 3, 9))
+    """A rock's tangent draw is keyed by (seed, block, index in the block):
+    its row is the same alone and inside a batch of other blocks."""
+    blk = [[3, -2]] * 9
+    a = trocks.rock_tangent_draws(67, blk, range(9))
+    both = trocks.rock_tangent_draws(67, [[-2, 3]] * 4 + blk, list(range(4)) + list(range(9)))
+    assert torch.equal(a, both[4:])
+    assert not torch.equal(a[:4], both[:4])
     assert a.dtype == torch.float32 and float(a.abs().max()) <= 1.0
 
 
@@ -218,8 +223,9 @@ def test_block_db_matches_jax(tmp_path, rng):
 
 def test_orientation_functions_match_jax_on_injected_draws(rng):
     """``orientation_from_normal``, ``surface_orientation`` and
-    ``provider_orientation`` draw their tangents from a ``torch.Generator``
-    (the port's side of the draw); given JAX's draws through ``rand=`` they
+    ``provider_orientation`` draw their tangents from a key (JAX's stream,
+    held against JAX's draws in tests/test_torch_jax_random.py); given
+    JAX's draws through ``rand=`` they
     give JAX's quaternions (within the quaternion math's float32 bound
     above), and heights and normals equal to JAX's where no transcendental
     enters."""
@@ -264,14 +270,15 @@ def test_orientation_functions_match_jax_on_injected_draws(rng):
 
 
 def test_orientation_draws_come_from_the_generator():
-    """Without ``rand`` the tangents are the port's draws: the same
-    generator state gives the same quaternions, another state others."""
+    """Without ``rand`` the tangents are drawn from the key (JAX's stream,
+    ``core.jax_random``): the same key gives the same quaternions, another
+    key others."""
     normal = torch.nn.functional.normalize(torch.randn((30, 3), generator=torch.Generator()
                                                        .manual_seed(1)), dim=-1)
-    a = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(7))
-    b = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(7))
-    c = trocks.orientation_from_normal(normal, torch.Generator().manual_seed(8))
+    a = trocks.orientation_from_normal(normal, jr.key(7))
+    b = trocks.orientation_from_normal(normal, jr.key(7))
+    c = trocks.orientation_from_normal(normal, jr.key(8))
     assert torch.equal(a, b) and not torch.equal(a, c)
-    draws = trocks.tangent_draws((30,), torch.Generator().manual_seed(7))
+    draws = trocks.tangent_draws((30,), jr.key(7))
     assert torch.equal(a, trocks.quat_from_normal_and_rand(normal, draws))
     assert float(draws.abs().max()) <= 1.0

@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
 from husky_rover_mppi_isaacsim_torch.terrain import point_process as tpp
 from husky_rover_mppi_isaacsim_torch.terrain import smallscale as tss
@@ -142,12 +143,14 @@ def test_moonyard_generator_matches_jax_with_injected_noise(kind):
 
 
 def test_base_noise_from_a_generator():
+    """The base noise drawn from a key (``core.jax_random``, JAX's stream):
+    the same key gives the same DEM, another key another."""
     conf = tss.BaseTerrainGeneratorConf(x_size=2.0, y_size=2.0, resolution=0.05)
-    a = tss.random_base_terrain(conf, torch.Generator().manual_seed(1))
-    b = tss.random_base_terrain(conf, torch.Generator().manual_seed(1))
+    a = tss.random_base_terrain(jr.key(1), conf, device="cpu")
+    b = tss.random_base_terrain(jr.key(1), conf, device="cpu")
     assert a.shape == (40, 40) and a.dtype == torch.float32 and torch.equal(a, b)
-    assert not torch.equal(a, tss.random_base_terrain(conf, torch.Generator().manual_seed(2)))
+    assert not torch.equal(a, tss.random_base_terrain(jr.key(2), conf, device="cpu"))
     # bicubic overshoot stays within a fraction of the elevation span
     assert float(a.max()) < 1.5 * conf.max_elevation - 0.5 * conf.min_elevation
-    with pytest.raises(ValueError, match="generator or base_noise"):
-        tss.random_base_terrain(conf)
+    with pytest.raises(ValueError, match="key or base_noise"):
+        tss.random_base_terrain(None, conf)
