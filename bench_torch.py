@@ -17,8 +17,8 @@ the bench functions run on the CPU only at the tests' tiny shapes.
 Measurement. Every loop runs as a CUDA-graph replay (``core.graphs.Graphed``,
 the counterpart of bench.py's jitted ``lax.scan``): N dependent control
 loops of ``mppi_step`` + ``kinematic_advance`` replayed in blocks, the noise
-of each loop drawn fresh from a ``torch.Generator`` on the card, before its
-block, into the graph's own buffers (no copy on replay); the vec env's
+of each loop drawn inside the graph from the key it carries (bench.py's
+``k, sub = split(k)``; one ``jax_normal`` launch a loop); the vec env's
 physics steps as graphs of a block of steps; the goal-seek episode through
 ``goal_seek`` with one graph of 4 masked steps shared by its episodes; the
 closed loop through ``run_episode`` with one step graph shared by its
@@ -36,11 +36,13 @@ beside the times are derived from the median times. Nothing here runs
 ``torch.profiler``: a trace slows the paths timed after it in the same
 process.
 
-Control noise comes from ``torch.Generator``s, not JAX's threefry: the
-goal-seek's loop count and the traverse's step count and shifts are the
-port's own sample, not a replay of the JAX bench's. The vec env's starts are
-JAX's draw (``core.jax_random``), the closed loop's start and goal bench.py's
-numpy draw: both are bench.py's.
+Every draw is bench.py's: the control noise from its keys (``key(seed)``
+a timed call, split once a loop; bench.py:93-105, :174-179, :205-210) and
+the vec env's starts from ``key(0)`` (``core.jax_random``), the closed
+loop's start and goal from its numpy draw. The goal-seek's loop count and
+the traverse's step count and shifts are still the card's own: its float32
+loop rounds otherwise than the TPU's, and over hundreds of loops a
+difference of one ulp becomes a different path.
 """
 
 from __future__ import annotations
@@ -81,14 +83,15 @@ from husky_rover_mppi_isaacsim_torch.mppi.controller import (
     mppi_step,
 )
 from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
+from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import SPLIT_NEXT, SPLIT_SUB, jax_normal
 from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleConf
 
 BASELINE_ROLLOUT_STEPS_PER_S = 3.3e7
 DTYPE = torch.float32
 REPEATS = 5
-# the control-loop graph reads the world (DEM, costmap) and the noise
-# buffers where they lie
-LOOPS_IN_PLACE = (1, 2, 6)
+# the control-loop graph reads the world (DEM, costmap) where it lies; its
+# noise it draws itself, into its own buffers
+LOOPS_IN_PLACE = (1, 2)
 
 # The line's keys: bench.py's ``detail`` keys, with its two Pallas-engine
 # keys renamed for the one CUDA route, without the keys of the TPU-only
@@ -163,39 +166,39 @@ def _slope(timed, ns, seed0: int, graph: Graphed, record: dict | None) -> float:
 
 
 def control_loops(config: MPPIConfig, hf, cm, goal, robot: RobotState, ctrl: ControllerState,
-                  noises: tuple):
-    """One dependent control loop per noise ``(2, K, H)`` of ``noises``:
-    ``mppi_step`` then ``kinematic_advance`` (bench.py's scan body, the
-    reference's ``run()`` loop). Returns ``(robot, ctrl)``."""
-    for noise in noises:
+                  key: torch.Tensor, n: int):
+    """``n`` dependent control loops (bench.py's scan body, the reference's
+    ``run()`` loop): ``key, sub = split(key)``, the noise ``(2, K, H)``
+    from ``sub`` (one ``jax_normal`` launch on the card), ``mppi_step``,
+    ``kinematic_advance``. Returns ``(robot, ctrl, key)``."""
+    shape = (2, config.num_samples, config.horizon)
+    for _ in range(n):
+        noise, key = jax_normal(key, shape, robot.position.dtype, path=SPLIT_SUB,
+                                next_path=SPLIT_NEXT)
         ctrl, out = mppi_step(config, hf, cm, goal, robot, ctrl, noise)
         robot = kinematic_advance(config, robot, out)
-    return robot, ctrl
+    return robot, ctrl, key
 
 
 def bench_control_loop(hf, cm, config: MPPIConfig, ns=(8, 32), record: dict | None = None):
     """Sustained seconds per control loop and rollout steps per second:
     the slope between ``ns[1]`` and ``ns[0]`` dependent loops, each loop
     one ``mppi_step`` + ``kinematic_advance`` with fresh noise, replayed as
-    graphs of ``gcd(ns)`` loops (the median of ``REPEATS`` slopes). Each
-    block's noise is drawn into the graph's own buffers, read in place, so
-    a replay copies no noise (bench.py draws it inside its scan)."""
+    graphs of ``gcd(ns)`` loops (the median of ``REPEATS`` slopes). The
+    graph draws each loop's noise from the key it carries, as bench.py
+    draws it inside its scan: a replay copies the key and no noise."""
     dev = hf.z.device
     goal = torch.tensor([65.0, 60.0], dtype=DTYPE, device=dev)
     robot = RobotState.create(-60.0, -60.0, [1.0, 0.5, 0.0], dtype=DTYPE, device=dev)
     ctrl = ControllerState.create(config, DTYPE, dev)
     K, H = config.num_samples, config.horizon
     unroll = math.gcd(*ns)
-    noises = tuple(torch.empty((2, K, H), dtype=DTYPE, device=dev) for _ in range(unroll))
     loops = Graphed(control_loops, in_place_args=LOOPS_IN_PLACE)
 
     def timed(n, seed):
-        gen = torch.Generator(device=dev).manual_seed(seed)
-        r, c = robot, ctrl
+        r, c, k = robot, ctrl, jr.key(seed, dev)
         for _ in range(n // unroll):
-            for noise in noises:
-                noise.normal_(generator=gen)  # sample_noise's draw, in place
-            r, c = loops(config, hf, cm, goal, r, c, noises)
+            r, c, k = loops(config, hf, cm, goal, r, c, k, unroll)
         return _sync(r.position[0] + c.optimal_u1[0])
 
     per_loop = _slope(timed, ns, 50, loops, record)
@@ -253,9 +256,8 @@ def bench_goal_seek(hf, cm, config: MPPIConfig, max_loops: int = 400,
     steps_fn = Graphed(masked_steps, in_place_args=(2, 3))
 
     def episode(seed):
-        return goal_seek(config, hf, cm, goal, robot, ctrl,
-                         torch.Generator(device=dev).manual_seed(seed), max_loops=max_loops,
-                         steps_fn=steps_fn)
+        return goal_seek(config, hf, cm, goal, robot, ctrl, jr.key(seed, dev),
+                         max_loops=max_loops, steps_fn=steps_fn)
 
     for s in (0, 1):
         int(episode(s).loops)
@@ -285,8 +287,7 @@ def bench_closed_loop(hf, cm, config: MPPIConfig, ns=(16, 64), record: dict | No
     step_fn = Graphed(closed_loop_step, in_place_args=(1, 2))
 
     def timed(n, seed):
-        s, _ = run_episode(cl, hf, cm, goals, state0, torch.Generator(device=dev).manual_seed(seed),
-                           n, step_fn=step_fn)
+        s, _ = run_episode(cl, hf, cm, goals, state0, jr.key(seed, dev), n, step_fn=step_fn)
         return _sync(s.rovers.position[0, 0])
 
     per_step = _slope(timed, ns, 10, step_fn, record)

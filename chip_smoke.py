@@ -6,10 +6,14 @@ Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu), the port's own crater
 block kernel (csrc/crater_block.cu, also once with -fmad=false for the check
 of its libdevice functions) and its planar rollout kernel
-(csrc/rollout_2d.cu, the 2D arm's sample rollout) from the sources, one
-nvcc each, and the host runtime (csrc/husky_native.cpp) with g++, all
-started together; holds each kernel against its plain PyTorch version on
-the card, bit for bit (the planar rollout kernel on both outputs at K=1000,
+(csrc/rollout_2d.cu, the 2D arm's sample rollout) and the jax_normal kernel
+(csrc/jax_normal.cu, JAX's normals for every control and slip draw) from
+the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
+with g++, all started together; holds each kernel against its plain
+PyTorch version on the card, bit for bit (jax_normal at the loops' shapes,
+with a split, a fold-in, a chunk's device index and a count offset, and
+against the same plain draw on the CPU, which the CPU tests hold against
+jax.random.normal; the planar rollout kernel on both outputs at K=1000,
 500 and 350 x H=100 on the thesis DEM and on the crater DEM, a ragged K=33
 x H=37 shape, a start off the DEM, N=4 rovers in one launch against
 one-rover launches, and its cosf / sinf against torch's on the run's
@@ -256,6 +260,11 @@ DEPENDENT_OP_CYCLES = 4
 # tests, one branch), the marks' add 3, the height's division and
 # products 3, the accumulation 1
 CRATER_OPS_PER_PAIR = 79
+# instructions of one jax_normal value's threefry hash, counted from
+# csrc/jax_normal.cu: 20 rounds of an add, a rotate (one funnel shift) and a
+# xor, five key injections of three adds, two adds to start, and the
+# uniform's xor, shift and or (the float erf_inv not counted)
+JAX_NORMAL_OPS_PER_VALUE = 80
 
 
 def bound(bytes_moved, ops, op_rate):
@@ -337,7 +346,6 @@ def main(argv=None) -> int:
         mppi_step,
     )
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
-    from husky_rover_mppi_isaacsim_torch.mppi.sampling import sample_noise
     from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
     from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d, rollout_25d
     from husky_rover_mppi_isaacsim_torch.ops.edt import (
@@ -363,12 +371,18 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.ops import rollout_2d_cuda as r2_module
     from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
+    from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import (
+        SPLIT_NEXT,
+        SPLIT_SUB,
+        jax_normal,
+    )
     from husky_rover_mppi_isaacsim_torch.mppi import thesis_runs
     from husky_rover_mppi_isaacsim_torch.shell import (
         SimulationManager,
         SimulationManagerConf,
         Topics,
     )
+    from husky_rover_mppi_isaacsim_torch.shell.sim_manager import tick as sim_tick
     from husky_rover_mppi_isaacsim_torch.terrain import (
         STANDALONE_CRATER_BUMPS,
         as_costmap,
@@ -415,7 +429,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     crater_libm_off = block_module.CudaCraterBlock(fmad=False)
     wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_block_cuda,
-                crater_libm_off, rollout_2d_cuda)
+                crater_libm_off, rollout_2d_cuda, jax_normal)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
@@ -423,7 +437,7 @@ def main(argv=None) -> int:
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
                             "crater_block_f32", "crater_block_f32 (-fmad=false)",
-                            "rollout2d_f32"), builds):
+                            "rollout2d_f32", "jax_normal_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -442,6 +456,76 @@ def main(argv=None) -> int:
     heading = torch.tensor(HEADING, device=cuda)
     heading = heading / torch.linalg.norm(heading)
     gen = torch.Generator(device=cuda).manual_seed(0)
+
+    def jax_normal_phase():
+        idx = torch.full((), 7, dtype=torch.int64, device=cuda)
+        block_shape, block_off, block_stride = jr.slice_counts((2, K, H), 1, K // 2, K)
+        cases = {  # name: (key seed, shape, path, next path, offset, outer stride)
+            "goal_seek_k1000_h100": (42, (2, K, H), SPLIT_SUB, SPLIT_NEXT, 0, None),
+            "bench_k16384_h64": (50, (2, BENCH_K, BENCH_H), SPLIT_SUB, SPLIT_NEXT, 0, None),
+            "closed_loop_2x4000x100": (0, (2, ROVERS * K, H), (("split", 2, 0),), None, 0, None),
+            "slip_n4": (0, (ROVERS,), (("split", 2, 1), ("split", 2, 0)), None, 0, None),
+            "slip_n4096": (3, (VEC_ROVERS,), (("split", 2, 1), ("split", 2, 1)), None, 0, None),
+            "controller_fold_in": (42, (2, K, H), (("fold_in", 517),), None, 0, None),
+            "chunk_device_index": (42, (2, K, H), (("fold_in", idx), ("split", 12, 5),
+                                                      ("split", 2, 0)), None, 0, None),
+            "rank_block_offset": (0, block_shape, (), None, block_off, block_stride),
+        }
+        rows, equal_all = {}, True
+        for name, (seed, shape, path, nxt, off, stride) in cases.items():
+            key_d = jr.key(seed, cuda)
+            res = jax_normal(key_d, shape, path=path, next_path=nxt, offset=off,
+                             outer_stride=stride)
+            got, got_key = (res, None) if nxt is None else res
+            sub = jr.derive(key_d, path)
+            plain = jr.normal(sub, shape, torch.float32, off, stride)
+            cpu_path = tuple((s[0], s[1].cpu()) if isinstance(s[1], torch.Tensor) else s
+                             for s in path)
+            on_cpu = jr.normal(jr.derive(jr.key(seed), cpu_path), shape, torch.float32, off,
+                               stride)
+            equal = torch.equal(got, plain) and torch.equal(got.cpu(), on_cpu)
+            if nxt is not None:
+                equal = equal and torch.equal(got_key, jr.derive(key_d, nxt))
+            if name == "rank_block_offset":  # the block is the slice of the full draw
+                full = jax_normal(key_d, (2, K, H))
+                equal = equal and torch.equal(got.reshape(2, K // 2, H), full[:, K // 2:])
+            rows[name] = {"shape": list(shape), "n": got.numel(), "equal": equal,
+                          "finite": bool(torch.isfinite(got).all()),
+                          "mean": got.mean().item(), "std": got.std().item()}
+            equal_all = equal_all and equal and rows[name]["finite"]
+        phase("jax_normal", cases=rows, ok=equal_all)
+        if not equal_all:
+            raise RuntimeError("the jax_normal kernel differs from its plain version")
+        timing = {}
+        for name in ("goal_seek_k1000_h100", "bench_k16384_h64", "closed_loop_2x4000x100",
+                     "slip_n4"):
+            seed, shape, path, nxt, off, stride = cases[name]
+            key_d = jr.key(seed, cuda)
+            buf = torch.empty(shape, device=cuda)
+            n = buf.numel()
+            t_kernel = graph_ms(lambda: jax_normal(key_d, shape, path=path))
+            t_plain = cuda_ms(lambda: jr.normal(jr.derive(key_d, path), shape))
+            t_randn = graph_ms(lambda: buf.normal_())
+            b_ms, b_by = bound(4 * n + 16, JAX_NORMAL_OPS_PER_VALUE * n, PEAK_FP32_INSTR_S)
+            timing[name] = {"ms": t_kernel, "plain_ms": t_plain, "randn_ms": t_randn,
+                            "bound_ms": b_ms, "bound_by": b_by, "n": n}
+        phase("jax_normal_times", per="launch (CUDA-graph replay, median of 7); plain eager",
+              **timing)
+        main = timing["goal_seek_k1000_h100"]
+        return {"ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                "bound_by": main["bound_by"], "max_abs_err": 0.0, "randn_ms": main["randn_ms"],
+                "shapes": timing, "cases": rows}
+
+    # 2b. jax_normal against its plain version (core/jax_random.py: normal
+    #     of derive, torch ops on the card) and against the same plain
+    #     version on the CPU (which the CPU tests hold against
+    #     jax.random.normal), torch.equal at the shapes of the main paths;
+    #     its next key against derive; a count offset's block against the
+    #     slice of the full draw. Timed as a CUDA-graph replay beside its
+    #     bound, its plain version and torch.randn (for scale: no torch call
+    #     draws JAX's stream)
+    jax_normal_row = jax_normal_phase()
+    draws_by_path = {}  # jax_normal launches of each main path
 
     def dem_cells(hf, got, start):
         """DEM cells a rollout read: the start cell's and every step's quad
@@ -790,8 +874,8 @@ def main(argv=None) -> int:
         #     one chunk's time from the start state (host clock around 12
         #     closed-loop steps, 24 K1 launches, ended by a synchronize)
         goal_ctrl = loop._goal_ctrl()
-        chunk_gen = torch.Generator(device=cuda).manual_seed(7)
-        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, generator=chunk_gen), reps=5)
+        chunk_key = jr.key(7, cuda)
+        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, chunk_key, 0), reps=5)
         phase("largescale_chunk_ms", steps=conf.terrain_check_every, K=K, H=H, chunk_ms=chunk_ms,
               ms_per_sim_step=chunk_ms / conf.terrain_check_every)
 
@@ -886,7 +970,7 @@ def main(argv=None) -> int:
         chunks from the start, each run eagerly (run_chunk), as the loop's
         graph replay (window and costmap read in place) and as a graph that
         copies every argument into its own buffers (the route before this
-        slice), from the same state and generator state, in turns; after
+        slice), from the same state and key, in turns; after
         GRAPH_CHUNKS // 2 chunks the cascade seats the next window, costmap
         and frame origin (a (25, 25) m block shift), so the later replays
         read what the seat wrote into the leaves, not what they captured.
@@ -894,7 +978,7 @@ def main(argv=None) -> int:
         loop = LargeScaleClosedLoop(conf, lstm=lstm, device=cuda)
         graph, copying = loop.chunk_fn, Graphed(run_chunk)
         state, goal_ctrl = loop._initial_state(), loop._goal_ctrl()
-        gen = torch.Generator(device=cuda).manual_seed(21)
+        key = jr.key(21, cuda)
         routes = (("eager", run_chunk), ("graph", graph), ("graph_copying", copying))
         times = {name: [] for name, _ in routes}
         equal, shift, origins = True, None, []
@@ -903,13 +987,11 @@ def main(argv=None) -> int:
                 loop.lstm.update_visual_mesh((26.0, 27.0))
                 state, goal_ctrl, shift = loop._on_block_shift(state, goal_ctrl)
             outs = {}
-            draws = gen.get_state()
             for name, fn in routes:
-                gen.set_state(draws)
                 loop.chunk_fn = fn
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                outs[name] = loop.chunk(state, goal_ctrl, gen)
+                outs[name] = loop.chunk(state, goal_ctrl, key, c)
                 torch.cuda.synchronize()
                 times[name].append(1e3 * (time.perf_counter() - t0))
             equal = (equal and _same(outs["eager"], outs["graph"])
@@ -1054,9 +1136,10 @@ def main(argv=None) -> int:
         torch.cuda.reset_peak_memory_stats()
         held = torch.cuda.memory_allocated()  # by the earlier phases' objects
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-        gp.gather_probe_cuda.launches = crater_block_cuda.launches = 0
+        gp.gather_probe_cuda.launches = crater_block_cuda.launches = jax_normal.launches = 0
         run = largescale_episode(tree, conf=conf)
         torch.cuda.synchronize()
+        draws_by_path[name] = jax_normal.launches
         k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
         stamp = crater_block_cuda.launches
         peak = torch.cuda.max_memory_allocated() - held
@@ -1187,7 +1270,16 @@ def main(argv=None) -> int:
         counts["largescale_deform"] = (rollout_25d_cuda.launches, edt_minplus_cuda.launches)
         bpx = streamer.conf.block_px
         moved = (streamer.anchor[0] - anchor0[0], streamer.anchor[1] - anchor0[1])
-        diff = streamer.window[:-bpx] - before[bpx:] if moved == (1, 0) else None
+        # the window against the one before, over their overlap: the rover
+        # crosses the x = 25 m border by design, and the y = 0 border too
+        # where its path dips below y = 0 (it starts 0.5 m above it)
+        new_sl, old_sl = [], []
+        for d in moved:
+            n_ = abs(d) * bpx
+            new_sl.append(slice(0, -n_ if n_ else None) if d >= 0 else slice(n_, None))
+            old_sl.append(slice(n_, None) if d >= 0 else slice(0, -n_))
+        diff = (streamer.window[tuple(new_sl)] - before[tuple(old_sl)]
+                if moved[0] == 1 and abs(moved[1]) <= 1 else None)
         lowered = diff is not None and diff.min().item() < -1e-4
         unchanged = diff is not None and (diff.abs() < 1e-9).double().mean().item()
         del before
@@ -1214,7 +1306,7 @@ def main(argv=None) -> int:
         del stamps, w_cpu
         rolled = _roll_pass_counts(loop.pass_counts, bpx, -bpx)
         roll_equal = torch.equal(rolled.cpu(), _roll_pass_counts(loop.pass_counts.cpu(), bpx, -bpx))
-        ok = (res.block_shifts >= 1 and moved == (1, 0) and lowered and unchanged > 0.9 and live
+        ok = (res.block_shifts >= 1 and diff is not None and lowered and unchanged > 0.9 and live
               and stamp_err <= 1e-6 and counts_equal and twice_equal and roll_equal
               and counts["largescale_deform"][0] == 2 * res.steps)
         phase("largescale_deform", start=list(DEFORM_START), goal=list(DEFORM_GOAL),
@@ -1249,36 +1341,38 @@ def main(argv=None) -> int:
         state0 = loop._initial_state()
         # 13. one chunk (12 closed-loop steps, N=1, K=1000 x H=100) from the
         #     start: on the card (24 K1 launches on the window, no host sync)
-        #     and on the CPU with the plain rollout, same noise. Tolerance:
+        #     and on the CPU with the plain rollout, the same key (JAX's
+        #     noise drawn by jax_normal on the card, by its plain version
+        #     on the CPU: the same bits). Tolerance:
         #     2e-3 on the pose (m; unit heading) and 1e-2 on wheel speeds and
         #     yaw rate (m/s, rad/s): 12 steps of float32 feedback through
         #     the softmax weights, sin/cos/exp rounding differently on the
         #     two devices
         n_chunk = conf.terrain_check_every
-        noise = torch.randn((n_chunk, 1, 2, K, H), generator=torch.Generator().manual_seed(5))
         goal_ctrl = loop._goal_ctrl()
-        noise_d = noise.to(cuda)
+        key_d = jr.key(5, cuda)
         torch.cuda.synchronize()
         before = rollout_25d_cuda.launches
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside the chunk raises
         try:
-            got_state, got_pose = loop.chunk(state0, goal_ctrl, noise=noise_d)
+            got_state, got_pose = loop.chunk(state0, goal_ctrl, key_d, 0)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         chunk_k1 = rollout_25d_cuda.launches - before
         t0 = time.perf_counter()
         want_state, want_pose = run_chunk(conf, on_device(loop.hf, cpu),
                                           on_device(loop.costmap, cpu), loop.frame.origin(),
-                                          on_device(state0, cpu), goal_ctrl.cpu(), noise=noise)
+                                          on_device(state0, cpu), goal_ctrl.cpu(), jr.key(5),
+                                          torch.zeros((), dtype=torch.int64))
         cpu_s = time.perf_counter() - t0
         diffs = {"pose": (got_pose.cpu() - want_pose).abs().tolist()}
         for f, a, b in zip(got_state.rovers._fields, got_state.rovers, want_state.rovers):
             diffs[f] = (a.cpu() - b).abs().max().item()
-        kernels = device_kernels(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d))
-        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d), reps=3)
+        kernels = device_kernels(lambda: loop.chunk(state0, goal_ctrl, key_d, 0))
+        chunk_ms = cuda_ms(lambda: loop.chunk(state0, goal_ctrl, key_d, 0), reps=3)
         # the idle share is read under the profiler, whose tracing slows the
         # host: the card's busy time is the firmer number
-        on_card = device_time(lambda: loop.chunk(state0, goal_ctrl, noise=noise_d))
+        on_card = device_time(lambda: loop.chunk(state0, goal_ctrl, key_d, 0))
         ok = (max(diffs["pose"][:4]) <= 2e-3 and diffs["pose"][4] == 0.0
               and max(diffs[f] for f in ("position", "z", "heading")) <= 2e-3
               and max(diffs[f] for f in ("wheel_left", "wheel_right", "yaw_rate")) <= 1e-2
@@ -1406,10 +1500,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
             gp.gather_probe_cuda.launches = crater_block_cuda.launches = 0
+            jax_normal.launches = 0
 
         def counts():
             return {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
-                    "k3": gp.gather_probe_cuda.launches, "stamp": crater_block_cuda.launches}
+                    "k3": gp.gather_probe_cuda.launches, "stamp": crater_block_cuda.launches,
+                    "draws": jax_normal.launches}
 
         sdg_shapes = {"rgb": (500, 500, 3), "depth": (500, 500), "semantic": (500, 500),
                       "cam_depth": (480, 640), "cam_rgb": (480, 640), "cam_semantic": (480, 640),
@@ -2117,11 +2213,12 @@ def main(argv=None) -> int:
         raise RuntimeError("the control step on the card disagrees with the CPU's")
 
     # 6b. one closed-loop step of the CLI's 4 rovers: on the card (two K1
-    #     launches, no host sync) and on the CPU, same noise; then rover n of
-    #     the batched control step against a one-rover step on the card
+    #     launches, no host sync) and on the CPU, from the same key; then
+    #     rover n of the batched control step against a one-rover step on
+    #     the card, on the step's draw
     cl_cfg = closed_loop_config({})
     starts, goals_np = spawn_points(42, ROVERS, hw)
-    cl_noise = torch.randn((ROVERS, 2, K, H), generator=torch.Generator().manual_seed(3))
+    cl_noise = tenv.step_noise(jr.key(3), cl_cfg.mppi, ROVERS)
     track = cl_cfg.mppi.robot_radius
 
     def loop_step_on(dev):
@@ -2130,14 +2227,14 @@ def main(argv=None) -> int:
         state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0],
                                                                    hf_d))
         goals = torch.tensor(goals_np, dtype=torch.float32, device=dev)
-        noise = cl_noise.to(dev)
+        key = jr.key(3, dev)
         if dev != cuda:
-            return tenv.closed_loop_step(cl_cfg, hf_d, cm_d, goals, state, noise=noise)
+            return tenv.closed_loop_step(cl_cfg, hf_d, cm_d, goals, state, key)
         torch.cuda.synchronize()
         before = rollout_25d_cuda.launches
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside the step raises
         try:
-            out = tenv.closed_loop_step(cl_cfg, hf_d, cm_d, goals, state, noise=noise)
+            out = tenv.closed_loop_step(cl_cfg, hf_d, cm_d, goals, state, key)
         finally:
             torch.cuda.set_sync_debug_mode("default")
         return out, rollout_25d_cuda.launches - before
@@ -2188,17 +2285,17 @@ def main(argv=None) -> int:
     robot = RobotState.create(*START, HEADING, device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
     goal = torch.tensor(GOAL, device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(42)
     gs_graph = Graphed(masked_steps)
+    gs_key = jr.key(42, cuda)
     torch.cuda.synchronize()
-    rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
+    rollout_25d_cuda.launches = edt_minplus_cuda.launches = jax_normal.launches = 0
     t0 = time.perf_counter()
-    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=3500,
+    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gs_key, max_loops=3500,
                              steps_fn=gs_graph)
     loops = int(res.loops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = rollout_25d_cuda.launches
+    launches, gs_draws = rollout_25d_cuda.launches, jax_normal.launches
     path = res.positions[:loops]
     ix, iy = costmap_cells(path, cm)
     path_cost = grid_lookup(cm.cost, ix, iy)
@@ -2206,22 +2303,24 @@ def main(argv=None) -> int:
     finite = bool(torch.isfinite(path).all())
     final = res.robot.position.tolist()
     phase("goal_seek", reached=bool(res.reached), loops=loops, steps=res.steps,
-          k1_launches=launches, collisions=collisions, max_path_cost=path_cost.max().item(),
+          k1_launches=launches, jax_normal_launches=gs_draws, collisions=collisions,
+          max_path_cost=path_cost.max().item(),
           final_position=final, wall_s=wall, ms_per_loop=1e3 * wall / max(loops, 1))
     if not (bool(res.reached) and collisions == 0 and finite):
         raise RuntimeError("the flagship goal-seek did not reach its goal cleanly")
     if launches != 2 * res.steps or launches == 0:
         raise RuntimeError(f"K1 ran {launches} times for {res.steps} control steps")
+    if gs_draws != res.steps:
+        raise RuntimeError(f"jax_normal ran {gs_draws} times for {res.steps} control steps")
 
     #     graph_goal_seek: the same episode with the masked steps eager, from
-    #     the same generator state: equal loops, path and final state
+    #     the same key: equal loops, path and final state
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = 0
     t0 = time.perf_counter()
     eager = goal_seek_recorded(cfg, hf, cm, goal, RobotState.create(*START, HEADING, device=cuda),
-                               ControllerState.create(cfg, device=cuda),
-                               torch.Generator(device=cuda).manual_seed(42), max_loops=3500,
-                               steps_fn=masked_steps)
+                               ControllerState.create(cfg, device=cuda), jr.key(42, cuda),
+                               max_loops=3500, steps_fn=masked_steps)
     e_loops = int(eager.loops)
     torch.cuda.synchronize()
     e_wall = time.perf_counter() - t0
@@ -2242,14 +2341,19 @@ def main(argv=None) -> int:
     #     two K1 launches per step
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
+    jax_normal.launches = 0
     run = closed_loop_episode({})
     cl_k1, cl_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+    draws_by_path["closed_loop"] = jax_normal.launches
     cl_finite = bool(torch.isfinite(run.path).all())
     mean_progress = float(run.progress.mean())
     phase("closed_loop", N=len(run.progress), K=K, H=H, steps=SIM_STEPS,
           k1_launches=cl_k1, k1_expected=2 * SIM_STEPS, k2_launches=cl_k2, finite=cl_finite,
           mean_progress_m=mean_progress, progress_m=run.progress.tolist(), wall_s=run.wall_s,
           sim_steps_per_s=SIM_STEPS / run.wall_s, ms_per_sim_step=1e3 * run.wall_s / SIM_STEPS)
+    if draws_by_path["closed_loop"] != SIM_STEPS:
+        raise RuntimeError(f"jax_normal ran {draws_by_path['closed_loop']} times in "
+                           f"{SIM_STEPS} closed-loop steps")
     if len(run.progress) != ROVERS or cl_k1 != 2 * SIM_STEPS:
         raise RuntimeError(f"K1 ran {cl_k1} times in {SIM_STEPS} closed-loop steps "
                            f"of {len(run.progress)} rovers")
@@ -2258,7 +2362,7 @@ def main(argv=None) -> int:
 
     #     graph_closed_loop: the same episode on the standalone world through
     #     run_episode, one step graph replayed a sim step and the steps
-    #     eager, from the same generator state: equal path and final state
+    #     eager, from the same key: equal path and final state
     cl_graph = Graphed(tenv.closed_loop_step)
     cl_runs = {}
     for name, step_fn in (("graph", cl_graph), ("eager", tenv.closed_loop_step)):
@@ -2267,8 +2371,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         rollout_25d_cuda.launches = 0
         t0 = time.perf_counter()
-        out = tenv.run_episode(cl_cfg, hf, cm, goals_cl, state0,
-                               torch.Generator(device=cuda).manual_seed(0), SIM_STEPS,
+        out = tenv.run_episode(cl_cfg, hf, cm, goals_cl, state0, jr.key(0, cuda), SIM_STEPS,
                                step_fn=step_fn)
         torch.cuda.synchronize()
         cl_runs[name] = (out, time.perf_counter() - t0, rollout_25d_cuda.launches)
@@ -2341,30 +2444,30 @@ def main(argv=None) -> int:
         bcfg = MPPIConfig(num_samples=BENCH_K, horizon=BENCH_H, exact=False, slope_critic=critic)
         brobot = RobotState.create(*BENCH_START, HEADING, device=cuda)
         bctrl = ControllerState.create(bcfg, device=cuda)
-        bgen = torch.Generator(device=cuda).manual_seed(50)
-        bnoise = tuple(sample_noise(bgen, BENCH_K, BENCH_H, device=cuda)
-                       for _ in range(BENCH_LOOPS))
-        bargs = (bcfg, hf, cm, bench_goal, brobot, bctrl, bnoise)
+        bargs = (bcfg, hf, cm, bench_goal, brobot, bctrl, jr.key(50, cuda), BENCH_LOOPS)
         bgraph = Graphed(bench_torch.control_loops, in_place_args=bench_torch.LOOPS_IN_PLACE)
         bgraph(*bargs)  # the warm-up, eager
         torch.cuda.synchronize()
-        rollout_25d_cuda.launches = 0
+        rollout_25d_cuda.launches = jax_normal.launches = 0
         got = bgraph(*bargs)  # the capture and one replay
         torch.cuda.synchronize()
-        graph_k1 = rollout_25d_cuda.launches
-        rollout_25d_cuda.launches = 0
+        graph_k1, graph_draws = rollout_25d_cuda.launches, jax_normal.launches
+        rollout_25d_cuda.launches = jax_normal.launches = 0
         want = bench_torch.control_loops(*bargs)
         torch.cuda.synchronize()
-        eager_k1 = rollout_25d_cuda.launches
+        eager_k1, eager_draws = rollout_25d_cuda.launches, jax_normal.launches
         equal = _same(got, want)
         t_graph = cuda_ms(lambda: bgraph(*bargs)) / BENCH_LOOPS
         t_eager = cuda_ms(lambda: bench_torch.control_loops(*bargs)) / BENCH_LOOPS
-        ok = equal and graph_k1 == eager_k1 == 2 * BENCH_LOOPS
+        ok = (equal and graph_k1 == eager_k1 == 2 * BENCH_LOOPS
+              and graph_draws == eager_draws == BENCH_LOOPS)
         bench_graph_rows[critic] = {"graph_equals_eager": equal, "k1_launches_graph": graph_k1,
-                                    "k1_launches_eager": eager_k1, "ms_per_loop_graph": t_graph,
-                                    "ms_per_loop_eager": t_eager,
+                                    "k1_launches_eager": eager_k1,
+                                    "jax_normal_launches_graph": graph_draws,
+                                    "jax_normal_launches_eager": eager_draws,
+                                    "ms_per_loop_graph": t_graph, "ms_per_loop_eager": t_eager,
                                     "capture_ms": bgraph.capture_ms, "ok": ok}
-        del got, want, bgraph, bnoise
+        del got, want, bgraph
     vec_graph = Graphed(bench_torch.vec_env_steps, in_place_args=(1,))
     vec_b0, vec_cmd = bench_torch.vec_env_start(hf, VEC_ROVERS)
     vec_got = vec_b0
@@ -2389,12 +2492,16 @@ def main(argv=None) -> int:
 
     # 7d. the host shell's SimulationManager on the flagship world: 5 robot
     #     slots at ClosedLoopConfig() (K=1000 x H=100). First its first
-    #     SIM_CHECK ticks on the card against the same ticks on the CPU, the
-    #     same noise injected, at the closed-loop step's card-vs-CPU
-    #     tolerances (phase 6b); then SIM_TICKS ticks driven over its bus (3
-    #     spawns before tick 0, a teleport at tick 100, a reset at tick 200,
-    #     a POSE_STATE subscriber over the last 10 ticks), timed in windows of
-    #     SIM_WINDOW ticks, every tick without a subscriber under
+    #     SIM_CHECK ticks on the card against the same ticks on the CPU,
+    #     both from the manager's seed, at the closed-loop step's card-vs-CPU
+    #     tolerances (phase 6b): each card tick from the CPU's state before
+    #     it, every field; the free-running card ticks' rover states too
+    #     (their commands and planned inputs are reported: a slot whose
+    #     softmax is one-hot, an idle one at its goal, can pick another
+    #     near-tied sample a few ticks on); then SIM_TICKS ticks driven over
+    #     its bus (3 spawns before tick 0, a teleport at tick 100, a reset at
+    #     tick 200, a POSE_STATE subscriber over the last 10 ticks), timed in
+    #     windows of SIM_WINDOW ticks, every tick without a subscriber under
     #     set_sync_debug_mode("error"): 2 K1 launches a tick
     sim_conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig())
     sim_goals = np.array([GOAL, (40.0, -30.0), (-35.0, 40.0), (0.0, 0.0), (0.0, 0.0)])
@@ -2409,22 +2516,24 @@ def main(argv=None) -> int:
         sm.apply_modifications()
         return sm
 
-    sim_noise = torch.randn((SIM_CHECK, SIM_SLOTS, 2, K, H),
-                            generator=torch.Generator().manual_seed(5))
-    card_states, cpu_states = [], []
-    with sim_manager(cuda, hf, cm) as card_sm, sim_manager(cpu, hf_cpu, cm_cpu) as cpu_sm:
-        card_noise = sim_noise.to(cuda)
+    card_states, cpu_states, cpu_before, tick_states = [], [], [], []
+    with sim_manager(cuda, hf, cm) as card_sm, sim_manager(cpu, hf_cpu, cm_cpu) as cpu_sm, \
+            sim_manager(cuda, hf, cm) as tick_sm:
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")  # a host sync inside a tick raises
         try:
-            for i in range(SIM_CHECK):
-                card_states.append(tenv.clone_state(card_sm.step(noise=card_noise[i])))
+            for _ in range(SIM_CHECK):
+                card_states.append(tenv.clone_state(card_sm.step()))
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        for i in range(SIM_CHECK):
-            cpu_states.append(cpu_sm.step(noise=sim_noise[i]))
-    sim_diffs, sim_ok = [], True
-    for got, want in zip(card_states, cpu_states):
+        for _ in range(SIM_CHECK):
+            cpu_before.append(tenv.clone_state(cpu_sm.state))
+            cpu_states.append(cpu_sm.step())
+        for before in cpu_before:  # the card's tick from the CPU's state
+            tick_sm.state = on_device(before, cuda)
+            tick_states.append(tenv.clone_state(tick_sm.step()))
+
+    def sim_diff(got, want):
         d = {"v": (v(got).cpu() - v(want)).abs().max().item(),
              "omega": (w(got).cpu() - w(want)).abs().max().item(),
              "optimal_u": max((a.cpu() - b).abs().max().item()
@@ -2432,9 +2541,17 @@ def main(argv=None) -> int:
              "rover_state": max((a.cpu() - b).abs().max().item()
                                 for a, b in zip(got.rovers, want.rovers))}
         v_ref, w_ref = v(want).abs().max().item(), w(want).abs().max().item()
-        sim_ok = sim_ok and (d["v"] <= 1e-5 + 1e-4 * v_ref and d["omega"] <= 1e-4 + 1e-4 * w_ref
-                             and d["optimal_u"] <= 1e-3 and d["rover_state"] <= 1e-3)
+        poses = d["rover_state"] <= 1e-3
+        return d, poses, (poses and d["v"] <= 1e-5 + 1e-4 * v_ref
+                          and d["omega"] <= 1e-4 + 1e-4 * w_ref and d["optimal_u"] <= 1e-3)
+
+    sim_diffs, sim_free_diffs, sim_ok = [], [], True
+    for got, free, want in zip(tick_states, card_states, cpu_states):
+        d, _, tick_ok = sim_diff(got, want)
+        d_free, free_ok, _ = sim_diff(free, want)
+        sim_ok = sim_ok and tick_ok and free_ok
         sim_diffs.append(d)
+        sim_free_diffs.append(d_free)
 
     def drive_sim_manager(step_fn=None):
         """SIM_TICKS ticks over the bus, timed in windows; ``step_fn``
@@ -2448,7 +2565,7 @@ def main(argv=None) -> int:
         try:
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-            gp.gather_probe_cuda.launches = 0
+            gp.gather_probe_cuda.launches = jax_normal.launches = 0
             for w0 in range(0, SIM_TICKS, SIM_WINDOW):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2476,9 +2593,11 @@ def main(argv=None) -> int:
                 windows.append(1e3 * (time.perf_counter() - t0) / SIM_WINDOW)
         finally:
             sm.close()
+        draws_by_path["sim_manager"] = jax_normal.launches
         return sm, windows, flushed, seen, rollout_25d_cuda.launches, edt_minplus_cuda.launches
 
     sm, windows, flushed, seen, sim_k1, sim_k2 = drive_sim_manager()
+    sim_draws = draws_by_path["sim_manager"]
     teleported = sm.robots.pose(flushed[100].rovers, "husky_1")
     reset = sm.robots.pose(flushed[200].rovers, "husky_0")
     sim_finite = all(bool(torch.isfinite(t).all()) for t in sm.state.rovers + sm.state.ctrl)
@@ -2495,12 +2614,13 @@ def main(argv=None) -> int:
                                 "heading": teleported[2].tolist()},
           reset_slot_position=reset[0].tolist(), pose_messages=len(seen),
           final_positions=sm.state.rovers.position.tolist(), finite=sim_finite,
-          card_vs_cpu_ticks=SIM_CHECK, card_vs_cpu_max_abs_diff=sim_diffs, card_vs_cpu_ok=sim_ok)
+          card_vs_cpu_ticks=SIM_CHECK, card_vs_cpu_max_abs_diff=sim_diffs,
+          card_vs_cpu_free_running_max_abs_diff=sim_free_diffs, card_vs_cpu_ok=sim_ok)
     if not (sim_ok and sim_finite and pose_ok):
         raise RuntimeError("the simulation manager on the card disagrees with the CPU's, left a "
                            "non-finite state or did not apply its bus requests")
     #     graph_sim_manager: the same ticks and bus edits with the step eager
-    sm_e, windows_e, flushed_e, seen_e, sim_k1_e, _ = drive_sim_manager(tenv.closed_loop_step)
+    sm_e, windows_e, flushed_e, seen_e, sim_k1_e, _ = drive_sim_manager(sim_tick)
     equal = (_same(sm.state, sm_e.state) and all(_same(flushed[t], flushed_e[t]) for t in flushed)
              and all(np.array_equal(a["positions"], b["positions"]) for a, b in zip(seen, seen_e)))
     ok = equal and sim_k1_e == sim_k1 and sm.step_fn.replays == SIM_TICKS - 1
@@ -2514,6 +2634,9 @@ def main(argv=None) -> int:
     del sm_e
     if sim_k1 != 2 * SIM_TICKS:
         raise RuntimeError(f"K1 ran {sim_k1} times in {SIM_TICKS} simulation-manager ticks")
+    draws_by_path["sim_manager"] = sim_draws  # the graphed run's: a draw and a split a tick
+    if sim_draws != 2 * SIM_TICKS:
+        raise RuntimeError(f"jax_normal ran {sim_draws} times in {SIM_TICKS} ticks")
 
     # 7e. MPPIController (the reference controller's surface) on the flagship:
     #     step(noise=) bit-equal to mppi_step, then run() (-45, -40) -> (45,
@@ -2529,11 +2652,13 @@ def main(argv=None) -> int:
     ctl = MPPIController(cfg, hf, cm, GOAL, seed=42)
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
+    jax_normal.launches = 0
     t0 = time.perf_counter()
     final, _, ctl_path = ctl.run(r0, max_loops=3500)
     torch.cuda.synchronize()
     ctl_wall = time.perf_counter() - t0
     ctl_k1 = rollout_25d_cuda.launches
+    draws_by_path["mppi_controller"] = jax_normal.launches
     ix, iy = costmap_cells(ctl_path, cm)
     ctl_cost = grid_lookup(cm.cost, ix, iy)
     ctl_reached = bool((torch.abs(final.position - goal) <= 0.5).all())
@@ -2549,6 +2674,9 @@ def main(argv=None) -> int:
                            "did not reach the goal cleanly")
     if ctl_k1 != 2 * ctl.loop or ctl_k1 == 0:
         raise RuntimeError(f"K1 ran {ctl_k1} times in {ctl.loop} controller loops")
+    if draws_by_path["mppi_controller"] != ctl.loop:
+        raise RuntimeError(f"jax_normal ran {draws_by_path['mppi_controller']} times in "
+                           f"{ctl.loop} controller loops")
     #     graph_mppi_controller: the same run with step_fn = mppi_step (eager)
     ctl_e = MPPIController(cfg, hf, cm, GOAL, seed=42)
     ctl_e.step_fn = mppi_step
@@ -2668,7 +2796,9 @@ def main(argv=None) -> int:
     #     process (it prints "entry OK"); and dryrun_multichip(2), the
     #     sharded multi-rover step on a (2, 1) mesh of two gloo ranks sharing
     #     the card, every rover held against mppi_step by the function
-    entry_fn, entry_args = graft_entry_torch.entry()
+    jax_normal.launches = 0
+    entry_fn, entry_args = graft_entry_torch.entry()  # draws its noise from key(0)
+    draws_by_path["graft_entry"] = jax_normal.launches
     k1_calls = []
 
     def k1_recorded(hf_, pos, head, lin, ang, dt, wheels=True):
@@ -2793,6 +2923,7 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
+    jax_normal.launches = 0
     t0 = time.perf_counter()
     with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["graph"])):
         table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
@@ -2800,6 +2931,7 @@ def main(argv=None) -> int:
                                                device=cuda)
     eval_s = time.perf_counter() - t0
     eval_k1, eval_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
+    draws_by_path["evaluation"] = jax_normal.launches
     eval_r2 = rollout_2d_cuda.launches
     arms = table["per_k"][K]["arms"]
     for proj, arm in arms.items():
@@ -2894,7 +3026,7 @@ def main(argv=None) -> int:
                     torch.tensor(goal2d, dtype=torch.float32, device=cuda),
                     RobotState.create(*start2d, head2d, device=cuda, wheel_speed=1.0),
                     ControllerState.create(cfg2d_arm, device=cuda, initial_u=1.0),
-                    torch.Generator(device=cuda).manual_seed(42000), max_loops=ARM_2D_LOOPS,
+                    jr.key(42000, cuda), max_loops=ARM_2D_LOOPS,
                     steps_fn=graph)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
@@ -2944,9 +3076,11 @@ def main(argv=None) -> int:
     for name, driver in drivers.items():
         torch.cuda.synchronize()
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
+        jax_normal.launches = 0
         t0 = time.perf_counter()
         table_d = driver()
         wall = time.perf_counter() - t0
+        draws_by_path[f"thesis_drivers_{name}"] = jax_normal.launches
         counts = {"k1": rollout_25d_cuda.launches, "rollout_2d": rollout_2d_cuda.launches,
                   "k2": edt_minplus_cuda.launches}
         rows, summary = driver_arms(name, table_d)
@@ -2991,18 +3125,19 @@ def main(argv=None) -> int:
     #      launches_by_path
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = crater_block_cuda.launches = 0
+    jax_normal.launches = 0
     t0 = time.perf_counter()
     bench_line = bench_torch.measure(cuda)
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
     bench_counts = {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
-                    "stamp": crater_block_cuda.launches}
+                    "stamp": crater_block_cuda.launches, "draws": jax_normal.launches}
     print(json.dumps(bench_line), flush=True)
     detail = bench_line["detail"]
     keys_ok = (set(detail) == bench_torch.DETAIL_KEYS
                and set(detail["largescale_streamed"]) == bench_torch.LARGESCALE_KEYS)
     reached = detail["largescale_streamed"]["reached"]
-    ok = keys_ok and reached and all(bench_counts[k] > 0 for k in ("k1", "k2", "stamp"))
+    ok = keys_ok and reached and all(bench_counts[k] > 0 for k in ("k1", "k2", "stamp", "draws"))
     phase("bench", seconds=bench_s, keys_ok=keys_ok, reached=reached,
           value=bench_line["value"], launches=bench_counts, ok=ok)
     if not ok:
@@ -3025,21 +3160,29 @@ def main(argv=None) -> int:
         kinematic_advance(cfg, robot, out)
 
     cl_state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+    step_key = jr.key(42, cuda)
 
-    def loop_step():
-        tenv.closed_loop_step(cl_cfg, hf, cm, goals_d, cl_state, noise=noise_d4)
+    def control_step_drawn():  # the goal-seek's step: the draw and its split, then the step
+        noise_k, _ = jax_normal(step_key, (2, K, H), path=SPLIT_SUB, next_path=SPLIT_NEXT)
+        _, out = mppi_step(cfg, hf, cm, goal, robot, ctrl, noise_k)
+        kinematic_advance(cfg, robot, out)
 
-    noise_d4 = cl_noise.to(cuda)
+    def loop_step_keyed():  # run_episode's step: its noise drawn from its key
+        tenv.closed_loop_step(cl_cfg, hf, cm, goals_d, cl_state, step_key)
+
     counts = {}
-    for name, fn in (("control_step", control_step), ("closed_loop_step", loop_step)):
+    for name, fn in (("control_step", control_step),
+                     ("control_step_with_draw", control_step_drawn),
+                     ("closed_loop_step_with_draw", loop_step_keyed)):
         fn()
         kernels = device_kernels(fn)  # calls fn once per profiler session
-        before = rollout_25d_cuda.launches
+        before, draws_before = rollout_25d_cuda.launches, jax_normal.launches
         with OpLog() as log:
             fn()
         k1_launches = rollout_25d_cuda.launches - before
         counts[name] = {"device_kernels": kernels, "torch_ops": len(log.device_ops),
-                        "k1_launches": k1_launches}
+                        "k1_launches": k1_launches,
+                        "jax_normal_launches": jax_normal.launches - draws_before}
     lin = torch.rand((K, H), generator=gen, device=cuda)
     k1_call = lambda: rollout_25d_cuda(hf, robot.position, robot.heading, lin, lin, DT)  # noqa: E731
     with OpLog() as log:
@@ -3048,7 +3191,9 @@ def main(argv=None) -> int:
     k1_kernels = device_kernels(k1_call)
     ok = (k1_ops == ["aten.empty.memory_format"] and k1_kernels == 1
           and counts["control_step"]["device_kernels"] <= 210
-          and all(c["k1_launches"] == 2 for c in counts.values()))
+          and all(c["k1_launches"] == 2 for c in counts.values())
+          and counts["control_step_with_draw"]["jax_normal_launches"] == 1
+          and counts["closed_loop_step_with_draw"]["jax_normal_launches"] == 1)
     phase("step_launches", K=K, H=H, N_closed_loop=ROVERS, k1_call_torch_ops=k1_ops,
           k1_call_device_kernels=k1_kernels, **counts, ok=ok)
     if not ok:
@@ -3064,12 +3209,10 @@ def main(argv=None) -> int:
     def seek_args(c, steps):
         return (c, 3500, hf, cm, goal, robot, ControllerState.create(c, device=cuda),
                 torch.zeros((), dtype=torch.int64, device=cuda),
-                torch.zeros((), dtype=torch.bool, device=cuda), *rec,
-                tuple(noise_d for _ in range(steps)))
+                torch.zeros((), dtype=torch.bool, device=cuda), *rec, jr.key(42, cuda), steps)
 
     cfg2d = MPPIConfig(num_samples=K, horizon=H, projection="2d")
     chunk_state, chunk_goal = ls_loop._initial_state(), ls_loop._goal_ctrl()
-    chunk_noise = tuple(noise_d[None] for _ in range(ls_loop.conf.terrain_check_every))
     cl_state4 = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
     def masked_steps_plain_2d(*args):
         """The 2D arm's steps with the plain rollout_2d in place of the
@@ -3085,9 +3228,10 @@ def main(argv=None) -> int:
         "evaluation_2d_arm_plain_rollout": (masked_steps_plain_2d, seek_args(cfg2d, 1), 1),
         "mppi_controller": (mppi_step, (cfg, hf, cm, goal, robot, ctrl, noise_d), 1),
         "closed_loop": (tenv.closed_loop_step,
-                        (cl_cfg, hf, cm, goals_d, cl_state4, None, noise_d4, None), 1),
+                        (cl_cfg, hf, cm, goals_d, cl_state4, jr.key(0, cuda), ()), 1),
         "chunk": (run_chunk, (ls_loop.conf, ls_loop.hf, ls_loop.costmap, ls_loop.origin(),
-                              chunk_state, chunk_goal, None, chunk_noise, None), 1),
+                              chunk_state, chunk_goal, jr.key(42, cuda),
+                              torch.zeros((), dtype=torch.int64, device=cuda)), 1),
     }
     graph_counts = {}
     for name, (fn, args, per) in paths.items():
@@ -3178,6 +3322,23 @@ def main(argv=None) -> int:
                              "moonyard_standalone": yard_counts["stamp"],
                              "moonyard_closed_loop": lab_counts["stamp"],
                              "bench": bench_counts["stamp"], "jax_random": jax_random_stamps},
+    }, {
+        "name": "jax_normal", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/jax_normal.cu",
+        "replaces": None,
+        "replaces_note": ("the port's own kernel for the jax.random.normal that XLA fuses into "
+                          "the JAX package's jitted loops (husky_rover_mppi_isaacsim_tpu/mppi/"
+                          "sampling.py:75-78, env/rover_sim.py:99-101): threefry, XLA's "
+                          "erf_inv, the key's split or fold-in; no Pallas kernel there"),
+        "launches": gs_draws, **jax_normal_row,
+        "shape": "(2, 1000, 100) float32, key, sub = split(key)",
+        "library_note": "none: no torch call draws JAX's stream; randn_ms (torch.randn at "
+                        "the same shape) is for scale only",
+        "library_ms": None,
+        "launches_by_path": {"goal_seek": gs_draws, **draws_by_path,
+                             "moonyard_standalone": yard_counts["draws"],
+                             "moonyard_closed_loop": lab_counts["draws"],
+                             "bench": bench_counts["draws"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

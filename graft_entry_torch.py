@@ -10,8 +10,8 @@ a (rover, sample) mesh of ``n`` ranks, each its own process
 (``shard_ranks.run_ranks``, gloo: on the CPU, or every rank on one card,
 where NCCL refuses two ranks), and holds every rover against the unsharded
 ``mppi_step`` on the same inputs. The exploration noise of :func:`entry`
-comes from a ``torch.Generator``, the dry run's from numpy as in
-``__graft_entry__.py``. Both run on the card unless ``device`` names
+is JAX's draw from ``key(0)`` (``__graft_entry__.py:37``), the dry run's
+from numpy as in ``__graft_entry__.py``. Both run on the card unless ``device`` names
 another device.
 """
 
@@ -25,6 +25,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.core.device import run_device
 from husky_rover_mppi_isaacsim_torch.core.heightfield import HeightField
 from husky_rover_mppi_isaacsim_torch.mppi import (
@@ -64,8 +65,7 @@ def entry(device=None):
     goal = torch.tensor([10.0, 9.0], dtype=dtype, device=device)
     robot = RobotState.create(-9.0, -7.0, [1.0, 0.3, 0.0], dtype=dtype, device=device)
     ctrl = ControllerState.create(config, dtype, device)
-    gen = torch.Generator(device=device).manual_seed(0)
-    noise = sample_noise(gen, config.num_samples, config.horizon, dtype, device)
+    noise = sample_noise(jr.key(0, device), config.num_samples, config.horizon, dtype)
     return functools.partial(mppi_step, config), (hf, cm, goal, robot, ctrl, noise)
 
 

@@ -48,6 +48,7 @@ from .aux.render_fx import (
     apply_lens_flare,
     apply_motion_blur,
 )
+from .core import jax_random as jr
 from .core.device import run_device
 from .core.heightfield import HeightField
 from .env import (
@@ -162,10 +163,10 @@ def run_standalone(tree: dict) -> dict:
     robot = RobotState.create(start["x"], start["y"], [1.0, 0.5, 0.0],
                               dtype=dtype, device=device)
     ctrl = ControllerState.create(cfg, dtype, device)
-    gen = torch.Generator(device=device).manual_seed(int(tree.get("seed", 42)))
+    key = jr.key(int(tree.get("seed", 42)), device)  # JAX cli.py:141
 
     t0 = time.perf_counter()
-    res = goal_seek(cfg, hf, cm, goal, robot, ctrl, gen,
+    res = goal_seek(cfg, hf, cm, goal, robot, ctrl, key,
                     max_loops=int(tree.get("max_loops", 3500)))
     final = res.robot.position.tolist()  # waits for the device
     wall = time.perf_counter() - t0
@@ -277,8 +278,8 @@ def closed_loop_episode(tree: dict) -> ClosedLoopRun:
     """N rovers under the latched/PI closed loop on the standalone world; the
     JAX ``run_closed_loop``'s keys (``num_rovers``, ``steps``, ``mppi``,
     ``physics``, ``world``, ``environment.moonyard``, ``seed``) and
-    ``device``. The exploration noise comes from a ``torch.Generator``
-    seeded 0 (the JAX run's ``key(0)``)."""
+    ``device``. The noise and slip come from ``key(0)``, the JAX run's
+    key (JAX ``cli.py:187``)."""
     use_full_fp32_matmul()
     dtype = torch.float32
     device = run_device(tree.get("device"))
@@ -289,10 +290,10 @@ def closed_loop_episode(tree: dict) -> ClosedLoopRun:
     starts, goals_np = spawn_points(int(tree.get("seed", 42)), n, hw)
     goals = torch.tensor(goals_np, dtype=dtype, device=device)
     state = init_loop_state(cfg, RoverState.create(starts, [1.0, 0.0, 0.0], hf))
-    gen = torch.Generator(device=device).manual_seed(0)
+    key = jr.key(0, device)
 
     t0 = time.perf_counter()
-    state, path = run_episode(cfg, hf, cm, goals, state, gen, num_steps=steps)
+    state, path = run_episode(cfg, hf, cm, goals, state, key, num_steps=steps)
     d1 = goal_distances(state.rovers.position, goals).cpu().numpy()  # waits for the device
     wall = time.perf_counter() - t0
     d0 = np.linalg.norm(starts - goals.cpu().numpy(), axis=-1)

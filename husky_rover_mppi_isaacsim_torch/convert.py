@@ -176,7 +176,8 @@ def largescale_checkpoint_from_jax(loop, path) -> dict:
     template's shapes): ``{"state": LoopState, "costmap": Costmap,
     "crater_blocks": {(bx, by): (coords, radii)}, "path": (T, 2),
     "meta": dict}`` plus ``window`` and ``counts`` where the file has them.
-    The JAX file holds no control noise generator state."""
+    Neither package's file holds control noise state: a chunk's noise
+    follows from the seed and the chunk index."""
     payload, meta = loop.load_checkpoint(path)
     state = payload["state"]
     out = {

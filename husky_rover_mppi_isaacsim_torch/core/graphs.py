@@ -41,7 +41,8 @@ frame origin, the shape of a tensor) is frozen at capture: a value that
 changes between calls must come in as a tensor.
 
 Kernel launch counts: a kernel wrapper counts only the launches it issues
-outside a capture (``ops/rollout_cuda.py``, ``ops/rollout_2d_cuda.py``; the
+outside a capture (``ops/rollout_cuda.py``, ``ops/rollout_2d_cuda.py``,
+``ops/jax_normal_cuda.py``; the
 ``captured`` counter for those recorded into a graph); every replay adds the
 launches its graph holds to the wrapper's ``launches``, since a replay
 launches them.
@@ -60,9 +61,10 @@ import torch.utils._pytree as pytree
 def _counted() -> tuple:
     """The kernel wrappers whose launches a captured function may hold
     (imported here: the wrappers' modules import ``core``)."""
-    from ..ops import rollout_2d_cuda, rollout_cuda
+    from ..ops import jax_normal_cuda, rollout_2d_cuda, rollout_cuda
 
-    return (rollout_cuda.rollout_25d_cuda, rollout_2d_cuda.rollout_2d_cuda)
+    return (rollout_cuda.rollout_25d_cuda, rollout_2d_cuda.rollout_2d_cuda,
+            jax_normal_cuda.jax_normal)
 
 
 def _signature(leaves: list) -> tuple:

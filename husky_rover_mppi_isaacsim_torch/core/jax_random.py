@@ -1,13 +1,15 @@
 """JAX's default counter-based random stream (``threefry2x32``, the
 partitionable form), as plain torch on any device.
 
-The port's worlds are drawn from it: the base-noise grids of the thesis,
-moonyard, lab and yard DEMs (:mod:`..terrain.smallscale`), the rocks'
-tangent directions (:mod:`..terrain.rocks`) and ``bench_torch.py``'s vec-env
-starts. With it a seed gives the JAX package's DEM, on the CPU and on the
-card alike: every step is integer arithmetic, and the one float rounding is
-done the way XLA does it. The control and slip noise stay on the port's
-``torch.Generator``s (drawn inside the CUDA graphs).
+Every draw of the port comes from it, so that a seed names the same
+experiment in both packages: the worlds (the base-noise grids of the
+thesis, moonyard, lab and yard DEMs, :mod:`..terrain.smallscale`; the
+rocks' tangent directions, :mod:`..terrain.rocks`; ``bench_torch.py``'s
+vec-env starts), the control and wheel-slip noise of every loop
+(:func:`normal`) and the fixed-capacity point processes' counts
+(:func:`poisson`). On the card the loops' normals are drawn by the
+``jax_normal`` kernel (:mod:`..ops.jax_normal_cuda`), which this module's
+:func:`normal` is the plain version of, bit for bit.
 
 What is reproduced (jax 0.9.0, ``jax_threefry_partitionable=True``, its
 default):
@@ -23,20 +25,33 @@ default):
 * :func:`random_bits` is ``_threefry_random_bits_partitionable``
   (``prng.py:1184``): 32-bit ``b1 ^ b2``, 64-bit ``b1 << 32 | b2``;
 * :func:`uniform` is ``_uniform`` (``jax/_src/random.py:435``) for float32
-  and float64.
+  and float64;
+* :func:`normal` is ``_normal_real`` (``random.py:867``): ``sqrt(2) *
+  erf_inv(uniform(key, shape, dtype, nextafter(-1, 0), 1))``;
+* :func:`poisson` is ``_poisson`` (``random.py:1613``): Knuth's loop below
+  a rate of 10, Hormann's transformed rejection above, each a loop that
+  splits its key every iteration until every lane is done.
 
 A key is a ``(..., 2)`` int64 tensor whose entries hold uint32 words (int64
 so that every operation exists on the CPU and on the card); leading axes
-are a batch of keys, as ``jax.vmap`` over keys gives. In float32 ``uniform``
-matches ``jax.random.uniform`` bit for bit: XLA rounds
-``floats * (max - min) + min`` once (a fused multiply-add), and the product
-of two float32 values is exact in float64, so the sum is formed there and
-rounded to float32 once. In float64 there is no such exact intermediate and
-torch has no fused multiply-add of its own, so a draw may differ from
-JAX's by one unit in the last place.
+are a batch of keys, as ``jax.vmap`` over keys gives.
 
-No kernel: a world build draws at most ~10^4 values, once; the hash is
-~100 elementwise integer operations on tensors of that size.
+Float rounding. In float32 every operation is done the way XLA's CPU
+backend does it, so ``uniform`` and ``normal`` match ``jax.random`` on the
+CPU bit for bit. XLA lowers ``erf_inv`` to Giles' polynomial in ``w =
+-log1p(-x^2)``, its ``log1p`` to a rational form for ``|x| < sqrt(2) - 1``
+and ``log(1 + x)`` (a Cephes polynomial on the mantissa) above, and lets
+LLVM contract ``a * b + c`` into fused multiply-adds wherever the product
+has no other use; :func:`_erf_inv_f32` follows that code operation for
+operation. torch has no fused multiply-add, so :func:`fma_f32` forms one
+exactly: the float32 product is exact in float64, the float64 sum is
+rounded to odd (its error found by TwoSum), and the one rounding to
+float32 is then the correctly rounded ``a * b + c``. A true FMA on the
+card gives the same bits. In float64 no wider type holds a product
+exactly: ``uniform`` may then differ from JAX's by one unit in the last
+place, and ``normal`` evaluates XLA's float64 polynomial with torch's
+``log1p`` and unfused products, within a few units in the last place of
+JAX's (``tests/test_torch_jax_normal.py`` states the bound).
 """
 
 from __future__ import annotations
@@ -80,16 +95,22 @@ def threefry2x32(k1: Tensor, k2: Tensor, x1: Tensor, x2: Tensor) -> tuple[Tensor
     return x1, x2
 
 
+def hash_counts(key: Tensor, counts: Tensor) -> tuple[Tensor, Tensor]:
+    """The hash of the 64-bit counts ``counts`` (int64, their high and low
+    words as the two counts) under each key of the batch: ``key.shape[:-1]
+    + counts.shape`` each."""
+    lead = key.shape[:-1]
+    k1 = key[..., 0].reshape(lead + (1,) * counts.ndim)
+    k2 = key[..., 1].reshape(lead + (1,) * counts.ndim)
+    return threefry2x32(k1, k2, counts >> 32, counts & MASK32)
+
+
 def _hash_iota(key: Tensor, shape: tuple) -> tuple[Tensor, Tensor]:
-    """The hash of the 64-bit iota of ``shape`` (its high and low words as
-    the two counts) under each key of the batch: ``key.shape[:-1] +
-    shape`` each."""
+    """The hash of the 64-bit iota of ``shape`` under each key of the
+    batch: ``key.shape[:-1] + shape`` each."""
     n = math.prod(shape)
     counts = torch.arange(n, dtype=torch.int64, device=key.device).reshape(shape)
-    lead = key.shape[:-1]
-    k1 = key[..., 0].reshape(lead + (1,) * len(shape))
-    k2 = key[..., 1].reshape(lead + (1,) * len(shape))
-    return threefry2x32(k1, k2, counts >> 32, counts & MASK32)
+    return hash_counts(key, counts)
 
 
 def split(key: Tensor, num: int = 2) -> Tensor:
@@ -107,6 +128,25 @@ def fold_in(key: Tensor, data) -> Tensor:
     return torch.stack([b1, b2], dim=-1)
 
 
+def derive(key: Tensor, path: tuple) -> Tensor:
+    """``key`` taken down ``path``, a tuple of steps applied in order:
+    ``("split", num, index)`` is ``split(key, num)[index]``, ``("fold_in",
+    data)`` is ``fold_in(key, data)`` (``data`` an integer or a 0-d integer
+    tensor). The one description of a key's derivation that the
+    ``jax_normal`` kernel also takes (:mod:`..ops.jax_normal_cuda`)."""
+    for step in path:
+        if step[0] == "split":
+            _, num, index = step
+            b1, b2 = hash_counts(key, torch.tensor([index], dtype=torch.int64,
+                                                   device=key.device))
+            key = torch.stack([b1[..., 0], b2[..., 0]], dim=-1)
+        elif step[0] == "fold_in":
+            key = fold_in(key, step[1])
+        else:
+            raise ValueError(f"a key's path has split and fold_in steps, not {step[0]!r}")
+    return key
+
+
 def random_bits(key: Tensor, bit_width: int, shape: tuple) -> Tensor:
     """``key.shape[:-1] + shape`` random words of ``bit_width`` in int64:
     32-bit words ``b1 ^ b2`` (each < 2^32); 64-bit words ``b1 << 32 | b2``,
@@ -119,6 +159,101 @@ def random_bits(key: Tensor, bit_width: int, shape: tuple) -> Tensor:
     raise ValueError(f"bit_width must be 32 or 64, not {bit_width}")
 
 
+def draw_counts(shape: tuple, offset: int = 0, outer_stride: int | None = None,
+                device=None) -> Tensor:
+    """The iota counts of a draw of ``shape`` that is a part of a larger
+    draw: ``offset + arange(n)`` laid out as ``shape``, or, with
+    ``outer_stride``, ``offset + o * outer_stride + j`` for ``o`` along the
+    first axis and ``j`` the flat index of the rest (the rows ``start:stop``
+    of one axis of the larger draw, :func:`slice_counts`)."""
+    shape = tuple(shape)
+    if outer_stride is None:
+        return offset + torch.arange(math.prod(shape), dtype=torch.int64,
+                                     device=device).reshape(shape)
+    inner = math.prod(shape[1:])
+    o = torch.arange(shape[0], dtype=torch.int64, device=device)[:, None]
+    j = torch.arange(inner, dtype=torch.int64, device=device)[None, :]
+    return (offset + o * outer_stride + j).reshape(shape)
+
+
+def slice_counts(full_shape: tuple, dim: int, start: int, stop: int) -> tuple[tuple, int, int]:
+    """``(shape, offset, outer_stride)`` of the part ``start:stop`` along
+    axis ``dim`` of a draw of ``full_shape``, for :func:`draw_counts`: the
+    part of the outer axes before ``dim`` folded into one."""
+    full_shape = tuple(full_shape)
+    after = math.prod(full_shape[dim + 1:])
+    outer = math.prod(full_shape[:dim])
+    shape = (outer, (stop - start) * after)
+    return shape, start * after, math.prod(full_shape[dim:])
+
+
+def f32(bits: int) -> float:
+    """The float32 of the bit pattern ``bits``, as a Python float."""
+    return float(np.array(bits, np.uint32).view(np.float32))
+
+
+def fma_f32(a: Tensor, b, c) -> Tensor:
+    """``a * b + c`` rounded once to float32, as a fused multiply-add does
+    (module note): float32 operands, the product exact in float64, the sum
+    rounded to odd there, then to float32. ``b`` and ``c`` may be Python
+    floats that are float32 values."""
+    p = a.to(torch.float64) * (b.to(torch.float64) if isinstance(b, Tensor) else b)
+    c = c.to(torch.float64) if isinstance(c, Tensor) else torch.full_like(p, c)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)  # TwoSum: s + err == p + c exactly
+    bits = s.view(torch.int64)
+    odd = (err != 0) & ((bits & 1) == 0) & (s != 0)
+    away = (err > 0) == (s > 0)  # the exact sum lies beyond s, away from zero
+    bits = torch.where(odd, bits + torch.where(away, 1, -1), bits)
+    return bits.view(torch.float64).to(torch.float32)
+
+
+def sqrt_f32(a: Tensor) -> Tensor:
+    """The correctly rounded float32 square root of float32 ``a`` >= 0, as
+    XLA's ``sqrt`` and CUDA's ``__fsqrt_rn`` give it. ``torch.sqrt`` on the
+    CPU is not that: it may be one unit in the last place off, and a
+    parallel chunk of it has been seen to come out of a ~1e-4 approximation.
+    So a float64 root is polished by two Newton steps and rounded to
+    float32, and the neighbour on the far side of an exact float64 midpoint
+    test replaces it where the rounding went the wrong way."""
+    a64 = a.to(torch.float64)
+    s = torch.sqrt(a64)
+    for _ in range(2):
+        s = 0.5 * (s + a64 / s)
+    r = torch.where(a > 0, s.to(torch.float32), a)
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    mid = (r.to(torch.float64) + up.to(torch.float64)) * 0.5  # exact; so is its square
+    r = torch.where((a > 0) & (a64 > mid * mid), up, r)
+    down = torch.nextafter(r, torch.zeros_like(r))
+    mid = (r.to(torch.float64) + down.to(torch.float64)) * 0.5
+    return torch.where((a > 0) & (a64 < mid * mid), down, r)
+
+
+def _uniform_f32(bits: Tensor, minval: float, maxval: float) -> Tensor:
+    floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(hi - lo)  # rounded to float32, as XLA subtracts
+    return torch.clamp_min(fma_f32(floats, span, float(lo)), float(lo))
+
+
+def _uniform_f64(b1: Tensor, b2: Tensor, minval: float, maxval: float) -> Tensor:
+    mantissa = (b1 << 20) | (b2 >> 12)  # the 64-bit word's top 52 bits
+    floats = (mantissa | 0x3FF0000000000000).view(torch.float64) - 1.0
+    lo, hi = float(minval), float(maxval)
+    return torch.clamp_min(floats * (hi - lo) + lo, lo)
+
+
+def _uniform_counts(key: Tensor, counts: Tensor, dtype, minval: float,
+                    maxval: float) -> Tensor:
+    b1, b2 = hash_counts(key, counts)
+    if dtype == torch.float32:
+        return _uniform_f32(b1 ^ b2, minval, maxval)
+    if dtype == torch.float64:
+        return _uniform_f64(b1, b2, minval, maxval)
+    raise ValueError(f"JAX's draws are float32 or float64, not {dtype}")
+
+
 def uniform(key: Tensor, shape: tuple, dtype=torch.float32, minval: float = 0.0,
             maxval: float = 1.0) -> Tensor:
     """``jax.random.uniform(key, shape, dtype, minval, maxval)``: values in
@@ -126,18 +261,239 @@ def uniform(key: Tensor, shape: tuple, dtype=torch.float32, minval: float = 0.0,
     bit-equal to JAX's in float32, within one unit in the last place in
     float64 (see the module's note)."""
     shape = tuple(shape)
+    counts = torch.arange(math.prod(shape), dtype=torch.int64, device=key.device)
+    return _uniform_counts(key, counts.reshape(shape), dtype, minval, maxval)
+
+
+# XLA's float32 erf_inv (Giles' single-precision polynomial), its
+# coefficients as float32 bit patterns, highest power first: w < 5, w >= 5
+ERFINV_F32_LT5 = (0x32F16588, 0x34B84B36, 0xB66C7357, 0xB6935AC1, 0x396532DB, 0xBAA45408,
+                  0xBB88E4EF, 0x3E7C8F63, 0x3FC02E2F)
+ERFINV_F32_GE5 = (0xB951F09B, 0x38D3B56B, 0x3AB0DC72, 0xBB70BDE7, 0x3BBC127B, 0xBBF9C5D7,
+                  0x3C1AA57E, 0x3F8036DB, 0x40354F7E)
+# XLA CPU's float32 log (Cephes logf): the polynomial's coefficients, the
+# split ln 2 = 0.693359375 - 2.12194440e-4, sqrt(1/2)
+LOGF_P = (0x3D9021BB, 0xBDEBD1B8, 0xBDFE5D4F, 0x3E11E9BF, 0x3DEF251A, 0xBE2AAE50,
+          0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+LOGF_LN2_HI, LOGF_LN2_LO, LOGF_SQRTHF = 0x3F318000, 0xB95E8083, 0x3F3504F3
+# XLA's log1p for |x| < sqrt(2) - 1 (0x3ED413CD): x - x^2/2 + x^3 P(x)/Q(x)
+LOG1P_SMALL = 0x3ED413CD
+LOG1P_Q = (0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A, 0x42707982)
+LOG1P_P = (0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76, 0x426473AD,
+           0x41A05101)
+SQRT2_F32 = 0x3FB504F3
+NORMAL_LO_F32 = 0xBF7FFFFF  # nextafter(-1, 0)
+
+
+def log_f32(t: Tensor) -> Tensor:
+    """XLA CPU's float32 natural log of ``t`` > 0, operation for operation
+    (module note): ``t == 0`` gives ``-inf``; a negative or NaN ``t`` gives
+    NaN, ``inf`` gives ``inf``."""
+    m = torch.clamp_min(t, f32(0x00800000))  # the smallest normal
+    bits = m.view(torch.int32)
+    e = ((bits >> 23) - 127).to(torch.float32) + 1.0
+    f = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # in [0.5, 1)
+    low = f < f32(LOGF_SQRTHF)
+    x = (f - 1.0) + torch.where(low, f, torch.zeros_like(f))
+    e = torch.where(low, e - 1.0, e)
+    z = x * x
+    x3 = z * x
+    c = [f32(b) for b in LOGF_P]
+    p1 = fma_f32(fma_f32(x, c[0], c[1]), x, c[4])
+    p2 = fma_f32(fma_f32(x, c[2], c[3]), x, c[5])
+    p3 = fma_f32(fma_f32(x, c[6], c[7]), x, c[8])
+    q = fma_f32(x3, fma_f32(x3, p1, p2), p3)
+    r = fma_f32(x3, q, e * f32(LOGF_LN2_LO))
+    s = fma_f32(z, -0.5, x) + r
+    out = fma_f32(e, f32(LOGF_LN2_HI), s)
+    out = torch.where(t <= 0, torch.full_like(out, math.nan), out)
+    out = torch.where(t == 0, torch.full_like(out, -math.inf), out)
+    return torch.where(t == math.inf, t, out)
+
+
+def log1p_f32(y: Tensor) -> Tensor:
+    """XLA CPU's float32 ``log1p(y)``, operation for operation."""
+    y2 = y * y
+    base = y * 0.0
+    q = base + 1.0
+    for c in LOG1P_Q:
+        q = fma_f32(q, y, f32(c))
+    p = base + f32(LOG1P_P[0])
+    for c in LOG1P_P[1:]:
+        p = fma_f32(p, y, f32(c))
+    t = fma_f32(y2, -0.5, (y * y2) * (p / q))
+    small = y + t
+    return torch.where(torch.abs(y) < f32(LOG1P_SMALL), small, log_f32(y + 1.0))
+
+
+# XLA's float32 lgamma for x >= 0.5 (Lanczos, g = 7): the series'
+# coefficients, log(7.5), 1/7.5 and log(sqrt(2 pi)), as float32 bit patterns
+LGAMMA_C = (0x4429214E, 0xC49D6474, 0x4440D4B3, 0xC3309D73, 0x41481E14, 0xBE0DE595,
+            0x3727828A, 0x3421AA84)
+LGAMMA_LOG_G, LGAMMA_INV_G, LGAMMA_HALF_LOG_2PI = 0x4000F42C, 0x3E088889, 0x3F6B3F8E
+
+
+def lgamma_f32(x: Tensor) -> Tensor:
+    """XLA CPU's float32 ``lgamma`` for ``x >= 0.5``, operation for
+    operation (the Poisson rejection sampler's ``lgamma(k + 1)``); below
+    0.5 (XLA's reflection, which no accepted count reaches) torch's."""
+    z = x + -1.0
+    t = z + 7.5
+    log_t = log1p_f32(z * f32(LGAMMA_INV_G)) + f32(LGAMMA_LOG_G)
+    head = fma_f32((z + 0.5) - t / log_t, log_t, f32(LGAMMA_HALF_LOG_2PI))
+    acc = f32(LGAMMA_C[0]) / (z + 1.0) + 1.0
+    for i, c in enumerate(LGAMMA_C[1:], start=2):
+        acc = acc + f32(c) / (z + float(i))
+    out = head + log_f32(acc)
+    return torch.where(x < 0.5, torch.lgamma(x), out)
+
+
+def _erf_inv_f32(x: Tensor) -> Tensor:
+    l = log1p_f32(x * -x)  # noqa: E741
+    lt5 = l > -5.0
+    w = torch.where(lt5, -2.5 - l, sqrt_f32(-l) + -3.0)
+    c = [torch.where(lt5, f32(a), f32(b)) for a, b in zip(ERFINV_F32_LT5, ERFINV_F32_GE5)]
+    p = fma_f32(w, c[0], c[1])
+    for ci in c[2:]:
+        p = fma_f32(w, p, ci)
+    p = torch.where(torch.abs(x) == 1.0, torch.full_like(p, math.inf), p)
+    return x * p
+
+
+# XLA's float64 erf_inv (Giles' double-precision polynomials), highest power
+# first: w < 6.25 (23 terms), w < 16 (19), w >= 16 (17)
+ERFINV_F64_LT625 = (
+    -3.6444120640178196996e-21, -1.685059138182016589e-19, 1.2858480715256400167e-18,
+    1.115787767802518096e-17, -1.333171662854620906e-16, 2.0972767875968561637e-17,
+    6.6376381343583238325e-15, -4.0545662729752068639e-14, -8.1519341976054721522e-14,
+    2.6335093153082322977e-12, -1.2975133253453532498e-11, -5.4154120542946279317e-11,
+    1.051212273321532285e-09, -4.1126339803469836976e-09, -2.9070369957882005086e-08,
+    4.2347877827932403518e-07, -1.3654692000834678645e-06, -1.3882523362786468719e-05,
+    0.0001867342080340571352, -0.00074070253416626697512, -0.0060336708714301490533,
+    0.24015818242558961693, 1.6536545626831027356)
+ERFINV_F64_LT16 = (
+    2.2137376921775787049e-09, 9.0756561938885390979e-08, -2.7517406297064545428e-07,
+    1.8239629214389227755e-08, 1.5027403968909827627e-06, -4.013867526981545969e-06,
+    2.9234449089955446044e-06, 1.2475304481671778723e-05, -4.7318229009055733981e-05,
+    6.8284851459573175448e-05, 2.4031110387097893999e-05, -0.0003550375203628474796,
+    0.00095328937973738049703, -0.0016882755560235047313, 0.0024914420961078508066,
+    -0.0037512085075692412107, 0.005370914553590063617, 1.0052589676941592334,
+    3.0838856104922207635)
+ERFINV_F64_GE16 = (
+    -2.7109920616438573243e-11, -2.5556418169965252055e-10, 1.5076572693500548083e-09,
+    -3.7894654401267369937e-09, 7.6157012080783393804e-09, -1.4960026627149240478e-08,
+    2.9147953450901080826e-08, -6.7711997758452339498e-08, 2.2900482228026654717e-07,
+    -9.9298272942317002539e-07, 4.5260625972231537039e-06, -1.9681778105531670567e-05,
+    7.5995277030017761139e-05, -0.00021503011930044477347, -0.00013871931833623122026,
+    1.0103004648645343977, 4.8499064014085844221)
+
+
+def _erf_inv_f64(x: Tensor) -> Tensor:
+    w = -torch.log1p(-x * x)
+    lt625, lt16 = w < 6.25, w < 16.0
+    w = torch.where(lt625, w - 3.125, torch.sqrt(w) - torch.where(lt16, 3.25, 5.0))
+
+    def coef(i):
+        c = torch.full_like(x, ERFINV_F64_LT625[i])
+        if i < 19:
+            c = torch.where(lt625, c, ERFINV_F64_LT16[i])
+        if i < 17:
+            c = torch.where(lt16, c, ERFINV_F64_GE16[i])
+        return c
+
+    p = coef(0)
+    for i in range(1, 17):
+        p = coef(i) + p * w
+    for i in range(17, 19):
+        p = torch.where(lt16, coef(i) + p * w, p)
+    for i in range(19, 23):
+        p = torch.where(lt625, coef(i) + p * w, p)
+    p = torch.where(torch.abs(x) == 1.0, torch.full_like(p, math.inf), p)
+    return x * p
+
+
+def normal_counts(key: Tensor, counts: Tensor, dtype=torch.float32) -> Tensor:
+    """JAX's standard normals at the iota counts ``counts`` (int64) of a
+    draw from ``key`` (one key, ``(2,)``): ``normal(key, shape)`` is
+    ``normal_counts(key, arange(n).reshape(shape))``."""
     if dtype == torch.float32:
-        bits = random_bits(key, 32, shape)
-        floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-        lo, hi = np.float32(minval), np.float32(maxval)
-        span = float(hi - lo)  # rounded to float32, as XLA subtracts
-        # the float32 product is exact in float64: one rounding, an FMA's
-        out = (floats.to(torch.float64) * span + float(lo)).to(torch.float32)
-        return torch.clamp_min(out, float(lo))
+        u = _uniform_counts(key, counts, dtype, f32(NORMAL_LO_F32), 1.0)
+        return _erf_inv_f32(u) * f32(SQRT2_F32)
     if dtype == torch.float64:
-        b1, b2 = _hash_iota(key, shape)
-        mantissa = (b1 << 20) | (b2 >> 12)  # the 64-bit word's top 52 bits
-        floats = (mantissa | 0x3FF0000000000000).view(torch.float64) - 1.0
-        lo, hi = float(minval), float(maxval)
-        return torch.clamp_min(floats * (hi - lo) + lo, lo)
-    raise ValueError(f"uniform draws float32 or float64, not {dtype}")
+        u = _uniform_counts(key, counts, dtype, float(np.nextafter(-1.0, 0.0)), 1.0)
+        return _erf_inv_f64(u) * math.sqrt(2.0)
+    raise ValueError(f"JAX's normals are float32 or float64, not {dtype}")
+
+
+def normal(key: Tensor, shape: tuple, dtype=torch.float32, offset: int = 0,
+           outer_stride: int | None = None) -> Tensor:
+    """``jax.random.normal(key, shape, dtype)`` for one key ``(2,)``, on
+    the key's device: bit-equal to JAX's on the CPU in float32, within the
+    module note's bound in float64. ``offset`` and ``outer_stride`` draw a
+    part of a larger draw instead (:func:`draw_counts`)."""
+    return normal_counts(key, draw_counts(shape, offset, outer_stride, key.device), dtype)
+
+
+def _knuth(key: Tensor, lam: Tensor, max_iters: int) -> Tensor:
+    """``_poisson_knuth``: the count of uniforms whose log-sum stays above
+    ``-lam``; every iteration splits the key and draws the whole shape, as
+    JAX's ``while_loop`` does."""
+    k = torch.zeros(lam.shape, dtype=torch.int64, device=lam.device)
+    log_prod = torch.zeros_like(lam)
+    i = 0
+    while bool((log_prod > -lam).any()) and i < max_iters:
+        key, sub = split(key)
+        k = torch.where(log_prod > -lam, k + 1, k)
+        log_prod = log_prod + log_f32(uniform(sub, lam.shape, torch.float32))
+        i += 1
+    return k - 1
+
+
+def _rejection(key: Tensor, lam: Tensor, max_iters: int) -> Tensor:
+    """``_poisson_rejection``: Hormann's transformed rejection, three keys
+    split off per iteration; its products fused where XLA contracts them."""
+    log_lam = log_f32(lam)
+    b = fma_f32(torch.full_like(lam, 2.53), sqrt_f32(lam), 0.931)
+    a = fma_f32(torch.full_like(lam, 0.02483), b, -0.059)
+    inv_alpha = 1.1239 + 1.1328 / (b - 3.4)
+    v_r = 0.9277 - 3.6224 / (b - 2)
+    k_out = torch.full_like(lam, -1.0)
+    accepted = torch.zeros(lam.shape, dtype=torch.bool, device=lam.device)
+    i = 0
+    while not bool(accepted.all()) and i < max_iters:
+        key, sub0, sub1 = split(key, 3)
+        u = uniform(sub0, lam.shape, torch.float32) - 0.5
+        v = uniform(sub1, lam.shape, torch.float32)
+        u_shifted = 0.5 - torch.abs(u)
+        k = torch.floor(fma_f32(2 * a / u_shifted + b, u, lam) + 0.43)
+        s = log_f32(v * inv_alpha / (a / (u_shifted * u_shifted) + b))
+        t = fma_f32(k, log_lam, -lam) - lgamma_f32(k + 1)
+        accept1 = (u_shifted >= 0.07) & (v <= v_r)
+        reject = (k < 0) | ((u_shifted < 0.013) & (v > u_shifted))
+        accept = accept1 | (~reject & (s <= t))
+        k_out = torch.where(accept, k, k_out)
+        accepted |= accept
+        i += 1
+    return k_out.to(torch.int64)
+
+
+def poisson(key: Tensor, lam, shape: tuple | None = None, dtype=torch.int64) -> Tensor:
+    """``jax.random.poisson(key, lam, shape, dtype)`` for one key ``(2,)``.
+    The rate ``lam`` (a float or a tensor, broadcast to ``shape``, which
+    defaults to its shape) is taken in float32, as JAX converts it. Knuth's
+    lanes (a rate below 10) and the rejection lanes draw from the same
+    key, as in JAX; each loop runs until every lane of its kind is done.
+    The counts are JAX's wherever no ``lgamma`` or contracted-product
+    rounding flips an acceptance test (``tests/test_torch_jax_normal.py``
+    counts how often)."""
+    lam = torch.as_tensor(lam, device=key.device).to(torch.float32)
+    shape = tuple(lam.shape) if shape is None else tuple(shape)
+    lam = lam.broadcast_to(shape)
+    max_iters = torch.iinfo(dtype).max
+    knuth = torch.isnan(lam) | (lam < 10)
+    out = torch.zeros(shape, dtype=torch.int64, device=key.device)
+    if bool(knuth.any()):
+        out = torch.where(knuth, _knuth(key, torch.where(knuth, lam, 0.0), max_iters), out)
+    if not bool(knuth.all()):
+        out = torch.where(knuth, out, _rejection(key, torch.where(knuth, 1e5, lam), max_iters))
+    return torch.where(lam == 0, 0, out).to(dtype)

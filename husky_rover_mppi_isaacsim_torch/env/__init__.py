@@ -9,10 +9,9 @@ from .closed_loop import (
     LoopState,
     clone_state,
     closed_loop_step,
-    draw_step_noise,
     init_loop_state,
-    loop_noise,
     run_episode,
+    step_noise,
 )
 from .largescale_loop import LargeScaleClosedLoop, LargeScaleLoopConf, LargeScaleRunResult
 from .metrics import goal_distances, path_metrics, success_mask
@@ -32,10 +31,9 @@ __all__ = [
     "LoopState",
     "clone_state",
     "closed_loop_step",
-    "draw_step_noise",
     "init_loop_state",
-    "loop_noise",
     "run_episode",
+    "step_noise",
     "frames",
     "LargeScaleClosedLoop",
     "LargeScaleLoopConf",

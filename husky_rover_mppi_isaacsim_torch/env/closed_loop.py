@@ -18,9 +18,11 @@ plus one physics step. The step index is a 0-d int32 on the rovers' device,
 as in the JAX package, and the latch a ``torch.where`` on it, so the step
 reads nothing back and has one fixed sequence of operations: on the card
 :func:`run_episode` replays it as one CUDA graph per step
-(:class:`..core.graphs.Graphed`, the JAX ``lax.scan`` body), its noise and
-slip drawn outside the graph (:func:`draw_step_noise`) from the same
-generator calls as the eager step's. It syncs the host not at all.
+(:class:`..core.graphs.Graphed`, the JAX ``lax.scan`` body), its step key
+an input of the graph. The draws are JAX's: ``k_noise, k_phys =
+split(key)``, the noise from ``k_noise`` and the wheel slip from ``k_phys``
+(JAX ``closed_loop.py:125-128``), three ``jax_normal`` launches inside the
+step's graph on the card. It syncs the host not at all.
 """
 
 from __future__ import annotations
@@ -31,11 +33,12 @@ from typing import Callable, NamedTuple
 import torch
 from torch import Tensor
 
+from ..core import jax_random as jr
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
 from ..mppi.controller import ControllerState, MPPIConfig, RobotState, mppi_step
 from ..mppi.critics import Costmap
-from ..mppi.sampling import sample_noise
+from ..ops.jax_normal_cuda import jax_normal
 from . import rover_sim
 from .rover_sim import RoverParams, RoverState
 
@@ -86,33 +89,20 @@ def init_loop_state(config: ClosedLoopConfig, rovers: RoverState,
                      step_index=torch.zeros((), dtype=torch.int32, device=dev))
 
 
-def loop_noise(generator: torch.Generator, config: MPPIConfig, n: int, dtype=torch.float32,
-               device=None) -> Tensor:
-    """One step's exploration noise ``(N, 2, K, H)``, drawn as the JAX
-    package lays it out: ``(2, N*K, H)`` reshaped to ``(2, N, K, H)``, rover
-    axis moved first (``closed_loop.py:126-128``)."""
+K_NOISE = (("split", 2, 0),)  # k_noise of `k_noise, k_phys = split(key)`
+K_PHYS = (("split", 2, 1),)
+
+
+def step_noise(key: Tensor, config: MPPIConfig, n: int, dtype=torch.float32,
+               key_path: tuple = ()) -> Tensor:
+    """One step's exploration noise ``(N, 2, K, H)`` from the step's key
+    (``key`` taken down ``key_path``), drawn as the JAX package draws and
+    lays it out: ``normal(k_noise, (2, N*K, H))`` reshaped to ``(2, N, K,
+    H)``, rover axis moved first (``closed_loop.py:125-128``); one
+    ``jax_normal`` launch on the card."""
     k, h = config.num_samples, config.horizon
-    draw = sample_noise(generator, n * k, h, dtype, device)
+    draw = jax_normal(key, (2, n * k, h), dtype, path=tuple(key_path) + K_NOISE)
     return draw.reshape(2, n, k, h).permute(1, 0, 2, 3)
-
-
-def draw_step_noise(config: ClosedLoopConfig, generator: torch.Generator | None, n: int,
-                    dtype=torch.float32, device=None, noise: Tensor | None = None
-                    ) -> tuple[Tensor, Tensor | None]:
-    """The draws of one :func:`closed_loop_step` of ``n`` rovers, made as
-    the eager step makes them, in its order: the exploration noise
-    (:func:`loop_noise`, unless ``noise`` is given), then the ``(2, n)``
-    wheel-slip normals where ``config.rover.slip_std > 0`` (else ``None``).
-    A graphed step takes both as inputs."""
-    if generator is None and (noise is None or config.rover.slip_std > 0.0):
-        raise ValueError("a closed-loop step needs a generator: for the noise unless it is "
-                         "given, and for the wheel slip when slip_std > 0")
-    if noise is None:
-        noise = loop_noise(generator, config.mppi, n, dtype, device)
-    slip = None
-    if config.rover.slip_std > 0.0:
-        slip = torch.randn((2, n), generator=generator, dtype=dtype, device=device)
-    return noise, slip
 
 
 def closed_loop_step(
@@ -121,28 +111,21 @@ def closed_loop_step(
     costmap: Costmap,
     goals: Tensor,
     state: LoopState,
-    generator: torch.Generator | None = None,
-    noise: Tensor | None = None,
-    slip_normals: Tensor | None = None,
+    key: Tensor,
+    key_path: tuple = (),
 ) -> LoopState:
     """One sim step of the full stack for all N rovers: MPPI step ->
     wheel commands -> latch every ``latch_every``-th -> PI trim from the
     measured yaw rate -> physics step -> adapted stds.
 
-    ``noise`` (N, 2, K, H) replays given draws (tests replay JAX's); else
-    it comes from ``generator`` (:func:`loop_noise`), which also draws the
-    physics slip when ``config.rover.slip_std > 0`` unless ``slip_normals``
-    ``(2, N)`` are given (:func:`draw_step_noise` makes both draws)."""
+    ``key`` taken down ``key_path`` (:func:`..core.jax_random.derive`; a
+    caller that carries a key passes it and the path to the step's key) is
+    the step's JAX key: ``k_noise, k_phys = split(key)``, the
+    noise from ``k_noise`` (:func:`step_noise`) and the wheel slip from
+    ``k_phys`` when ``config.rover.slip_std > 0``."""
     mcfg = config.mppi
     n = state.rovers.position.shape[0]
-    dtype, dev = state.rovers.position.dtype, state.rovers.position.device
-    draws = noise is None or (config.rover.slip_std > 0.0 and slip_normals is None)
-    if generator is None and draws:
-        raise ValueError("closed_loop_step needs a generator: for the noise unless "
-                         "it is given, and for the wheel slip when slip_std > 0 unless "
-                         "slip_normals are given")
-    if noise is None:
-        noise = loop_noise(generator, mcfg, n, dtype, dev)
+    noise = step_noise(key, mcfg, n, state.rovers.position.dtype, key_path)
 
     robot_view = RobotState(position=state.rovers.position, z=state.rovers.z,
                             heading=state.rovers.heading, left_wheel_speed=state.stored_left,
@@ -165,8 +148,7 @@ def closed_loop_step(
     err_total = err_total + err
     trim = err * config.pi_kp + err_total * config.pi_ki
     rovers = rover_sim.step(config.rover, hf, state.rovers, latched_left + trim,
-                            latched_right - trim, generator=generator,
-                            slip_normals=slip_normals)
+                            latched_right - trim, key=key, path=tuple(key_path) + K_PHYS)
 
     # adaptive stds from the measured yaw rate (:510-511)
     yaw2 = rovers.yaw_rate * rovers.yaw_rate
@@ -187,17 +169,16 @@ def run_episode(
     costmap: Costmap,
     goals: Tensor,
     state: LoopState,
-    generator: torch.Generator | None,
+    key: Tensor,
     num_steps: int,
     record_every: int = 1,
-    noise_source: Callable[[], Tensor] | None = None,
     step_fn: Callable | None = None,
 ) -> tuple[LoopState, Tensor]:
     """Run ``num_steps`` sim steps with no host sync. Returns the final
     state and the rover positions after steps 0, r, 2r, ... (r =
     ``record_every``), ``(ceil(num_steps / r), N, 2)``: the JAX
-    ``path[::record_every]``. Noise comes from ``noise_source()`` when
-    given (tests replay a fixed sequence), else from ``generator``.
+    ``path[::record_every]``. Step ``i`` runs on ``split(key,
+    num_steps)[i]`` (JAX ``closed_loop.py:193``).
 
     ``step_fn`` runs one step: by default a new
     :class:`..core.graphs.Graphed` :func:`closed_loop_step` (one CUDA graph
@@ -207,15 +188,13 @@ def run_episode(
     the graph's buffers."""
     n = state.rovers.position.shape[0]
     pos = state.rovers.position
-    dtype, dev = pos.dtype, pos.device
     path = torch.empty((-(-num_steps // record_every), n, 2), dtype=pos.dtype,
                        device=pos.device)
     if step_fn is None:
         step_fn = Graphed(closed_loop_step)
+    keys = jr.split(key, num_steps)
     for i in range(num_steps):
-        given = noise_source() if noise_source is not None else None
-        noise, slip = draw_step_noise(config, generator, n, dtype, dev, noise=given)
-        state = step_fn(config, hf, costmap, goals, state, None, noise, slip)
+        state = step_fn(config, hf, costmap, goals, state, keys[i])
         if i % record_every == 0:
             path[i // record_every] = state.rovers.position
     return clone_state(state), path

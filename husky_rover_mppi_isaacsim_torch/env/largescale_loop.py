@@ -22,8 +22,10 @@ pieces of glue this module reproduces:
 One chunk is ``terrain_check_every`` closed-loop steps on the device with no
 host sync (on the card each step is two launches of kernel K1 on the live
 window), replayed on the card as one CUDA graph (the JAX ``_make_chunk_fn``,
-largescale_loop.py:318-415): the chunk's noise is drawn before it, and the
-frame origin (a tensor, not the Python floats a capture would freeze) and
+largescale_loop.py:318-415): its steps draw JAX's noise and slip inside
+the graph, step ``s`` of chunk ``c`` from ``split(fold_in(key(seed), c),
+n)[s]`` (JAX ``:346-347``, the chunk index a device scalar the graph
+reads), and the frame origin (a tensor, not the Python floats a capture would freeze) and
 the rebased goal are copied into the graph's buffers at every chunk. The
 window and the costmap are the graph's in-place arguments: it reads them
 where they lie, and a re-seat (a block shift, a pre-staged hit, a resume)
@@ -51,7 +53,8 @@ metres behind the rover). Wheel-track
 deformation (``deform``) stamps the live window in place once per chunk and
 always runs the synchronous loop. A traverse checkpoints to one ``.npz``
 file (:mod:`..aux.checkpoint`) and resumes from it: on the synchronous path
-bit-identically, the control noise generator's state included.
+bit-identically, from what the JAX package's checkpoint holds (the noise
+of a chunk follows from the seed and the chunk index alone).
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ import torch
 from torch import Tensor
 
 from ..aux import checkpoint as ckpt
+from ..core import jax_random as jr
 from ..core.device import run_device
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
@@ -192,16 +196,16 @@ def _roll_pass_counts(counts: Tensor, di_px: int, dj_px: int) -> Tensor:
 
 
 def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap, origin,
-              state: LoopState, goal_ctrl: Tensor, generator: torch.Generator | None = None,
-              noise=None, slip=None) -> tuple[LoopState, Tensor]:
+              state: LoopState, goal_ctrl: Tensor, key: Tensor,
+              idx: Tensor) -> tuple[LoopState, Tensor]:
     """``conf.terrain_check_every`` masked closed-loop steps (N=1) with no
     host sync: once the rover is inside the goal stop box (checked EVERY sim
     step, in the rotated frame: the box is axis-swapped but identical) the
     state freezes under a ``torch.where``, so a long chunk cannot overshoot
     through the box between host polls (MPPI_OO_current.py:670 stop
-    semantics). ``noise`` ``(steps, 1, 2, K, H)`` (or a sequence of
-    ``(1, 2, K, H)``) replays given draws, ``slip`` a sequence of ``(2, 1)``
-    slip normals; else each step draws from ``generator``. ``origin`` is the
+    semantics). Step ``s`` draws its noise and slip from the key
+    ``split(fold_in(key, idx), steps)[s]`` (JAX ``largescale_loop.py:
+    346-347``; ``idx`` the chunk index, a 0-d int64 tensor). ``origin`` is the
     controller frame's world origin ``(ox, oy)`` (``frames.BlockFrame.origin``),
     as floats or, for a CUDA graph of the chunk, as a ``(2,)`` tensor.
 
@@ -219,10 +223,10 @@ def run_chunk(conf: LargeScaleLoopConf, hf: HeightField, costmap: Costmap, origi
         return [torch.where(done, a, b) for a, b in zip(old, new)]
 
     done = in_box(state)
-    for s in range(conf.terrain_check_every):
-        new = closed_loop.closed_loop_step(conf.loop, hf, costmap, goal_ctrl, state, generator,
-                                           None if noise is None else noise[s],
-                                           None if slip is None else slip[s])
+    n = conf.terrain_check_every
+    for s in range(n):
+        new = closed_loop.closed_loop_step(conf.loop, hf, costmap, goal_ctrl, state, key,
+                                           (("fold_in", idx), ("split", n, s)))
         state = LoopState(RoverState(*keep(state.rovers, new.rovers)),
                           type(new.ctrl)(*keep(state.ctrl, new.ctrl)),
                           *keep(state[2:7], new[2:7]), step_index=new.step_index)
@@ -348,13 +352,16 @@ class _TerrainWorker:
                         self._cond.notify_all()
 
     def _process(self, pose) -> None:
+        """The cascade for one pose, then the pre-staging from it. The JAX
+        worker pre-stages first: from the pose whose update shifts, that
+        prediction reads the old anchor and can replace the costmap staged
+        for the very shift, and the next crossing waits for a later pose,
+        which a busy worker may not take up before it (a corner passed 2 m
+        off). Here the shift seats what was staged, and the next crossing is
+        staged at once."""
         loop = self.loop
         wx, wy, hx, hy = pose
-        t0 = time.perf_counter()
-        if loop.conf.prestage_shifts:
-            loop._prestage_inline(wx, wy, hx, hy)
         t1 = time.perf_counter()
-        self.prestage_s += t1 - t0
         sp = loop.conf.terrain.starting_position
         updated, corrected = loop.lstm.update_visual_mesh((wx - sp[0], wy - sp[1]))
         bx, by = loop.lstm.get_hr_map_current_block_coordinates()
@@ -367,7 +374,11 @@ class _TerrainWorker:
                 ev["event"].record(self.stream)
             with self._cond:
                 self._events.append(ev)
-        self.terrain_s += time.perf_counter() - t1
+        t2 = time.perf_counter()
+        self.terrain_s += t2 - t1
+        if loop.conf.prestage_shifts:
+            loop._prestage_inline(wx, wy, hx, hy)
+            self.prestage_s += time.perf_counter() - t2
 
 
 class LargeScaleClosedLoop:
@@ -453,20 +464,18 @@ class LargeScaleClosedLoop:
 
     # -- the chunk -----------------------------------------------------------
 
-    def chunk(self, state: LoopState, goal_ctrl: Tensor, generator: torch.Generator | None = None,
-              noise: Tensor | None = None) -> tuple[LoopState, Tensor]:
+    def chunk(self, state: LoopState, goal_ctrl: Tensor, key: Tensor,
+              chunk_idx: int) -> tuple[LoopState, Tensor]:
         """One :func:`run_chunk` on the live window, costmap and frame, run
         by ``chunk_fn`` (on the card one graph replay, whose outputs the
-        next chunk overwrites), its draws made first in the eager chunk's
-        order; with deformation, then one wheel-track stamp on the live
+        next chunk overwrites), chunk ``chunk_idx`` of the traverse keyed
+        ``key``; with deformation, then one wheel-track stamp on the live
         window."""
         n = self.conf.terrain_check_every
-        draws = [closed_loop.draw_step_noise(self.conf.loop, generator, 1, noise=(
-            None if noise is None else noise[s]), device=self.device) for s in range(n)]
-        slips = None if draws[0][1] is None else tuple(d[1] for d in draws)
+        idx = torch.full((), chunk_idx, dtype=torch.int64, device=self.device)
         hf, costmap = self._seat_leaves()
         state, pose = self.chunk_fn(self.conf, hf, costmap, self.origin(), state,
-                                    goal_ctrl, None, tuple(d[0] for d in draws), slips)
+                                    goal_ctrl, key, idx)
         if self.deform_engine is not None:
             self._deform(state)
         return state, pose
@@ -616,14 +625,6 @@ class LargeScaleClosedLoop:
         ox, oy = self.frame.origin()
         # inverse of the rotated frame (frames.controller_to_world, host-side)
         return -cy + ox, cx + oy
-
-    def _generator(self, resume: Optional[dict]) -> torch.Generator:
-        """The control noise generator: seeded ``conf.seed``, or at the
-        state a checkpoint stored."""
-        gen = torch.Generator(device=self.device).manual_seed(self.conf.seed)
-        if resume and resume.get("generator_state") is not None:
-            gen.set_state(resume["generator_state"])
-        return gen
 
     # -- shift pre-staging (the worker-pool latency hiding,
     #    high_resolution_DEM_workers.py:199-765) -------------------------------
@@ -857,15 +858,16 @@ class LargeScaleClosedLoop:
             template["counts"] = torch.zeros(shape, dtype=torch.int32, device=self.device)
         return template
 
-    def save_checkpoint(self, path, state: LoopState, chunk_idx: int, steps: int, path_world,
-                        generator: torch.Generator | None = None) -> None:
+    def save_checkpoint(self, path, state: LoopState, chunk_idx: int, steps: int,
+                        path_world) -> None:
         """Write the traverse to ``path`` through :mod:`..aux.checkpoint`:
         the loop state, the costmap, the crater metadata and the crater
-        generator's state, the frame and cascade cursors, and the control
-        noise generator's state (a ``uint8`` leaf the JAX package ignores).
-        Without deformation the window is not stored: it re-composes exactly
-        from the crater metadata. With deformation the window and the pass
-        counts carry the track history and are stored."""
+        generator's state, and the frame and cascade cursors, as the JAX
+        package's checkpoint holds them (the control noise needs no state:
+        the chunk index keys it). Without deformation the window is not
+        stored: it re-composes exactly from the crater metadata. With
+        deformation the window and the pass counts carry the track history
+        and are stored."""
         streamer = self.lstm.map_manager.streamer
         craters = {f"{bx}|{by}": {"c": np.asarray(blk[0], np.float64).reshape(-1, 2),
                                   "r": np.asarray(blk[1], np.float64).reshape(-1)}
@@ -879,8 +881,6 @@ class LargeScaleClosedLoop:
         if self.deform_engine is not None:
             payload["window"] = streamer.window
             payload["counts"] = self.pass_counts
-        if generator is not None:
-            payload["generator"] = generator.get_state()
         lu = self.lstm.last_update_coordinates or (0.0, 0.0)
         rp = self.lstm._last_rocks_position
         meta = {
@@ -902,15 +902,9 @@ class LargeScaleClosedLoop:
 
     def load_checkpoint(self, path) -> tuple[dict, dict]:
         """``(payload, meta)`` of a traverse checkpoint written by either
-        package, on this loop's device. The control noise generator's state
-        is under ``payload["generator"]`` where the file has one (the JAX
-        package writes none)."""
+        package, on this loop's device."""
         meta = ckpt.load_metadata(path)
-        template = self._template(meta)
-        shape = ckpt.leaf_shapes(path).get("generator")
-        if shape is not None:
-            template["generator"] = torch.zeros(shape, dtype=torch.uint8)  # on the CPU
-        return ckpt.restore(path, template)
+        return ckpt.restore(path, self._template(meta))
 
     @classmethod
     def resume(cls, conf: LargeScaleLoopConf, path, device=None,
@@ -920,7 +914,7 @@ class LargeScaleClosedLoop:
         traverse, on the synchronous path bit-identically to the
         uninterrupted run (terrain blocks come from the restored crater
         metadata and generator state, the window re-composes exactly, and
-        the control noise generator continues from its stored state)."""
+        the control noise of chunk ``c`` is keyed by ``c`` alone)."""
         loop = cls(conf, lstm=lstm, device=device)
         streamer = loop.lstm.map_manager.streamer
         payload, meta = loop.load_checkpoint(path)
@@ -963,8 +957,7 @@ class LargeScaleClosedLoop:
         state = payload["state"]
         info = {"state": state,
                 "chunk_idx": meta["chunk_idx"], "steps": meta["steps"],
-                "path": [tuple(p) for p in np.asarray(payload["path"])],
-                "generator_state": payload.get("generator")}
+                "path": [tuple(p) for p in np.asarray(payload["path"])]}
         return loop, info
 
     # -- main loop (:466-576) ---------------------------------------------------
@@ -978,26 +971,26 @@ class LargeScaleClosedLoop:
         window) and does not change the loop's result."""
         state = self.last_state if self.last_state is not None else self._initial_state()
         goal_ctrl = self._goal_ctrl()
-        gen = torch.Generator(device=self.device).manual_seed(self.conf.seed + 1)
-        box = {"state": state}
+        key = jr.key(self.conf.seed + 1, self.device)  # JAX largescale_loop.py:912
+        box = {"state": state, "idx": 0}
 
         def one():
-            box["state"], _ = self.chunk(box["state"], goal_ctrl, gen)
+            box["state"], _ = self.chunk(box["state"], goal_ctrl, key, box["idx"])
+            box["idx"] += 1
 
         ms = measure.issue_ms(one, calls=chunks, device=self.device)
         return self.conf.terrain_check_every / (ms / 1e3)
 
-    def run(self, record_path: bool = True, noise_source: Callable[[int], Tensor] | None = None,
+    def run(self, record_path: bool = True,
             _resume: Optional[dict] = None) -> LargeScaleRunResult:
         """Drive the rover to the goal. ``pipeline_depth > 0`` runs the
         pipelined loop, else (and always under deformation) the synchronous
-        one. ``noise_source(chunk_index)`` ``(steps, 1, 2, K, H)`` replays
-        given exploration noise (the tests replay the JAX package's); else
-        it comes from a ``torch.Generator`` on the device seeded
-        ``conf.seed``. ``_resume`` is the info dict of :meth:`resume`."""
+        one. Chunk ``c`` draws its noise and slip from ``fold_in(key(
+        conf.seed), c)`` as the JAX loop does. ``_resume`` is the info dict
+        of :meth:`resume`."""
         if self.deform_engine is not None or self.conf.pipeline_depth <= 0:
-            return self._run_sync(record_path, noise_source, _resume)
-        return self._run_pipelined(record_path, noise_source, _resume)
+            return self._run_sync(record_path, _resume)
+        return self._run_pipelined(record_path, _resume)
 
     def _result(self, reached, steps, block_shifts, costmap_rebuilds, wall, path,
                 shift_latencies, steps_at_steady, t_steady, state, dispatch_times,
@@ -1017,7 +1010,7 @@ class LargeScaleClosedLoop:
             prestage_hits=self.prestage_hits, prestage_misses=self.prestage_misses,
             max_dispatch_gap_s=gap_max, shift_dispatch_gaps_s=gaps)
 
-    def _run_sync(self, record_path: bool, noise_source, _resume) -> LargeScaleRunResult:
+    def _run_sync(self, record_path: bool, _resume) -> LargeScaleRunResult:
         """The synchronous loop: a chunk on the device, one host read of
         five scalars, the terrain cascade, on a block shift the re-seat, the
         costmap (staged or rebuilt) and the rebase, else possibly a
@@ -1026,9 +1019,7 @@ class LargeScaleClosedLoop:
         streamer = self.lstm.map_manager.streamer
         state = self._initial_state()
         goal_ctrl = self._goal_ctrl()
-        generator = None
-        if noise_source is None or conf.loop.rover.slip_std > 0.0:
-            generator = self._generator(_resume)
+        key = jr.key(conf.seed, self.device)  # JAX largescale_loop.py:980, :1135
 
         path: List[tuple] = []
         shift_latencies: List[float] = []
@@ -1057,8 +1048,7 @@ class LargeScaleClosedLoop:
                     t_steady, steps_at_steady = time.perf_counter(), steps
                 t_a = time.perf_counter()
                 dispatch_times.append(t_a)
-                noise = None if noise_source is None else noise_source(chunk_idx)
-                state, pose = self.chunk(state, goal_ctrl, generator, noise)
+                state, pose = self.chunk(state, goal_ctrl, key, chunk_idx)
                 steps += conf.terrain_check_every
                 chunk_idx += 1
                 t_b = time.perf_counter()
@@ -1117,8 +1107,7 @@ class LargeScaleClosedLoop:
                 if (conf.checkpoint_every_steps and conf.checkpoint_path
                         and steps - last_ckpt >= conf.checkpoint_every_steps):
                     self._join_prestage()
-                    self.save_checkpoint(conf.checkpoint_path, state, chunk_idx, steps, path,
-                                         generator)
+                    self.save_checkpoint(conf.checkpoint_path, state, chunk_idx, steps, path)
                     last_ckpt = steps
         finally:
             t = self._prestage_thread
@@ -1132,7 +1121,7 @@ class LargeScaleClosedLoop:
                             shift_latencies, steps_at_steady, t_steady, state, dispatch_times,
                             shift_chunks)
 
-    def _run_pipelined(self, record_path: bool, noise_source, _resume) -> LargeScaleRunResult:
+    def _run_pipelined(self, record_path: bool, _resume) -> LargeScaleRunResult:
         """Keep ``pipeline_depth`` chunks in flight and consume poses that
         many chunks late. Correct under the lag: the goal stop box freezes
         the state on the device every sim step, terrain updates gate on 2 m
@@ -1145,9 +1134,7 @@ class LargeScaleClosedLoop:
         conf = self.conf
         state = self._initial_state()
         goal_ctrl = self._goal_ctrl()
-        generator = None
-        if noise_source is None or conf.loop.rover.slip_std > 0.0:
-            generator = self._generator(_resume)
+        key = jr.key(conf.seed, self.device)  # JAX largescale_loop.py:980, :1135
         n = conf.terrain_check_every
         depth = conf.pipeline_depth
         bound = dispatch_bound_chunks(depth, n)
@@ -1225,8 +1212,7 @@ class LargeScaleClosedLoop:
                 acc["worker_wait_s"] += time.perf_counter() - t_w
                 t_a = time.perf_counter()
                 dispatch_times.append(t_a)
-                noise = None if noise_source is None else noise_source(chunk_idx)
-                state, pose = self.chunk(state, goal_ctrl, generator, noise)
+                state, pose = self.chunk(state, goal_ctrl, key, chunk_idx)
                 buf = pinned[chunk_idx % (depth + 1)]
                 buf.copy_(pose, non_blocking=cuda)
                 event = None
@@ -1256,7 +1242,7 @@ class LargeScaleClosedLoop:
                         raise worker.error  # never save a torn snapshot
                     apply_events()
                     self.save_checkpoint(conf.checkpoint_path, state, chunk_idx,
-                                         dispatched_steps, path, generator)
+                                         dispatched_steps, path)
                     last_ckpt = processed_steps
             # drain: the remaining poses (frozen after the goal box), then
             # the trailing terrain events, so that the final seating matches

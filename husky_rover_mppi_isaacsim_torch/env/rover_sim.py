@@ -10,10 +10,10 @@ batched stand-in for the PhysX Husky of the reference
   tangent projection and Rodrigues rotation, at the physics rate;
 * optional multiplicative wheel slip.
 
-Every state field leads with the rover axis. The slip noise comes from an
-explicit ``torch.Generator`` (or injected normals): torch cannot reproduce
-JAX's threefry stream, so the two packages agree only with ``slip_std=0`` or
-the same injected draws.
+Every state field leads with the rover axis. The slip noise is JAX's: two
+normals from ``k1, k2 = split(key)`` (JAX ``rover_sim.py:99-101``), drawn on
+the card by the ``jax_normal`` kernel (:mod:`..ops.jax_normal_cuda`), one
+launch each, so a key gives the JAX package's slip.
 
 Physical parameters are Python floats; every division by one goes through a
 0-d tensor on the state's device, because CUDA torch turns ``t / float``
@@ -28,6 +28,7 @@ import torch
 from torch import Tensor
 
 from ..core import geometry as geom
+from ..ops.jax_normal_cuda import jax_normal
 from ..core import heightfield as hfield
 from ..core.heightfield import HeightField
 
@@ -83,31 +84,34 @@ def step(
     state: RoverState,
     cmd_left: Tensor,
     cmd_right: Tensor,
-    generator: torch.Generator | None = None,
+    key: Tensor | None = None,
     ext_force: Tensor | None = None,
     ext_torque: Tensor | None = None,
-    slip_normals: Tensor | None = None,
+    path: tuple = (),
 ) -> RoverState:
     """Advance every rover one physics step under wheel-speed commands
     (JAX ``rover_sim.step``).
 
     ``ext_force`` (N, 3) / ``ext_torque`` (N,) act for one step: the
     in-plane force along the heading accelerates the body, the torque adds
-    yaw rate. Slip (``params.slip_std > 0``) draws ``(2, N)`` normals from
-    ``generator``, or takes them as ``slip_normals``; with neither, no slip
-    (the JAX ``key=None``)."""
+    yaw rate. Slip (``params.slip_std > 0``) draws from the key ``key``
+    taken down ``path`` (:func:`..core.jax_random.derive`; a caller passes
+    its own key and the path to its physics key, so that no key is formed
+    apart from a draw): ``k1, k2 = split(key)``, then ``normal(k1, (N,))``
+    for the left wheels and ``normal(k2, (N,))`` for the right; with no key,
+    no slip (the JAX ``key=None``)."""
     dt = params.physics_dt
     wl0 = state.wheel_left
     # wheel velocity drives: exponential approach, alpha in the state's dtype
     alpha = 1.0 - torch.exp(_scalar(-dt / params.wheel_tau, wl0))
     wl = wl0 + (cmd_left - wl0) * alpha
     wr = state.wheel_right + (cmd_right - state.wheel_right) * alpha
-    if params.slip_std > 0.0 and (generator is not None or slip_normals is not None):
-        if slip_normals is None:
-            slip_normals = torch.randn((2,) + wl.shape, generator=generator, dtype=wl.dtype,
-                                       device=wl.device)
-        wl = wl * (1.0 + params.slip_std * slip_normals[0])
-        wr = wr * (1.0 + params.slip_std * slip_normals[1])
+    if key is not None and params.slip_std > 0.0:
+        path = tuple(path)
+        slip_l = jax_normal(key, wl.shape, wl.dtype, path=path + (("split", 2, 0),))
+        slip_r = jax_normal(key, wr.shape, wr.dtype, path=path + (("split", 2, 1),))
+        wl = wl * (1.0 + params.slip_std * slip_l)
+        wr = wr * (1.0 + params.slip_std * slip_r)
 
     lin = (wl + wr) / 2.0
     ang = (-wl + wr) / _scalar(params.track, wl)

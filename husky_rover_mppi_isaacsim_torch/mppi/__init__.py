@@ -17,4 +17,4 @@ from .controller import (
 from .critics import Costmap, CriticWeights, evaluate_trajectories
 from .reference_rollout import rollout_25d_reference
 from .rollout import Rollout, rollout_2d, rollout_25d
-from .sampling import InputLimits, LoopSeedSequence, perturb, sample_noise
+from .sampling import InputLimits, LoopSeedSequence, loop_key, perturb, sample_noise

@@ -14,8 +14,11 @@ JAX package's ``jax.vmap`` over rovers, ``env/closed_loop.py:131-132``).
 The rover axis goes into K1's launch grid, so a step of N rovers is still
 two launches.
 
-:class:`MPPIController` is the host-side wrapper with the replayable
-per-loop seed stream (JAX ``MPPIController``).
+The exploration noise is JAX's: :func:`goal_seek` carries a key and splits
+it once per loop (``key, sub = split(key)``, masked loops included), as the
+JAX body does, and :class:`MPPIController` folds each loop's seed into its
+base key (JAX ``MPPIController``); on the card each loop's draw and split
+are one launch of the ``jax_normal`` kernel (:mod:`..ops.jax_normal_cuda`).
 """
 
 from __future__ import annotations
@@ -23,10 +26,10 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, ClassVar, NamedTuple
 
-import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import jax_random as jr
 from ..core.device import run_device
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
@@ -37,6 +40,7 @@ from ..dynamics.skid_steer import (
     wheel_lag_scan,
 )
 from ..ops import rollout_2d_cuda, rollout_cuda
+from ..ops.jax_normal_cuda import SPLIT_NEXT, SPLIT_SUB, jax_normal
 from . import critics as crit
 from .critics import Costmap, CriticWeights
 from .sampling import InputLimits, LoopSeedSequence, perturb, sample_noise
@@ -269,7 +273,6 @@ def kinematic_advance(config: MPPIConfig, robot: RobotState, out: StepOutput) ->
     )
 
 
-NoiseSource = Callable[[], Tensor]
 
 
 class GoalSeekResult(NamedTuple):
@@ -294,18 +297,18 @@ class GoalSeekTrace(NamedTuple):
 
 def goal_seek(
     config: MPPIConfig, hf: HeightField, costmap: Costmap, goal: Tensor,
-    robot: RobotState, ctrl: ControllerState, generator: torch.Generator | None,
-    max_loops: int = 3500, unroll: int = 4, noise_source: NoiseSource | None = None,
-    steps_fn: Callable | None = None,
+    robot: RobotState, ctrl: ControllerState, key: Tensor,
+    max_loops: int = 3500, unroll: int = 4, steps_fn: Callable | None = None,
 ) -> GoalSeekResult:
     """Goal-seeking loop (MPPI_Controller.run, MPPI_isaac.py:755-806): stop
     when |dx| <= 0.5 and |dy| <= 0.5, or after ``max_loops`` loops.
 
     Runs ``unroll`` masked control steps between host syncs of the stop
     flag; steps after the stop leave the state frozen, so results equal a
-    one-step loop. Noise comes from ``noise_source()`` when given (tests
-    replay a fixed sequence), else from ``generator``, drawn before each
-    ``unroll`` steps in the order the steps use it.
+    one-step loop. Each step draws its noise from ``key`` (a JAX key on
+    the robot's device, :mod:`..core.jax_random`) as the JAX body does,
+    ``key, sub = split(key)`` then ``normal(sub, (2, K, H))``, so a key
+    gives the JAX package's noise.
 
     ``steps_fn`` runs the ``unroll`` steps: by default a new
     :class:`..core.graphs.Graphed` of :func:`masked_steps` (one CUDA graph
@@ -313,22 +316,20 @@ def goal_seek(
     replays one graph across episodes passes its own, and
     :func:`masked_steps` itself runs the steps eagerly on the card (the
     reference the graph is held against)."""
-    r = _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
-                        max_loops, unroll, noise_source, False, steps_fn)
+    r = _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, key,
+                        max_loops, unroll, False, steps_fn)
     return GoalSeekResult(*r[:5])
 
 
 def goal_seek_recorded(
     config: MPPIConfig, hf: HeightField, costmap: Costmap, goal: Tensor,
-    robot: RobotState, ctrl: ControllerState, generator: torch.Generator | None,
-    max_loops: int = 1500, unroll: int = 4, noise_source: NoiseSource | None = None,
-    steps_fn: Callable | None = None,
+    robot: RobotState, ctrl: ControllerState, key: Tensor,
+    max_loops: int = 1500, unroll: int = 4, steps_fn: Callable | None = None,
 ) -> GoalSeekTrace:
     """:func:`goal_seek` that also records the position and commanded
     velocity of every active loop (consumers slice ``[:loops]``)."""
     robot, ctrl, loops, halt, steps, bp, bv = _goal_seek_loop(
-        config, hf, costmap, goal, robot, ctrl, generator, max_loops, unroll,
-        noise_source, True, steps_fn)
+        config, hf, costmap, goal, robot, ctrl, key, max_loops, unroll, True, steps_fn)
     return GoalSeekTrace(robot, ctrl, loops, halt, steps,
                          bp[:max_loops], bv[:max_loops])
 
@@ -342,16 +343,23 @@ def goal_reached(position: Tensor, goal: Tensor) -> Tensor:
 
 def masked_steps(config: MPPIConfig, max_loops: int, hf: HeightField, costmap: Costmap,
                  goal: Tensor, robot: RobotState, ctrl: ControllerState, loop: Tensor,
-                 halt: Tensor, positions: Tensor, velocities: Tensor, noises: tuple):
-    """One masked control step per noise ``(2, K, H)`` of ``noises`` (the
-    body of the JAX ``lax.while_loop``, controller.py:556): a step taken
-    after the stop (``halt``) or past ``max_loops`` leaves the state as it
-    was. Records each active loop's position and commanded velocity at
-    index ``loop`` of ``positions`` ``(n, 3)`` and ``velocities`` ``(n,)``
-    in place (``n = 0``: no record). Returns ``(robot, ctrl, loop, halt,
-    positions, velocities)``; reads nothing back to the host."""
+                 halt: Tensor, positions: Tensor, velocities: Tensor, key: Tensor,
+                 n: int):
+    """``n`` masked control steps (the body of the JAX
+    ``lax.while_loop``, controller.py:529-556): each splits ``key``, ``key,
+    sub = split(key)``, and draws its noise ``(2, K, H)`` from ``sub`` (one
+    ``jax_normal`` launch on the card), masked steps too, as JAX's body
+    does. A step taken after the stop (``halt``) or past
+    ``max_loops`` leaves the state as it was. Records each active loop's
+    position and commanded velocity at index ``loop`` of ``positions`` ``(n,
+    3)`` and ``velocities`` ``(n,)`` in place (``n = 0``: no record). Returns
+    ``(robot, ctrl, loop, halt, positions, velocities, key)``; reads nothing
+    back to the host."""
     record = positions.shape[0] > 0
-    for noise in noises:
+    dtype = robot.position.dtype
+    for _ in range(n):
+        noise, key = jax_normal(key, (2, config.num_samples, config.horizon), dtype,
+                                path=SPLIT_SUB, next_path=SPLIT_NEXT)
         active = ~halt & (loop < max_loops)
         ctrl2, out = mppi_step(config, hf, costmap, goal, robot, ctrl, noise)
         robot2 = kinematic_advance(config, robot, out)
@@ -364,21 +372,16 @@ def masked_steps(config: MPPIConfig, max_loops: int, hf: HeightField, costmap: C
             velocities.index_copy_(0, at, torch.where(active, out.linear_velocity, v_old))
         loop = loop + active.to(torch.int64)
         halt = goal_reached(robot.position, goal)
-    return robot, ctrl, loop, halt, positions, velocities
+    return robot, ctrl, loop, halt, positions, velocities, key
 
 
-def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
-                    max_loops, unroll, noise_source, record, steps_fn):
+def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, key,
+                    max_loops, unroll, record, steps_fn):
     """Shared loop of :func:`goal_seek` and :func:`goal_seek_recorded`:
     ``unroll`` masked steps per call of ``steps_fn``, then the loop's one
     host sync, the stop flag. The state it returns is cloned out of the
     graph's buffers, which the next replay overwrites."""
     dtype, dev = robot.position.dtype, robot.position.device
-    if noise_source is None:
-        if generator is None:
-            raise ValueError("goal_seek needs a generator or a noise_source")
-        noise_source = lambda: sample_noise(  # noqa: E731
-            generator, config.num_samples, config.horizon, dtype, dev)
     if steps_fn is None:
         steps_fn = Graphed(masked_steps)
     n_buf = max_loops + 1 if record else 0
@@ -388,30 +391,22 @@ def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, generator,
     halt = goal_reached(robot.position, goal)
     steps = 0
     while not bool(halt | (loop >= max_loops)):
-        noises = tuple(noise_source() for _ in range(unroll))
-        robot, ctrl, loop, halt, bp, bv = steps_fn(config, max_loops, hf, costmap, goal, robot,
-                                                   ctrl, loop, halt, bp, bv, noises)
+        robot, ctrl, loop, halt, bp, bv, key = steps_fn(config, max_loops, hf, costmap, goal,
+                                                        robot, ctrl, loop, halt, bp, bv, key,
+                                                        unroll)
         steps += unroll
     clone = lambda nt: type(nt)(*(t.clone() for t in nt))  # noqa: E731
     return clone(robot), clone(ctrl), loop.clone(), halt.clone(), steps, bp.clone(), bv.clone()
-
-
-def loop_generator_seed(seed: int, loop_seed: int) -> int:
-    """The ``torch.Generator`` seed of one control loop, from the
-    controller's seed and the loop's seed of :class:`LoopSeedSequence` (the
-    JAX package folds the loop seed into ``key(seed)``; torch cannot
-    reproduce that stream, so the two packages' draws differ)."""
-    state = np.random.SeedSequence((seed, loop_seed)).generate_state(1, np.uint64)
-    return int(state[0] >> 1)
 
 
 class MPPIController:
     """Host-side convenience wrapper mirroring the reference controller's
     surface API (``warp_setup``/``MPPI_step``/``run``) around
     :func:`mppi_step`. Owns the world on its device and the replayable
-    per-loop seed stream: loop ``n`` draws its noise from a
-    ``torch.Generator`` on the device seeded with
-    ``loop_generator_seed(seed, n-th loop seed)``.
+    per-loop seed stream: loop ``n`` draws its noise from
+    ``loop_key(base_key, n-th loop seed)`` with ``base_key = key(seed)``,
+    the JAX controller's draw (controller.py:623, :632); on the card the
+    fold-in and the draw are one ``jax_normal`` launch.
 
     ``device`` is the card unless the caller names another
     (:func:`..core.device.run_device`); the world moves there. A step runs
@@ -428,9 +423,8 @@ class MPPIController:
         self.hf = HeightField(*(t.to(self.device) for t in hf))
         self.costmap = Costmap(*(t.to(self.device) for t in costmap))
         self.goal = torch.as_tensor(goal_xy, dtype=self.hf.z.dtype, device=self.device)
-        self.seed = seed
+        self.base_key = jr.key(seed, self.device)
         self.seeds = LoopSeedSequence(config.horizon, seed)
-        self._generator = torch.Generator(device=self.device)
         self.loop = 0
         self.step_fn: Callable = Graphed(mppi_step)
 
@@ -440,10 +434,9 @@ class MPPIController:
         unless ``noise`` (2, K, H) is given (tests replay JAX's draws). On
         the card the outputs are the step graph's buffers: the next step
         overwrites them."""
-        if noise is None:
-            self._generator.manual_seed(loop_generator_seed(self.seed, self.seeds.next_seed()))
-            noise = sample_noise(self._generator, self.config.num_samples, self.config.horizon,
-                                 self.hf.z.dtype, self.device)
+        if noise is None:  # sample_noise(loop_key(base_key, loop seed)) in one draw
+            noise = sample_noise(self.base_key, self.config.num_samples, self.config.horizon,
+                                 self.hf.z.dtype, path=(("fold_in", self.seeds.next_seed()),))
         self.loop += 1
         return self.step_fn(self.config, self.hf, self.costmap, self.goal, robot, ctrl, noise)
 

@@ -20,9 +20,9 @@ steps; on the card each arm (K, projection) replays one CUDA graph of
 ``goal_seek_recorded``, evaluation.py:301, 455), one planar rollout
 launch a step inside the 2D arm's. Its recorded trace comes to the host in
 one copy, and rescoring runs on CPU tensors and numpy. Control noise comes
-from a ``torch.Generator`` seeded ``seed * 1000 + run`` (a different stream
-from the JAX package's ``jax.random.key``), or from an injected per-run
-noise source (tests).
+from ``key(seed * 1000 + run)`` (:mod:`..core.jax_random`), the JAX
+package's key of the run (evaluation.py:313, :468), shared by both arms of
+a run as there.
 """
 
 from __future__ import annotations
@@ -32,11 +32,10 @@ import csv
 import dataclasses
 import sys
 import time
-from typing import Callable
-
 import numpy as np
 import torch
 
+from ..core import jax_random as jr
 from ..core.device import run_device
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField, grid_lookup
@@ -44,16 +43,11 @@ from . import critics as crit
 from .controller import (
     ControllerState,
     MPPIConfig,
-    NoiseSource,
     RobotState,
     goal_seek_recorded,
     masked_steps,
 )
 from .critics import Costmap
-
-# (K, run index) -> the run's noise source; both arms of a run share it
-RunNoise = Callable[[int, int], NoiseSource]
-
 
 @dataclasses.dataclass
 class TrajectoryLog:
@@ -205,21 +199,16 @@ def _costmap_on_cpu(cm: Costmap) -> Costmap:
 
 def _run_episode(config: MPPIConfig, hf: HeightField, cm: Costmap, goal, robot: RobotState,
                  ctrl: ControllerState, seed: int, run_idx: int, max_loops: int,
-                 noise: RunNoise | None, steps_fn: Graphed | None = None):
-    """One recorded goal-seek episode on the world's device, its masked
-    steps run by ``steps_fn`` (the arm's graph; a new one when ``None``).
-    Returns ``(loops, reached,
+                 steps_fn: Graphed | None = None):
+    """One recorded goal-seek episode on the world's device from the run's
+    key, ``key(seed * 1000 + run_idx)``, its masked steps run by
+    ``steps_fn`` (the arm's graph; a new one when ``None``). Returns ``(loops, reached,
     positions (max_loops, 3), velocities (max_loops,), steps)`` on the
     host, after one device-to-host copy."""
     dtype, dev = robot.position.dtype, robot.position.device
-    gen, source = None, None
-    if noise is None:
-        gen = torch.Generator(device=dev).manual_seed(seed * 1000 + run_idx)
-    else:
-        source = noise(config.num_samples, run_idx)
+    key = jr.key(seed * 1000 + run_idx, dev)
     trace = goal_seek_recorded(config, hf, cm, torch.tensor(goal, dtype=dtype, device=dev),
-                               robot, ctrl, gen, max_loops=max_loops, noise_source=source,
-                               steps_fn=steps_fn)
+                               robot, ctrl, key, max_loops=max_loops, steps_fn=steps_fn)
     packed = torch.cat([trace.positions.reshape(-1), trace.velocities,
                         trace.loops.to(dtype).view(1), trace.reached.to(dtype).view(1)])
     host = packed.cpu().numpy()  # the run's one device-to-host copy
@@ -236,7 +225,7 @@ def run_2d_vs_3d_experiment(
     ks=(350, 500, 1000), runs_per_arm: int = 8, horizon: int = 100, max_loops: int = 1500,
     half_width: float = 75.0, grid_size: int = 1500, costmap_size: int = 750,
     seed: int = 42, trim_fraction: float = 0.1, span_fraction: float = 0.8,
-    dtype=torch.float32, device=None, noise: RunNoise | None = None,
+    dtype=torch.float32, device=None,
 ) -> dict:
     """The thesis's 2D-vs-3D projection experiment (compare_3d_2d.py /
     stats_results.py:8-80): for each K, ``runs_per_arm`` goal-seek episodes
@@ -285,7 +274,7 @@ def run_2d_vs_3d_experiment(
                                           device=device)
                 ctrl = ControllerState.create(config, dtype, device)
                 loops, hit, pos, vel, n_steps = _run_episode(
-                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise, graph)
+                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, graph)
                 log = TrajectoryLog(step=run_idx, trajectory=pos[:max(loops, 2)],
                                     linear_velocities=vel[:max(loops, 2)],
                                     start=tuple(start), goal=tuple(goal))
@@ -337,7 +326,7 @@ def run_thesis_protocol_experiment(
     half_width: float = 75.0, seed: int = 42, slope_weight: float = 35.5,
     sigma_base: float = 0.3, terrain_seed: int = 42, slope_critic: str = "body",
     terrain_z_scale: float = 1.0, dtype=torch.float32, device=None,
-    noise: RunNoise | None = None, base_noise=None,
+    base_noise=None,
 ) -> dict:
     """The thesis's 2D-vs-3D statistics experiment under the thesis's own
     protocol: the thesis statistics terrain (``2 * half_width`` square at
@@ -393,7 +382,7 @@ def run_thesis_protocol_experiment(
                                           device=device, wheel_speed=1.0)
                 ctrl = ControllerState.create(config, dtype, device, initial_u=1.0)
                 loops, reached, pos, vel, steps = _run_episode(
-                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, noise, graph)
+                    config, hf, cm, goal, robot, ctrl, seed, run_idx, max_loops, graph)
                 episode_s += time.perf_counter() - t_run
                 n_steps += steps
                 # the reference CSVs log the start pose as row 0 and the

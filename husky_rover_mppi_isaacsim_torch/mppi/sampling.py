@@ -2,9 +2,11 @@
 
 Counterpart of ``husky_rover_mppi_isaacsim_tpu/mppi/sampling.py``
 (sampling_warp.py:54-92). :func:`perturb` is pure given the noise, so tests
-inject one numpy noise array into both packages; :func:`sample_noise` draws
-the production noise from an explicit ``torch.Generator`` (torch cannot
-reproduce JAX's threefry stream, so the two packages' draws differ).
+may inject one numpy noise array into both packages; :func:`sample_noise`
+draws the production noise from a JAX key (:mod:`..core.jax_random`), the
+JAX package's draw from the same key: on the card one launch of the
+``jax_normal`` kernel (:mod:`..ops.jax_normal_cuda`), on the CPU its plain
+version. :func:`loop_key` is the JAX package's per-loop key.
 """
 
 from __future__ import annotations
@@ -14,6 +16,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import Tensor
+
+from ..core import jax_random as jr
+from ..ops.jax_normal_cuda import jax_normal
 
 
 class InputLimits(NamedTuple):
@@ -50,12 +55,23 @@ def perturb(
     return u1, u2
 
 
-def sample_noise(generator: torch.Generator, num_samples: int, horizon: int,
-                 dtype=torch.float32, device=None) -> Tensor:
-    """Standard-normal noise of shape ``(2, K, H)``; ``generator`` must live
-    on ``device``."""
-    return torch.randn((2, num_samples, horizon), generator=generator,
-                       dtype=dtype, device=device)
+def sample_noise(key: Tensor, num_samples: int, horizon: int, dtype=torch.float32,
+                 path: tuple = ()) -> Tensor:
+    """Standard-normal noise of shape ``(2, K, H)`` on the key's device:
+    ``jax.random.normal(key, (2, K, H), dtype)`` (JAX ``sampling.py:75-78``)
+    of the key taken down ``path`` (:func:`..core.jax_random.derive`)."""
+    return jax_normal(key, (2, num_samples, horizon), dtype, path=path)
+
+
+def sample_noise_block(key: Tensor, num_samples: int, horizon: int, start: int, stop: int,
+                       dtype=torch.float32) -> Tensor:
+    """The samples ``start:stop`` of :func:`sample_noise`'s ``(2, K, H)``,
+    ``(2, stop - start, H)``, drawn alone: their iota counts are those of
+    the full draw (the kernel's count offset), so a rank's or a rover's
+    block equals the slice of the whole."""
+    shape, offset, outer_stride = jr.slice_counts((2, num_samples, horizon), 1, start, stop)
+    draw = jax_normal(key, shape, dtype, offset=offset, outer_stride=outer_stride)
+    return draw.reshape(2, stop - start, horizon)
 
 
 class LoopSeedSequence:
@@ -70,3 +86,9 @@ class LoopSeedSequence:
 
     def next_seed(self) -> int:
         return int(self._rng.integers(self._low, self._high))
+
+
+def loop_key(base_key: Tensor, loop_seed: int) -> Tensor:
+    """Key for one control loop, derived from the replayable loop seed
+    (JAX ``sampling.py:98-100``)."""
+    return jr.fold_in(base_key, loop_seed)

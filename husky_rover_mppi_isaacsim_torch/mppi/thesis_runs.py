@@ -8,16 +8,20 @@ wheel-critic ablation), ``scripts/run_eval_r05.py`` (:func:`terrain_stats`,
 ``scripts/run_eval_experiment.py`` (:func:`eval_experiment`). Each function
 returns the JAX script's table with its keys. The JAX tables' TPU-only
 ``config.gather_engine`` is not written; in its place ``config`` records the
-rollout kernels' routes (``kernel_routes``) and the device (``device``: the
-card's name and power limit as ``nvidia-smi`` reports them).
+rollout kernels' routes (``kernel_routes``), the device (``device``: the
+card's name and power limit as ``nvidia-smi`` reports them) and the control
+noise's source (``control_noise``: ``"jax"``, JAX's draws from each run's
+key).
 
 Every function runs on the card unless ``device`` names another device,
 and raises where the card is asked for and there is none
 (:func:`..core.device.run_device`). The thesis DEM is the JAX package's:
 its base noise is JAX's draw (:mod:`..core.jax_random`), on the CPU and on
-the card alike. Control noise comes from ``torch.Generator``s, so a run on
-the card is a fresh sample of the JAX protocol on JAX's terrain, not a
-replay of its artifacts.
+the card alike, and so is each run's control noise (``key(seed * 1000 +
+run)``, the JAX runner's). A run on the card still draws its own sample of
+the protocol: the card's float32 loop and the TPU's round differently, and
+a goal-seek of thousands of loops carries a difference of one ulp into a
+different path, so the artifacts are compared as populations.
 :func:`output_path` refuses the JAX artifacts' names: the thin ``main``s in
 ``scripts/torch_run_*.py`` write ``EVAL_torch*.json`` instead.
 """
@@ -63,20 +67,22 @@ def output_path(out, default: str, root: Path) -> Path:
 
 
 def run_record(device) -> dict:
-    """``config`` entries of a port run: the rollout kernels' routes and the
-    device, a card's name and power limit (``nvidia-smi --query-gpu=name,
-    power.limit``)."""
+    """``config`` entries of a port run: the rollout kernels' routes, the
+    device (a card's name and power limit, ``nvidia-smi --query-gpu=name,
+    power.limit``) and the control noise's source, ``"jax"``: each run's
+    ``jax.random`` key ``key(seed * 1000 + run)``, as the JAX runner's."""
     device = torch.device(device)
     if device.type != "cuda":
         return {"kernel_routes": {"rollout_3d": "plain", "rollout_2d": "plain"},
-                "device": {"name": "cpu", "power_limit": None}}
+                "device": {"name": "cpu", "power_limit": None}, "control_noise": "jax"}
     index = device.index if device.index is not None else torch.cuda.current_device()
     lines = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip().splitlines()
     return {"kernel_routes": {"rollout_3d": "cuda", "rollout_2d": "cuda"},
             "device": {"name": torch.cuda.get_device_name(index),
-                       "power_limit": lines[index].rsplit(",", 1)[1].strip()}}
+                       "power_limit": lines[index].rsplit(",", 1)[1].strip()},
+            "control_noise": "jax"}
 
 
 def terrain_statistics(z, resolution: float = 0.1) -> dict:

@@ -45,8 +45,9 @@ def cuda_ms(fn: Callable[[], object], reps: int = 7, inner: int = 1) -> float:
 
 def graph_ms(fn: Callable[[], object], launches: int = 20, reps: int = 7) -> float:
     """Median over ``reps`` of one replay of a CUDA graph of ``launches``
-    calls, per call. ``fn`` must launch on the current stream and allocate
-    nothing (one warm-up call runs before the capture)."""
+    calls, per call. ``fn`` must launch on the current stream; what it
+    allocates comes from the graph's pool, as inside the loops' graphs (one
+    warm-up call runs before the capture)."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()

@@ -4,7 +4,8 @@ Counterpart of ``husky_rover_mppi_isaacsim_tpu/parallel/mesh.py``. The JAX
 package shards the sample batch over a device mesh with ``shard_map``; here
 the model is SPMD over processes: every rank runs the same program, holds
 the replicated world and controller state and its own K/n slice of the
-(2, K, H) noise, runs the local rollouts (one K1 launch on the card) and
+(2, K, H) noise (drawn alone from the JAX key, :func:`shard_sample_noise`),
+runs the local rollouts (one K1 launch on the card) and
 critics, and the ranks of the mesh axis meet in the reductions JAX's
 ``_local_step`` makes, in the same order:
 
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 from typing import Sequence
 
+import torch
 import torch.distributed as dist
 from torch import Tensor
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -32,6 +34,7 @@ from ..core.device import run_device
 from ..core.heightfield import HeightField
 from ..mppi.controller import ControllerState, MPPIConfig, RobotState, StepOutput, mppi_step
 from ..mppi.critics import Costmap
+from ..mppi.sampling import sample_noise_block
 
 
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], device=None) -> DeviceMesh:
@@ -81,6 +84,16 @@ def shard_samples(mesh: DeviceMesh, noise: Tensor, axis: str = "sample") -> Tens
     (2, K, H) or (N, 2, K, H), the K/n samples of its coordinate on
     ``axis``."""
     return noise[..., _axis_block(mesh, axis, noise.shape[-2]), :].contiguous()
+
+
+def shard_sample_noise(mesh: DeviceMesh, key: Tensor, num_samples: int, horizon: int,
+                       dtype=None, axis: str = "sample") -> Tensor:
+    """This rank's block of JAX's ``normal(key, (2, K, H))`` along K, drawn
+    alone (:func:`..mppi.sampling.sample_noise_block`): equal to
+    ``shard_samples(mesh, sample_noise(key, K, H))``."""
+    block = _axis_block(mesh, axis, num_samples)
+    return sample_noise_block(key, num_samples, horizon, block.start, block.stop,
+                              dtype if dtype is not None else torch.float32)
 
 
 def shard_rovers(mesh: DeviceMesh, tree, axis: str = "rover"):

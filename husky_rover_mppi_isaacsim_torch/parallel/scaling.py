@@ -28,11 +28,12 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from ..core import jax_random as jr
 from ..core.device import run_device
 from ..core.heightfield import HeightField
 from ..mppi.controller import ControllerState, MPPIConfig, RobotState, StepOutput
 from ..mppi.critics import Costmap
-from ..mppi.sampling import sample_noise
+from ..mppi.sampling import sample_noise_block
 from .mesh import _local_step, make_mesh
 
 
@@ -91,8 +92,7 @@ def scaling_sweep(config: MPPIConfig, hf: HeightField, costmap: Costmap,
     goal = torch.tensor([10.0, 8.0], dtype=dtype, device=device)
     robot = RobotState.create(-9.0, -7.0, [1.0, 0.3, 0.0], dtype=dtype, device=device)
     ctrl = ControllerState.create(config, dtype, device)
-    noise = sample_noise(torch.Generator(device=device).manual_seed(0), config.num_samples,
-                         config.horizon, dtype, device)
+    key = jr.key(0, device)  # JAX scaling.py:123
     results, base_time = {}, None
     for n in shard_counts:
         if n > world:
@@ -101,7 +101,8 @@ def scaling_sweep(config: MPPIConfig, hf: HeightField, costmap: Costmap,
         dt = None
         if rank < n:
             k = config.num_samples // n
-            local = noise[:, rank * k:(rank + 1) * k].contiguous()
+            local = sample_noise_block(key, config.num_samples, config.horizon, rank * k,
+                                       (rank + 1) * k, dtype)
             step = lambda: _local_step(config, hf, costmap, goal, robot, ctrl,  # noqa: E731
                                        local, group)
             step()

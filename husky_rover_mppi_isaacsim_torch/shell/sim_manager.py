@@ -27,20 +27,27 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import jax_random as jr
 from ..core.device import run_device
 from ..core.heightfield import HeightField
 from ..core.graphs import Graphed
-from ..env.closed_loop import (
-    ClosedLoopConfig,
-    LoopState,
-    closed_loop_step,
-    draw_step_noise,
-    init_loop_state,
-)
+from ..env.closed_loop import ClosedLoopConfig, LoopState, closed_loop_step, init_loop_state
 from ..env.robot_manager import RobotManager
 from ..mppi.critics import Costmap
+from ..ops.jax_normal_cuda import SPLIT_NEXT, SPLIT_SUB, jax_normal
 from .monitor import ThreadMonitor
 from .pubsub import MessageBus, Topics
+
+
+def tick(config: ClosedLoopConfig, hf: HeightField, costmap: Costmap, goals: Tensor,
+         state: LoopState, key: Tensor) -> tuple[LoopState, Tensor]:
+    """One tick's closed-loop step on the carried key (JAX
+    ``sim_manager.py:107``): ``key, sub = split(key)``, the step drawing from
+    ``sub``. Returns the state and the key carried on; on the card the split
+    is one ``jax_normal`` launch that draws nothing."""
+    state = closed_loop_step(config, hf, costmap, goals, state, key, SPLIT_SUB)
+    _, key = jax_normal(key, (0,), next_path=SPLIT_NEXT)
+    return state, key
 from .rate import Rate
 
 
@@ -51,7 +58,7 @@ class SimulationManagerConf:
 
     loop: ClosedLoopConfig = dataclasses.field(default_factory=ClosedLoopConfig)
     realtime: bool = False       # pace to physics_dt wall-clock
-    seed: int = 42               # seeds the loop's torch.Generator
+    seed: int = 42               # the loop's key: jax_random.key(seed)
     monitor_poll_s: float = 1.0
 
 
@@ -60,14 +67,15 @@ class SimulationManager:
 
     ``device`` is the card unless the caller names another
     (:func:`..core.device.run_device`); the world and the goals move there.
-    Exploration noise (and wheel slip, where ``slip_std > 0``) comes from a
-    ``torch.Generator`` on the device seeded with ``conf.seed``: not the
-    JAX package's draws, which :meth:`step` can replay through ``noise=``.
-    A tick runs ``step_fn``: a :class:`..core.graphs.Graphed`
-    :func:`closed_loop_step` (its outputs, ``state``, are overwritten by the
-    next tick), or :func:`closed_loop_step` itself to run the ticks eagerly
-    on the card. The monitor is a thread: call :meth:`close` (or use the
-    manager as a context manager) when done."""
+    Exploration noise (and wheel slip, where ``slip_std > 0``) is the JAX
+    package's: the manager carries ``key(conf.seed)`` and splits it each
+    tick, ``key, sub = split(key)``, the tick's step drawing from ``sub``
+    (JAX ``sim_manager.py:71, :107``).
+    A tick runs ``step_fn``: a :class:`..core.graphs.Graphed` :func:`tick`
+    (its outputs, ``state`` and ``key``, are overwritten by the next tick),
+    or :func:`tick` itself to run the ticks eagerly on the card. The
+    monitor is a thread: call :meth:`close` (or use the manager as a
+    context manager) when done."""
 
     def __init__(self, conf: SimulationManagerConf, hf: HeightField, costmap: Costmap,
                  robots: RobotManager, goals, bus: Optional[MessageBus] = None,
@@ -82,10 +90,10 @@ class SimulationManager:
         dtype = self.hf.z.dtype
         self.goals = torch.as_tensor(np.asarray(goals), dtype=dtype, device=self.device)
         self.deform_hook = deform_hook
-        self.generator = torch.Generator(device=self.device).manual_seed(conf.seed)
+        self.key = jr.key(conf.seed, self.device)
         self.state = init_loop_state(conf.loop, robots.initial_state(self.hf, dtype=dtype), dtype)
         self.step_count = 0
-        self.step_fn: Callable = Graphed(closed_loop_step)
+        self.step_fn: Callable = Graphed(tick)
         self._wire_bus()
         self.monitor = ThreadMonitor(poll_s=conf.monitor_poll_s)
         self.monitor.start()
@@ -107,15 +115,11 @@ class SimulationManager:
             rovers = self.robots.apply_modifications(self.state.rovers, self.hf)
             self.state = self.state._replace(rovers=rovers)
 
-    def step(self, noise: Tensor | None = None) -> LoopState:
+    def step(self) -> LoopState:
         """One sim tick: closed-loop step -> pose publish (only when
-        subscribed) -> deferred-edit flush -> deformation hook. ``noise``
-        (N, 2, K, H) replays given draws (tests replay JAX's)."""
-        pos = self.state.rovers.position
-        noise, slip = draw_step_noise(self.conf.loop, self.generator, pos.shape[0], pos.dtype,
-                                      pos.device, noise=noise)
-        self.state = self.step_fn(self.conf.loop, self.hf, self.costmap, self.goals,
-                                  self.state, None, noise, slip)
+        subscribed) -> deferred-edit flush -> deformation hook."""
+        self.state, self.key = self.step_fn(self.conf.loop, self.hf, self.costmap, self.goals,
+                                            self.state, self.key)
         self.step_count += 1
         if self.bus.has_subscribers(Topics.POSE_STATE):
             # a device-to-host copy: paid only when someone listens

@@ -10,10 +10,11 @@ packages the same points.
 
 The fixed-capacity variants (:class:`MaskedPoints`, :func:`poisson_fixed`,
 :func:`hardcore_thin_fixed`, :func:`thomas_fixed`) are torch on any device,
-with static shapes (a mask marks the valid points). They draw from an
-explicit ``torch.Generator`` in place of the JAX key, so their points are
-not the JAX package's; :func:`hardcore_thin_masked` is the draw-free half
-of the thinning, to which tests hand JAX's marks.
+with static shapes (a mask marks the valid points). They take the JAX
+package's key and split it in its order, and draw JAX's counts, uniforms
+and normals from it (:mod:`..core.jax_random`), so a key gives the JAX
+package's points; :func:`hardcore_thin_masked` is the draw-free half of the
+thinning.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from typing import NamedTuple, Tuple
 import numpy as np
 import torch
 from torch import Tensor
+
+from ..core import jax_random as jr
 
 
 @dataclasses.dataclass
@@ -217,29 +220,21 @@ class MaskedPoints(NamedTuple):
         return self.points.shape[0]
 
 
-def _poisson_count(generator: torch.Generator, rate: float, shape, device) -> Tensor:
-    """Poisson draws of mean ``rate``, int64, ``shape``."""
-    rates = torch.full(shape, float(rate), dtype=torch.float64, device=device)
-    return torch.poisson(rates, generator=generator).to(torch.int64)
-
-
-def _uniform(generator: torch.Generator, shape, lo: float, hi: float, dtype, device) -> Tensor:
-    return torch.rand(shape, generator=generator, dtype=dtype, device=device) * (hi - lo) + lo
-
-
-def poisson_fixed(generator: torch.Generator, region: tuple, density: float, r_minmax: tuple,
-                  capacity: int, dtype=torch.float32, device=None) -> MaskedPoints:
+def poisson_fixed(key: Tensor, region: tuple, density: float, r_minmax: tuple,
+                  capacity: int, dtype=torch.float32) -> MaskedPoints:
     """Poisson process with static shapes: ``capacity`` uniform candidates
     in ``region`` ``(x_min, x_max, y_min, y_max)``, the first
-    ``min(Poisson(area * density), capacity)`` of them valid. Draws, in
-    order, the count, x, y and the radii from ``generator`` (on ``device``)."""
+    ``min(Poisson(area * density), capacity)`` of them valid, on the key's
+    device. JAX's draws from JAX's key (``point_process.py:243-264``):
+    ``k1, k2, k3, k4 = split(key, 4)`` for the count, x, y and the radii."""
     x_min, x_max, y_min, y_max = region
     area = (x_max - x_min) * (y_max - y_min)
-    count = torch.clamp(_poisson_count(generator, area * density, (), device), max=capacity)
-    mask = torch.arange(capacity, device=device) < count
-    x = _uniform(generator, (capacity,), x_min, x_max, dtype, device)
-    y = _uniform(generator, (capacity,), y_min, y_max, dtype, device)
-    r = _uniform(generator, (capacity,), r_minmax[0], r_minmax[1], dtype, device)
+    k1, k2, k3, k4 = jr.split(key, 4)
+    count = torch.clamp(jr.poisson(k1, area * density), max=capacity)
+    mask = torch.arange(capacity, device=key.device) < count
+    x = jr.uniform(k2, (capacity,), dtype, x_min, x_max)
+    y = jr.uniform(k3, (capacity,), dtype, y_min, y_max)
+    r = jr.uniform(k4, (capacity,), dtype, r_minmax[0], r_minmax[1])
     return MaskedPoints(torch.stack([x, y], dim=-1), r, mask)
 
 
@@ -257,40 +252,39 @@ def hardcore_thin_masked(pts: MaskedPoints, marks: Tensor) -> MaskedPoints:
     return MaskedPoints(pts.points, pts.radius, keep)
 
 
-def hardcore_thin_fixed(generator: torch.Generator, pts: MaskedPoints) -> MaskedPoints:
-    """:func:`hardcore_thin_masked` with the marks drawn uniform in [0, 1)
-    from ``generator`` (on the points' device)."""
-    marks = torch.rand((pts.capacity,), generator=generator, dtype=pts.points.dtype,
-                       device=pts.points.device)
-    return hardcore_thin_masked(pts, marks)
+def hardcore_thin_fixed(key: Tensor, pts: MaskedPoints) -> MaskedPoints:
+    """:func:`hardcore_thin_masked` with JAX's marks, ``uniform(key, (C,))``
+    in the points' dtype (``point_process.py:267-278``)."""
+    return hardcore_thin_masked(pts, jr.uniform(key, (pts.capacity,), pts.points.dtype))
 
 
-def thomas_fixed(generator: torch.Generator, region: tuple, parent_density: float,
-                 child_density: float, sigma: float, parent_capacity: int,
-                 children_per_parent: int, dtype=torch.float32, device=None) -> MaskedPoints:
+def thomas_fixed(key: Tensor, region: tuple, parent_density: float, child_density: float,
+                 sigma: float, parent_capacity: int, children_per_parent: int,
+                 dtype=torch.float32) -> MaskedPoints:
     """Thomas cluster process with static (parents x children) capacity:
     Poisson parents on the region grown by 4 sigma, Poisson-many
     N(parent, sigma) children each (capped at ``children_per_parent``), only
-    children inside ``region`` valid; radii are zero. Draws, in order, the
-    parent count, parent x, parent y, the child counts and the child
-    offsets from ``generator`` (on ``device``)."""
+    children inside ``region`` valid; radii are zero. JAX's draws from
+    JAX's key (``point_process.py:281-318``): ``k1, ..., k5 = split(key,
+    5)`` for the parent count, parent x, parent y, the child counts and the
+    child offsets."""
+    dev = key.device
     x_min, x_max, y_min, y_max = region
     ext = (x_min - 4 * sigma, x_max + 4 * sigma, y_min - 4 * sigma, y_max + 4 * sigma)
     area = (ext[1] - ext[0]) * (ext[3] - ext[2])
-    n_parents = torch.clamp(_poisson_count(generator, area * parent_density, (), device),
-                            max=parent_capacity)
-    pmask = torch.arange(parent_capacity, device=device) < n_parents
-    px = _uniform(generator, (parent_capacity,), ext[0], ext[1], dtype, device)
-    py = _uniform(generator, (parent_capacity,), ext[2], ext[3], dtype, device)
-    n_children = torch.clamp(_poisson_count(generator, child_density, (parent_capacity,), device),
+    k1, k2, k3, k4, k5 = jr.split(key, 5)
+    n_parents = torch.clamp(jr.poisson(k1, area * parent_density), max=parent_capacity)
+    pmask = torch.arange(parent_capacity, device=dev) < n_parents
+    px = jr.uniform(k2, (parent_capacity,), dtype, ext[0], ext[1])
+    py = jr.uniform(k3, (parent_capacity,), dtype, ext[2], ext[3])
+    n_children = torch.clamp(jr.poisson(k4, child_density, (parent_capacity,)),
                              max=children_per_parent)
-    cmask = ((torch.arange(children_per_parent, device=device)[None, :] < n_children[:, None])
+    cmask = ((torch.arange(children_per_parent, device=dev)[None, :] < n_children[:, None])
              & pmask[:, None])
-    noise = torch.randn((parent_capacity, children_per_parent, 2), generator=generator,
-                        dtype=dtype, device=device) * sigma
+    noise = jr.normal(k5, (parent_capacity, children_per_parent, 2), dtype) * sigma
     cx = px[:, None] + noise[..., 0]
     cy = py[:, None] + noise[..., 1]
     inside = (cx >= x_min) & (cx <= x_max) & (cy >= y_min) & (cy <= y_max)
     points = torch.stack([cx, cy], dim=-1).reshape(-1, 2)
     mask = (cmask & inside).reshape(-1)
-    return MaskedPoints(points, torch.zeros(points.shape[0], dtype=dtype, device=device), mask)
+    return MaskedPoints(points, torch.zeros(points.shape[0], dtype=dtype, device=dev), mask)

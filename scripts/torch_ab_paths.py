@@ -1,7 +1,7 @@
 """Time the PyTorch port's two host-bound paths for two checkouts in turns,
 on one NVIDIA GPU.
 
-    python3 scripts/torch_ab_paths.py --parent DIR [--out FILE]
+    python3 scripts/torch_ab_paths.py --parent DIR [--bench] [--out FILE]
 
 ``DIR`` holds an earlier checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``). The
@@ -18,8 +18,13 @@ before the timed region). A run drives:
   ``ms_per_sim_step`` = the episode's wall time over its steps, with its
   mean progress.
 
+With ``--bench`` a run is ``python3 bench_torch.py`` instead, and its
+line is kept whole.
+
 Each run prints one JSON line; all of them also go to ``FILE`` (default
-``build/ab_paths.json``).
+``build/ab_paths.json``). A checkout whose goal-seek takes a JAX key (the
+port since its noise became JAX's) gets ``key(seed)``, an earlier one a
+``torch.Generator`` seeded ``seed``.
 """
 
 from __future__ import annotations
@@ -43,6 +48,12 @@ from husky_rover_mppi_isaacsim_torch.mppi import (
 
 use_full_fp32_matmul()
 cuda = torch.device("cuda")
+try:  # a checkout whose noise is JAX's takes a key
+    from husky_rover_mppi_isaacsim_torch.mppi import loop_key  # noqa: F401
+    from husky_rover_mppi_isaacsim_torch.core.jax_random import key as jkey
+    noise_key = lambda seed: jkey(seed, cuda)
+except ImportError:
+    noise_key = lambda seed: torch.Generator(device=cuda).manual_seed(seed)
 hf, cm, _ = build_standalone_world({}, device=cuda)
 cfg = MPPIConfig(num_samples=1000, horizon=100)
 
@@ -50,10 +61,9 @@ def episode(max_loops, seed):
     robot = RobotState.create(-45.0, -40.0, (1.0, 0.5, 0.0), device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
     goal = torch.tensor((45.0, 40.0), device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(seed)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=max_loops)
+    res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, noise_key(seed), max_loops=max_loops)
     loops = int(res.loops)
     torch.cuda.synchronize()
     return res, loops, time.perf_counter() - t0
@@ -77,14 +87,16 @@ print(json.dumps({
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--bench", action="store_true", help="run bench_torch.py in each turn")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab_paths.json")
     args = ap.parse_args(argv)
     trees = {"parent": args.parent.resolve(), "this": ROOT}
     results = []
     for name in ("parent", "this", "this", "parent"):
         env = dict(os.environ, PYTHONPATH=str(trees[name]))
-        proc = subprocess.run([sys.executable, "-c", RUN], cwd=trees[name], env=env,
-                              capture_output=True, text=True, timeout=600)
+        cmd = ["bench_torch.py"] if args.bench else ["-c", RUN]
+        proc = subprocess.run([sys.executable, *cmd], cwd=trees[name], env=env,
+                              capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(proc.stderr[-4000:], file=sys.stderr)
             return proc.returncode

@@ -2,12 +2,13 @@
 on the CPU.
 
 The loops the bench replays are held against the JAX package, fed the same
-world, state and numpy noise (float64):
+world and state (float64):
 
 * ``control_loops``, 8 dependent loops of ``mppi_step`` +
-  ``kinematic_advance`` at K=64 x H=16, against a JAX ``lax.scan`` of
-  ``jc.mppi_step`` + ``jc.kinematic_advance`` over the same noise, loop by
-  loop, at tests/test_torch_controller.py's ``TOL``: the robot state within
+  ``kinematic_advance`` at K=64 x H=16 from a key alone, against bench.py's
+  ``lax.scan`` of ``jc.mppi_step`` + ``jc.kinematic_advance`` from the same
+  key (each loop's noise JAX's draw from the split key, within a few float64
+  ulps), loop by loop, at tests/test_torch_controller.py's ``TOL``: the robot state within
   its optimal trajectory's atol (1e-10; the robot stands on the trajectory's
   first point), the controller's optimal inputs within twice its weights'
   rtol (2e-11: a weighted mean of inputs in [-1, 1] whose weights agree to
@@ -41,6 +42,7 @@ import torch
 import bench_torch as bt
 from husky_rover_mppi_isaacsim_torch import convert
 from husky_rover_mppi_isaacsim_torch.cli import build_standalone_world
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jrand
 from husky_rover_mppi_isaacsim_torch.mppi.controller import MPPIConfig
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_tpu.core import HeightField as JHeightField
@@ -48,6 +50,7 @@ from husky_rover_mppi_isaacsim_tpu.env import largescale_loop as jls
 from husky_rover_mppi_isaacsim_tpu.env import rover_sim as jrs
 from husky_rover_mppi_isaacsim_tpu.env.closed_loop import ClosedLoopConfig as JLoopConfig
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
+from husky_rover_mppi_isaacsim_tpu.mppi import sampling as jsamp
 from husky_rover_mppi_isaacsim_tpu.terrain import crater_surface
 from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import LargeScaleConf as JLargeScaleConf
 
@@ -64,40 +67,43 @@ ROBOT_ATOL, CTRL_ATOL = TOL["optimal_trajectory"][1], 2 * TOL["weights"][0]
 
 
 @pytest.mark.parametrize("slope_critic", ["wheels", "body"])
-def test_control_loops_match_a_jax_scan(rng, slope_critic):
-    """The loops bench_control_loop replays, one call of 8, against JAX's
-    scan of the same 8 loops; a call of 8 loops is bit-equal to 8 calls of
-    one, so each loop's state is held against the scan's."""
+def test_control_loops_match_a_jax_scan(slope_critic):
+    """The loops bench_control_loop replays, one call of 8 from ``key(4)``
+    alone, against bench.py's scan of the same 8 loops from the same key
+    (``k, sub = split(k)``, the noise from ``sub``; float64, the noise
+    within a few ulps of JAX's); a call of 8 loops is bit-equal to 8 calls
+    of one carrying the key, so each loop's state is held against the
+    scan's."""
     (jhf, jcm), (thf, tcm) = _world()
     jcfg = jc.MPPIConfig(num_samples=K, horizon=H, exact=False, slope_critic=slope_critic)
     tcfg = convert.config_from_jax(jcfg)
-    (jr, jctrl), (tr, tctrl) = _states(jcfg, -10.0, -8.0, [1.0, 0.5, 0.0])
+    (jr_, jctrl), (tr, tctrl) = _states(jcfg, -10.0, -8.0, [1.0, 0.5, 0.0])
     goal = np.array([15.0, 12.0])
-    noises = rng.normal(size=(LOOPS, 2, K, H))
 
-    def body(carry, noise):
-        r, c = carry
+    def body(carry, _):
+        r, c, k = carry
+        k, sub = jax.random.split(k)
+        noise = jsamp.sample_noise(sub, K, H, jnp.float64)
         c, out = jc.mppi_step(jcfg, jhf, jcm, jnp.asarray(goal), r, c, noise)
         r = jc.kinematic_advance(jcfg, r, out)
-        return (r, c), (r, c)
+        return (r, c, k), (r, c)
 
-    _, (jrs_, jcs) = jax.jit(lambda r, c, n: jax.lax.scan(body, (r, c), n))(
-        jr, jctrl, jnp.asarray(noises))
+    _, (jrs_, jcs) = jax.jit(lambda r, c, k: jax.lax.scan(body, (r, c, k), None, length=LOOPS))(
+        jr_, jctrl, jax.random.key(4))
 
     tgoal = torch.from_numpy(goal)
-    tnoises = tuple(torch.from_numpy(n) for n in noises)
     before = rollout_25d_cuda.launches
-    r_all, c_all = bt.control_loops(tcfg, thf, tcm, tgoal, tr, tctrl, tnoises)
-    r, c = tr, tctrl
-    for i, noise in enumerate(tnoises):
-        r, c = bt.control_loops(tcfg, thf, tcm, tgoal, r, c, (noise,))
+    r_all, c_all, k_all = bt.control_loops(tcfg, thf, tcm, tgoal, tr, tctrl, jrand.key(4), LOOPS)
+    r, c, k = tr, tctrl, jrand.key(4)
+    for i in range(LOOPS):
+        r, c, k = bt.control_loops(tcfg, thf, tcm, tgoal, r, c, k, 1)
         for f, a in zip(r._fields, r):
             np.testing.assert_allclose(a.numpy(), np.asarray(getattr(jrs_, f))[i], rtol=0,
                                        atol=ROBOT_ATOL, err_msg=f"robot {f}, loop {i}")
         for f, a in zip(c._fields, c):
             np.testing.assert_allclose(a.numpy(), np.asarray(getattr(jcs, f))[i], rtol=0,
                                        atol=CTRL_ATOL, err_msg=f"controller {f}, loop {i}")
-    assert all(torch.equal(a, b) for a, b in zip(r_all + c_all, r + c))
+    assert all(torch.equal(a, b) for a, b in zip(r_all + c_all + (k_all,), r + c + (k,)))
     assert rollout_25d_cuda.launches == before  # CPU tensors: the plain rollout
     assert float(torch.linalg.norm(r.position - tr.position)) > 0.01  # the robot moved
 

@@ -3,8 +3,9 @@ loop's traverse checkpoints, against the JAX package's files.
 
 Leaves are stored under the same tree-path keys in both packages, so every
 shared leaf comes back EQUAL in either direction (the arrays are written and
-read as they are). The port's traverse file has one leaf more, the control
-noise generator's state, which the JAX package does not read.
+read as they are). The port's traverse file holds the JAX package's leaves
+and no more: the control noise of a chunk follows from the seed and the
+chunk index, in both packages.
 """
 
 import dataclasses
@@ -131,9 +132,8 @@ def test_port_traverse_file_restores_in_jax(tmp_path):
     tstate, tgoal = tloop._initial_state(), tloop._goal_ctrl()
     assert tloop.lstm.update_visual_mesh((12.0, 1.0))[0]
     tstate, _, _ = tloop._on_block_shift(tstate, tgoal, update_pos=(12.0, 1.0))
-    gen = torch.Generator().manual_seed(9)
-    tloop.save_checkpoint(tmp_path / "t.ckpt", tstate, 7, 42, [[9.7, 1.0]], gen)
-    assert tckpt.leaf_shapes(tmp_path / "t.ckpt")["generator"] == tuple(gen.get_state().shape)
+    tloop.save_checkpoint(tmp_path / "t.ckpt", tstate, 7, 42, [[9.7, 1.0]])
+    assert "generator" not in tckpt.leaf_shapes(tmp_path / "t.ckpt")
     jconf = loop_confs(False)[0]
     jback, info = jls.LargeScaleClosedLoop.resume(jconf, str(tmp_path / "t.ckpt"))
     for (k, a), (_, b) in zip(tckpt.flatten(tstate), tckpt.flatten(info["state"])):
@@ -144,9 +144,9 @@ def test_port_traverse_file_restores_in_jax(tmp_path):
     assert js.anchor == ts.anchor and (jback.block_x, jback.block_y) == (10.0, 0.0)
     assert js.rng.bit_generator.state == ts.rng.bit_generator.state
     assert (info["chunk_idx"], info["steps"]) == (7, 42)
-    # and the port resumes its own file with the generator's state
+    # and the port resumes its own file from what JAX's file holds
     tback, tinfo = tls.LargeScaleClosedLoop.resume(loop_confs(False)[1], tmp_path / "t.ckpt",
                                                    device="cpu")
-    assert torch.equal(tinfo["generator_state"], gen.get_state())
+    assert set(tinfo) == {"state", "chunk_idx", "steps", "path"}
     assert tback.lstm.map_manager.streamer.anchor == ts.anchor
     assert torch.equal(tback.hf.z, ts.window)

@@ -16,7 +16,7 @@ JAX package's CLI on the CPU.
 - the moonyard world of ``mode=standalone`` / ``closed_loop`` (lab and
   yard, one DEM injected into both): the same heightfield and free
   costmap; ``environment=lunaryard_20m mode=closed_loop`` at a small K and
-  H with JAX's noise replayed, free-running: paths held to the streamed
+  H, both from the same key, free-running: paths held to the streamed
   loop's free-running bound, FREE_RUN_M = 0.5 m
   (tests/test_torch_largescale.py).
 """
@@ -34,7 +34,6 @@ from husky_rover_mppi_isaacsim_torch import env as tenv
 from husky_rover_mppi_isaacsim_torch.terrain import smallscale as tss
 from husky_rover_mppi_isaacsim_tpu import cli as jcli
 from husky_rover_mppi_isaacsim_tpu import env as jenv
-from husky_rover_mppi_isaacsim_tpu.mppi import sampling as jsamp
 from husky_rover_mppi_isaacsim_tpu.terrain import smallscale as jss
 
 from test_torch_labeling import HIT_SHARE, SHADE_ATOL, _assert_depths, _assert_rgb
@@ -165,8 +164,8 @@ SMALL_LOOP = ["mode=closed_loop", "environment=lunaryard_20m", "mppi.num_samples
 
 def test_yard_closed_loop_follows_jax(monkeypatch, capsys):
     """``environment=lunaryard_20m mode=closed_loop`` through both CLIs on
-    one injected DEM, with JAX's noise (``key(0)``, split per step) replayed
-    in the port: the free-running paths stay within FREE_RUN_M."""
+    one injected DEM, both drawing their noise from ``key(0)``, split per
+    step: the free-running paths stay within FREE_RUN_M."""
     env = _section("lunaryard_20m")
     dem = tss.MoonyardGenerator(cli.moonyard_conf(env["moonyard"]), device="cpu").randomize()
     _inject(monkeypatch, [dem.numpy()] * 2)
@@ -175,31 +174,24 @@ def test_yard_closed_loop_follows_jax(monkeypatch, capsys):
 
     def jax_episode(cfg, hf, cm, goals, state, key, num_steps, record_every=1):
         caught["j"] = out = j_episode(cfg, hf, cm, goals, state, key, num_steps, record_every)
-        caught.update(cfg=cfg, key=key, dtype=state.rovers.position.dtype)
+        caught.update(key=key)
         return out
 
     monkeypatch.setattr(jenv, "run_episode", jax_episode)
     assert jcli.main(SMALL_LOOP) == 0
     want = _last_json(capsys)
 
-    n, m = 2, caught["cfg"].mppi
-    draws = []
-    for k in jax.random.split(caught["key"], 40):
-        k_noise, _ = jax.random.split(k)
-        d = jsamp.sample_noise(k_noise, n * m.num_samples, m.horizon, caught["dtype"])
-        draws.append(torch.from_numpy(np.array(
-            d.reshape(2, n, m.num_samples, m.horizon).transpose(1, 0, 2, 3))))
-    noise = iter(draws)
-
-    def port_episode(cfg, hf, cm, goals, state, gen, num_steps, record_every=1):
-        caught["t"] = out = t_episode(cfg, hf, cm, goals, state, gen, num_steps, record_every,
-                                      noise_source=lambda: next(noise))
+    def port_episode(cfg, hf, cm, goals, state, key, num_steps, record_every=1):
+        caught["t"] = out = t_episode(cfg, hf, cm, goals, state, key, num_steps, record_every)
+        caught.update(tkey=key)
         return out
 
     monkeypatch.setattr(cli, "run_episode", port_episode)
     assert cli.main(SMALL_LOOP + ["device=cpu"]) == 0
     got = _last_json(capsys)
     assert set(got) == set(want) | {"device"}
+    np.testing.assert_array_equal(caught["tkey"].numpy(),
+                                  np.asarray(jax.random.key_data(caught["key"])))
     jpath, tpath = np.asarray(caught["j"][1]), caught["t"][1].numpy()
     assert tpath.shape == jpath.shape == (40, 2, 2) and np.isfinite(tpath).all()
     assert np.abs(tpath - jpath).max() <= FREE_RUN_M

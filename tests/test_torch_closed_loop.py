@@ -1,12 +1,15 @@
 """PyTorch port: the batched control step against ``jax.vmap`` of the JAX
-step, the N-rover closed loop against the JAX one with JAX's noise
-replayed, and ``cli mode=closed_loop`` on the CPU (float64 unless stated).
+step, the N-rover closed loop against the JAX one, with JAX's noise
+replayed and, from a key alone, with the port's own draws of JAX's stream,
+and ``cli mode=closed_loop`` on the CPU (float64 unless stated).
 
 Tolerances: the batched step takes those of tests/test_torch_controller.py
 (costs rtol 1e-12; weights rtol 1e-11 above 1e-20; velocities and optimal
 inputs 1e-12; trajectories 1e-10). Chained closed-loop steps stay within
 1e-9 (positions, headings, wheel and PI state) over 7 steps: each step
-feeds the last one's rounding back through the rollouts.
+feeds the last one's rounding back through the rollouts. From a key alone
+the port draws JAX's float64 noise within a few units in the last place
+(tests/test_torch_jax_normal.py), far inside those tolerances.
 """
 
 import functools
@@ -20,6 +23,7 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
 from husky_rover_mppi_isaacsim_torch import env as tenv
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
 from husky_rover_mppi_isaacsim_torch.mppi import sampling as tsamp
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
@@ -154,6 +158,11 @@ def _jax_noise(key, cfg, n):
         draw.reshape(2, n, m.num_samples, m.horizon).transpose(1, 0, 2, 3)))
 
 
+def _tkey(key):
+    """A JAX key as the port's key data (``core.jax_random``)."""
+    return torch.from_numpy(np.asarray(jax.random.key_data(key)).astype(np.int64))
+
+
 def _compare_loop_states(ts, js, what):
     for name in ("latched_left", "latched_right", "stored_left", "stored_right", "err_total"):
         _close(getattr(ts, name), getattr(js, name), 0, LOOP_ATOL, f"{what}: {name}")
@@ -166,8 +175,8 @@ def _compare_loop_states(ts, js, what):
 
 @pytest.mark.parametrize("exact", [False, True], ids=["matmul", "exact"])
 def test_seven_closed_loop_steps_match_jax(exact):
-    """Seven chained sim steps (latches at 0, 3, 6) for N=3 rovers, JAX's
-    noise replayed."""
+    """Seven chained sim steps (latches at 0, 3, 6) for N=3 rovers, each
+    from JAX's step key."""
     n = 3
     (jhf, jcm), (thf, tcm), jcfg, tcfg = _loop_world_and_config(n, exact=exact)
     starts = np.array([[-8.0, -6.0], [-6.0, 6.0], [6.0, -8.0]])
@@ -183,33 +192,41 @@ def test_seven_closed_loop_steps_match_jax(exact):
     for i in range(7):
         key, sub = jax.random.split(key)
         js = jstep(js, sub)
-        ts = tenv.closed_loop_step(tcfg, thf, tcm, torch.from_numpy(goals), ts,
-                                   noise=_jax_noise(sub, jcfg, n))
+        ts = tenv.closed_loop_step(tcfg, thf, tcm, torch.from_numpy(goals), ts, _tkey(sub))
         _compare_loop_states(ts, js, f"step {i}")
 
 
 def test_loop_noise_is_the_jax_layout():
-    """One (2, N*K, H) draw; rover r's sample s is row r*K + s of it, as in
-    ``closed_loop.py:126-128``; a step that draws from the generator equals
-    the step given that draw."""
+    """One (2, N*K, H) draw from ``k_noise``; rover r's sample s is row r*K
+    + s of it, as in ``closed_loop.py:125-128``, and the draw is JAX's; a
+    step from a key taken down a path equals the step from the key the
+    path derives."""
     n, k, h = 3, 5, 4
     cfg = tc.MPPIConfig(num_samples=k, horizon=h)
-    flat = tsamp.sample_noise(torch.Generator().manual_seed(9), n * k, h)
-    got = tenv.loop_noise(torch.Generator().manual_seed(9), cfg, n)
+    key = jr.key(9)
+    flat = tsamp.sample_noise(jr.split(key)[0], n * k, h)
+    got = tenv.step_noise(key, cfg, n)
     assert got.shape == (n, 2, k, h)
     for r in range(n):
         assert torch.equal(got[r], flat[:, r * k:(r + 1) * k])
+    jcfg = jenv.ClosedLoopConfig(mppi=jc.MPPIConfig(num_samples=k, horizon=h))
+    with jax.enable_x64(False):
+        want = jax.random.normal(jax.random.split(jax.random.key(9))[0], (2, n * k, h))
+    assert torch.equal(flat, torch.from_numpy(np.array(want)))
+    np.testing.assert_allclose(tenv.step_noise(key, cfg, n, torch.float64).numpy(),
+                               _jax_noise(jax.random.key(9), jcfg, n).numpy(), rtol=0,
+                               atol=1e-14)
 
     (_, _), (thf, tcm), _, tcfg = _loop_world_and_config(n, k=k, h=h)
     starts = np.array([[-3.0, 1.0], [2.0, 2.0], [0.0, -4.0]])
     state = tenv.init_loop_state(tcfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], thf),
                                  torch.float64)
     goals = torch.from_numpy(-starts)
-    drawn = tenv.closed_loop_step(tcfg, thf, tcm, goals, state,
-                                  torch.Generator().manual_seed(4))
-    noise = tenv.loop_noise(torch.Generator().manual_seed(4), tcfg.mppi, n, torch.float64)
-    given = tenv.closed_loop_step(tcfg, thf, tcm, goals, state, noise=noise)
-    for a, b in zip(drawn.rovers + drawn.ctrl, given.rovers + given.ctrl):
+    path = (("fold_in", 3), ("split", 2, 1))
+    drawn = tenv.closed_loop_step(tcfg, thf, tcm, goals, state, jr.key(4), path)
+    derived = tenv.closed_loop_step(tcfg, thf, tcm, goals, state,
+                                    jr.split(jr.fold_in(jr.key(4), 3))[1])
+    for a, b in zip(drawn.rovers + drawn.ctrl, derived.rovers + derived.ctrl):
         assert torch.equal(a, b)
 
 
@@ -220,11 +237,11 @@ def test_latch_and_pi_semantics():
     state = tenv.init_loop_state(tcfg, tenv.RoverState.create(np.zeros((1, 2)), [1.0, 0.0, 0.0],
                                                              thf), torch.float64)
     goals = torch.tensor([[5.0, 0.0]], dtype=torch.float64)
-    gen = torch.Generator().manual_seed(1)
+    keys = jr.split(jr.key(1), 7)
     latched = []
     for i in range(7):
         prev = state
-        state = tenv.closed_loop_step(tcfg, thf, tcm, goals, state, gen)
+        state = tenv.closed_loop_step(tcfg, thf, tcm, goals, state, keys[i])
         latched.append(float(state.latched_left[0]))
         ang_cmd = (state.stored_right - state.stored_left) / tcfg.mppi.robot_radius
         err = prev.rovers.yaw_rate - ang_cmd
@@ -235,13 +252,13 @@ def test_latch_and_pi_semantics():
     assert latched[0] == latched[1] == latched[2]
     assert latched[3] == latched[4] == latched[5]
     assert state.step_index == 7
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(TypeError, match="key"):
         tenv.closed_loop_step(tcfg, thf, tcm, goals, state)
 
 
 def test_run_episode_matches_jax():
-    """A short episode (5 steps, every 2nd position recorded), JAX's
-    per-step keys replayed."""
+    """A short episode (5 steps, every 2nd position recorded) from JAX's
+    episode key."""
     n, steps = 2, 5
     (jhf, jcm), (thf, tcm), jcfg, tcfg = _loop_world_and_config(n)
     starts = np.array([[-4.0, 3.0], [5.0, -2.0]])
@@ -251,19 +268,42 @@ def test_run_episode_matches_jax():
     key = jax.random.key(3)
     js, jpath = jenv.run_episode(jcfg, jhf, jcm, jnp.asarray(goals), js, key, steps,
                                  record_every=2)
-    noise = iter([_jax_noise(k, jcfg, n) for k in jax.random.split(key, steps)])
     ts = tenv.init_loop_state(tcfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], thf),
                               torch.float64)
-    ts, tpath = tenv.run_episode(tcfg, thf, tcm, torch.from_numpy(goals), ts, None, steps,
-                                 record_every=2, noise_source=lambda: next(noise))
+    ts, tpath = tenv.run_episode(tcfg, thf, tcm, torch.from_numpy(goals), ts, _tkey(key), steps,
+                                 record_every=2)
     assert tuple(tpath.shape) == jpath.shape == (3, n, 2)
+    _close(tpath, jpath, 0, LOOP_ATOL, "path")
+    _compare_loop_states(ts, js, "final")
+
+
+@pytest.mark.parametrize("slip_std", [0.0, 0.05], ids=["no_slip", "slip"])
+def test_run_episode_from_a_key_matches_jax(slip_std):
+    """``run_episode`` of N=2 rovers over 6 steps from ``key(3)`` alone, no
+    noise injected: the port splits the key per step, draws the noise and
+    the wheel slip from each step's key, and follows JAX's episode from the
+    same key at the chained steps' 1e-9."""
+    n, steps = 2, 6
+    (jhf, jcm), (thf, tcm) = _world()
+    jcfg = jenv.ClosedLoopConfig(mppi=jc.MPPIConfig(num_samples=16, horizon=12),
+                                 rover=jenv.RoverParams(wheel_tau=0.03, slip_std=slip_std))
+    tcfg = convert.closed_loop_config_from_jax(jcfg)
+    starts = np.array([[-4.0, 3.0], [5.0, -2.0]])
+    goals = np.array([[4.0, -3.0], [-5.0, 2.0]])
+    js = jenv.init_loop_state(jcfg, jenv.RoverState.create(starts, [1.0, 0.0, 0.0], jhf),
+                              jnp.float64)
+    js, jpath = jenv.run_episode(jcfg, jhf, jcm, jnp.asarray(goals), js, jax.random.key(3),
+                                 steps)
+    ts = tenv.init_loop_state(tcfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], thf),
+                              torch.float64)
+    ts, tpath = tenv.run_episode(tcfg, thf, tcm, torch.from_numpy(goals), ts, jr.key(3), steps)
     _close(tpath, jpath, 0, LOOP_ATOL, "path")
     _compare_loop_states(ts, js, "final")
 
 
 def test_closed_loop_multi_rover_progress():
     """N rovers with individual goals all make progress (tests/test_env.py's
-    check, float32, noise from a torch.Generator)."""
+    check, float32, noise from ``key(0)``)."""
     from husky_rover_mppi_isaacsim_torch.core import HeightField
     from husky_rover_mppi_isaacsim_torch.terrain import as_costmap as t_as_costmap
     from husky_rover_mppi_isaacsim_torch.terrain import crater_surface as t_crater
@@ -276,8 +316,7 @@ def test_closed_loop_multi_rover_progress():
     config = tenv.ClosedLoopConfig(mppi=tc.MPPIConfig(num_samples=128, horizon=40),
                                    rover=tenv.RoverParams(wheel_tau=0.03))
     state = tenv.init_loop_state(config, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
-    state, path = tenv.run_episode(config, hf, cm, goals, state,
-                                   torch.Generator().manual_seed(0), num_steps=240)
+    state, path = tenv.run_episode(config, hf, cm, goals, state, jr.key(0), num_steps=240)
     d0 = np.linalg.norm(starts - goals.numpy(), axis=-1)
     d1 = tenv.goal_distances(state.rovers.position, goals).numpy()
     assert np.all(d1 < d0 - 1.0), (d0, d1)

@@ -1,6 +1,7 @@
 """PyTorch port: the control step and the goal-seek loop against the JAX
 package, fed the same world, state and numpy noise (float64, at the
-tolerances of tests/test_controller.py:100-107)."""
+tolerances of tests/test_controller.py:100-107), and the goal-seek from a
+key alone against JAX's from the same key (``SEEK_ATOL``)."""
 
 import dataclasses
 
@@ -11,10 +12,12 @@ import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_tpu.core import HeightField as JHeightField
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
+from husky_rover_mppi_isaacsim_tpu.mppi import sampling as jsamp
 from husky_rover_mppi_isaacsim_tpu.terrain import as_costmap, crater_surface
 
 # small tensors: one intra-op thread each, so that the test workers running
@@ -133,30 +136,30 @@ def test_kinematic_advance_and_std_update(rng):
 
 @pytest.mark.parametrize("start,max_loops", [((-4.0, -3.0), 9), ((3.35, 2.6), 40)],
                          ids=["capped", "reaches"])
-def test_goal_seek_recorded_matches_jax_loop(rng, start, max_loops):
-    """The masked-unroll loop with injected noise against a plain loop of
-    JAX mppi_step + kinematic_advance with the same noise sequence."""
+def test_goal_seek_recorded_matches_jax_loop(start, max_loops):
+    """The masked-unroll loop from ``key(7)`` against a plain loop of JAX
+    mppi_step + kinematic_advance, each loop's noise drawn by JAX from
+    ``sub`` of ``key, sub = split(key)``."""
     (jhf, jcm), (thf, tcm) = _world()
     jcfg = jc.MPPIConfig(num_samples=16, horizon=12)
     tcfg = convert.config_from_jax(jcfg)
-    (jr, jctrl), (tr, tctrl) = _states(jcfg, *start, [1.0, 0.8, 0.0])
+    (jrob, jctrl), (trob, tctrl) = _states(jcfg, *start, [1.0, 0.8, 0.0])
     goal = np.array([4.0, 3.0])
-    noise = [rng.normal(size=(2, 16, 12)) for _ in range(max_loops + 4)]
 
     positions, velocities = [], []
+    key = jax.random.key(7)
     for n in range(max_loops):
-        if np.all(np.abs(np.asarray(jr.position) - goal) <= 0.5):
+        if np.all(np.abs(np.asarray(jrob.position) - goal) <= 0.5):
             break
-        jctrl, out = _jstep(jcfg, jhf, jcm, jnp.asarray(goal), jr, jctrl,
-                                  jnp.asarray(noise[n]))
-        jr = _jadvance(jcfg, jr, out)
-        positions.append([*np.asarray(jr.position), float(jr.z)])
+        key, sub = jax.random.split(key)
+        noise = jsamp.sample_noise(sub, 16, 12, jnp.float64)
+        jctrl, out = _jstep(jcfg, jhf, jcm, jnp.asarray(goal), jrob, jctrl, noise)
+        jrob = _jadvance(jcfg, jrob, out)
+        positions.append([*np.asarray(jrob.position), float(jrob.z)])
         velocities.append(float(out.linear_velocity))
 
-    it = iter(noise)
-    res = tc.goal_seek_recorded(tcfg, thf, tcm, torch.from_numpy(goal), tr, tctrl, None,
-                                max_loops=max_loops, unroll=4,
-                                noise_source=lambda: torch.from_numpy(next(it)))
+    res = tc.goal_seek_recorded(tcfg, thf, tcm, torch.from_numpy(goal), trob, tctrl, jr.key(7),
+                                max_loops=max_loops, unroll=4)
     loops = int(res.loops)
     assert loops == len(positions)
     assert bool(res.reached) == (loops < max_loops)
@@ -164,7 +167,7 @@ def test_goal_seek_recorded_matches_jax_loop(rng, start, max_loops):
     assert res.positions.shape == (max_loops, 3)
     np.testing.assert_allclose(res.positions[:loops].numpy(), np.array(positions), atol=1e-10)
     np.testing.assert_allclose(res.velocities[:loops].numpy(), np.array(velocities), atol=1e-12)
-    for a, b in zip(res.robot, jr):
+    for a, b in zip(res.robot, jrob):
         _close(a, b, 0, 1e-10, "final robot")
     for a, b in zip(res.ctrl, jctrl):
         _close(a, b, 0, 1e-12, "final controller")
@@ -173,7 +176,8 @@ def test_goal_seek_recorded_matches_jax_loop(rng, start, max_loops):
 
 
 def test_goal_seek_with_generator_reaches_goal():
-    """Float32 goal-seek with noise drawn from a torch.Generator."""
+    """Float32 goal-seek with noise drawn from ``key(0)``; without a key it
+    refuses to run."""
     hw = 25.0
     from husky_rover_mppi_isaacsim_torch.terrain import as_costmap as t_as_costmap
     from husky_rover_mppi_isaacsim_torch.terrain import crater_surface as t_crater
@@ -183,13 +187,46 @@ def test_goal_seek_with_generator_reaches_goal():
     cfg = tc.MPPIConfig(num_samples=128, horizon=30)
     robot = tc.RobotState.create(-1.0, -0.5, [1.0, 0.2, 0.0])
     res = tc.goal_seek(cfg, hf, cm, torch.tensor([1.0, 0.5]), robot,
-                       tc.ControllerState.create(cfg, initial_u=1.0),
-                       torch.Generator().manual_seed(0), max_loops=200)
+                       tc.ControllerState.create(cfg, initial_u=1.0), jr.key(0), max_loops=200)
     assert bool(res.reached), (res.robot.position, int(res.loops))
     assert 0 < int(res.loops) < 200
-    with pytest.raises(ValueError, match="generator"):
+    with pytest.raises(TypeError, match="key"):
         tc.goal_seek(cfg, hf, cm, torch.tensor([1.0, 0.5]), robot,
-                     tc.ControllerState.create(cfg), None, max_loops=1)
+                     tc.ControllerState.create(cfg), max_loops=1)
+
+
+# goal-seek from a key against JAX's from the same key (float64): the port
+# draws JAX's normals within a few float64 ulps (tests/test_torch_jax_normal.py)
+# and XLA rounds the jitted loop's products otherwise than torch; measured
+# <= 1.4e-14 m on the positions and 2.9e-14 m/s on the velocities over 44
+# loops. 1e-9 leaves room for a sample whose wheel-track cell flips, as the
+# chained-step tests allow
+SEEK_ATOL = 1e-9
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_goal_seek_recorded_from_a_key_matches_jax(seed):
+    """``goal_seek_recorded`` from ``key(seed)`` alone, no noise injected,
+    over 44 loops (every loop splits the key, masked ones too): the loop
+    count, the recorded positions and velocities and the final state equal
+    JAX's ``goal_seek_recorded`` from the same key at ``SEEK_ATOL``."""
+    (jhf, jcm), (thf, tcm) = _world()
+    jcfg = jc.MPPIConfig(num_samples=16, horizon=12)
+    tcfg = convert.config_from_jax(jcfg)
+    (jrob, jctrl), (trob, tctrl) = _states(jcfg, -4.0, -3.0, [1.0, 0.8, 0.0])
+    goal = np.array([14.0, 11.0])
+    want = jax.jit(jc.goal_seek_recorded, static_argnums=(0, 7, 8))(
+        jcfg, jhf, jcm, jnp.asarray(goal), jrob, jctrl, jax.random.key(seed), 44, 4)
+    got = tc.goal_seek_recorded(tcfg, thf, tcm, torch.from_numpy(goal), trob, tctrl,
+                                jr.key(seed), max_loops=44, unroll=4)
+    loops = int(got.loops)
+    assert loops == int(want.loops) == 44 and bool(got.reached) == bool(want.reached)
+    np.testing.assert_allclose(got.positions.numpy(), np.asarray(want.positions), rtol=0,
+                               atol=SEEK_ATOL)
+    np.testing.assert_allclose(got.velocities.numpy(), np.asarray(want.velocities), rtol=0,
+                               atol=SEEK_ATOL)
+    for a, b in zip(got.robot + got.ctrl, tuple(want.robot) + tuple(want.ctrl)):
+        _close(a, b, 0, SEEK_ATOL, "final state")
 
 
 def test_config_from_jax_reads_every_field():

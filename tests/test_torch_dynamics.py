@@ -1,11 +1,13 @@
 """PyTorch port: wheel-lag dynamics and input sampling against the JAX
 package (float64, 1e-12) and the numpy seed stream (equal)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.dynamics import skid_steer as tss
 from husky_rover_mppi_isaacsim_torch.mppi import sampling as tsamp
 from husky_rover_mppi_isaacsim_tpu.dynamics import skid_steer as jss
@@ -77,13 +79,23 @@ def test_loop_seed_sequence_equals_jax(horizon, seed):
 
 
 def test_sample_noise_generator_stream():
-    draw = lambda s: tsamp.sample_noise(torch.Generator().manual_seed(s), 500, 40)  # noqa: E731
+    """``sample_noise`` is ``jax.random.normal(key, (2, K, H))``: float32
+    bit for bit, float64 within 1e-14; ``loop_key`` is JAX's; a key repeats
+    its draw and another key draws otherwise."""
+    draw = lambda s: tsamp.sample_noise(jr.key(s), 500, 40)  # noqa: E731
     n = draw(3)
     assert n.shape == (2, 500, 40) and n.dtype == torch.float32
     assert torch.equal(n, draw(3)) and not torch.equal(n, draw(4))
-    assert abs(float(n.mean())) < 0.02 and abs(float(n.std()) - 1.0) < 0.02
-    n64 = tsamp.sample_noise(torch.Generator().manual_seed(3), 4, 5, dtype=torch.float64)
+    np.testing.assert_array_equal(
+        n.numpy(), np.asarray(jsamp.sample_noise(jax.random.key(3), 500, 40, jnp.float32)))
+    n64 = tsamp.sample_noise(jr.key(3), 4, 5, dtype=torch.float64)
     assert n64.dtype == torch.float64
+    np.testing.assert_allclose(n64.numpy(), np.asarray(
+        jsamp.sample_noise(jax.random.key(3), 4, 5, jnp.float64)), rtol=0, atol=1e-14)
+    for seed in (43, 517, 999):
+        k = tsamp.loop_key(jr.key(42), seed)
+        np.testing.assert_array_equal(k.numpy(), np.asarray(jax.random.key_data(
+            jsamp.loop_key(jax.random.key(42), seed))).astype(np.int64))
 
 
 def test_input_limits_and_drive_limits_defaults_match_jax():

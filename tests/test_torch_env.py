@@ -17,6 +17,7 @@ import torch
 from husky_rover_mppi_isaacsim_torch import convert
 from husky_rover_mppi_isaacsim_torch import env as tenv
 from husky_rover_mppi_isaacsim_torch.core import HeightField
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.core import heightfield as thf_ops
 from husky_rover_mppi_isaacsim_torch.env import rover_sim as trs
 from husky_rover_mppi_isaacsim_torch.terrain import crater_surface as t_crater
@@ -102,21 +103,31 @@ def test_step_float32_follows_its_dtype():
 
 
 def test_slip_from_generator_equals_injected_normals():
-    """Slip draws (2, N) normals from the generator; injecting the same
-    draws gives the same step, and slip_std=0 or no source means no slip."""
-    hf = HeightField.create(t_crater(128, 20.0, CRATER[:1]), 20.0)
-    state = trs.RoverState.create(np.zeros((3, 2)), [1.0, 0.0, 0.0], hf)
+    """Slip draws JAX's two normals from ``k1, k2 = split(key)``
+    (rover_sim.py:99-101): the step equals JAX's step from the same key
+    (float64: the draws within a few ulp of JAX's), a key taken down a
+    path equals that path's key given, and slip_std=0 or no key means no
+    slip."""
+    hf = HeightField.create(t_crater(128, 20.0, CRATER[:1]), 20.0, dtype=torch.float64)
+    jhf = JHeightField.create(jnp.asarray(hf.z.numpy()), 20.0, dtype=jnp.float64)
+    starts = np.array([[0.0, 0.0], [1.0, -2.0], [-3.0, 1.5]])
+    state = trs.RoverState.create(starts, [1.0, 0.0, 0.0], hf)
+    jstate = jrs.RoverState.create(starts, [1.0, 0.0, 0.0], jhf)
     params = trs.RoverParams(slip_std=0.2)
-    cmd = torch.full((3,), 1.0)
-    a = trs.step(params, hf, state, cmd, cmd, generator=torch.Generator().manual_seed(5))
-    normals = torch.randn((2, 3), generator=torch.Generator().manual_seed(5))
-    b = trs.step(params, hf, state, cmd, cmd, slip_normals=normals)
-    for x, y in zip(a, b):
+    cmd = torch.full((3,), 1.0, dtype=torch.float64)
+    a = trs.step(params, hf, state, cmd, cmd, key=jr.key(5))
+    want = jrs.step(jrs.RoverParams(slip_std=0.2), jhf, jstate, jnp.asarray(cmd.numpy()),
+                    jnp.asarray(cmd.numpy()), jax.random.key(5))
+    for f, x, y in zip(a._fields, a, want):
+        _close(x, y, 1e-12, f)
+    b = trs.step(params, hf, state, cmd, cmd, key=jr.key(7), path=(("split", 3, 2),))
+    c = trs.step(params, hf, state, cmd, cmd, key=jr.split(jr.key(7), 3)[2])
+    for x, y in zip(b, c):
         assert torch.equal(x, y)
     plain = trs.step(params, hf, state, cmd, cmd)
     assert not torch.equal(a.wheel_left, plain.wheel_left)
     assert torch.equal(plain.wheel_left, trs.step(trs.RoverParams(), hf, state, cmd, cmd,
-                                                  generator=torch.Generator()).wheel_left)
+                                                  key=jr.key(5)).wheel_left)
 
 
 def test_contact_forces_match_jax(rng):

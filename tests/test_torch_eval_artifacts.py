@@ -7,7 +7,8 @@ are of consistency, not of direction: each table is its protocol's, every
 run is counted once, the summary is the one ``thesis_runs.arm_summary``
 gives, every recorded trace was finite; the r05 and calibration tables'
 terrain is the JAX package's (its statistics equal to ``EVAL_r05.json``'s
-and ``EVAL_R05_CALIB.json``'s). Which arm wins is not asserted."""
+and ``EVAL_R05_CALIB.json``'s), and each run drew JAX's control noise
+from its key. Which arm wins is not asserted."""
 
 import json
 import re
@@ -40,6 +41,15 @@ def test_r05_names_an_nvidia_card_and_its_power_limit(r05):
     device = r05["config"]["device"]
     assert "NVIDIA" in device["name"]
     assert re.fullmatch(r"\d+(\.\d+)? W", device["power_limit"]), device
+
+
+@pytest.mark.parametrize("name", ["EVAL_torch_r05.json", "EVAL_torch_R05_CALIB.json",
+                                  "EVAL_torch_r04.json"])
+def test_tables_draw_jax_control_noise(name):
+    """The three thesis tables were run with JAX's noise streams: each run's
+    control noise drawn from ``key(seed * 1000 + run)``."""
+    config = json.loads((REPO / name).read_text())["config"]
+    assert config["control_noise"] == "jax"
 
 
 def test_r05_counts_every_run_once(r05):

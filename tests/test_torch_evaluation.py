@@ -2,11 +2,12 @@
 (mppi/evaluation.py, cli.py ``mode=evaluation``) against the JAX package.
 
 Both experiment functions run as a whole at small size in float64 (a 20 m
-map, K=16, H=12, two runs per arm) with the terrain's base noise and each
-run's control noise injected, against the same protocol assembled here from
-JAX pieces:
+map, K=16, H=12, two runs per arm) with the terrain's base noise injected,
+each run drawing its control noise from its key, against the same protocol
+assembled here from JAX pieces (and one run of each arm against JAX's
+goal-seek from the same key):
 the JAX terrain and ``costmap_750``, a loop of jitted JAX ``mppi_step`` +
-``kinematic_advance`` per run with the same noise (as in
+``kinematic_advance`` per run drawing from the run's key (as in
 tests/test_torch_controller.py), and JAX ``thesis_rescore`` /
 ``rescore_trajectory`` with the aggregation. Integer fields are equal. Float
 fields of the episode protocol are held to ``EPISODE_RTOL`` = 1e-10 (its
@@ -37,6 +38,7 @@ from husky_rover_mppi_isaacsim_tpu.core import HeightField as JHeightField
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
 from husky_rover_mppi_isaacsim_tpu.mppi import critics as jcrit
 from husky_rover_mppi_isaacsim_tpu.mppi import evaluation as jev
+from husky_rover_mppi_isaacsim_tpu.mppi import sampling as jsamp
 from husky_rover_mppi_isaacsim_tpu.terrain import (
     STANDALONE_CRATER_BUMPS,
     as_costmap,
@@ -156,27 +158,17 @@ def test_thesis_pairs_follow_the_jax_draw():
 
 # -- the experiments as a whole ----------------------------------------------
 
-def _noises(seed, max_loops):
-    rng = np.random.default_rng(seed)
-    return [[rng.normal(size=(2, K, H)) for _ in range(max_loops + 4)] for _ in range(RUNS)]
-
-
-def _port_noise(noises):
-    def for_run(k, run_idx):
-        assert k == K
-        it = iter(noises[run_idx])
-        return lambda: torch.from_numpy(next(it))
-    return for_run
-
-
-def _jax_episode(jcfg, jhf, jcm, goal, jr, jctrl, noise, max_loops):
-    """goal_seek_recorded's semantics as a plain loop of JAX steps."""
+def _jax_episode(jcfg, jhf, jcm, goal, jr, jctrl, key, max_loops):
+    """goal_seek_recorded's semantics as a plain loop of JAX steps, each
+    loop's noise drawn from ``sub`` of ``key, sub = split(key)``."""
     goal = np.asarray(goal)
     positions, velocities = [], []
     for n in range(max_loops):
         if np.all(np.abs(np.asarray(jr.position) - goal) <= 0.5):
             break
-        jctrl, out = _jstep(jcfg, jhf, jcm, jnp.asarray(goal), jr, jctrl, jnp.asarray(noise[n]))
+        key, sub = jax.random.split(key)
+        noise = jsamp.sample_noise(sub, jcfg.num_samples, jcfg.horizon, jnp.float64)
+        jctrl, out = _jstep(jcfg, jhf, jcm, jnp.asarray(goal), jr, jctrl, noise)
         jr = _jadvance(jcfg, jr, out)
         positions.append([*np.asarray(jr.position), float(jr.z)])
         velocities.append(float(out.linear_velocity))
@@ -199,11 +191,10 @@ def _close(got, want, rtol, path=""):
 
 def test_episode_protocol_matches_jax():
     max_loops, seed, span = 45, 1, 0.1
-    noises = _noises(11, max_loops)
     got = tev.run_2d_vs_3d_experiment(
         ks=(K,), runs_per_arm=RUNS, horizon=H, max_loops=max_loops, half_width=HW,
         grid_size=200, costmap_size=100, seed=seed, span_fraction=span,
-        dtype=torch.float64, device="cpu", noise=_port_noise(noises))
+        dtype=torch.float64, device="cpu")
 
     jhf = JHeightField.create(crater_surface(200, HW, STANDALONE_CRATER_BUMPS,
                                              dtype=jnp.float64), HW, dtype=jnp.float64)
@@ -223,8 +214,9 @@ def test_episode_protocol_matches_jax():
         for run_idx, (start, goal) in enumerate(pairs):
             jr = jc.RobotState.create(start[0], start[1], [1.0, 0.0, 0.0], dtype=jnp.float64)
             jctrl = jc.ControllerState.create(jcfg, jnp.float64)
-            loops, reached, pos, vel = _jax_episode(jcfg, jhf, jcm, goal, jr, jctrl,
-                                                    noises[run_idx], max_loops)
+            loops, reached, pos, vel = _jax_episode(
+                jcfg, jhf, jcm, goal, jr, jctrl, jax.random.key(seed * 1000 + run_idx),
+                max_loops)
             log = jev.TrajectoryLog(run_idx, pos, vel, tuple(start), tuple(goal))
             scores[proj].append(jev.rescore_trajectory(log, jcm,
                                                        horizon_m=float(jcfg.horizon_m)))
@@ -240,6 +232,41 @@ def test_episode_protocol_matches_jax():
     assert got["per_k"][K]["finite"] == {"3d": True, "2d": True}
 
 
+@pytest.mark.parametrize("projection", ["3d", "2d"])
+def test_evaluation_run_from_its_seed_matches_jax(projection):
+    """One run of each arm with no noise injected (float64, a 45-loop cap):
+    the port's run keys its goal-seek ``key(seed * 1000 + run)``, both arms
+    alike, as the JAX runner does (evaluation.py:313, :468), and its loop
+    count, reach and recorded path are JAX's ``goal_seek_recorded`` from that
+    key at tests/test_torch_controller.py's ``SEEK_ATOL``."""
+    from test_torch_controller import SEEK_ATOL
+
+    max_loops, seed, run_idx = 45, 3, 1
+    jhf = JHeightField.create(crater_surface(200, HW, STANDALONE_CRATER_BUMPS,
+                                             dtype=jnp.float64), HW, dtype=jnp.float64)
+    jcm = as_costmap(np.asarray(costmap_750(half_width=HW, size=100, use_exact_edt=True).cost),
+                     HW, dtype=jnp.float64)
+    thf = convert.heightfield_from_numpy(*(np.asarray(a) for a in jhf))
+    tcm = convert.costmap_from_numpy(*(np.asarray(a) for a in jcm))
+    jcfg = jc.MPPIConfig(num_samples=K, horizon=H, projection=projection)
+    tcfg = convert.config_from_jax(jcfg)
+    start, goal = (-8.0, -2.0), (5.0, 4.0)
+    jrob = jc.RobotState.create(*start, [1.0, 0.0, 0.0], dtype=jnp.float64)
+    jctrl = jc.ControllerState.create(jcfg, jnp.float64)
+    want = jax.jit(jc.goal_seek_recorded, static_argnums=(0, 7))(
+        jcfg, jhf, jcm, jnp.asarray(goal), jrob, jctrl,
+        jax.random.key(seed * 1000 + run_idx), max_loops)
+    trob = convert.robot_state_from_numpy(*(np.asarray(a) for a in jrob))
+    tctrl = convert.controller_state_from_numpy(*(np.asarray(a) for a in jctrl))
+    loops, reached, pos, vel, _ = tev._run_episode(tcfg, thf, tcm, goal, trob, tctrl, seed,
+                                                   run_idx, max_loops)
+    assert loops == int(want.loops) and reached == bool(want.reached)
+    np.testing.assert_allclose(pos[:loops], np.asarray(want.positions)[:loops], rtol=0,
+                               atol=SEEK_ATOL)
+    np.testing.assert_allclose(vel[:loops], np.asarray(want.velocities)[:loops], rtol=0,
+                               atol=SEEK_ATOL)
+
+
 def _small_pairs(runs_per_arm, half_width, seed):
     """Short traverses inside a 20 m map: the protocol's 55-70 m band
     (:func:`thesis_pairs`, tested above) needs a map of at least 114 m."""
@@ -251,7 +278,6 @@ def _small_pairs(runs_per_arm, half_width, seed):
 
 def test_thesis_protocol_matches_jax(monkeypatch):
     max_loops, seed, terrain_seed = 60, 6, 7
-    noises = _noises(13, max_loops)
     _, k = jax.random.split(jax.random.key(terrain_seed))
     k1, k2 = jax.random.split(k)
     base_noise = tuple(torch.from_numpy(np.array(a)) for a in (
@@ -261,7 +287,7 @@ def test_thesis_protocol_matches_jax(monkeypatch):
     got = tev.run_thesis_protocol_experiment(
         ks=(K,), runs_per_arm=RUNS, horizon=H, max_loops=max_loops, half_width=HW,
         seed=seed, terrain_seed=terrain_seed, dtype=torch.float64,
-        device="cpu", noise=_port_noise(noises), base_noise=base_noise)
+        device="cpu", base_noise=base_noise)
 
     z = thesis_statistics_terrain(seed=terrain_seed, size_m=2 * HW)
     jhf = JHeightField.create(jnp.asarray(z, jnp.float64), HW, dtype=jnp.float64)
@@ -277,8 +303,9 @@ def test_thesis_protocol_matches_jax(monkeypatch):
             jr = jc.RobotState.create(start[0], start[1], heading, dtype=jnp.float64,
                                       wheel_speed=1.0)
             jctrl = jc.ControllerState.create(jcfg, jnp.float64, initial_u=1.0)
-            loops, reached, pts, vels = _jax_episode(jcfg, jhf, jcm, goal, jr, jctrl,
-                                                     noises[run_idx], max_loops)
+            loops, reached, pts, vels = _jax_episode(
+                jcfg, jhf, jcm, goal, jr, jctrl, jax.random.key(seed * 1000 + run_idx),
+                max_loops)
             # the JAX experiment's log (evaluation.py:472-485)
             pts = np.vstack([[start[0], start[1], pts[0, 2]], pts])
             vels = np.concatenate([vels[:1], vels])
@@ -341,9 +368,9 @@ def test_cli_thesis_protocol_refuses_five_runs():
 
 
 def test_run_episode_draws_from_a_seeded_generator():
-    """Without injected noise a run draws from a torch.Generator seeded
-    ``seed * 1000 + run``: the same run twice gives the same trace, on the
-    host as numpy arrays."""
+    """A run draws from ``key(seed * 1000 + run)``: the same run twice
+    gives the same trace, another run another, on the host as numpy
+    arrays."""
     hf = tc.HeightField.create(torch.zeros((64, 64), dtype=torch.float64), 4.0)
     cm = t_as_costmap(np.zeros((16, 16)), 4.0, dtype=torch.float64)
     cfg = tc.MPPIConfig(num_samples=8, horizon=6)
@@ -353,7 +380,7 @@ def test_run_episode_draws_from_a_seeded_generator():
                                      wheel_speed=1.0)
         ctrl = tc.ControllerState.create(cfg, torch.float64, initial_u=1.0)
         return tev._run_episode(cfg, hf, cm, np.array([0.9, 0.0]), robot, ctrl, seed=1,
-                                run_idx=run_idx, max_loops=7, noise=None)
+                                run_idx=run_idx, max_loops=7)
 
     loops, reached, pos, vel, steps = run(0)
     assert isinstance(pos, np.ndarray) and pos.shape == (7, 3) and vel.shape == (7,)

@@ -25,8 +25,12 @@ horizons from 1 to 256, start headings at the edges of its fast
 arithmetic's range and a zero planar heading), one launch per call
 and per 2D control step, its cosf / sinf against torch's, the thesis
 drivers (mppi/thesis_runs.py) at a small size on the card, JAX's world
-draws (core/jax_random.py) on the card equal to the CPU's, and
-graft_entry_torch.py's entry step and dry run on the card.
+draws (core/jax_random.py) on the card equal to the CPU's,
+graft_entry_torch.py's entry step and dry run on the card, and the
+jax_normal kernel (csrc/jax_normal.cu) ``torch.equal`` to its plain version
+(core/jax_random.py's ``normal`` of ``derive``) at the loops' shapes, with
+a split, a fold-in from a device scalar and a count offset, its key
+sequence in a graph, and its wrapper's refusals.
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -55,7 +59,13 @@ from husky_rover_mppi_isaacsim_torch.mppi import rollout as tro
 from husky_rover_mppi_isaacsim_torch.ops import edt
 from husky_rover_mppi_isaacsim_torch.ops import gather_probe as gp
 from husky_rover_mppi_isaacsim_torch.ops import measure
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
+from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import (
+    SPLIT_NEXT,
+    SPLIT_SUB,
+    jax_normal,
+)
 from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_torch.terrain import (
@@ -284,11 +294,11 @@ def test_k3_kernel_bit_equal_to_plain_on_card(cuda):
 
 
 def test_closed_loop_step_on_card_matches_cpu(cuda):
-    """One closed-loop step for N=3 rovers: two K1 launches, no host sync,
-    and the step-card-vs-CPU tolerances on the commands and poses."""
+    """One closed-loop step for N=3 rovers from ``key(2)``: two K1 launches,
+    no host sync, and the step-card-vs-CPU tolerances on the commands and
+    poses."""
     cfg = tenv.ClosedLoopConfig(mppi=MPPIConfig(num_samples=256, horizon=50))
     cost = torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4
-    noise = torch.randn((3, 2, 256, 50), generator=torch.Generator().manual_seed(2))
     starts = [[-10.0, -8.0], [5.0, -12.0], [8.0, 9.0]]
     goals = [[18.0, 15.0], [-15.0, 10.0], [0.0, -18.0]]
 
@@ -297,13 +307,13 @@ def test_closed_loop_step_on_card_matches_cpu(cuda):
         cm = as_costmap(cost, 25.0, device=device)
         state = tenv.init_loop_state(cfg, tenv.RoverState.create(starts, [1.0, 0.3, 0.0], hf))
         g = torch.tensor(goals, device=device)
-        noise_d = noise.to(device)
+        key = jr.key(2, device)
         if device.type != "cuda":
-            return tenv.closed_loop_step(cfg, hf, cm, g, state, noise=noise_d)
+            return tenv.closed_loop_step(cfg, hf, cm, g, state, key)
         torch.cuda.synchronize()
         torch.cuda.set_sync_debug_mode("error")  # the step never waits for the card
         try:
-            return tenv.closed_loop_step(cfg, hf, cm, g, state, noise=noise_d)
+            return tenv.closed_loop_step(cfg, hf, cm, g, state, key)
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
@@ -547,11 +557,11 @@ def test_small_streamed_traverse_on_card_launches_k1_and_k2(cuda):
         assert torch.equal(cm.cost, want.cost)
     assert run.loop.hf.z.is_cuda and run.loop.hf.z is run.loop.lstm.map_manager.streamer.window
     state, goal = run.loop.last_state, run.loop._goal_ctrl()
-    generator = torch.Generator(device=cuda).manual_seed(0)
+    key = jr.key(0, cuda)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        run.loop.chunk(state, goal, generator=generator)
+        run.loop.chunk(state, goal, key, 3)
     finally:
         torch.cuda.set_sync_debug_mode("default")
 
@@ -654,8 +664,8 @@ def test_sdg_capture_on_card_matches_cpu(cuda, tmp_path):
 
 def test_sim_manager_steps_on_card_match_cpu(cuda):
     """Five SimulationManager ticks of 3 slots (two robots spawned, one
-    teleported over the bus after tick 1) on the card and on the CPU with
-    the same injected noise: two K1 launches a tick, no host sync in a tick
+    teleported over the bus after tick 1) on the card and on the CPU, both
+    from the manager's seed: two K1 launches a tick, no host sync in a tick
     without a POSE_STATE subscriber, and the closed-loop step's card-vs-CPU
     tolerances."""
     import numpy as np
@@ -669,7 +679,6 @@ def test_sim_manager_steps_on_card_match_cpu(cuda):
     conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig(
         mppi=MPPIConfig(num_samples=256, horizon=50)))
     cost = torch.rand((64, 64), generator=torch.Generator().manual_seed(1)) ** 4
-    noise = torch.randn((5, 3, 2, 256, 50), generator=torch.Generator().manual_seed(2))
     goals = np.array([[18.0, 15.0], [-15.0, 10.0], [0.0, -18.0]])
     dem = _crater(torch.device("cpu"), grid=512, hw=25.0)
 
@@ -678,7 +687,6 @@ def test_sim_manager_steps_on_card_match_cpu(cuda):
         rm.spawn("a", (-10.0, -8.0))
         rm.spawn("b", (5.0, -12.0), heading=(0.0, 1.0, 0.0))
         launches = []
-        ticks = noise.to(device)  # before the sync check: a host-to-device copy waits
         with SimulationManager(conf, dem, as_costmap(cost, 25.0), rm, goals,
                                device=device) as sm:
             for tick in range(5):
@@ -687,7 +695,7 @@ def test_sim_manager_steps_on_card_match_cpu(cuda):
                     torch.cuda.synchronize()
                     torch.cuda.set_sync_debug_mode("error")
                 try:
-                    sm.step(noise=ticks[tick])
+                    sm.step()
                 finally:
                     torch.cuda.set_sync_debug_mode("default")
                 launches.append(rollout_25d_cuda.launches - before)
@@ -849,9 +857,9 @@ def _all_equal(a, b):
 @pytest.mark.parametrize("projection", ["3d", "2d"])
 def test_graphed_goal_seek_equals_eager_on_card(cuda, projection):
     """``goal_seek_recorded`` through its graph of 4 masked steps and
-    through ``masked_steps`` eagerly, from the same generator state: the
-    same trace and state bit for bit, K1 twice (3D) or once (2D) per step
-    either way, and every call after the warm-up a replay."""
+    through ``masked_steps`` eagerly, from the same key: the same trace and
+    state bit for bit, K1 twice (3D) or once (2D) and ``jax_normal`` once
+    per step either way, and every call after the warm-up a replay."""
     from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
     from husky_rover_mppi_isaacsim_torch.mppi import goal_seek_recorded, masked_steps
 
@@ -863,15 +871,15 @@ def test_graphed_goal_seek_equals_eager_on_card(cuda, projection):
     for steps_fn in (graph, masked_steps):
         robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
         ctrl = ControllerState.create(cfg, device=cuda)
-        before = rollout_25d_cuda.launches, rollout_2d_cuda.launches
-        runs.append(goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl,
-                                       torch.Generator(device=cuda).manual_seed(5), max_loops=40,
-                                       steps_fn=steps_fn))
+        before = rollout_25d_cuda.launches, rollout_2d_cuda.launches, jax_normal.launches
+        runs.append(goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, jr.key(5, cuda),
+                                       max_loops=40, steps_fn=steps_fn))
         counts.append((rollout_25d_cuda.launches - before[0],
-                       rollout_2d_cuda.launches - before[1]))
+                       rollout_2d_cuda.launches - before[1], jax_normal.launches - before[2]))
     got, want = runs
     assert got.steps == want.steps == 40 and _all_equal(got, want)
-    per_step = (2, 0) if projection == "3d" else (1, 1)  # K1, the planar rollout kernel
+    # K1, the planar rollout kernel, jax_normal
+    per_step = (2, 0, 1) if projection == "3d" else (1, 1, 1)
     assert counts == [tuple(n * got.steps for n in per_step)] * 2
     assert graph.replays == got.steps // 4 - 1 and graph.capture_ms > 0
 
@@ -911,8 +919,9 @@ def test_graphed_evaluation_equals_eager_on_card(cuda):
 
 
 def test_graphed_closed_loop_equals_eager_on_card(cuda):
-    """``run_episode`` of 3 rovers over 12 steps (every latch phase; wheel
-    slip drawn outside the graph) replaying one step graph, and with
+    """``run_episode`` of 3 rovers over 12 steps (every latch phase; the
+    noise and the wheel slip drawn inside the graph, three ``jax_normal``
+    launches a step) replaying one step graph, and with
     ``closed_loop_step`` eagerly: the same path and final state."""
     import numpy as np
 
@@ -924,39 +933,39 @@ def test_graphed_closed_loop_equals_eager_on_card(cuda):
     runs = []
     for step_fn in (None, tenv.closed_loop_step):
         state = tenv.init_loop_state(cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
-        before = rollout_25d_cuda.launches
-        runs.append(tenv.run_episode(cfg, hf, cm, goals, state,
-                                     torch.Generator(device=cuda).manual_seed(3), 12,
+        before = rollout_25d_cuda.launches, jax_normal.launches
+        runs.append(tenv.run_episode(cfg, hf, cm, goals, state, jr.key(3, cuda), 12,
                                      step_fn=step_fn))
-        assert rollout_25d_cuda.launches - before == 24
+        assert rollout_25d_cuda.launches - before[0] == 24
+        assert jax_normal.launches - before[1] == 36
     assert _all_equal(*runs) and int(runs[0][0].step_index) == 12
 
 
 @pytest.mark.parametrize("slope_critic", ["wheels", "body"])
 def test_bench_control_loops_graph_equals_eager_on_card(cuda, slope_critic):
     """bench_torch.py's control loops at its large batch (K=16384 x H=64),
-    8 loops replayed as one graph against the same loops run eagerly on the
-    same noise: bit for bit, K1 twice a loop either way."""
+    8 loops replayed as one graph against the same loops run eagerly from
+    the same key: bit for bit, K1 twice and jax_normal once a loop either
+    way."""
     import bench_torch as bt
     from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
-    from husky_rover_mppi_isaacsim_torch.mppi.sampling import sample_noise
 
     hf, cm = bt.build_world(cuda)
     cfg = MPPIConfig(num_samples=16384, horizon=64, exact=False, slope_critic=slope_critic)
     goal = torch.tensor([65.0, 60.0], device=cuda)
     robot = RobotState.create(-60.0, -60.0, [1.0, 0.5, 0.0], device=cuda)
     ctrl = ControllerState.create(cfg, device=cuda)
-    gen = torch.Generator(device=cuda).manual_seed(50)
-    noises = tuple(sample_noise(gen, 16384, 64, device=cuda) for _ in range(8))
+    key = jr.key(50, cuda)
     graph = Graphed(bt.control_loops, in_place_args=bt.LOOPS_IN_PLACE)
-    graph(cfg, hf, cm, goal, robot, ctrl, noises)  # the warm-up, eager
-    before = rollout_25d_cuda.launches
-    got = graph(cfg, hf, cm, goal, robot, ctrl, noises)  # the capture and a replay
-    replayed = rollout_25d_cuda.launches - before
-    before = rollout_25d_cuda.launches
-    want = bt.control_loops(cfg, hf, cm, goal, robot, ctrl, noises)
+    graph(cfg, hf, cm, goal, robot, ctrl, key, 8)  # the warm-up, eager
+    before = rollout_25d_cuda.launches, jax_normal.launches
+    got = graph(cfg, hf, cm, goal, robot, ctrl, key, 8)  # the capture and a replay
+    replayed = rollout_25d_cuda.launches - before[0], jax_normal.launches - before[1]
+    before = rollout_25d_cuda.launches, jax_normal.launches
+    want = bt.control_loops(cfg, hf, cm, goal, robot, ctrl, key, 8)
     torch.cuda.synchronize()
-    assert replayed == rollout_25d_cuda.launches - before == 16
+    assert replayed == (rollout_25d_cuda.launches - before[0],
+                        jax_normal.launches - before[1]) == (16, 8)
     assert graph.replays == 1 and _all_equal(got, want)
     assert not torch.equal(got[0].position, robot.position)
 
@@ -993,6 +1002,7 @@ def test_graphed_sim_manager_equals_eager_on_card(cuda):
         SimulationManagerConf,
         Topics,
     )
+    from husky_rover_mppi_isaacsim_torch.shell.sim_manager import tick as sim_tick
 
     hf, cm = _graph_world(cuda)
     conf = SimulationManagerConf(loop=tenv.ClosedLoopConfig(
@@ -1006,7 +1016,7 @@ def test_graphed_sim_manager_equals_eager_on_card(cuda):
         states = []
         with SimulationManager(conf, hf, cm, rm, goals, device=cuda) as sm:
             if not graphed:
-                sm.step_fn = tenv.closed_loop_step
+                sm.step_fn = sim_tick
             for tick in range(8):
                 if tick == 3:
                     sm.bus.publish(Topics.ROBOT_TELEPORT, {"name": "a", "position": (3.0, 4.0)})
@@ -1462,3 +1472,102 @@ def test_graft_entry_on_card(cuda, tmp_path):
     assert torch.isfinite(out.costs).all() and all(torch.isfinite(t).all() for t in ctrl)
     report = graft_entry_torch.dryrun_multichip(2, device=cuda, workdir=tmp_path)
     assert report["mesh"] == [2, 1] and report["k1_launches_per_rank"] == [2, 2]
+
+
+JAX_NORMAL_CASES = [  # shape, path, next path, offset, outer stride
+    ((2, 1000, 100), SPLIT_SUB, SPLIT_NEXT, 0, None),
+    ((2, 16384, 64), SPLIT_SUB, SPLIT_NEXT, 0, None),
+    ((2, 4000, 100), (("split", 2, 0),), None, 0, None),
+    ((4,), (("split", 2, 1), ("split", 2, 0)), None, 0, None),
+    ((4096,), (("split", 2, 1), ("split", 2, 1)), None, 0, None),
+    ((2, 1000, 100), (("fold_in", 517),), None, 0, None),
+    ((3, 5, 7), (("fold_in", -3), ("split", 12, 11), ("split", 2, 1), ("split", 2, 0)),
+     SPLIT_NEXT, 0, None),
+    ((2, 250 * 100), (), None, 750 * 100, 1000 * 100),
+    ((0,), (), SPLIT_NEXT, 0, None),
+]
+
+
+@pytest.mark.parametrize("seed", [0, 42, 2 ** 33 + 5])
+@pytest.mark.parametrize("case", range(len(JAX_NORMAL_CASES)))
+def test_jax_normal_kernel_matches_plain_on_card(cuda, seed, case):
+    """The jax_normal kernel against its plain version on the same key, at
+    the loops' shapes: the control noise with its split, bench.py's batch,
+    the closed loop's (2, N*K, H), the two slip draws, a fold-in, a path of
+    four steps, the last rows of a (2, 1000, 100) draw by count offset, a
+    split alone: ``torch.equal``, the next key too, and the card's plain
+    draw equal to the CPU's."""
+    shape, path, nxt, offset, stride = JAX_NORMAL_CASES[case]
+    key = jr.key(seed, cuda)
+    before = jax_normal.launches
+    res = jax_normal(key, shape, path=path, next_path=nxt, offset=offset, outer_stride=stride)
+    assert jax_normal.launches - before == 1
+    got, got_key = (res, None) if nxt is None else res
+    want = jr.normal(jr.derive(key, path), shape, torch.float32, offset, stride)
+    assert got.dtype == torch.float32 and tuple(got.shape) == shape
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), jr.normal(jr.derive(jr.key(seed), path), shape,
+                                            torch.float32, offset, stride))
+    if nxt is not None:
+        assert torch.equal(got_key, jr.derive(key, nxt))
+
+
+def test_jax_normal_count_offset_is_a_slice_of_the_full_draw_on_card(cuda):
+    """A rank's block of samples drawn alone equals the slice of the full
+    draw (``sample_noise_block``)."""
+    from husky_rover_mppi_isaacsim_torch.mppi.sampling import sample_noise, sample_noise_block
+
+    key = jr.key(0, cuda)
+    full = sample_noise(key, 1000, 100)
+    for start, stop in ((0, 500), (500, 1000), (250, 750)):
+        assert torch.equal(sample_noise_block(key, 1000, 100, start, stop),
+                           full[:, start:stop])
+
+
+def test_jax_normal_device_scalar_in_a_graph_on_card(cuda):
+    """A fold-in of a device scalar: a graph captured at index 0 and
+    replayed after the scalar changes draws the new index's noise; the key
+    a loop carries advances once per replay (``split`` applied n times)."""
+    key0 = jr.key(42, cuda)
+    idx = torch.zeros((), dtype=torch.int64, device=cuda)
+    path = (("fold_in", idx), ("split", 12, 5))
+    jax_normal(key0, (2, 64, 30), path=path)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = jax_normal(key0, (2, 64, 30), path=path)
+    for i in (3, 7, 11):
+        idx.fill_(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        want = jr.normal(jr.split(jr.fold_in(jr.key(42), i), 12)[5], (2, 64, 30))
+        assert torch.equal(out.cpu(), want)
+
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+
+    def step(key):
+        noise, key = jax_normal(key, (2, 64, 30), path=SPLIT_SUB, next_path=SPLIT_NEXT)
+        return noise, key
+
+    graphed, key, want_key = Graphed(step), jr.key(9, cuda), jr.key(9)
+    for _ in range(6):  # eager, capture and replay, then replays
+        noise, key = graphed(key)
+        want_key, sub = jr.split(want_key)
+        assert torch.equal(noise.cpu(), jr.normal(sub, (2, 64, 30)))
+        assert torch.equal(key.cpu(), want_key)
+        key = key.clone()
+    assert graphed.replays == 5
+
+
+def test_jax_normal_wrapper_raises_on_card(cuda):
+    """float64, a batch of keys, a path of five steps or two device scalars
+    are refused on the card, never drawn by the plain version."""
+    key = jr.key(0, cuda)
+    with pytest.raises(ValueError):
+        jax_normal(key, (4,), torch.float64)
+    with pytest.raises(ValueError):
+        jax_normal(jr.split(key, 3), (4,))
+    with pytest.raises(ValueError):
+        jax_normal(key, (4,), path=(("split", 2, 0),) * 5)
+    one = torch.zeros((), dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        jax_normal(key, (4,), path=(("fold_in", one), ("fold_in", one.clone())))

@@ -1,7 +1,7 @@
 """PyTorch port: the CUDA-graph helper (``core/graphs.py``) on the CPU, and
 what graphing the hot loops changed in the eager code, against the JAX
 package: the closed-loop latch keyed on a device step counter (seven steps,
-every latch phase, wheel slip drawn outside the step), a streamed chunk
+every latch phase, noise and wheel slip drawn from the step's key), a streamed chunk
 started at a step index that is not a multiple of 3 (as after a resume),
 and the step index through a checkpoint.
 
@@ -13,6 +13,8 @@ the chunk that of ``tests/test_torch_largescale.py`` (float32, 2e-3 after
 one chunk).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,17 +23,17 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
 from husky_rover_mppi_isaacsim_torch import env as tenv
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
 from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
 from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
 from husky_rover_mppi_isaacsim_tpu import env as jenv
 from husky_rover_mppi_isaacsim_tpu.env import largescale_loop as jls
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
-from test_torch_closed_loop import _compare_loop_states, _jax_noise, _world
+from test_torch_closed_loop import _compare_loop_states, _tkey, _world
 from test_torch_largescale import (
     SEED,
     _assert_state_close,
-    jax_chunk_noise,
     loop_confs,
 )
 
@@ -55,8 +57,7 @@ def test_graphed_on_cpu_returns_what_the_eager_function_returns():
     graph = Graphed(tc.masked_steps)
     runs = []
     for steps_fn in (graph, tc.masked_steps):
-        gen = torch.Generator().manual_seed(11)
-        runs.append(tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gen, max_loops=9,
+        runs.append(tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, jr.key(11), max_loops=9,
                                           steps_fn=steps_fn))
     got, want = runs
     assert got.steps == want.steps == 12 and int(got.loops) == 9
@@ -65,7 +66,7 @@ def test_graphed_on_cpu_returns_what_the_eager_function_returns():
         assert torch.equal(a, b)
     assert graph.replays == 0 and graph.capture_ms is None
     # a second episode through the same helper: the same signature
-    again = tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, torch.Generator().manual_seed(11),
+    again = tc.goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, jr.key(11),
                                   max_loops=9, steps_fn=graph)
     assert torch.equal(again.positions, got.positions)
 
@@ -93,21 +94,12 @@ def test_graphed_raises_on_a_call_it_was_not_built_for():
     step(cfg, hf, cm, goal, robot, ctrl, noise)
 
 
-def _jax_slip(key, n):
-    """The slip normals JAX's closed_loop_step draws from ``key``
-    (closed_loop.py:125, rover_sim.py:98-101), as the port's ``(2, N)``."""
-    _, k_phys = jax.random.split(key)
-    k1, k2 = jax.random.split(k_phys)
-    return torch.from_numpy(np.stack([np.asarray(jax.random.normal(k1, (n,), jnp.float64)),
-                                      np.asarray(jax.random.normal(k2, (n,), jnp.float64))]))
-
-
 def test_device_latch_matches_jax_over_seven_steps_with_slip():
     """The latch is a ``torch.where`` on a 0-d int32 step counter, as JAX's
     ``jnp.where`` on its device int32: seven chained steps of N=2 rovers hit
     every latch phase (latches at 0, 3 and 6) and match JAX's jitted step,
-    with JAX's noise and wheel-slip draws given to a :class:`Graphed` step
-    (the card's route) from outside it."""
+    a :class:`Graphed` step (the card's route) drawing the noise and the
+    wheel slip from the same step key as JAX's."""
     n = 2
     (jhf, jcm), (thf, tcm) = _world()
     jcfg = jenv.ClosedLoopConfig(mppi=jc.MPPIConfig(num_samples=16, horizon=12),
@@ -128,25 +120,24 @@ def test_device_latch_matches_jax_over_seven_steps_with_slip():
     for i in range(7):
         key, sub = jax.random.split(key)
         js = jstep(js, sub)
-        ts = step(tcfg, thf, tcm, torch.from_numpy(goals), ts, None, _jax_noise(sub, jcfg, n),
-                  _jax_slip(sub, n))
+        ts = step(tcfg, thf, tcm, torch.from_numpy(goals), ts, _tkey(sub))
         _compare_loop_states(ts, js, f"step {i}")
         latched.append(ts.latched_left.clone())
         assert ts.step_index.dtype == torch.int32 and int(ts.step_index) == i + 1
     for a, b in ((0, 1), (1, 2), (3, 4), (4, 5)):
         assert torch.equal(latched[a], latched[b])
     assert not torch.equal(latched[2], latched[3]) and not torch.equal(latched[5], latched[6])
-    # the slip draws come from the generator, after the noise, as in the
-    # eager step: drawn outside and given, the step is the same
-    gen_a, gen_b = (torch.Generator().manual_seed(5) for _ in range(2))
-    drawn = tenv.closed_loop_step(tcfg, thf, tcm, torch.from_numpy(goals), ts, gen_a)
-    noise, slip = tenv.draw_step_noise(tcfg, gen_b, n, torch.float64)
-    given = step(tcfg, thf, tcm, torch.from_numpy(goals), ts, None, noise, slip)
-    for a, b in zip(tenv.clone_state(drawn), given):
+    # one step from one key, eager and through a new Graphed step: the same
+    # state; with no slip (slip_std 0) the same key gives another state
+    key5 = jr.key(5)
+    drawn = tenv.closed_loop_step(tcfg, thf, tcm, torch.from_numpy(goals), ts, key5)
+    graphed = Graphed(tenv.closed_loop_step)(tcfg, thf, tcm, torch.from_numpy(goals), ts, key5)
+    for a, b in zip(tenv.clone_state(drawn), graphed):
         for x, y in zip(a if isinstance(a, tuple) else (a,), b if isinstance(b, tuple) else (b,)):
             assert torch.equal(x, y)
-    with pytest.raises(ValueError, match="generator"):
-        tenv.draw_step_noise(tcfg, None, n, torch.float64, noise=noise)  # slip needs one
+    no_slip = dataclasses.replace(tcfg, rover=tcfg.rover._replace(slip_std=0.0))
+    unslipped = tenv.closed_loop_step(no_slip, thf, tcm, torch.from_numpy(goals), ts, key5)
+    assert not torch.equal(unslipped.rovers.wheel_left, graphed.rovers.wheel_left)
 
 
 @pytest.mark.parametrize("start_index", [4, 5])
@@ -166,7 +157,7 @@ def test_chunk_from_a_step_index_off_the_latch_matches_jax(start_index):
                                      np.int32(0), ox, oy)
     tstate = convert.loop_state_from_jax(jloop._initial_state()._replace(
         step_index=jnp.asarray(start_index, jnp.int32)))
-    tstate, tpose = tloop.chunk(tstate, tloop._goal_ctrl(), noise=jax_chunk_noise(0))
+    tstate, tpose = tloop.chunk(tstate, tloop._goal_ctrl(), jr.key(SEED), 0)
     np.testing.assert_allclose(tpose.numpy()[:4], np.asarray(jpose[:4], np.float32), atol=2e-3,
                                rtol=0)
     _assert_state_close(tstate, jstate, 2e-3)
@@ -191,7 +182,7 @@ def test_step_index_survives_a_checkpoint_round_trip(tmp_path):
     assert isinstance(got, torch.Tensor) and got.dtype == torch.int32 and int(got) == 7
     assert convert.largescale_checkpoint_from_jax(resumed, path)["state"].step_index == 7
     # the resumed state steps on from that phase
-    nxt, _ = resumed.chunk(info["state"], resumed._goal_ctrl(), noise=jax_chunk_noise(1))
+    nxt, _ = resumed.chunk(info["state"], resumed._goal_ctrl(), jr.key(SEED), 1)
     assert int(nxt.step_index) == 7 + tconf.terrain_check_every
 
 
@@ -209,7 +200,7 @@ def test_run_episode_state_is_cloned_out_of_the_step():
         return seen[-1]
 
     final, path = tenv.run_episode(cfg, thf, tcm, torch.ones((2, 2), dtype=torch.float64), state,
-                                   torch.Generator().manual_seed(3), 3, step_fn=step)
+                                   jr.key(3), 3, step_fn=step)
     assert final.rovers.position is not seen[-1].rovers.position
     assert torch.equal(final.rovers.position, seen[-1].rovers.position)
     assert torch.equal(path[-1], final.rovers.position) and int(final.step_index) == 3
@@ -241,7 +232,7 @@ def test_pipelined_dispatch_waits_for_a_slow_terrain_worker(monkeypatch):
 
     monkeypatch.setattr(tls._TerrainWorker, "_process", slow)
     monkeypatch.setattr(tls._TerrainWorker, "wait_for", checked)
-    res = loop.run(noise_source=jax_chunk_noise)
+    res = loop.run()
     assert len(seen) == res.steps // conf.terrain_check_every
     assert all(started >= chunk or not working for chunk, started, working in seen)
     assert any(started >= 0 for _, started, _ in seen)  # the worker kept pace
@@ -296,7 +287,7 @@ def test_chunk_reads_the_seated_window_and_costmap_in_place(depth):
         return tls.run_chunk(conf_, hf, costmap, *rest)
 
     loop.chunk_fn = chunk_fn
-    res = loop.run(noise_source=jax_chunk_noise)
+    res = loop.run()
     assert res.block_shifts >= 1 and checked and all(checked)
     streamer = loop.lstm.map_manager.streamer
     if depth == 0:
@@ -320,7 +311,7 @@ def test_pipelined_loop_counts_its_blocking_waits(monkeypatch):
     for blocks in (False, True):
         loop = tls.LargeScaleClosedLoop(conf, device="cpu")
         monkeypatch.setattr(tls._TerrainWorker, "wait_for", lambda self, chunk: blocks)
-        loop.run(noise_source=jax_chunk_noise)
+        loop.run()
         counts[blocks] = (loop.worker_blocking_waits,
                           loop.dispatched_steps // conf.terrain_check_every)
     assert counts[False][0] == 0

@@ -3,8 +3,9 @@ synchronous path) against the JAX package, on the CPU with the kernels' plain
 versions, at the JAX tests' tiny terrain (10 m blocks at 0.1 m/px, a
 5-block window).
 
-Both ``LargeScaleClosedLoop``s step the same chunks with the JAX package's
-exploration noise replayed in the port, across one block shift. Everything
+Both ``LargeScaleClosedLoop``s step the same chunks across one block
+shift, the port drawing JAX's exploration noise from the same key and chunk
+index (bit for bit: both float32) or replaying it. Everything
 is float32 in both packages. Tolerances: the windows agree to 1e-4 m (the
 bicubic upsample sums four float32 products of ~100 m heights in another
 order; crater heights differ by <= 1e-6 m); the costmaps are equal where
@@ -27,9 +28,11 @@ import torch
 
 from husky_rover_mppi_isaacsim_torch import cli, convert
 from husky_rover_mppi_isaacsim_torch.aux.config import apply_overrides
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
 from husky_rover_mppi_isaacsim_torch.env import frames as tframes
 from husky_rover_mppi_isaacsim_torch.env import largescale_loop as tls
 from husky_rover_mppi_isaacsim_torch.env.closed_loop import ClosedLoopConfig as TLoopConfig
+from husky_rover_mppi_isaacsim_torch.env.closed_loop import step_noise
 from husky_rover_mppi_isaacsim_torch.mppi.controller import MPPIConfig as TMPPIConfig
 from husky_rover_mppi_isaacsim_torch.ops.edt_cuda import edt_minplus_cuda
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
@@ -103,6 +106,17 @@ def jax_chunk_noise(chunk_idx: int) -> torch.Tensor:
     return torch.from_numpy(np.stack(out))
 
 
+def _port_chunk_noise(loop, key, chunk_idx: int) -> torch.Tensor:
+    """The exploration noise the port's chunk ``chunk_idx`` draws from
+    ``key`` (``split(fold_in(key, c), steps)[s]``, then ``k_noise``), as
+    ``(CHUNK, 1, 2, K, H)`` float32."""
+    idx = torch.tensor(chunk_idx)
+    return torch.stack([
+        step_noise(key, loop.conf.loop.mppi, 1,
+                                   key_path=(("fold_in", idx), ("split", CHUNK, s)))
+        for s in range(CHUNK)])
+
+
 def _paired_loops(craters: bool, share_terrain: bool):
     """A JAX loop and a port loop on the same tiny terrain. With
     ``share_terrain`` the port's streamer continues the JAX-built one
@@ -158,7 +172,7 @@ def test_chunks_across_a_block_shift_match_jax(craters, prestage):
     jloop, tloop = _paired_loops(craters, share_terrain=True)
     jstate, jgoal = jloop._initial_state(), jloop._goal_ctrl()
     tgoal = tloop._goal_ctrl()
-    key = jax.random.key(SEED)
+    key, tkey = jax.random.key(SEED), jr.key(SEED)
     jstream, tstream = jloop.lstm.map_manager.streamer, tloop.lstm.map_manager.streamer
     k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
     shifts = 0
@@ -168,7 +182,10 @@ def test_chunks_across_a_block_shift_match_jax(craters, prestage):
         tstate = convert.loop_state_from_jax(jstate)
         jstate, *jpose = jloop._chunk_fn(jstream.window, jloop.costmap, jgoal, jstate, key,
                                          np.int32(idx), ox, oy)
-        tstate, tpose = tloop.chunk(tstate, tgoal, noise=jax_chunk_noise(idx))
+        # no noise injected: the port draws chunk idx's noise from its key
+        tstate, tpose = tloop.chunk(tstate, tgoal, tkey, idx)
+        if idx == 0:  # the noise it draws is JAX's chunk noise, bit for bit
+            assert torch.equal(_port_chunk_noise(tloop, tkey, 0), jax_chunk_noise(0))
         np.testing.assert_allclose(tpose.numpy(), np.asarray(jpose, np.float32), atol=2e-3,
                                    rtol=0, err_msg=f"pose after chunk {idx}")
         _assert_state_close(tstate, jstate, 2e-3)
@@ -223,8 +240,8 @@ def test_chunks_across_a_block_shift_match_jax(craters, prestage):
 
 
 def test_free_running_traverse_stays_near_jax():
-    """Both ``run()``s, free-running from the same start with the JAX noise
-    replayed, each on its own build of the terrain. The closed loop is
+    """Both ``run()``s, free-running from the same start and the same key,
+    each on its own build of the terrain. The closed loop is
     sensitive: a 1e-5 m change of the window moves the path of this
     60-step traverse by up to 0.08 m, and another start by 0.16 m
     (nearest-cell wheel heights and K=32 softmax weights amplify it), so the
@@ -235,7 +252,7 @@ def test_free_running_traverse_stays_near_jax():
     np.testing.assert_allclose(tloop.costmap.cost.numpy(), np.asarray(jloop.costmap.cost),
                                atol=1e-5, rtol=0)
     jres = jloop.run()
-    tres = tloop.run(noise_source=jax_chunk_noise)
+    tres = tloop.run()
     assert jres.block_shifts == 1, "the traverse must cross one block border"
     assert (tres.block_shifts, tres.costmap_rebuilds, tres.steps, tres.reached) == (
         jres.block_shifts, jres.costmap_rebuilds, jres.steps, jres.reached)
@@ -334,7 +351,7 @@ def test_unported_options_raise_by_name(option, tmp_path):
         kw["checkpoint_path"] = str(tmp_path / kw["checkpoint_path"])
     conf = dataclasses.replace(tconf, max_steps=2 * CHUNK, **kw)
     loop = tls.LargeScaleClosedLoop(conf, device="cpu")
-    res = loop.run(noise_source=jax_chunk_noise)
+    res = loop.run()
     assert res.steps == 2 * CHUNK and np.isfinite(res.path_world).all()
     if "checkpoint_path" in kw:
         assert (tmp_path / "traverse.ckpt.npz").is_file()
@@ -385,9 +402,9 @@ def test_converted_jax_state_steps_like_the_port():
     jloop = jls.LargeScaleClosedLoop(jconf)
     tloop = tls.LargeScaleClosedLoop(tconf, device="cpu")
     state = convert.loop_state_from_jax(jloop._initial_state())
-    noise = jax_chunk_noise(0)
-    got, pose = tloop.chunk(state, tloop._goal_ctrl(), noise=noise)
-    want, pose_w = tloop.chunk(tloop._initial_state(), tloop._goal_ctrl(), noise=noise)
+    key = jr.key(SEED)
+    got, pose = tloop.chunk(state, tloop._goal_ctrl(), key, 0)
+    want, pose_w = tloop.chunk(tloop._initial_state(), tloop._goal_ctrl(), key, 0)
     assert got.step_index == want.step_index == CHUNK
     np.testing.assert_allclose(pose.numpy(), pose_w.numpy(), atol=1e-4, rtol=0)
 

@@ -30,17 +30,21 @@ from test_torch_largescale import loop_confs, tiny_terrain
 torch.set_num_threads(1)
 
 # a start 1.5 m before the x = 10 m border and a 2 m lookahead: the loop
-# stages the crossing a few chunks before it; the goal lies 4 m on
-# (measured: reached in 210 sim steps, one block shift)
-START, GOAL, MAX_STEPS = (8.5, 1.0), (12.5, 1.0), 330
+# stages the crossing a few chunks before it; the goal lies 4 m on. The
+# control noise is JAX's draw from key(SEED). At K=16 x H=30 the synchronous
+# loop reaches the goal across one block shift in 156-174 sim steps from
+# every key measured (seeds 3-10, 8 of 8), half the 330-step budget; at
+# H=10 the rover wanders, and only 4 of 14 keys (3-16) reached it in 900
+# steps
+START, GOAL, MAX_STEPS, SEED = (8.5, 1.0), (12.5, 1.0), 330, 3
 
 
 def conf(**kw) -> tls.LargeScaleLoopConf:
     # the port's own paths, held against its synchronous loop, on the
     # device-upsampled window (the route they ran on before the tile pool)
     base = dict(terrain=tiny_terrain(LargeScaleConf, RockDistConf, native_pool="never"),
-                loop=ClosedLoopConfig(mppi=MPPIConfig(num_samples=16, horizon=10)),
-                start=START, goal=GOAL, max_steps=MAX_STEPS, seed=3, terrain_check_every=6,
+                loop=ClosedLoopConfig(mppi=MPPIConfig(num_samples=16, horizon=30)),
+                start=START, goal=GOAL, max_steps=MAX_STEPS, seed=SEED, terrain_check_every=6,
                 prestage_lookahead_m=2.0, pipeline_depth=0)
     base.update(kw)
     return tls.LargeScaleLoopConf(**base)

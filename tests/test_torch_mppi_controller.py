@@ -2,24 +2,27 @@
 
 ``step(noise=)`` replays the same numpy noise through both controllers and
 is held at the tolerances of ``tests/test_torch_controller.py`` (float64).
-Without ``noise`` the port draws each loop's noise from a ``torch.Generator``
-seeded from the controller's seed and the loop's seed of the reference's
-seed stream (``LoopSeedSequence``, the same numpy stream in both packages),
-so its draws are replayable but not JAX's."""
+Without ``noise`` both draw each loop's noise from ``loop_key(key(seed),
+loop seed)`` (the loop seeds of the reference's ``LoopSeedSequence``, the
+same numpy stream in both packages): JAX's draw within a few float64 ulps,
+so ``step`` and ``run`` follow JAX's controller at those tolerances and at
+``tests/test_torch_controller.py``'s ``SEEK_ATOL`` over a run."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import jax_random as jrand
 from husky_rover_mppi_isaacsim_torch.mppi import MPPIController
 from husky_rover_mppi_isaacsim_torch.mppi import controller as tc
-from husky_rover_mppi_isaacsim_torch.mppi.sampling import LoopSeedSequence, sample_noise
+from husky_rover_mppi_isaacsim_torch.mppi.sampling import LoopSeedSequence, loop_key, sample_noise
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
 
-from test_torch_controller import TOL, _close, _states, _world
+from test_torch_controller import SEEK_ATOL, TOL, _close, _states, _world
 
 torch.set_num_threads(1)
 
@@ -76,28 +79,46 @@ def test_step_equals_mppi_step():
 
 
 def test_seed_stream_is_replayable():
-    """Loop n draws ``sample_noise`` from a generator seeded with
-    ``loop_generator_seed(seed, n-th LoopSeedSequence seed)``; two
-    controllers of one seed step identically, another seed differs."""
+    """Loop n draws ``sample_noise(loop_key(key(seed), n-th LoopSeedSequence
+    seed))``, the JAX controller's draw: two controllers of one seed step
+    identically, another seed differs, and each step is the JAX
+    controller's step at the controller tests' tolerances."""
     jcfg = jc.MPPIConfig(num_samples=16, horizon=12)
-    _, a, tcfg = _controllers(jcfg, seed=7)
+    jctl, a, tcfg = _controllers(jcfg, seed=7)
     _, b, _ = _controllers(jcfg, seed=7)
     _, c, _ = _controllers(jcfg, seed=8)
-    robot = tc.RobotState.create(-3.0, 2.0, [1.0, -0.2, 0.0], dtype=torch.float64)
-    ctrl = tc.ControllerState.create(tcfg, torch.float64)
+    (jrob, jctrl), (robot, ctrl) = _states(jcfg, -3.0, 2.0, [1.0, -0.2, 0.0])
     seeds = LoopSeedSequence(12, 7)
     for _ in range(3):
-        loop_seed = seeds.next_seed()
-        noise = sample_noise(torch.Generator().manual_seed(tc.loop_generator_seed(7, loop_seed)),
-                             16, 12, torch.float64)
+        noise = sample_noise(loop_key(jrand.key(7), seeds.next_seed()), 16, 12, torch.float64)
         want = tc.mppi_step(tcfg, a.hf, a.costmap, a.goal, robot, ctrl, noise)
         got_a, got_b, got_c = a.step(robot, ctrl), b.step(robot, ctrl), c.step(robot, ctrl)
         assert torch.equal(got_a[1].costs, want[1].costs)
         assert torch.equal(got_b[1].costs, want[1].costs)
         assert not torch.equal(got_c[1].costs, want[1].costs)
+        _, jout = jctl.step(jrob, jctrl)
+        for name, (rtol, atol) in TOL.items():
+            _close(getattr(got_a[1], name), getattr(jout, name), rtol, atol, name)
     # the loop seeds are the JAX controller's: the same numpy stream
     jseeds, tseeds = jc.LoopSeedSequence(12, 7), LoopSeedSequence(12, 7)
     assert [jseeds.next_seed() for _ in range(5)] == [tseeds.next_seed() for _ in range(5)]
+    np.testing.assert_array_equal(a.base_key.numpy(), np.asarray(
+        jax.random.key_data(jctl.base_key)).astype(np.int64))
+
+
+def test_run_from_a_seed_matches_jax():
+    """``run`` from the controller's seed alone (float64, 25 loops, no noise
+    injected): the path and final state of JAX's ``MPPIController.run``
+    from the same seed, at ``SEEK_ATOL``."""
+    jcfg = jc.MPPIConfig(num_samples=16, horizon=12)
+    jctl, tctl, _ = _controllers(jcfg, seed=11)
+    (jrob, _), (trob, _) = _states(jcfg, -10.0, -8.0, [1.0, 0.4, 0.0])
+    jfinal, _, jpath = jctl.run(jrob, max_loops=25)
+    tfinal, _, tpath = tctl.run(trob, max_loops=25)
+    assert tctl.loop == jctl.loop == 25
+    np.testing.assert_allclose(tpath.numpy(), jpath, rtol=0, atol=SEEK_ATOL)
+    for x, y in zip(tfinal, jfinal):
+        _close(x, y, 0, SEEK_ATOL, "final robot")
 
 
 def test_run_reaches_goal_and_honours_the_cap():

@@ -1,12 +1,15 @@
 """PyTorch port: the fixed-capacity point processes and the clipmap's
 rock-placement query against the JAX package.
 
-The port draws from ``torch.Generator``s, so its points are not JAX's; the
-draw-free parts are held exactly: the hardcore thinning with JAX's marks
-injected keeps the same mask, and the placement query gives JAX's heights
-(float64, 1e-12). The draws are held to their laws: shapes, mask layout,
-points inside the region, counts within capacity and mean counts near
-``area x density`` over seeds."""
+The port takes JAX's key and splits it in JAX's order, so a key gives
+JAX's points: counts equal (``jax.random.poisson``), uniforms bit-equal in
+float32 and within one float64 ulp of the span, the Thomas children's
+normal offsets within 1e-13 m in float64, masks equal. The draw-free parts
+are held exactly: the hardcore thinning with JAX's marks injected keeps the
+same mask, and the placement query gives JAX's heights (float64, 1e-12).
+The draws are also held to their laws: shapes, mask layout, points inside
+the region, counts within capacity and mean counts near ``area x density``
+over seeds."""
 
 import jax
 import jax.numpy as jnp
@@ -50,10 +53,14 @@ def test_hardcore_thin_masked_with_jax_marks(seed):
 
 
 def test_hardcore_thin_fixed_draws_marks_from_the_generator():
-    pts = tpp.poisson_fixed(torch.Generator().manual_seed(3), REGION, 0.4, (0.5, 2.5), 128,
-                            dtype=torch.float64)
-    got = tpp.hardcore_thin_fixed(torch.Generator().manual_seed(9), pts)
-    marks = torch.rand((128,), generator=torch.Generator().manual_seed(9), dtype=torch.float64)
+    """The marks are JAX's ``uniform(key, (C,))``; the thinning keeps the
+    older point, and keeps JAX's mask from the same keys."""
+    pts = tpp.poisson_fixed(jr.key(3), REGION, 0.4, (0.5, 2.5), 128, dtype=torch.float64)
+    got = tpp.hardcore_thin_fixed(jr.key(9), pts)
+    marks = jr.uniform(jr.key(9), (128,), torch.float64)
+    jpts = jpp.poisson_fixed(jax.random.key(3), REGION, 0.4, (0.5, 2.5), 128, dtype=jnp.float64)
+    want = jpp.hardcore_thin_fixed(jax.random.key(9), jpts)
+    assert np.array_equal(got.mask.numpy(), np.asarray(want.mask))
     assert torch.equal(got.mask, tpp.hardcore_thin_masked(pts, marks).mask)
     assert not (got.mask & ~pts.mask).any()
     # a survivor is older than every valid point strictly inside its radius
@@ -69,8 +76,7 @@ def test_poisson_fixed_layout_and_law():
     cap = 512
     counts = []
     for seed in range(40):
-        pts = tpp.poisson_fixed(torch.Generator().manual_seed(seed), REGION, 0.5, (0.1, 0.9),
-                                cap)
+        pts = tpp.poisson_fixed(jr.key(seed), REGION, 0.5, (0.1, 0.9), cap)
         assert pts.points.shape == (cap, 2) and pts.radius.shape == (cap,)
         assert pts.mask.shape == (cap,) and pts.mask.dtype == torch.bool
         assert pts.points.dtype == pts.radius.dtype == torch.float32 and pts.capacity == cap
@@ -82,7 +88,7 @@ def test_poisson_fixed_layout_and_law():
     mean = AREA * 0.5
     assert max(counts) <= cap
     assert abs(np.mean(counts) - mean) < 4 * np.sqrt(mean / len(counts))
-    capped = tpp.poisson_fixed(torch.Generator().manual_seed(0), REGION, 0.5, (0.1, 0.9), 16)
+    capped = tpp.poisson_fixed(jr.key(0), REGION, 0.5, (0.1, 0.9), 16)
     assert bool(capped.mask.all())  # Poisson(200) > 16: the count is capped
 
 
@@ -90,8 +96,8 @@ def test_thomas_fixed_layout_and_law():
     pd, cd, sigma, pcap, ccap = 0.02, 6.0, 0.8, 64, 24
     counts = []
     for seed in range(50):
-        pts = tpp.thomas_fixed(torch.Generator().manual_seed(seed), REGION, pd, cd, sigma,
-                               pcap, ccap, dtype=torch.float64)
+        pts = tpp.thomas_fixed(jr.key(seed), REGION, pd, cd, sigma, pcap, ccap,
+                               dtype=torch.float64)
         assert pts.points.shape == (pcap * ccap, 2) and pts.mask.shape == (pcap * ccap,)
         assert pts.points.dtype == torch.float64 and torch.equal(pts.radius,
                                                                   torch.zeros(pcap * ccap,
@@ -106,11 +112,44 @@ def test_thomas_fixed_layout_and_law():
 
 
 def test_point_processes_follow_the_generator():
-    a = tpp.thomas_fixed(torch.Generator().manual_seed(5), REGION, 0.02, 6.0, 0.8, 32, 8)
-    b = tpp.thomas_fixed(torch.Generator().manual_seed(5), REGION, 0.02, 6.0, 0.8, 32, 8)
-    c = tpp.thomas_fixed(torch.Generator().manual_seed(6), REGION, 0.02, 6.0, 0.8, 32, 8)
+    """A key repeats its points, another key draws others."""
+    a = tpp.thomas_fixed(jr.key(5), REGION, 0.02, 6.0, 0.8, 32, 8)
+    b = tpp.thomas_fixed(jr.key(5), REGION, 0.02, 6.0, 0.8, 32, 8)
+    c = tpp.thomas_fixed(jr.key(6), REGION, 0.02, 6.0, 0.8, 32, 8)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert not torch.equal(a.points, c.points)
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_fixed_point_processes_match_jax_from_a_key(seed, dtype):
+    """``poisson_fixed``, ``hardcore_thin_fixed`` and ``thomas_fixed`` from
+    JAX's key against JAX's own: equal masks (the Poisson counts: 400 x 0.4
+    = 160 takes the rejection sampler, the children's 6.0 Knuth's), float32
+    points bit-equal, float64 within one ulp of the span (uniforms) and
+    1e-13 m (the children's normal offsets times sigma)."""
+    tdt, jdt = getattr(torch, dtype), getattr(jnp, dtype)
+    exact = dtype == "float32"
+    key, jkey = jr.key(seed), jax.random.key(seed)
+    got = tpp.poisson_fixed(key, REGION, 0.4, (0.5, 2.5), 256, dtype=tdt)
+    want = jpp.poisson_fixed(jkey, REGION, 0.4, (0.5, 2.5), 256, dtype=jdt)
+    assert int(got.mask.sum()) == int(np.asarray(want.mask).sum()) > 100
+    for a, b in zip(got, want):
+        if exact or a.dtype == torch.bool:
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        else:
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=np.spacing(20.0))
+    thinned = tpp.hardcore_thin_fixed(jr.split(key)[1], got)
+    jthinned = jpp.hardcore_thin_fixed(jax.random.split(jkey)[1], want)
+    np.testing.assert_array_equal(thinned.mask.numpy(), np.asarray(jthinned.mask))
+    got = tpp.thomas_fixed(key, REGION, 0.02, 6.0, 0.8, 64, 24, dtype=tdt)
+    want = jpp.thomas_fixed(jkey, REGION, 0.02, 6.0, 0.8, 64, 24, dtype=jdt)
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    if exact:
+        np.testing.assert_array_equal(got.points.numpy(), np.asarray(want.points))
+    else:
+        np.testing.assert_allclose(got.points.numpy(), np.asarray(want.points), rtol=0,
+                                   atol=1e-13)
 
 
 def test_masked_points_from_jax():

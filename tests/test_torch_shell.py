@@ -6,7 +6,8 @@ and monitor are copies of the JAX modules and run the scenarios of
 ``tests/test_shell.py`` in both packages. The simulation manager steps with
 JAX's noise replayed (``split(key(conf.seed))`` per tick, then the closed
 loop's own split), a teleport and a reset over the bus between ticks, and
-is held to the closed loop's 1e-9 (tests/test_torch_closed_loop.py)."""
+from its seed alone (the port draws the same stream), and is held to the
+closed loop's 1e-9 (tests/test_torch_closed_loop.py)."""
 
 import time
 
@@ -23,7 +24,7 @@ from husky_rover_mppi_isaacsim_tpu import env as jenv
 from husky_rover_mppi_isaacsim_tpu import shell as jshell
 from husky_rover_mppi_isaacsim_tpu.mppi import controller as jc
 
-from test_torch_closed_loop import LOOP_ATOL, _close, _compare_loop_states, _jax_noise, _world
+from test_torch_closed_loop import LOOP_ATOL, _close, _compare_loop_states, _world
 
 torch.set_num_threads(1)
 
@@ -185,11 +186,10 @@ def _managers(n_slots=3, k=16, h=12, seed=5):
 
 
 def test_simulation_manager_matches_jax():
-    """Eight ticks with JAX's noise replayed; a bus teleport after tick 2, a
-    reset after tick 4, a spawn over the bus after tick 5; the loop state
-    within 1e-9 of JAX's after every tick."""
-    jsm, tsm, jconf = _managers()
-    key = jax.random.key(jconf.seed)
+    """Eight ticks, each manager from its seed; a bus teleport after tick
+    2, a reset after tick 4, a spawn over the bus after tick 5; the loop
+    state within 1e-9 of JAX's after every tick."""
+    jsm, tsm, _ = _managers()
     bus_events = {2: (jshell.Topics.ROBOT_TELEPORT, {"name": "husky_0", "position": (2.0, -3.0),
                                                      "heading": (0.0, 1.0, 0.0)}),
                   4: (jshell.Topics.ROBOT_RESET, {"name": "husky_1"}),
@@ -197,9 +197,8 @@ def test_simulation_manager_matches_jax():
     try:
         _compare_loop_states(tsm.state, jsm.state, "initial")
         for tick in range(8):
-            key, sub = jax.random.split(key)
             jsm.step()
-            tsm.step(noise=_jax_noise(sub, jconf.loop, 3))
+            tsm.step()
             _compare_loop_states(tsm.state, jsm.state, f"tick {tick}")
             assert tsm.step_count == jsm.step_count == tick + 1
             if tick in bus_events:
@@ -214,8 +213,27 @@ def test_simulation_manager_matches_jax():
         tsm.close()
 
 
+def test_simulation_manager_from_its_seed_matches_jax():
+    """Eight ticks with no noise injected: the port carries ``key(seed)``
+    and splits it each tick, as JAX's manager does, its step drawing the
+    noise from the tick's key; the loop state within 1e-9 of JAX's after
+    every tick."""
+    jsm, tsm, _ = _managers()
+    try:
+        for tick in range(8):
+            jsm.step()
+            tsm.step()
+            _compare_loop_states(tsm.state, jsm.state, f"tick {tick}")
+        np.testing.assert_array_equal(tsm.key.numpy(), np.asarray(
+            jax.random.key_data(jsm._key)).astype(np.int64))
+    finally:
+        jsm.close()
+        tsm.close()
+
+
 def test_simulation_manager_runs_and_applies_bus_requests():
-    """The scenario of tests/test_shell.py on the port, with its own noise."""
+    """The scenario of tests/test_shell.py on the port, its noise drawn from
+    its key."""
     jsm, tsm, _ = _managers(n_slots=2)
     jsm.close()
     with tsm as sm:
@@ -236,7 +254,7 @@ def test_simulation_manager_runs_and_applies_bus_requests():
 
 
 def test_simulation_manager_draws_are_replayable_and_hooked():
-    """Two managers of one seed step identically from their generators;
+    """Two managers of one seed step identically from their keys;
     the deformation hook runs after every tick; a dead monitor stops
     ``run_simulation``."""
     runs = []

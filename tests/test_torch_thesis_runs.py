@@ -12,7 +12,7 @@ arm); the JAX script then runs its ``main`` with its experiment function
 replaced by one that hands back the tables the port's driver got from the
 port's experiment function, so that the two tables differ only in what the
 drivers add. Both must carry the same keys, the port's ``config`` with
-``kernel_routes`` and a ``device`` record in place of the TPU-only
+``kernel_routes``, a ``device`` record and ``control_noise`` in place of the TPU-only
 ``gather_engine``. The experiment functions themselves are held against
 JAX's in tests/test_torch_evaluation.py."""
 
@@ -153,7 +153,9 @@ def _jax_main(monkeypatch, tmp_path, script, argv):
 
 
 def _port_config(got_config, want_config):
-    assert set(got_config) == set(want_config) - {"gather_engine"} | {"kernel_routes", "device"}
+    assert set(got_config) == (set(want_config) - {"gather_engine"}
+                               | {"kernel_routes", "device", "control_noise"})
+    assert got_config["control_noise"] == "jax"
     assert got_config["kernel_routes"] == {"rollout_3d": "plain", "rollout_2d": "plain"}
     assert got_config["device"] == {"name": "cpu", "power_limit": None}
 
