@@ -4,12 +4,15 @@
 
 Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu), the port's own crater
-block kernel (csrc/crater_block.cu, also once with -fmad=false for the check
-of its libdevice functions) and its planar rollout kernel
+block kernel (csrc/crater_block.cu) and its planar rollout kernel
 (csrc/rollout_2d.cu, the 2D arm's sample rollout) and the jax_normal kernel
 (csrc/jax_normal.cu, JAX's normals for every control and slip draw) from
 the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
-with g++, all started together; holds each kernel against its plain
+with g++, all started together; holds the crater block kernel's device
+copies of XLA's exp and glibc's atan2f, atanf, sinf and cosf
+(csrc/xla_math.cuh) against their plain versions (core/xla_math.py) on 2^24
+probes each, and those plain versions on the card against the CPU's, bit for
+bit; holds each kernel against its plain
 PyTorch version on the card, bit for bit (jax_normal at the loops' shapes,
 with a split, a fold-in, a chunk's device index and a count offset, and
 against the same plain draw on the CPU, which the CPU tests hold against
@@ -27,7 +30,8 @@ float32 operand; K1 on 8 samples against the float64 Warp-semantics
 oracle, compat.warp_oracle); times each kernel back to
 back and as one CUDA-graph replay of 20 launches (device time without the
 host's issue time); builds the standalone world on the card (its
-costmap through K2); checks one control step and one N=4 closed-loop step on
+costmap through K2; its 1500^2 crater map and 750^2 costmap torch.equal to
+the CPU's); checks one control step and one N=4 closed-loop step on
 the card against the same steps on the CPU, and counts the device kernels of
 each (a K1 call dispatches no torch operator but the output's empty); drives
 the flagship goal-seek (K=1000 x H=100, (-45, -40) -> (45, 40) on the 150 m
@@ -52,7 +56,7 @@ world streams (core.jax_random: the thesis DEM's base-noise grids and
 bench_torch.py's vec-env starts) on the card, torch.equal to the CPU's,
 builds the seed-42 thesis DEM at z 0.7 on the card and on the CPU (each
 DEM's statistics EVAL_r05.json's, the JAX package's terrain) and the SDG
-yard on both, held within the crater heights' float32 bound; runs the thesis 2D-vs-3D evaluation protocol at full
+yard on both, torch.equal; runs the thesis 2D-vs-3D evaluation protocol at full
 width (K=1000 x H=100, 1500^2 DEM and 1500^2 costmap, one run per arm, the
 protocol's 3500-loop cap), graphed and eager, with the plain 2D rollout
 timed alone and the 2D arm's graph timed on the planar rollout kernel
@@ -64,13 +68,14 @@ K3's probe entry point; and drives the streamed-terrain
 full-stack loop (mode=largescale) at the LargeScaleConf defaults: builds the
 7000^2 window twice on the crater block kernel (bit-equal) and once on its
 plain version (every slot rendered as a patch, the live ones added by
-slice adds; bit-equal to them), holds the kernel against its plain version
+slice adds; bit-equal to them), and once on the CPU (torch.equal to the
+card's), holds the kernel against its plain version
 on every radius tier of the world's first blocks and on each whole block
-(timing the padded render it replaced beside it, and checking the
-kernel's atan2f, expf, cosf and sinf against torch's in both -fmad builds),
+(timing the padded render it replaced beside it),
 holds K1 on that window at two poses (the
 second within one horizon of the window's edge after a block shift) and K2
-at the 875^2 costmap against their plain versions, checks that a shift
+at the 875^2 costmap against their plain versions (that costmap card = CPU),
+checks that a shift
 leaves world heights where they were, steps one 12-step chunk on the card
 against the same chunk on the CPU, and drives traverses (0, 0) -> (65, 65)
 through the CLI's entry, in turns: the synchronous loop with shift
@@ -215,10 +220,9 @@ WB_MPP, WB_SEED = 0.02, 11
 # rollout tests' bound (tests/test_torch_rollout.py) on trajectory,
 # headings and wheel xy, with >= 98% of wheel heights equal
 ORACLE_SAMPLES, ORACLE_ATOL, ORACLE_WHEEL_Z_SHARE = 8, 5e-4, 0.98
-# a DEM built on the card against the same DEM built on the CPU: the float32
-# crater heights' bound of tests/test_torch_smallscale.py (CRATER_ATOL; the
-# libraries' atan2 and exp differ in the last bits)
-DEM_ATOL = 2e-6
+# xla_math: probes per function (the crater block kernel's device copies of
+# XLA's and glibc's functions against their plain versions), in chunks
+XLA_MATH_PROBES, XLA_MATH_CHUNK = 1 << 24, 1 << 22
 
 
 # one H100 SXM's published peaks (NVIDIA data sheet): HBM bytes per second,
@@ -253,13 +257,16 @@ ROLLOUT_2D_CHAIN_DEPTH = 15
 DEPENDENT_OP_CYCLES = 4
 # operations of the crater block kernel per (slot, pixel) pair inside a
 # crater's rotated square, counted from csrc/crater_block.cu with each
-# division, square root, atan2f and expf as one: the square tests 5, the
-# rotation 6, the rotated-square test 4, theta 3, three table lookups 13
-# each (clamp 2, scale, floor, convert, index min, two subtractions, two
-# loads, two products, a sum), the marks 2, m 6, the envelope 7 (two
-# tests, one branch), the marks' add 3, the height's division and
-# products 3, the accumulation 1
-CRATER_OPS_PER_PAIR = 79
+# division, square root, atan2 and exp as one and a fused multiply-add as
+# one: the square tests 5, the rotation 4 (two products, two FMAs), the
+# rotated-square test 4, theta 2 (the atan2, an FMA), three table lookups
+# 12 each (clamp 2, scale, floor, convert, index min, two subtractions, two
+# loads, a product, an FMA), the marks 2, m 5 (the division, a product, an
+# FMA, the square root, a product), the envelope 7 (two tests, one
+# branch), the marks' FMA and the clamp 2, the height's division and
+# products 3, the accumulation 1 (patches of 56 pixels or fewer add the
+# unfused atan2 arguments' two products and two sums)
+CRATER_OPS_PER_PAIR = 71
 # instructions of one jax_normal value's threefry hash, counted from
 # csrc/jax_normal.cu: 20 rounds of an add, a rotate (one funnel shift) and a
 # xor, five key injections of three adds, two adds to start, and the
@@ -348,7 +355,9 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
     from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
     from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d, rollout_25d
+    from husky_rover_mppi_isaacsim_torch.core.xla_math import pow_f32, sqrt_f32
     from husky_rover_mppi_isaacsim_torch.ops.edt import (
+        distance_costmap,
         edt_exact_sq,
         edt_exact_sq_plain,
         minplus_envelope,
@@ -371,6 +380,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.ops import rollout_2d_cuda as r2_module
     from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
+    from husky_rover_mppi_isaacsim_torch.ops.upsample_cuda import upsample_taps_cuda
     from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import (
         SPLIT_NEXT,
         SPLIT_SUB,
@@ -409,6 +419,64 @@ def main(argv=None) -> int:
 
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
 
+    def xla_math_probes(seed):
+        """XLA_MATH_PROBES float32 probes: random bit patterns (every
+        exponent, subnormals, infinities and NaNs among them), a dense range,
+        magnitudes to 1e30 (sin and cos reduce them in integers), and the
+        special values with their neighbours."""
+        rng = np.random.default_rng(seed)
+        n = XLA_MATH_PROBES // 4
+        special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-45, 1e-40, -3e-39,
+                            1.17549435e-38, 1.0, -1.0, 0.5, 2.0, np.pi / 4, 120.0, -120.0, 88.8,
+                            -87.8, 1e30, -1e30, 3.4e38], np.float32)
+        near = np.nextafter(np.repeat(special[np.isfinite(special)], 256),
+                            np.float32(np.inf)).astype(np.float32)
+        parts = [rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32).view(np.float32),
+                 rng.uniform(-130.0, 130.0, n).astype(np.float32),
+                 (rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-40, 30, n)).astype(np.float32),
+                 special, near]
+        rest = XLA_MATH_PROBES - sum(p.size for p in parts)
+        parts.append(rng.uniform(-4.0, 4.0, rest).astype(np.float32))
+        return torch.from_numpy(np.concatenate(parts))
+
+    def xla_math_phase():
+        """Each device function of the crater block kernel (its check entry,
+        crater_block_cuda.xla_math) against the plain function of
+        core/xla_math.py on the same probes on the card, and the card's
+        plain values against the CPU's, computed in this process: both
+        torch.equal on the float32 bit patterns (a NaN result is the one
+        canonical NaN, so the bits compare as they are)."""
+        from husky_rover_mppi_isaacsim_torch.core import xla_math as xm
+
+        plain = {"atan2": xm.atan2_f32, "exp": xm.exp_f32, "cos": xm.cos_f32,
+                 "sin": xm.sin_f32, "atan": xm.atan_f32}
+        rows, ok = {}, True
+        t_all = time.perf_counter()
+        for seed, name in enumerate(crater_block_cuda.XLA_MATH_OPS):
+            a = xla_math_probes(seed)
+            b = xla_math_probes(seed + 100)[torch.randperm(a.numel(),
+                                                           generator=torch.Generator().manual_seed(seed))]
+            t0 = time.perf_counter()
+            dev_equal, card_cpu_equal, nan = True, True, 0
+            for lo in range(0, a.numel(), XLA_MATH_CHUNK):
+                ac, bc = a[lo:lo + XLA_MATH_CHUNK], b[lo:lo + XLA_MATH_CHUNK]
+                args_cpu = (ac, bc) if name == "atan2" else (ac,)
+                args_card = tuple(t.to(cuda) for t in args_cpu)
+                kernel = crater_block_cuda.xla_math(name, *args_card)
+                card = plain[name](*args_card)
+                host = plain[name](*args_cpu)
+                dev_equal &= torch.equal(kernel.view(torch.int32), card.view(torch.int32))
+                card_cpu_equal &= torch.equal(card.cpu().view(torch.int32), host.view(torch.int32))
+                nan += int(torch.isnan(host).sum())
+            rows[name] = {"probes": a.numel(), "kernel_equals_plain_card": dev_equal,
+                          "card_equals_cpu": card_cpu_equal, "nan_results": nan,
+                          "seconds": round(time.perf_counter() - t0, 3)}
+            ok = ok and dev_equal and card_cpu_equal
+        phase("xla_math", functions=rows, seconds=round(time.perf_counter() - t_all, 3), ok=ok)
+        if not ok:
+            raise RuntimeError("a device function of the crater block kernel differs from its "
+                               "plain version, or the plain version on the card from the CPU's")
+
     # 1. the card, and full-float32 matmuls
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -421,23 +489,21 @@ def main(argv=None) -> int:
           cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
-    # 2. build K1, K2, K3, the crater block kernel and the planar rollout
-    #    kernel from the sources, one nvcc each, the crater block's source
-    #    once more with -fmad=false (its libdevice functions are checked in
-    #    both builds), and the host runtime (csrc/husky_native.cpp) with
-    #    g++, all started together
+    # 2. build K1, K2, K3, the crater block kernel, the planar rollout
+    #    kernel, the jax_normal kernel and the upsample's 4-tap kernel from
+    #    the sources, one nvcc each, and the host runtime
+    #    (csrc/husky_native.cpp) with g++, all started together
     t0 = time.perf_counter()
-    crater_libm_off = block_module.CudaCraterBlock(fmad=False)
     wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_block_cuda,
-                crater_libm_off, rollout_2d_cuda, jax_normal)
+                rollout_2d_cuda, jax_normal, upsample_taps_cuda)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
         native_ok = host_build.result()
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
-                            "crater_block_f32", "crater_block_f32 (-fmad=false)",
-                            "rollout2d_f32", "jax_normal_f32"), builds):
+                            "crater_block_f32", "rollout2d_f32", "jax_normal_f32",
+                            "upsample_taps_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -445,6 +511,12 @@ def main(argv=None) -> int:
           library=native.library_path.name if native_ok else None, ok=native_ok)
     if not native_ok:
         raise RuntimeError(f"the native host runtime did not build:\n{native.build_error()}")
+
+    # 2b. the crater block kernel's device functions (csrc/xla_math.cuh:
+    #     XLA's exp, glibc's atan2f / atanf, sinf and cosf) against their
+    #     plain versions (core/xla_math.py) on the card, and the card's
+    #     values against the CPU's, on XLA_MATH_PROBES probes each
+    xla_math_phase()
 
     # 3. K1 against its plain version on the card, every channel bit for bit:
     #    the flagship DEM and shapes, the K=1 optimal rollout, a ragged shape
@@ -526,6 +598,7 @@ def main(argv=None) -> int:
     #     draws JAX's stream)
     jax_normal_row = jax_normal_phase()
     draws_by_path = {}  # jax_normal launches of each main path
+    taps_by_path = {}  # the upsample's 4-tap launches per streamed path
 
     def dem_cells(hf, got, start):
         """DEM cells a rollout read: the start cell's and every step's quad
@@ -630,47 +703,6 @@ def main(argv=None) -> int:
         moved = 8 * covered + 36 * live.size + rows * tables.shape[-1] * 4
         return pairs, covered, moved
 
-    def crater_libm(streamer, field, patch_px):
-        """The kernel's four libdevice functions, in its -fmad=true build
-        and in a -fmad=false build of the same source, op by op against
-        torch.atan2 / exp / cos / sin on the arguments that rendering this
-        tier's live craters passes them (captured from _render_patches on
-        the card): elements that differ and the largest difference in
-        float32 ulps, per build and function."""
-        conf = streamer.conf
-        live = torch.nonzero(field.mask).flatten()
-        sub = tcr.CraterField(*(f[live].to(cuda) for f in field))
-        args = {name: [] for name in ("atan2", "exp", "cos", "sin")}
-
-        def recorder(name, fn):
-            def call(*a):
-                args[name].append(tuple(t.detach().clone() for t in a))
-                return fn(*a)
-            return call
-
-        with contextlib.ExitStack() as stack:
-            for name in args:
-                stack.enter_context(mock.patch.object(torch, name,
-                                                      recorder(name, getattr(torch, name))))
-            tcr._render_patches(streamer.profiles, sub, conf.resolution, conf.z_scale, patch_px)
-        out = {}
-        for label, wrapper in (("fmad_true", crater_block_cuda), ("fmad_false", crater_libm_off)):
-            row = {}
-            for name, calls in args.items():
-                diff, ulps, count = 0, 0, 0
-                for a in calls:
-                    a = tuple(t.contiguous().flatten() for t in a)
-                    got, want = wrapper.libm(name, *a), getattr(torch, name)(*a)
-                    bad = got != want
-                    diff += int(bad.sum())
-                    count += got.numel()
-                    if bad.any():
-                        gi, wi = got[bad].view(torch.int32), want[bad].view(torch.int32)
-                        ulps = max(ulps, int((gi.long() - wi.long()).abs().max()))
-                row[name] = {"values": count, "differ": diff, "max_ulps": ulps}
-            out[label] = row
-        return out
-
     def crater_block_phase(streamer, blocks=CRATER_BLOCKS):
         """The crater block kernel on the 7000^2 world's first ``blocks``
         blocks, for each radius tier: the kernel against its plain version
@@ -684,12 +716,11 @@ def main(argv=None) -> int:
         block's craters through render_crater_block on the kernel and on
         the plain version, torch.equal, both timed on the host clock, with
         the kernel route's launches and the device memory it allocated above
-        the raster (no (slots, P, P) patch tensor). The first block's tiers
-        also check the kernel's libdevice functions in both -fmad builds
-        (crater_libm). Returns the kernel table's row."""
+        the raster (no (slots, P, P) patch tensor). Returns the kernel
+        table's row."""
         conf = streamer.conf
         res, z_scale = conf.resolution, conf.z_scale
-        tiers, blocks_out, equal, max_err, libm = [], [], True, 0.0, {}
+        tiers, blocks_out, equal, max_err = [], [], True, 0.0
         for bx, by in list(streamer.block_cache)[:blocks]:
             origin = np.asarray([bx * conf.block_size, by * conf.block_size], np.float32)
             blk = {"block": [bx, by], "kernel_ms": 0.0, "plain_ms": 0.0, "render_ms": 0.0,
@@ -712,8 +743,6 @@ def main(argv=None) -> int:
                 want = tcr.crater_block_plain(torch.zeros((side, side), device=cuda), *args)
                 torch.cuda.synchronize()
                 eq, err = torch.equal(got, want), (got - want).abs().max().item()
-                if not blocks_out:  # the first block's tiers
-                    libm[patch_px] = crater_libm(streamer, field, patch_px)
                 buf = torch.zeros((side, side), device=cuda)
                 k_ms = cold_ms(lambda: crater_block_cuda.launch(buf, *args, bins),
                                reset=buf.zero_)
@@ -770,15 +799,13 @@ def main(argv=None) -> int:
             equal = (equal and blk["block_equal_plain"] and blk["no_patch_tensor"]
                      and blk["launches"] == len(fields) and times["plain"][3] == 0)
             blocks_out.append(blk)
-        libm_ok = all(r["differ"] == 0 for t in libm.values() for r in t["fmad_true"].values())
-        ok = equal and bool(tiers) and libm_ok
-        phase("crater_libm", per_tier_patch_px=libm, ok=libm_ok)
+        ok = equal and bool(tiers)
         phase("crater_block", tiers=tiers, blocks=blocks_out, ops_per_pair=CRATER_OPS_PER_PAIR,
               ok=ok)
         if not ok:
-            raise RuntimeError("the crater block kernel disagrees with its plain version, a "
-                               "libdevice function with torch's, or a block launched other "
-                               "than once per tier or allocated a patch tensor")
+            raise RuntimeError("the crater block kernel disagrees with its plain version, or a "
+                               "block launched other than once per tier or allocated a patch "
+                               "tensor")
         first = blocks_out[0]
         return {"ms": first["kernel_ms"], "plain_ms": first["plain_ms"],
                 "bound_ms": first["bound_ms"], "bound_by": first["bound_by"],
@@ -786,6 +813,60 @@ def main(argv=None) -> int:
                 "padded_render_ms": first["render_ms"],
                 "per": "block (its radius tiers' launches)", "block": first["block"],
                 "launches_per_block": first["launches"]}
+
+    def upsample_taps_phase(streamer):
+        """The upsample's 4-tap kernel at the main path's shapes: a streamed
+        block's two axis passes (its 9 x 9 LR patch by the factor 200: (9,
+        9) -> (1800, 9), then (9, 1800) -> (1800, 1800)), each against its
+        plain version (the gather and ``_tap_sum``) on the same inputs,
+        torch.equal; the kernel timed one launch at a time out of L2
+        (cold_ms), the plain pass and a dense ``W @ img`` (the one torch
+        call that computes the same sums, W the rows' four weights on their
+        taps) beside it; the bound from the bytes and FMAs of each pass.
+        Returns the kernel table's row (the second pass)."""
+        from husky_rover_mppi_isaacsim_torch.terrain import upsample as tup
+
+        factor = streamer.conf.upscale_factor
+        img = streamer._lr_patch(0, 0).to(cuda, torch.float32)
+        passes, equal, err = [], True, 0.0
+        for _ in range(2):
+            n, m = img.shape
+            src = (np.arange(n * factor) + 0.5) / factor - 0.5
+            i0 = np.floor(src).astype(np.int64)
+            offs = np.arange(-1, 3)
+            kw_np = tup.cubic_kernel(offs[None, :] - (src - i0)[:, None])
+            kw_np = kw_np / kw_np.sum(axis=1, keepdims=True)
+            idx_np = np.clip(i0[:, None] + offs[None, :], 0, n - 1)
+            kw = torch.as_tensor(kw_np, dtype=torch.float32, device=cuda)
+            idx = torch.as_tensor(idx_np, device=cuda)
+            idx32 = idx.to(torch.int32)
+            dense = np.zeros((n * factor, n), np.float32)
+            np.add.at(dense, (np.repeat(np.arange(n * factor), 4), idx_np.ravel()),
+                      kw_np.astype(np.float32).ravel())
+            w = torch.from_numpy(dense).to(cuda)
+            got = upsample_taps_cuda(img, kw, idx)
+            want = tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)])
+            torch.cuda.synchronize()
+            eq, e = torch.equal(got, want), (got - want).abs().max().item()
+            out = torch.empty_like(got)
+            k_ms = cold_ms(lambda: upsample_taps_cuda.launch(img, kw, idx32, out))
+            p_ms = cuda_ms(lambda: tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)]), reps=3)
+            lib_ms = cuda_ms(lambda: w @ img, reps=5)
+            moved = 4 * (img.numel() + got.numel()) + 4 * kw.numel() + 4 * idx32.numel()
+            b_ms, b_by = bound(moved, 4 * got.numel(), PEAK_FP32_INSTR_S)
+            passes.append({"in": list(img.shape), "out": list(got.shape), "bit_equal": eq,
+                           "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                           "bound_ms": b_ms, "bound_by": b_by, "bytes": moved})
+            equal, err = equal and eq, max(err, e)
+            img = got.T.contiguous()
+        phase("upsample_taps", factor=factor, passes=passes, ok=equal)
+        if not equal:
+            raise RuntimeError("the upsample's 4-tap kernel disagrees with its plain version")
+        last = passes[-1]
+        return {"ms": last["ms"], "plain_ms": last["plain_ms"], "bound_ms": last["bound_ms"],
+                "bound_by": last["bound_by"], "library_ms": last["library_ms"],
+                "max_abs_err": err, "per": "axis pass (9, 1800) -> (1800, 1800)",
+                "first_pass": passes[0]}
 
     def largescale_timed():
         """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
@@ -800,9 +881,9 @@ def main(argv=None) -> int:
         conf = largescale_conf({})
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        worlds, seconds, stamps = [], [], []
+        worlds, seconds, stamps, taps = [], [], [], []
         for route in ("kernel", "plain", "kernel"):
-            crater_block_cuda.launches = 0
+            crater_block_cuda.launches = upsample_taps_cuda.launches = 0
             t0 = time.perf_counter()
             with plain_block() if route == "plain" else contextlib.nullcontext():
                 lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
@@ -810,6 +891,7 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             stamps.append(crater_block_cuda.launches)
+            taps.append(upsample_taps_cuda.launches)
             worlds.append(lstm)
         lstm, plain_world, again = worlds
         streamer = lstm.map_manager.streamer
@@ -824,17 +906,36 @@ def main(argv=None) -> int:
               rocks=int(lstm.extract_rocks_data().shape[0]), routes=["kernel", "plain", "kernel"],
               seconds=seconds, seconds_kernel=[seconds[0], seconds[2]],
               seconds_plain_block=seconds[1], crater_block_launches=stamps,
+              upsample_taps_launches=taps,
               build_phases_s=[w.build_phase_acc for w in worlds], second_build_bit_equal=equal,
               plain_block_build_bit_equal=plain_equal,
               finite=bool(torch.isfinite(window).all()), z_min=window.min().item(),
               z_max=window.max().item(),
               peak_memory_bytes_three_worlds=torch.cuda.max_memory_allocated())
         if (not equal or not plain_equal or tuple(window.shape) != (7000, 7000)
-                or stamps[1] != 0 or not stamps[0] == stamps[2] > 0):
+                or stamps[1] != 0 or not stamps[0] == stamps[2] > 0
+                or not taps[0] == taps[1] == taps[2] > 0):
             raise RuntimeError("two builds of the streamed world differ, the kernel's and the "
                                "plain version's differ, the crater block kernel did not run, "
                                "or the window is not 7000 x 7000")
+        # the first streamed window built on the CPU (the device route, as
+        # on the card): torch.equal to the card's, rocks equal
+        t0 = time.perf_counter()
+        cpu_world = LargeScaleTerrainManager(
+            largescale_conf({"terrain_streamer": {"native_pool": "never"}}).terrain, device=cpu)
+        cpu_world.build()
+        cpu_s = time.perf_counter() - t0
+        window_cpu_equal = torch.equal(window.cpu(), cpu_world.map_manager.streamer.window)
+        rocks_cpu_equal = np.array_equal(lstm.extract_rocks_data(), cpu_world.extract_rocks_data())
+        phase("largescale_window_card_vs_cpu", window=list(window.shape), cpu_build_s=cpu_s,
+              window_equal=window_cpu_equal, rocks_equal=rocks_cpu_equal,
+              ok=window_cpu_equal and rocks_cpu_equal)
+        if not (window_cpu_equal and rocks_cpu_equal):
+            raise RuntimeError("the first streamed window built on the card differs from the "
+                               "same window built on the CPU")
+        del cpu_world
         stamp_row = crater_block_phase(streamer)
+        taps_row = upsample_taps_phase(streamer)
         del worlds, plain_world
         graph_chunk(conf, again)
         del again
@@ -863,11 +964,14 @@ def main(argv=None) -> int:
         t_k2, t_k2_graph = cuda_ms(launch), graph_ms(launch)
         t_plain = cuda_ms(lambda: minplus_envelope(g2))
         bound_ms, bound_by = k2_bound(*g2.shape)
+        cost875_equal = torch.equal(distance_costmap(occ).cpu(), distance_costmap(occ.cpu()))
         phase("k2_875", shape=list(occ.shape), rocks=int(rocks.shape[0]),
               occupied_cells=int(occ.sum()), bit_equal=equal, max_abs_err=err, k2_ms=t_k2,
-              k2_graph_ms=t_k2_graph, plain_ms=t_plain, bound_ms=bound_ms, bound_by=bound_by)
-        if not equal or tuple(occ.shape) != (875, 875):
-            raise RuntimeError("K2 disagrees with its plain version at 875 x 875")
+              k2_graph_ms=t_k2_graph, plain_ms=t_plain, bound_ms=bound_ms, bound_by=bound_by,
+              costmap_card_equals_cpu=cost875_equal)
+        if not equal or tuple(occ.shape) != (875, 875) or not cost875_equal:
+            raise RuntimeError("K2 disagrees with its plain version at 875 x 875, or the "
+                               "875 x 875 costmap on the card differs from the CPU's")
         k2_row = {"ms": t_k2_graph, "plain_ms": t_plain, "bound_ms": bound_ms,
                   "bound_by": bound_by, "max_abs_err": err}
 
@@ -957,12 +1061,13 @@ def main(argv=None) -> int:
             pipeline_depth=0, max_steps=POOL_STEPS)
         pooled = run_traverse("largescale_native_pool", {}, pool_conf)
         counts["largescale_native_pool"] = (pooled["k1"], pooled["k2"])
+        taps_by_path["world_build"] = taps[0]
         stamp_counts = {"world_build": stamps[0], "largescale_prestage_verify": sync_s1["stamp"],
                         "largescale_pipelined": pipe_stamp, "largescale": sync_s0_stamp,
                         "largescale_pipelined_unbounded": unbounded_stamp,
                         "largescale_native_pool": pooled["stamp"]}
         del pooled
-        return loop0, k1_row, k2_row, counts, stamp_row, stamp_counts
+        return loop0, k1_row, k2_row, counts, stamp_row, stamp_counts, taps_row
 
     def graph_chunk(conf, lstm):
         """The streamed chunk at the LargeScaleConf defaults (the 7000^2
@@ -1137,11 +1242,13 @@ def main(argv=None) -> int:
         held = torch.cuda.memory_allocated()  # by the earlier phases' objects
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
         gp.gather_probe_cuda.launches = crater_block_cuda.launches = jax_normal.launches = 0
+        upsample_taps_cuda.launches = 0
         run = largescale_episode(tree, conf=conf)
         torch.cuda.synchronize()
         draws_by_path[name] = jax_normal.launches
+        taps_by_path[name] = upsample_taps_cuda.launches
         k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
-        stamp = crater_block_cuda.launches
+        stamp, taps = crater_block_cuda.launches, upsample_taps_cuda.launches
         peak = torch.cuda.max_memory_allocated() - held
         report, res, loop = largescale_report(run), run.result, run.loop
         on_cost, max_cost = path_on_cost(loop, res)
@@ -1158,6 +1265,7 @@ def main(argv=None) -> int:
             K=K, H=H, window=list(loop.hf.z.shape), costmap=list(loop.costmap.cost.shape),
             dispatched_steps=loop.dispatched_steps, k1_launches=k1, k1_expected=k1_expected,
             k2_launches=k2, k2_expected=k2_expected, crater_block_launches=stamp,
+            upsample_taps_launches=taps,
             worker_blocking_waits=loop.worker_blocking_waits, costmap_builds=builds,
             staged_windows_swapped=streamer.staged_shift_hits,
             staged_windows_verified=streamer.staged_shift_verified,
@@ -1179,6 +1287,7 @@ def main(argv=None) -> int:
             pool_collect_all_s=pool.collect_s if pool else 0.0,
             costmap_first_path_points=[entry[0] for entry in loop.costmap_log])
         ok = (k1 == k1_expected and k2 == k2_expected and seated_equal and stamp > 0
+              and (taps > 0 or pool is not None)  # the pool's threads upsample on the host
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
@@ -1202,7 +1311,7 @@ def main(argv=None) -> int:
                                "hits, seated costmaps, path cost or kernel counts)")
         if pool is not None:
             streamer.close()
-        return {"run": run, "loop": loop, "k1": k1, "k2": k2, "stamp": stamp,
+        return {"run": run, "loop": loop, "k1": k1, "k2": k2, "stamp": stamp, "taps": taps,
                 "steps_per_s": res.steps / res.wall_s}
 
     def largescale_resume(conf, full, counts):
@@ -2152,13 +2261,18 @@ def main(argv=None) -> int:
     occupied = occupancy(750)
     edt_equal = torch.equal(edt_exact_sq(occupied.to(cuda)).cpu(), edt_exact_sq(occupied))
     finite = bool(torch.isfinite(hf.z).all() and torch.isfinite(cm.cost).all())
+    # the 150 m crater map and the 750^2 costmap on the card against the
+    # same builds on the CPU (XLA's float32 arithmetic on both)
+    map_equal = torch.equal(hf.z.cpu(), crater_surface(1500, hw, STANDALONE_CRATER_BUMPS,
+                                                       device=cpu))
+    cost_equal = torch.equal(cm.cost.cpu(), costmap_750(use_exact_edt=True, device=cpu).cost)
 
     def costmap_seconds(size, plain):
         t0 = time.perf_counter()
         if plain:  # distance_costmap's steps, with the plain envelope
             occ = occupancy(size).to(cuda)
-            d = torch.sqrt(edt_exact_sq_plain(occ))
-            (1.0 - normalize_minmax(d)) ** 20.0
+            d = sqrt_f32(edt_exact_sq_plain(occ))
+            pow_f32(1.0 - normalize_minmax(d), 20.0)
         else:
             costmap_750(size=size, use_exact_edt=True, device=cuda)
         torch.cuda.synchronize()
@@ -2169,11 +2283,13 @@ def main(argv=None) -> int:
         for kind in ("plain", "k2", "k2", "plain"):
             costmap_s[f"{size}"][kind].append(costmap_seconds(size, kind == "plain"))
     phase("world", dem=list(hf.z.shape), costmap=list(cm.cost.shape), seconds=round(world_s, 3),
-          k2_launches=world_k2, edt_card_equals_cpu=edt_equal, finite=finite,
-          cost_min=cm.cost.min().item(), cost_max=cm.cost.max().item(),
+          k2_launches=world_k2, edt_card_equals_cpu=edt_equal,
+          crater_map_card_equals_cpu=map_equal, costmap_card_equals_cpu=cost_equal,
+          finite=finite, cost_min=cm.cost.min().item(), cost_max=cm.cost.max().item(),
           costmap_build_s=costmap_s)
-    if not (edt_equal and finite):
-        raise RuntimeError("world build on the card is wrong")
+    if not (edt_equal and finite and map_equal and cost_equal):
+        raise RuntimeError("world build on the card is wrong, or its crater map or costmap "
+                           "differs from the CPU's")
     if world_k2 != 1:
         raise RuntimeError(f"the world build launched K2 {world_k2} times, not once")
 
@@ -2860,9 +2976,9 @@ def main(argv=None) -> int:
     #     (float64 grids reported beside them); the seed-42 thesis DEM at
     #     z = 0.7 built on the card and on the CPU, each DEM's statistics
     #     EVAL_r05.json's at its printed digits (the JAX package's terrain),
-    #     the two DEMs within the crater heights' float32 bound; the default
-    #     moonyard DEM (the SDG yard) on the card against the CPU's, at that
-    #     bound (the crater atan2 / exp differ in the last bits)
+    #     the two DEMs torch.equal; the default moonyard DEM (the SDG yard)
+    #     on the card torch.equal to the CPU's (the render's float32
+    #     arithmetic is XLA's on both, core/xla_math.py)
     thesis_conf = BaseTerrainGeneratorConf(x_size=150.0, y_size=150.0, resolution=0.1,
                                            max_elevation=1.2 * DRIVER_Z_SCALE,
                                            min_elevation=-1.2 * DRIVER_Z_SCALE, seed=42)
@@ -2888,22 +3004,24 @@ def main(argv=None) -> int:
     stats = {d: {"z_scale": DRIVER_Z_SCALE, **thesis_runs.terrain_statistics(z.numpy())}
              for d, z in thesis_dems.items()}
     thesis_err = (thesis_dems["cuda"] - thesis_dems["cpu"]).abs().max().item()
+    thesis_equal = torch.equal(thesis_dems["cuda"], thesis_dems["cpu"])
     yard = {dev.type: MoonyardGenerator(MoonyardConf(), device=dev).randomize().cpu()
             for dev in (cuda, cpu)}
     jax_random_stamps = crater_block_cuda.launches
     yard_err = (yard["cuda"] - yard["cpu"]).abs().max().item()
+    yard_equal = torch.equal(yard["cuda"], yard["cpu"])
     jax_random_ok = (draws_equal and stats["cuda"] == stats["cpu"] == jax_stats
-                     and thesis_err <= DEM_ATOL and yard_err <= DEM_ATOL
-                     and jax_random_stamps > 0)
+                     and thesis_equal and yard_equal and jax_random_stamps > 0)
     phase("jax_random", draws=[list(t.shape) for t in draws_card], draws_equal_card_cpu=draws_equal,
           float64_draws_equal_card_cpu=draws64_equal, terrain_stats_card=stats["cuda"],
           terrain_stats_cpu=stats["cpu"], terrain_stats_eval_r05=jax_stats,
-          thesis_dem_max_abs_diff_card_cpu=thesis_err, thesis_dem_builds_seconds=thesis_s,
-          yard_dem=list(yard["cuda"].shape), yard_dem_max_abs_diff_card_cpu=yard_err,
-          dem_atol=DEM_ATOL, crater_block_launches=jax_random_stamps, ok=jax_random_ok)
+          thesis_dem_equal_card_cpu=thesis_equal, thesis_dem_max_abs_diff_card_cpu=thesis_err,
+          thesis_dem_builds_seconds=thesis_s, yard_dem=list(yard["cuda"].shape),
+          yard_dem_equal_card_cpu=yard_equal, yard_dem_max_abs_diff_card_cpu=yard_err,
+          crater_block_launches=jax_random_stamps, ok=jax_random_ok)
     if not jax_random_ok:
-        raise RuntimeError("JAX's world draws differ between the card and the CPU, or the "
-                           "thesis DEM's statistics are not EVAL_r05.json's")
+        raise RuntimeError("JAX's world draws or DEMs differ between the card and the CPU, or "
+                           "the thesis DEM's statistics are not EVAL_r05.json's")
     del thesis_dems, yard
 
     # 9. the thesis 2D-vs-3D evaluation protocol at full width: K1 for the 3D
@@ -3113,7 +3231,8 @@ def main(argv=None) -> int:
 
     # 11. the streamed-terrain slice: the world, K1 and K2 at its sizes, the
     #     traverse
-    ls_loop, ls_k1_row, ls_k2_row, ls_counts, stamp_row, stamp_counts = largescale_timed()
+    ls_loop, ls_k1_row, ls_k2_row, ls_counts, stamp_row, stamp_counts, taps_row = (
+        largescale_timed())
     # the kernel line's launches: the default streamed path (the CLI's
     # pipelined traverse); every path's count under launches_by_path
     ls_k1, ls_k2 = ls_counts["largescale_pipelined"]
@@ -3322,6 +3441,16 @@ def main(argv=None) -> int:
                              "moonyard_standalone": yard_counts["stamp"],
                              "moonyard_closed_loop": lab_counts["stamp"],
                              "bench": bench_counts["stamp"], "jax_random": jax_random_stamps},
+    }, {
+        "name": "upsample_taps", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/upsample_taps.cu",
+        "replaces": None,
+        "replaces_note": ("the port's own kernel for the dot (einsum nf,nfw->nw) of the JAX "
+                          "package's jitted upsample_bicubic, husky_rover_mppi_isaacsim_tpu/"
+                          "terrain/upsample.py:36-58, in XLA's CPU order; no Pallas kernel "
+                          "there"),
+        "launches": taps_by_path["largescale_pipelined"], **taps_row,
+        "launches_by_path": taps_by_path,
     }, {
         "name": "jax_normal", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/jax_normal.cu",

@@ -43,11 +43,11 @@ CPU bit for bit. XLA lowers ``erf_inv`` to Giles' polynomial in ``w =
 and ``log(1 + x)`` (a Cephes polynomial on the mantissa) above, and lets
 LLVM contract ``a * b + c`` into fused multiply-adds wherever the product
 has no other use; :func:`_erf_inv_f32` follows that code operation for
-operation. torch has no fused multiply-add, so :func:`fma_f32` forms one
-exactly: the float32 product is exact in float64, the float64 sum is
-rounded to odd (its error found by TwoSum), and the one rounding to
-float32 is then the correctly rounded ``a * b + c``. A true FMA on the
-card gives the same bits. In float64 no wider type holds a product
+operation. torch has no fused multiply-add, so ``fma_f32`` (of
+:mod:`.xla_math`, with ``sqrt_f32``) forms one exactly: the float32
+product is exact in float64, the float64 sum is rounded to odd (its error
+found by TwoSum), and the one rounding to float32 is then the correctly
+rounded ``a * b + c``. A true FMA on the card gives the same bits. In float64 no wider type holds a product
 exactly: ``uniform`` may then differ from JAX's by one unit in the last
 place, and ``normal`` evaluates XLA's float64 polynomial with torch's
 ``log1p`` and unfused products, within a few units in the last place of
@@ -61,6 +61,8 @@ import math
 import numpy as np
 import torch
 from torch import Tensor
+
+from .xla_math import f32, fma_f32, sqrt_f32
 
 MASK32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -185,49 +187,6 @@ def slice_counts(full_shape: tuple, dim: int, start: int, stop: int) -> tuple[tu
     outer = math.prod(full_shape[:dim])
     shape = (outer, (stop - start) * after)
     return shape, start * after, math.prod(full_shape[dim:])
-
-
-def f32(bits: int) -> float:
-    """The float32 of the bit pattern ``bits``, as a Python float."""
-    return float(np.array(bits, np.uint32).view(np.float32))
-
-
-def fma_f32(a: Tensor, b, c) -> Tensor:
-    """``a * b + c`` rounded once to float32, as a fused multiply-add does
-    (module note): float32 operands, the product exact in float64, the sum
-    rounded to odd there, then to float32. ``b`` and ``c`` may be Python
-    floats that are float32 values."""
-    p = a.to(torch.float64) * (b.to(torch.float64) if isinstance(b, Tensor) else b)
-    c = c.to(torch.float64) if isinstance(c, Tensor) else torch.full_like(p, c)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)  # TwoSum: s + err == p + c exactly
-    bits = s.view(torch.int64)
-    odd = (err != 0) & ((bits & 1) == 0) & (s != 0)
-    away = (err > 0) == (s > 0)  # the exact sum lies beyond s, away from zero
-    bits = torch.where(odd, bits + torch.where(away, 1, -1), bits)
-    return bits.view(torch.float64).to(torch.float32)
-
-
-def sqrt_f32(a: Tensor) -> Tensor:
-    """The correctly rounded float32 square root of float32 ``a`` >= 0, as
-    XLA's ``sqrt`` and CUDA's ``__fsqrt_rn`` give it. ``torch.sqrt`` on the
-    CPU is not that: it may be one unit in the last place off, and a
-    parallel chunk of it has been seen to come out of a ~1e-4 approximation.
-    So a float64 root is polished by two Newton steps and rounded to
-    float32, and the neighbour on the far side of an exact float64 midpoint
-    test replaces it where the rounding went the wrong way."""
-    a64 = a.to(torch.float64)
-    s = torch.sqrt(a64)
-    for _ in range(2):
-        s = 0.5 * (s + a64 / s)
-    r = torch.where(a > 0, s.to(torch.float32), a)
-    up = torch.nextafter(r, torch.full_like(r, math.inf))
-    mid = (r.to(torch.float64) + up.to(torch.float64)) * 0.5  # exact; so is its square
-    r = torch.where((a > 0) & (a64 > mid * mid), up, r)
-    down = torch.nextafter(r, torch.zeros_like(r))
-    mid = (r.to(torch.float64) + down.to(torch.float64)) * 0.5
-    return torch.where((a > 0) & (a64 < mid * mid), down, r)
 
 
 def _uniform_f32(bits: Tensor, minval: float, maxval: float) -> Tensor:

@@ -17,23 +17,22 @@
 // crater's square max(|i - P/2|, |j - P/2|) <= half_px. A pixel outside the
 // square is skipped instead of adding 0.0 (equal under torch.equal).
 //
-// Bit-equality with torch: torch runs each operation of _render_patches as
-// its own elementwise kernel, so no product is fused into a sum. Every
-// float operation here is written with a _rn intrinsic in torch's order,
-// which the compiler never contracts; x**2 is x*x, true divisions are
-// __fdiv_rn, torch.where's choices are kept (the envelope is 1 where
-// mu1 <= m <= mu2; m is half_px outside the rotated square, then clamped
-// to it). Scalars arrive as torch rounds them: Python floats cast to
-// float32 (the constants below are static_casts of the same doubles).
-// atan2f, expf, cosf and sinf come from libdevice, inlined here as in
-// torch's kernels. This source builds with -fmad=true, as torch builds its
-// own kernels (ops/cuda_build.py), since the contraction flag reaches
-// libdevice's own arithmetic; its own float operations are all _rn
-// intrinsics, which the flag cannot touch. chip_smoke.py's crater_libm
-// phase checks both builds op by op against torch, through
-// crater_block_libm_f32 below, on every argument the streamed tiers' render
-// passes these functions: with CUDA 12.8 (torch 2.11.0+cu128) both builds
-// gave torch's bits, so the choice rests on torch's own flag.
+// Bit-equality: with the plain version, and so with the JAX package. The
+// plain version evaluates each operation as XLA's CPU code for the JAX
+// package's jitted render does (terrain/craters.py::_render_patches, on
+// core/xla_math.py), and this kernel does the same operations in the same
+// order: every float operation a _rn intrinsic, with __fmaf_rn where the
+// CPU code fuses (ur = fma(sa, v, ca u), vr = fma(ca, v, -(sa u)), theta =
+// fma(atan2, 1/(2 pi), 1/2), the three table lookups, ur^2 + q^2, m + marks
+// sat); the atan2 arguments fuse only for patches wider than 56 pixels
+// (atan2_fused), as XLA's unrolled pixel loop decides. x**2 is x*x, true
+// divisions are __fdiv_rn, torch.where's choices are kept (the envelope is
+// 1 where mu1 <= m <= mu2; m is half_px outside the rotated square, then
+// clamped to it). Scalars arrive as torch rounds them: Python floats cast
+// to float32 (the constants below are static_casts of the same doubles).
+// cosf, sinf, atan2f and expf are not libdevice's but the device copies of
+// glibc's and XLA's in xla_math.cuh. The source builds with -fmad=false
+// like the others; its arithmetic is all intrinsics either way.
 //
 // Design: the host bins the live slots by 32 x 32 tile of the raster
 // (ops/crater_block_cuda.py::tile_bins: each slot's nonzero square, not
@@ -49,17 +48,19 @@
 //
 // What bounds it on this card: by count, bytes (a read and a write of
 // every covered raster pixel, ~35 MB a streamed block: ~0.01 ms) over its
-// arithmetic (~2.9 M (slot, pixel) pairs a block at 79 operations each,
-// counting an IEEE atan2, exp, square root or true division as one:
-// ~0.007 ms at the float32 instruction rate); in practice the arithmetic
-// binds, since those functions and the three table lookups (through the
-// read-only cache; each table is num_profiles x 256 floats) take many
-// instructions each. The design keeps both counts at what the function
-// needs: only covered tiles are touched, each once, and a tile visits only
-// its own slots.
+// arithmetic (~2.9 M (slot, pixel) pairs a block at CRATER_OPS_PER_PAIR
+// operations each, counting an IEEE atan2, exp, square root or true
+// division as one); in practice the arithmetic binds, since those
+// functions (glibc's atan2f alone is a division and ~30 float operations)
+// and the three table lookups (through the read-only cache; each table is
+// num_profiles x 256 floats) take many instructions each. The design keeps
+// both counts at what the function needs: only covered tiles are touched,
+// each once, and a tile visits only its own slots.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "xla_math.cuh"
 
 namespace {
 
@@ -78,15 +79,19 @@ constexpr float kStd = static_cast<float>(0.05);
 constexpr float kStdMin = static_cast<float>(1e-6);
 constexpr float kHalfNeg = static_cast<float>(-0.5);
 
-// _table_lookup at one point: clamp, scale, floor, lerp, each op rounded
+// _table_lookup at one point: clamp, scale, floor, then the lerp as XLA
+// fuses it: fma(v1, frac, v0 (1 - frac)), or with lead_v0 (the marks
+// table's order) fma(v0, 1 - frac, v1 frac)
+template <bool lead_v0>
 __device__ __forceinline__ float table_lookup(const float* __restrict__ row, float x) {
   const float pos = __fmul_rn(fminf(fmaxf(x, 0.0f), 1.0f), static_cast<float>(kTable - 1));
   const float f0 = floorf(pos);
   const int i0 = static_cast<int>(f0);
   const int i1 = min(i0 + 1, kTable - 1);
   const float frac = __fsub_rn(pos, f0);
-  return __fadd_rn(__fmul_rn(__ldg(row + i0), __fsub_rn(1.0f, frac)),
-                   __fmul_rn(__ldg(row + i1), frac));
+  const float v0 = __ldg(row + i0), v1 = __ldg(row + i1);
+  return lead_v0 ? __fmaf_rn(v0, __fsub_rn(1.0f, frac), __fmul_rn(v1, frac))
+                 : __fmaf_rn(v1, frac, __fmul_rn(v0, __fsub_rn(1.0f, frac)));
 }
 
 __global__ void __launch_bounds__(kThreads) crater_block_kernel(
@@ -98,7 +103,7 @@ __global__ void __launch_bounds__(kThreads) crater_block_kernel(
     const int* __restrict__ profile_id, const int* __restrict__ row0,
     const int* __restrict__ col0, const float* __restrict__ deformation_table,
     const float* __restrict__ marks_table, const float* __restrict__ height_table,
-    int patch_px, float resolution, float z_scale) {
+    int patch_px, int atan2_fused, float resolution, float z_scale) {
   // one staging round of slots, in list order
   __shared__ float s_half[kThreads], s_ca[kThreads], s_sa[kThreads], s_mu1[kThreads];
   __shared__ float s_mu2[kThreads], s_std[kThreads], s_hclamp[kThreads], s_xf[kThreads];
@@ -131,8 +136,8 @@ __global__ void __launch_bounds__(kThreads) crater_block_kernel(
       const float half = floorf(__fdiv_rn(r, resolution));
       const float ang = __fmul_rn(rotation[s], kDeg2Rad);
       s_half[tid] = half;
-      s_ca[tid] = cosf(ang);
-      s_sa[tid] = sinf(ang);
+      s_ca[tid] = xla_math::cos_f32(ang);
+      s_sa[tid] = xla_math::sin_f32(ang);
       s_mu1[tid] = __fmul_rn(half, kMu1);
       s_mu2[tid] = __fmul_rn(half, kMu2);
       s_std[tid] = fmaxf(__fmul_rn(half, kStd), kStdMin);
@@ -152,37 +157,41 @@ __global__ void __launch_bounds__(kThreads) crater_block_kernel(
       const float half = s_half[i];
       const float v = static_cast<float>(j - center);
       if (!col_in || j < 0 || j >= patch_px || fabsf(v) > half) continue;
-      const float ca = s_ca[i], sa = s_sa[i], nsa = -sa;
+      const float ca = s_ca[i], sa = s_sa[i];
       const float hclamp = s_hclamp[i];
-      const float cav = __fmul_rn(ca, v), sav = __fmul_rn(sa, v);
+      const float cav = __fmul_rn(ca, v), sav = __fmul_rn(sa, v);  // the unfused atan2 arguments'
 #pragma unroll
       for (int k = 0; k < kRowsPerThread; ++k) {
         const int row = tile_r + ty + k * kThreadRows;
         const int pi = row - s_row[i];  // the pixel's patch row
         const float u = static_cast<float>(pi - center);
         if (row >= side || pi < 0 || pi >= patch_px || fabsf(u) > half) continue;
-        const float ur = __fadd_rn(__fmul_rn(ca, u), sav);
-        const float vr = __fadd_rn(__fmul_rn(nsa, u), cav);
+        const float cau = __fmul_rn(ca, u), sau = __fmul_rn(sa, u);
+        const float ur = __fmaf_rn(sa, v, cau);
+        const float vr = __fmaf_rn(ca, v, -sau);
         float m = half;  // outside the rotated square
         if (fmaxf(fabsf(ur), fabsf(vr)) <= half) {
-          const float theta = __fadd_rn(__fmul_rn(atan2f(ur, vr), kInv2Pi), 0.5f);
-          const float fac = table_lookup(deformation_table + s_def[i], theta);
+          const float angle = atan2_fused ? xla_math::atan2_f32(ur, vr)
+                                          : xla_math::atan2_f32(__fadd_rn(cau, sav),
+                                                                __fsub_rn(cav, sau));
+          const float theta = __fmaf_rn(angle, kInv2Pi, 0.5f);
+          const float fac = table_lookup<false>(deformation_table + s_def[i], theta);
           const float marks = __fmul_rn(
-              __fmul_rn(table_lookup(marks_table + s_marks[i], theta), half), s_mi[i]);
+              __fmul_rn(table_lookup<true>(marks_table + s_marks[i], theta), half), s_mi[i]);
           const float q = __fdiv_rn(vr, s_xf[i]);
-          m = __fmul_rn(__fsqrt_rn(__fadd_rn(__fmul_rn(q, q), __fmul_rn(ur, ur))), fac);
+          m = __fmul_rn(__fsqrt_rn(__fmaf_rn(ur, ur, __fmul_rn(q, q))), fac);
           float sat = 1.0f;
           if (m < s_mu1[i]) {
             const float d = __fdiv_rn(__fsub_rn(m, s_mu1[i]), s_std[i]);
-            sat = expf(__fmul_rn(kHalfNeg, __fmul_rn(d, d)));
+            sat = xla_math::exp_f32(__fmul_rn(__fmul_rn(d, d), kHalfNeg));
           } else if (m > s_mu2[i]) {
             const float d = __fdiv_rn(__fsub_rn(m, s_mu2[i]), s_std[i]);
-            sat = expf(__fmul_rn(kHalfNeg, __fmul_rn(d, d)));
+            sat = xla_math::exp_f32(__fmul_rn(__fmul_rn(d, d), kHalfNeg));
           }
-          m = fminf(__fadd_rn(m, __fmul_rn(marks, sat)), half);
+          m = fminf(__fmaf_rn(marks, sat, m), half);
         }
         const float h = __fmul_rn(
-            __fmul_rn(table_lookup(height_table + s_prof[i], __fdiv_rn(m, hclamp)),
+            __fmul_rn(table_lookup<false>(height_table + s_prof[i], __fdiv_rn(m, hclamp)),
                       s_radius[i]),
             z_scale);
         acc[k] = __fadd_rn(acc[k], h);
@@ -198,14 +207,18 @@ __global__ void __launch_bounds__(kThreads) crater_block_kernel(
   }
 }
 
-// the four libdevice functions of the kernel, elementwise, for the check of
-// a build against torch's
-__global__ void crater_libm_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                   float* __restrict__ out, int n, int op) {
+// the kernel's device copies of the XLA / glibc functions, elementwise, for
+// the check against their plain versions (core/xla_math.py)
+__global__ void xla_math_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                                float* __restrict__ out, int n, int op) {
   const int k = blockIdx.x * blockDim.x + threadIdx.x;
   if (k >= n) return;
   const float x = a[k];
-  out[k] = op == 0 ? atan2f(x, b[k]) : op == 1 ? expf(x) : op == 2 ? cosf(x) : sinf(x);
+  out[k] = op == 0 ? xla_math::atan2_f32(x, b[k])
+         : op == 1 ? xla_math::exp_f32(x)
+         : op == 2 ? xla_math::cos_f32(x)
+         : op == 3 ? xla_math::sin_f32(x)
+                   : xla_math::atan_f32(x);
 }
 
 }  // namespace
@@ -218,8 +231,10 @@ __global__ void crater_libm_kernel(const float* __restrict__ a, const float* __r
 // order); the field's per-slot columns (radius, rotation in degrees, xy
 // factor, marks intensity float32; deformation, marks and profile ids
 // int32); row0, col0 (slots,) int32 patch corners with every patch inside
-// buf; the three profile tables (num_profiles, 256) float32. Launches on
-// `stream` and returns cudaGetLastError().
+// buf; the three profile tables (num_profiles, 256) float32; atan2_fused
+// 1 where the patch is wider than 56 pixels (the render's atan2 arguments
+// fused, as in the plain version). Launches on `stream` and returns
+// cudaGetLastError().
 extern "C" int crater_block_f32(float* buf, int side, const int* tile_ids, const int* tile_start,
                                 const int* tile_slots, int tiles, const float* radius,
                                 const float* rotation, const float* xy_factor,
@@ -227,23 +242,25 @@ extern "C" int crater_block_f32(float* buf, int side, const int* tile_ids, const
                                 const int* marks_id, const int* profile_id, const int* row0,
                                 const int* col0, const float* deformation_table,
                                 const float* marks_table, const float* height_table,
-                                int patch_px, float resolution, float z_scale, void* stream) {
+                                int patch_px, int atan2_fused, float resolution,
+                                float z_scale, void* stream) {
   if (side <= 0 || tiles <= 0) return (int)cudaSuccess;
   const int tiles_x = (side + kTile - 1) / kTile;
   const dim3 block(kTile, kThreadRows);
   crater_block_kernel<<<tiles, block, 0, static_cast<cudaStream_t>(stream)>>>(
       buf, side, tiles_x, tile_ids, tile_start, tile_slots, radius, rotation, xy_factor,
       marks_intensity, deformation_id, marks_id, profile_id, row0, col0, deformation_table,
-      marks_table, height_table, patch_px, resolution, z_scale);
+      marks_table, height_table, patch_px, atan2_fused, resolution, z_scale);
   return (int)cudaGetLastError();
 }
 
-// The check entry: out[k] = atan2f(a[k], b[k]) (op 0), expf(a[k]) (1),
-// cosf(a[k]) (2) or sinf(a[k]) (3), n float32 values on the card.
-extern "C" int crater_block_libm_f32(const float* a, const float* b, float* out, int n, int op,
-                                     void* stream) {
+// The check entry: out[k] = atan2_f32(a[k], b[k]) (op 0), exp_f32(a[k]) (1),
+// cos_f32 (2), sin_f32 (3) or atan_f32 (4) of xla_math.cuh, n float32 values
+// on the card.
+extern "C" int crater_block_xla_math_f32(const float* a, const float* b, float* out, int n,
+                                         int op, void* stream) {
   if (n <= 0) return (int)cudaSuccess;
-  crater_libm_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  xla_math_kernel<<<(n + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
       a, b, out, n, op);
   return (int)cudaGetLastError();
 }

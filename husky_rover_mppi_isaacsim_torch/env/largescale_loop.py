@@ -37,7 +37,11 @@ cascade. A costmap build is one launch of kernel K2.
 
 Two loops, as in the JAX package. The synchronous one reads each chunk's
 pose before the next chunk and pre-stages a predicted shift (the shifted
-window and its costmap) on a background thread. The pipelined one
+window and its costmap) on a background thread. The window is staged on
+the JAX package's prediction (the crater draws of its blocks follow it);
+the costmap on the port's, which names the center block the window adopts
+next and so also serves a corner crossed one border at a time (JAX's
+stages none of the second shift there). The pipelined one
 (``pipeline_depth > 0``, the default) keeps that many chunks in flight and
 hands every terrain mutation to one worker thread: on the card the worker
 issues its terrain work (block builds, crater stamps, costmaps with their
@@ -61,6 +65,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import math
 import threading
 import time
 from collections import deque
@@ -676,10 +681,11 @@ class LargeScaleClosedLoop:
             raise err
 
     def _predict_crossing(self, wx: float, wy: float, hx: float, hy: float):
-        """The crossing predictor of both pre-staging paths: the heading
-        lookahead's center-block SW corner and the anchor the streamer would
-        adopt there, or ``None`` when no crossing is imminent. Returns
-        ``(key, new_anchor, px, py)``."""
+        """The JAX package's crossing predictor, which both pre-staging
+        paths stage the window on: the heading lookahead's center-block SW
+        corner and the anchor the streamer would adopt there, or ``None``
+        when no crossing is imminent. Returns ``(key, new_anchor, px,
+        py)``."""
         streamer = self.lstm.map_manager.streamer
         bs = streamer.conf.block_size
         L = self.conf.prestage_lookahead_m
@@ -693,43 +699,80 @@ class LargeScaleClosedLoop:
         new_anchor = (a[0] + pred_blk[0] - cur_blk[0], a[1] + pred_blk[1] - cur_blk[1])
         return ((pred_blk[0] * bs, pred_blk[1] * bs), new_anchor, px, py)
 
-    def _stage(self, key, px: float, py: float) -> None:
-        """Build and keep the costmap for a predicted crossing."""
-        qpos = self._quantized_update_pos(px, py)
-        rock_keys = self._rock_keys(qpos)
-        cm = self._build_costmap(block_xy=key, obstacles=self._rocks_for(qpos))
+    def _predict_center(self, wx: float, wy: float, hx: float, hy: float):
+        """The costmap's crossing predictor: the center block the window
+        adopts next, against the one it holds. The window follows the
+        quantized update position, which lags the rover by up to one update
+        step, so the rover's own quantized position names that block once it
+        has left the window's center block (at a corner, crossed one border
+        at a time, the window shifts twice), else the heading lookahead's
+        block does. Returns ``(key, rocks_pos)`` for :meth:`_stage`, or
+        ``None``: the block's SW corner and the update position in it whose
+        rocks the costmap takes (the quantized lookahead, where quantizing
+        left it short of the block, moved onto the block's first grid
+        line, so that its rock keys are the shift's)."""
+        streamer = self.lstm.map_manager.streamer
+        bs = streamer.conf.block_size
+        n = streamer.conf.num_blocks + 1
+        center = (streamer.anchor[0] + n, streamer.anchor[1] + n)
+        L = self.conf.prestage_lookahead_m
+        norm = float(np.hypot(hx, hy)) or 1.0
+        rover = self._quantized_update_pos(wx, wy)
+        look = (wx + L * hx / norm, wy + L * hy / norm)
+        for pos, qpos in ((rover, rover), (look, self._quantized_update_pos(*look))):
+            blk = streamer.block_index(pos)
+            if blk != center:
+                sp = self.conf.terrain.starting_position
+                q = self.conf.terrain.update_every_n_meters
+                rocks_pos = tuple(v if v >= b * bs else s + math.ceil((b * bs - s) / q) * q
+                                  for v, b, s in zip(qpos, blk, sp))
+                return ((blk[0] * bs, blk[1] * bs), rocks_pos)
+        return None
+
+    def _stage(self, key, rocks_pos) -> None:
+        """Build and keep the costmap for a predicted crossing, on the rocks
+        around the update position ``rocks_pos``."""
+        rock_keys = self._rock_keys(rocks_pos)
+        cm = self._build_costmap(block_xy=key, obstacles=self._rocks_for(rocks_pos))
         self.costmap_builds["staged"] += 1
         self._staged = (key, rock_keys, cm)
 
+    def _needs_stage(self, nxt) -> bool:
+        """Whether the predicted center block's costmap is not staged yet."""
+        return nxt is not None and (self._staged is None or self._staged[0] != nxt[0])
+
     def _maybe_prestage(self, wx: float, wy: float, hx: float, hy: float) -> None:
-        """Synchronous loop: predict the next center-block crossing from the
-        heading lookahead and, on a background thread while the chunks go
-        on, compose the shifted window inside the streamer and build its
-        costmap. One staging in flight at a time; the main thread joins it
-        before any update that will shift, and before staging another
-        crossing (so which crossings are staged, and the crater draws their
-        blocks make, follow from the poses alone: a resumed traverse repeats
-        them). Under deformation no window is staged (the live window
-        changes every chunk), as in the JAX package's background stage."""
+        """Synchronous loop: predict the next crossing and, on a background
+        thread while the chunks go on, compose the shifted window inside
+        the streamer (the JAX package's prediction) and build the costmap
+        of the next center block (:meth:`_predict_center`). One staging in
+        flight at a time; the main thread joins it before any update that
+        will shift, and before staging another crossing (so which crossings
+        are staged, and the crater draws their blocks make, follow from the
+        poses alone: a resumed traverse repeats them). Under deformation no
+        window is staged (the live window changes every chunk), as in the
+        JAX package's background stage."""
         pred = self._predict_crossing(wx, wy, hx, hy)
-        if pred is None:
+        nxt = self._predict_center(wx, wy, hx, hy)
+        if pred is None and nxt is None:
             return
-        key, new_anchor, px, py = pred
+        key = (pred[0] if pred else None, nxt[0] if nxt else None)
         if self._prestage_thread is not None:
             if self._prestage_thread.is_alive() and self._staging_key == key:
                 return
             self._join_prestage()
         streamer = self.lstm.map_manager.streamer
-        if self._staged is not None and self._staged[0] == key:
-            if self.deform_engine is None:
-                streamer.prestage_shift(new_anchor)
+        window = pred is not None and self.deform_engine is None
+        if not self._needs_stage(nxt):
+            if window:
+                streamer.prestage_shift(pred[1])
             return
 
         def work():
             try:
-                if self.deform_engine is None:
-                    streamer.prestage_shift(new_anchor)
-                self._stage(key, px, py)
+                if window:
+                    streamer.prestage_shift(pred[1])
+                self._stage(*nxt)
             except BaseException as e:  # raised by _join_prestage
                 self._prestage_error = e
 
@@ -741,13 +784,11 @@ class LargeScaleClosedLoop:
         """Pipelined loop: the same pre-staging, run on the terrain worker
         thread itself."""
         pred = self._predict_crossing(wx, wy, hx, hy)
-        if pred is None:
-            return
-        key, new_anchor, px, py = pred
-        self.lstm.map_manager.streamer.prestage_shift(new_anchor)
-        if self._staged is not None and self._staged[0] == key:
-            return
-        self._stage(key, px, py)
+        if pred is not None:
+            self.lstm.map_manager.streamer.prestage_shift(pred[1])
+        nxt = self._predict_center(wx, wy, hx, hy)
+        if self._needs_stage(nxt):
+            self._stage(*nxt)
 
     def _seat_costmap(self, bx, by, update_pos) -> tuple[Costmap, bool]:
         """The costmap for the new center block: the staged one when its

@@ -16,8 +16,10 @@ no launch. On CUDA tensors it launches the kernel, or raises: a contiguous
 square float32 raster, the field's float32 / int32 / bool columns, int32
 placements inside the raster, float32 profile tables of 256 columns, the
 tile lists of :func:`tile_bins`, one device. The kernel adds each pixel's
-heights in the plain version's order with its float32 arithmetic, so the
-two are ``torch.equal``.
+heights in the plain version's order with its float32 arithmetic, glibc's
+and XLA's functions included (``csrc/xla_math.cuh``, the device copies of
+:mod:`..core.xla_math`), so the two are ``torch.equal``, and both are the
+JAX package's bits.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from torch import Tensor
 
 from . import cuda_build
+from ..terrain.craters import ATAN2_UNFUSED_MAX_PX
 
 TILE_PX = 32  # the kernel's tile side (csrc/crater_block.cu kTile)
 TABLE_SIZE = 256  # terrain/craters.py TABLE_SIZE
@@ -89,20 +92,21 @@ class CudaCraterBlock:
     and nothing else; the library is built at the first CUDA call."""
 
     source = "crater_block.cu"
+    # the kernel's device functions by their check entry's op code
+    XLA_MATH_OPS = ("atan2", "exp", "cos", "sin", "atan")
 
-    def __init__(self, fmad: bool = True):
-        self.fmad = fmad  # the nvcc contraction flag (the source's note says why True)
+    def __init__(self):
         self.launches = 0
         self.built: cuda_build.BuiltLibrary | None = None
 
     def load(self) -> cuda_build.BuiltLibrary:
         if self.built is None:
-            built = cuda_build.build(self.source, fmad=self.fmad)
+            built = cuda_build.build(self.source)
             p, n, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             fn = built.lib.crater_block_f32
-            fn.argtypes = [p, n, p, p, p, n, *[p] * 12, n, f, f, p]
+            fn.argtypes = [p, n, p, p, p, n, *[p] * 12, n, n, f, f, p]
             fn.restype = n
-            check = built.lib.crater_block_libm_f32
+            check = built.lib.crater_block_xla_math_f32
             check.argtypes = [p, p, p, n, n, p]
             check.restype = n
             self.built = built
@@ -184,23 +188,25 @@ class CudaCraterBlock:
         rc = self.load().lib.crater_block_f32(
             buf.data_ptr(), buf.shape[0], bins.tile_ids.data_ptr(), bins.start.data_ptr(),
             bins.slots.data_ptr(), tiles, *(c.data_ptr() for c in cols),
-            *(t.data_ptr() for t in profiles), patch_px, resolution, z_scale,
+            *(t.data_ptr() for t in profiles), patch_px,
+            int(patch_px > ATAN2_UNFUSED_MAX_PX), resolution, z_scale,
             torch.cuda.current_stream().cuda_stream)
         if rc != 0:
             raise RuntimeError(f"crater_block_f32 launch failed: cudaError {rc}")
         self.launches += 1
 
-    def libm(self, op: str, a: Tensor, b: Tensor | None = None) -> Tensor:
-        """The kernel's libdevice function ``op`` (``"atan2"``, ``"exp"``,
-        ``"cos"`` or ``"sin"``) elementwise on contiguous float32 ``a`` (and
-        ``b``) on the card: the check of this build against torch's."""
-        code = ("atan2", "exp", "cos", "sin").index(op)
+    def xla_math(self, op: str, a: Tensor, b: Tensor | None = None) -> Tensor:
+        """The kernel's device function ``op`` (``"atan2"``, ``"exp"``,
+        ``"cos"``, ``"sin"`` or ``"atan"`` of ``csrc/xla_math.cuh``)
+        elementwise on contiguous float32 ``a`` (and ``b``, atan2's ``x``) on
+        the card: the check against :mod:`..core.xla_math`."""
+        code = self.XLA_MATH_OPS.index(op)
         out = torch.empty_like(a)
-        rc = self.load().lib.crater_block_libm_f32(
+        rc = self.load().lib.crater_block_xla_math_f32(
             a.data_ptr(), (b if b is not None else a).data_ptr(), out.data_ptr(), a.numel(),
             code, torch.cuda.current_stream().cuda_stream)
         if rc != 0:
-            raise RuntimeError(f"crater_block_libm_f32 launch failed: cudaError {rc}")
+            raise RuntimeError(f"crater_block_xla_math_f32 launch failed: cudaError {rc}")
         return out
 
 

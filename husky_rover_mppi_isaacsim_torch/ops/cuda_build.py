@@ -28,10 +28,8 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
 # -fmad=false: no FMA contraction, so the kernels round every operation as
 # the eager torch versions do (no fast math either: true division, IEEE
-# sqrtf, the CUDA library's cosf/sinf). A source whose own arithmetic is all
-# _rn intrinsics (never contracted) may build with -fmad=true, as torch
-# builds its kernels, so that the libdevice functions it inlines round as
-# torch's do (csrc/crater_block.cu).
+# sqrtf, the CUDA library's cosf/sinf); a fused multiply-add is written out
+# as __fmaf_rn / __fma_rn where the plain version forms one.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -102,12 +100,10 @@ def _build_cached(src: Path, compiler, flags) -> BuiltLibrary:
     return BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
 
 
-def build(source_name: str, fmad: bool = False) -> BuiltLibrary:
+def build(source_name: str) -> BuiltLibrary:
     """Compile the CUDA source ``csrc/<source_name>`` with nvcc (unless a
-    library of the same source and flags is already built) and load it;
-    ``fmad`` sets nvcc's ``-fmad``."""
-    flags = tuple("-fmad=true" if f == "-fmad=false" and fmad else f for f in NVCC_FLAGS)
-    return _build_cached(CSRC / source_name, _nvcc, flags)
+    library of the same source and flags is already built) and load it."""
+    return _build_cached(CSRC / source_name, _nvcc, NVCC_FLAGS)
 
 
 def _host_cxx() -> str:

@@ -23,6 +23,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import xla_math
+
 _BIG = 1e12
 _ROW_BLOCK = 64  # envelope rows per pass: bounds the (block, rows, cols) broadcast
 
@@ -71,12 +73,14 @@ def edt_exact_sq(occupied: Tensor) -> Tensor:
 
 
 def edt_exact(occupied: Tensor) -> Tensor:
-    """Exact L2 EDT (pixels)."""
-    return torch.sqrt(edt_exact_sq(occupied))
+    """Exact L2 EDT (pixels), correctly rounded on every device."""
+    return xla_math.sqrt_f32(edt_exact_sq(occupied))
 
 
 def normalize_minmax(d: Tensor) -> Tensor:
-    """cv2.NORM_MINMAX over the whole array; a constant array gives zeros."""
+    """cv2.NORM_MINMAX over the whole array; a constant array gives zeros.
+    ``(d - min) / (max - min)``, each operation rounded once, as in the JAX
+    package's eager ops."""
     lo = torch.amin(d)
     rng = torch.amax(d) - lo
     ok = rng > 0
@@ -86,8 +90,10 @@ def normalize_minmax(d: Tensor) -> Tensor:
 
 def distance_costmap(occupied: Tensor, falloff_power: float = 20.0) -> Tensor:
     """Obstacle costmap: exact EDT, min-max normalize, ``(1 - d)^p``
-    (MPPI_isaac.py:374-377). An obstacle-free map gives a zero costmap."""
-    cost = (1.0 - normalize_minmax(edt_exact(occupied))) ** falloff_power
+    (MPPI_isaac.py:374-377). An obstacle-free map gives a zero costmap. The
+    JAX package's bits: its correctly rounded square root and glibc's
+    ``powf``, which XLA calls for ``** p`` (:mod:`..core.xla_math`)."""
+    cost = xla_math.pow_f32(1.0 - normalize_minmax(edt_exact(occupied)), falloff_power)
     return torch.where(torch.any(occupied), cost, torch.zeros_like(cost))
 
 

@@ -32,6 +32,8 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core.xla_math import atan2_f32, cos_f32, exp_f32, fma_f32, sin_f32, sqrt_f32
+
 TABLE_SIZE = 256
 
 
@@ -144,17 +146,30 @@ def randomize_metadata(
     return CraterField(*(torch.from_numpy(f) for f in field))
 
 
-def _table_lookup(table: Tensor, ids: Tensor, x: Tensor) -> Tensor:
-    """Linear interpolation into per-crater rows of a baked table.
+def _table_lookup(table: Tensor, ids: Tensor, x: Tensor, lead_v0: bool = False) -> Tensor:
+    """Linear interpolation into per-crater rows of a baked table, in
+    float32 as XLA's CPU code for the JAX package's jitted render computes
+    it: ``fma(v1, frac, v0 * (1 - frac))``, or with ``lead_v0``
+    ``fma(v0, 1 - frac, v1 * frac)`` (the marks table's order).
     ``ids``: (C,) row per crater; ``x``: (C, ...) in [0, 1]."""
     pos = torch.clamp(x, 0.0, 1.0) * (TABLE_SIZE - 1)
     i0 = torch.floor(pos).to(torch.int64)
     i1 = torch.clamp(i0 + 1, max=TABLE_SIZE - 1)
-    frac = pos - i0
+    frac = pos - i0.to(pos.dtype)
     base = ids.to(torch.int64).reshape(ids.shape + (1,) * (x.ndim - 1)) * TABLE_SIZE
     v0 = torch.take(table, base + i0)
     v1 = torch.take(table, base + i1)
-    return v0 * (1.0 - frac) + v1 * frac
+    if lead_v0:
+        return fma_f32(v0, 1.0 - frac, v1 * frac)
+    return fma_f32(v1, frac, v0 * (1.0 - frac))
+
+
+# float32 constants of the render, as XLA folds them: pi / 180, 1 / (2 pi)
+DEG2RAD = float(np.float32(np.pi / 180.0))
+INV_2PI = float(np.float32(1.0 / (2.0 * np.pi)))
+# the widest patch whose atan2 arguments XLA's CPU code computes without
+# fused multiply-adds (its pixel loop unrolled; from 64 pixels on it fuses)
+ATAN2_UNFUSED_MAX_PX = 56
 
 
 def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: float,
@@ -162,6 +177,17 @@ def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: fl
     """Every crater of ``field`` in its own ``(patch_px, patch_px)`` patch
     centered on the crater, ``(C, patch_px, patch_px)`` float32
     (centered_distance_matrix + apply_profile, crater_generation.py:77-167).
+
+    The JAX package's bits: each operation as XLA's CPU code for its jitted
+    render evaluates it (:mod:`..core.xla_math`: glibc's ``cosf``, ``sinf``
+    and ``atan2f``, XLA's ``exp``), with the fused multiply-adds LLVM forms
+    there: ``ur = fma(sa, v, ca u)``, ``vr = fma(ca, v, -(sa u))`` (the
+    products of ``u`` are computed once a row, outside the fused loop), the
+    table lookups, ``ur^2 + (vr/xf)^2``, ``m + marks sat``; the atan2
+    arguments, in a loop of their own, fuse only from 64-pixel patches on.
+    Every operation is elementwise, so the heights are computed on the
+    drawn pixels alone (inside a live crater's square; the profile's
+    argument inside its rotated square), gathered and scattered back.
     Divisions by a variable are by tensors: on the card a division by a
     Python float becomes a multiply by its reciprocal."""
     dev = profiles.height.device
@@ -170,38 +196,52 @@ def _render_patches(profiles: CraterProfiles, field: CraterField, resolution: fl
     v = rows[None, None, :]  # (1, 1, P) y offset in px
 
     res = torch.full((), resolution, dtype=torch.float32, device=dev)
-    half_px = torch.floor(field.radius / res)[:, None, None]
-    ang = torch.deg2rad(field.rotation)[:, None, None]
-    ca, sa = torch.cos(ang), torch.sin(ang)
-    ur = ca * u + sa * v
-    vr = -sa * u + ca * v
+    half_px = torch.floor(field.radius / res)
+    ang = field.rotation * DEG2RAD
+    ca, sa = cos_f32(ang)[:, None, None], sin_f32(ang)[:, None, None]
+    cau, sau = ca * u, sa * u  # (C, P, 1), rounded
+    ur = fma_f32(sa, v, cau)
+    vr = fma_f32(ca, v, -sau)
+    half3 = half_px[:, None, None]
+    inside_square = (torch.maximum(torch.abs(u), torch.abs(v)) <= half3) & field.mask[:, None, None]
+    inside_rot = inside_square & (torch.maximum(torch.abs(ur), torch.abs(vr)) <= half3)
 
-    inside_square = torch.maximum(torch.abs(u), torch.abs(v)) <= half_px
-    inside_rot = torch.maximum(torch.abs(ur), torch.abs(vr)) <= half_px
+    # the profile's argument m where the crater is drawn (half_px outside the
+    # rotated square), computed elementwise on those pixels alone
+    m = half3.expand(inside_square.shape).clone()
+    slot, ri, ci = torch.nonzero(inside_rot, as_tuple=True)
+    ur_p, vr_p, half = ur[slot, ri, ci], vr[slot, ri, ci], half_px[slot]
+    if patch_px > ATAN2_UNFUSED_MAX_PX:
+        angle = atan2_f32(ur_p, vr_p)
+    else:
+        ca_p, sa_p, v_p = ca.reshape(-1)[slot], sa.reshape(-1)[slot], rows[ci]
+        cau_p, sau_p = cau.reshape(cau.shape[:2])[slot, ri], sau.reshape(sau.shape[:2])[slot, ri]
+        angle = atan2_f32(cau_p + sa_p * v_p, ca_p * v_p - sau_p)
+    # XLA compiles the division by the constant 2 pi into a multiply by its
+    # float32 reciprocal, fused with the + 0.5
+    theta = fma_f32(angle, INV_2PI, 0.5)
+    fac = _table_lookup(profiles.deformation, field.deformation_id[slot], theta)
+    marks = (_table_lookup(profiles.marks, field.marks_id[slot], theta, lead_v0=True)
+             * half * field.marks_intensity[slot])
 
-    # XLA compiles the JAX package's division by the constant 2 pi into a
-    # multiply by its float32 reciprocal; so does this line
-    theta = torch.atan2(ur, vr) * (1.0 / (2.0 * np.pi)) + 0.5
-    fac = _table_lookup(profiles.deformation, field.deformation_id, theta)
-    marks = (_table_lookup(profiles.marks, field.marks_id, theta)
-             * half_px * field.marks_intensity[:, None, None])
+    q = vr_p / field.xy_factor[slot]
+    m_p = sqrt_f32(fma_f32(ur_p, ur_p, q * q)) * fac
 
-    m = torch.sqrt((vr / field.xy_factor[:, None, None]) ** 2 + ur ** 2) * fac
+    # saturated-gaussian marks envelope (analytic normalization), the exp of
+    # the branch taken
+    mu1, mu2 = half * 0.15, half * 0.45
+    std = torch.clamp(half * 0.05, min=1e-6)
+    below = m_p < mu1
+    d = torch.where(below, (m_p - mu1) / std, (m_p - mu2) / std)
+    sat = torch.where(below | (m_p > mu2), exp_f32((d * d) * -0.5), torch.ones_like(m_p))
+    m[slot, ri, ci] = torch.minimum(fma_f32(marks, sat, m_p), half)
 
-    # saturated-gaussian marks envelope (analytic normalization)
-    mu1, mu2 = 0.15 * half_px, 0.45 * half_px
-    std = torch.clamp(0.05 * half_px, min=1e-6)
-    sat = torch.where(
-        m < mu1, torch.exp(-0.5 * ((m - mu1) / std) ** 2),
-        torch.where(m > mu2, torch.exp(-0.5 * ((m - mu2) / std) ** 2), torch.ones_like(m)))
-    m = m + marks * sat
-    m = torch.where(inside_rot, m, half_px)
-    m = torch.minimum(m, half_px)
-
-    h = (_table_lookup(profiles.height, field.profile_id, m / torch.clamp(half_px, min=1.0))
-         * field.radius[:, None, None] * z_scale)
-    keep = inside_square & field.mask[:, None, None]
-    return torch.where(keep, h, torch.zeros_like(h))
+    h = torch.zeros(inside_square.shape, dtype=torch.float32, device=dev)
+    slot, ri, ci = torch.nonzero(inside_square, as_tuple=True)
+    h[slot, ri, ci] = (_table_lookup(profiles.height, field.profile_id[slot],
+                                     m[slot, ri, ci] / torch.clamp(half_px[slot], min=1.0))
+                       * field.radius[slot] * z_scale)
+    return h
 
 
 def stamp_patches(buf: Tensor, patches: Tensor, row0: Tensor, col0: Tensor,

@@ -13,36 +13,49 @@ import numpy as np
 import torch
 from torch import Tensor
 
+from ..core import xla_math
 from ..core.heightfield import HeightField
 
 
 def _meshgrid(grid_size: int, half_width: float, dtype, device):
-    x = torch.linspace(-half_width, half_width, grid_size, dtype=dtype, device=device)
+    x = xla_math.xla_linspace(-half_width, half_width, grid_size, dtype, device=device)
     return torch.meshgrid(x, x, indexing="xy")
+
+
+def _scalar(v: float, like: Tensor) -> Tensor:
+    """``v`` as a 0-d tensor of ``like``'s dtype: a division by it stays a
+    division on every device (the card turns one by a Python float into a
+    multiply by its reciprocal)."""
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 def bump_surface(grid_size: int, half_width: float, bumps, with_ramp: bool = True,
                  dtype=torch.float32, device=None) -> Tensor:
-    """Sum of Gaussian hills, optional ``0.85*arctan(0.5x)`` ramp."""
+    """Sum of Gaussian hills, optional ``0.85*arctan(0.5x)`` ramp. In
+    float32 each operation is rounded as the JAX package's eager ops are,
+    with XLA's ``exp`` and ``atan2f(x, 1)``: the same bits."""
     X, Y = _meshgrid(grid_size, half_width, dtype, device)
     Z = torch.zeros_like(X)
     for (cx, cy), height, width in bumps:
-        Z = Z + height * torch.exp(-((X - cx) ** 2 + (Y - cy) ** 2) / (2.0 * width**2))
+        dx, dy = X - cx, Y - cy
+        Z = Z + height * xla_math.xla_exp(-(dx * dx + dy * dy) / _scalar(2.0 * width**2, X))
     if with_ramp:
-        Z = Z + 0.85 * torch.arctan(0.5 * X)
+        Z = Z + 0.85 * xla_math.xla_atan(0.5 * X)
     return Z
 
 
 def crater_surface(grid_size: int, half_width: float, bumps,
                    dtype=torch.float32, device=None) -> Tensor:
     """Crater-like double Gaussians: a broad rim minus a narrow bowl
-    (MPPI_isaac.py:318-320)."""
+    (MPPI_isaac.py:318-320). In float32 each operation is rounded as the
+    JAX package's eager ops are, with XLA's ``exp``: the same bits."""
     X, Y = _meshgrid(grid_size, half_width, dtype, device)
     Z = torch.zeros_like(X)
     for (cx, cy), height, width in bumps:
-        r2 = (X - cx) ** 2 + (Y - cy) ** 2
-        Z = Z + (height - 0.5) * torch.exp(-r2 / (2.0 * width**2))
-        Z = Z - (height + 0.5) * torch.exp(-r2 / (2.0 * (width / 2.0) ** 2))
+        dx, dy = X - cx, Y - cy
+        r2 = dx * dx + dy * dy
+        Z = Z + (height - 0.5) * xla_math.xla_exp(-r2 / _scalar(2.0 * width**2, X))
+        Z = Z - (height + 0.5) * xla_math.xla_exp(-r2 / _scalar(2.0 * (width / 2.0) ** 2, X))
     return Z
 
 

@@ -19,7 +19,15 @@ before the timed region). A run drives:
   mean progress.
 
 With ``--bench`` a run is ``python3 bench_torch.py`` instead, and its
-line is kept whole.
+line is kept whole. With ``--terrain`` a run drives the streamed terrain at
+the ``LargeScaleConf`` defaults instead (after one warm-up build):
+
+* ``world_build_s``: the 7000^2 window's build (host clock, synchronised);
+* ``crater_ms_per_block``: the crater block kernel on each of the first
+  three blocks, the sum of its radius tiers' launches, each timed alone on
+  a zeroed raster out of L2 (``ops.measure.cold_ms``);
+* the pipelined traverse (0, 0) -> (65, 65) (the CLI's default loop):
+  ``shift_latency_ms`` of each block shift, with their mean and maximum.
 
 Each run prints one JSON line; all of them also go to ``FILE`` (default
 ``build/ab_paths.json``). A checkout whose goal-seek takes a JAX key (the
@@ -84,17 +92,75 @@ print(json.dumps({
 '''
 
 
+RUN_TERRAIN = r'''
+import json, subprocess, time
+import numpy as np
+import torch
+from husky_rover_mppi_isaacsim_torch.cli import (
+    largescale_conf, largescale_episode, use_full_fp32_matmul)
+from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as cbc
+from husky_rover_mppi_isaacsim_torch.ops.measure import cold_ms
+from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
+from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
+
+use_full_fp32_matmul()
+cuda = torch.device("cuda")
+conf = largescale_conf({})
+LargeScaleTerrainManager(conf.terrain, device=cuda).build()  # builds the kernels
+torch.cuda.synchronize()
+t0 = time.perf_counter()
+lstm = LargeScaleTerrainManager(conf.terrain, device=cuda)
+lstm.build()
+torch.cuda.synchronize()
+build_s = time.perf_counter() - t0
+streamer = lstm.map_manager.streamer
+sc = streamer.conf
+per_block = []
+for bx, by in list(streamer.block_cache)[:3]:
+    origin = np.asarray([bx * sc.block_size, by * sc.block_size], np.float32)
+    ms = 0.0
+    for field, patch_px in streamer._block_fields(bx, by):
+        if not field.mask.any():
+            continue
+        side = sc.block_px + 2 * sc.pad_px + 2 * patch_px
+        row0, col0 = tcr.crater_placement(field, origin, sc.resolution, sc.block_px, sc.pad_px,
+                                          patch_px)
+        bins = cbc.TileBins(*(torch.from_numpy(a).to(cuda) for a in cbc.tile_bins(
+            row0, col0, field.radius.numpy(), field.mask.numpy(), sc.resolution, patch_px,
+            side)))
+        sub = tcr.CraterField(*(f.to(cuda) for f in field))
+        buf = torch.zeros((side, side), device=cuda)
+        args = (streamer.profiles, sub, torch.from_numpy(row0).to(cuda),
+                torch.from_numpy(col0).to(cuda), sc.resolution, sc.z_scale, patch_px)
+        ms += cold_ms(lambda: cbc.crater_block_cuda.launch(buf, *args, bins), reset=buf.zero_)
+    per_block.append(ms)
+del lstm, streamer
+run = largescale_episode({})
+lat = [1e3 * t for t in run.result.shift_latencies_s]
+smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                     capture_output=True, text=True, timeout=60).stdout.strip()
+print(json.dumps({
+    "card": smi, "world_build_s": build_s, "crater_ms_per_block": per_block,
+    "traverse_reached": bool(run.result.reached), "block_shifts": run.result.block_shifts,
+    "shift_latency_ms": lat, "shift_latency_mean_ms": sum(lat) / max(len(lat), 1),
+    "shift_latency_max_ms": max(lat, default=0.0)}))
+'''
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--bench", action="store_true", help="run bench_torch.py in each turn")
+    ap.add_argument("--terrain", action="store_true",
+                    help="time the streamed terrain (world build, crater block, shifts)")
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "ab_paths.json")
     args = ap.parse_args(argv)
     trees = {"parent": args.parent.resolve(), "this": ROOT}
     results = []
     for name in ("parent", "this", "this", "parent"):
         env = dict(os.environ, PYTHONPATH=str(trees[name]))
-        cmd = ["bench_torch.py"] if args.bench else ["-c", RUN]
+        cmd = (["bench_torch.py"] if args.bench else ["-c", RUN_TERRAIN] if args.terrain
+               else ["-c", RUN])
         proc = subprocess.run([sys.executable, *cmd], cwd=trees[name], env=env,
                               capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:

@@ -5,7 +5,9 @@ exact test per K and arm.
 
 Defaults: ``EVAL_torch_r05.json`` (the port's run on the card) against
 ``EVAL_r05.json`` (the JAX package's); a calibration sweep (``calib``) is
-compared per terrain z_scale. For each K and arm it prints one
+compared per terrain z_scale, the episode experiment (``EVAL_torch.json``
+against ``EVAL.json``) per K on its runs that reached the goal (its
+collision counts, summed points, beside them). For each K and arm it prints one
 JSON line: both tables' collided, completed and failed counts and the
 two-sided p of Fisher's exact test on the 2 x 2 table (collided, not
 collided) x (table), over every run of the arm. More tables after the
@@ -37,33 +39,47 @@ def fisher_exact_p(a: int, b: int, c: int, d: int) -> float:
 
 
 def _arm_rows(table: dict) -> dict:
-    """``{(key, arm): counts}``: per K of a protocol table, or per terrain
-    z_scale of a calibration sweep (``run_eval_r05.py calib``)."""
+    """``{(key, arm): counts}``: per K of a protocol table, per terrain
+    z_scale of a calibration sweep (``run_eval_r05.py calib``), or per K of
+    the episode experiment (``EVAL.json``: its collision points summed over
+    the runs, and the runs that reached the goal, of ``runs_per_arm``).
+    Each ``counts`` has ``runs``; a protocol table's ``collided``,
+    ``completed`` and ``failed`` runs, an episode table's ``collisions``
+    and ``reached``."""
     if "sweep" in table:
-        return {(f"z{e['z_scale']}", arm): counts for e in table["sweep"]
+        rows = {(f"z{e['z_scale']}", arm): dict(counts) for e in table["sweep"]
                 for arm, counts in e["arms"].items()}
-    return {(int(k), arm): counts for k, row in table["per_k"].items()
-            for arm, counts in row["arms"].items()}
+    elif all("arms" in row for row in table["per_k"].values()):
+        rows = {(int(k), arm): dict(counts) for k, row in table["per_k"].items()
+                for arm, counts in row["arms"].items()}
+    else:
+        runs = table["config"]["runs_per_arm"]
+        return {(int(k), arm): {"collisions": row["collisions"][arm],
+                                "reached": row["reached"][arm], "runs": runs}
+                for k, row in table["per_k"].items() for arm in row["collisions"]}
+    for counts in rows.values():
+        counts["runs"] = counts["completed"] + counts["collided"] + counts["failed"]
+    return rows
 
 
 def compare(port: dict, ref: dict) -> list[dict]:
     """One row per K (or z_scale) and arm of ``port``: both tables' counts
-    and Fisher's p of the collided counts over every run of the arm."""
+    and Fisher's p over every run of the arm: of the collided runs of a
+    protocol table, of the runs that reached the goal for the episode
+    experiment (its collisions are point counts, reported beside)."""
     rows = []
     want_rows = _arm_rows(ref)
     for (key, arm), got in _arm_rows(port).items():
         want = want_rows[key, arm]
-        n_got = got["completed"] + got["collided"] + got["failed"]
-        n_want = want["completed"] + want["collided"] + want["failed"]
-        rows.append({
-            "K": key, "arm": arm,
-            "collided": [got["collided"], want["collided"]],
-            "completed": [got["completed"], want["completed"]],
-            "failed": [got["failed"], want["failed"]],
-            "runs": [n_got, n_want],
-            "fisher_p": fisher_exact_p(got["collided"], n_got - got["collided"],
-                                       want["collided"], n_want - want["collided"]),
-        })
+        row = {"K": key, "arm": arm}
+        for name in ("collided", "completed", "failed", "collisions", "reached"):
+            if name in got:
+                row[name] = [got[name], want[name]]
+        row["runs"] = [got["runs"], want["runs"]]
+        name = "collided" if "collided" in got else "reached"
+        row["fisher_p" if name == "collided" else "fisher_p_reached"] = fisher_exact_p(
+            got[name], got["runs"] - got[name], want[name], want["runs"] - want[name])
+        rows.append(row)
     return rows
 
 

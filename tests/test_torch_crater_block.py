@@ -13,35 +13,33 @@ all-masked tier and craters that overhang the pad and the guard band:
 - a plain emulation of the kernel's binned, ordered accumulation (the tile
   lists of ``tile_bins``, then each tile's adds in slot order) is
   ``torch.equal`` to ``render_crater_block``'s CPU route;
-- both are within ``CRATER_ATOL`` of the JAX package's ``_render_patches``
-  and ``render_crater_block``.
+- both are the JAX package's jitted ``_render_patches`` and
+  ``render_crater_block`` bit for bit.
 
-Tolerances: the two equalities are exact (the same float32 operations in the
-same order; one intra-op thread, and the per-pixel tensors padded to a
-multiple of 64 elements, so that every transcendental takes the vector lane
-it takes in ``_render_patches``, whose ``(C, P, P)`` tensors have P a
-multiple of 8); JAX's heights are held at ``CRATER_ATOL`` of
-``tests/test_torch_smallscale.py`` (float32 ``atan2``/``exp`` last bits).
+Tolerances: none. Every comparison is exact: the same float32 operations in
+the same order, glibc's and XLA's functions copied in ``core/xla_math.py``
+and their fused multiply-adds formed exactly.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from husky_rover_mppi_isaacsim_torch import convert
+from husky_rover_mppi_isaacsim_torch.core import xla_math as xm
 from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as cbc
 from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
 from husky_rover_mppi_isaacsim_tpu.terrain import craters as jcr
-from test_torch_smallscale import CRATER_ATOL
 
 torch.set_num_threads(1)
 
 BLOCK_PX, PAD_PX, RES, Z_SCALE = 200, 24, 0.05, 1.1
 ORIGIN = (0.5, -0.25)
 # the kernel's scalars: Python floats as torch casts them to float32
-DEG2RAD = 0.017453292519943295769236907684886127134428718885417
-INV_2PI = 1.0 / (2.0 * np.pi)
+DEG2RAD = tcr.DEG2RAD
+INV_2PI = tcr.INV_2PI
 
 # (patch_px, radius range, live craters, capacity, coordinate range): the
 # LargeScaleConf tiers' patch sizes (r_hi 2.5 / 1.5 / 0.5 m at 0.025 m/px)
@@ -71,24 +69,28 @@ def _case(name):
     return patch_px, jprof, jfield, prof, field
 
 
-def _lookup(table, offset, x):
+def _lookup(table, offset, x, lead_v0=False):
     """``_table_lookup`` at one point per element, the kernel's order:
-    clamp, scale, floor, lerp."""
+    clamp, scale, floor, then the fused lerp."""
     pos = torch.clamp(x, 0.0, 1.0) * float(tcr.TABLE_SIZE - 1)
     f0 = torch.floor(pos)
     i0 = f0.to(torch.int64)
     i1 = torch.clamp(i0 + 1, max=tcr.TABLE_SIZE - 1)
     frac = pos - f0
     flat = table.reshape(-1)
-    return flat[offset + i0] * (1.0 - frac) + flat[offset + i1] * frac
+    v0, v1 = flat[offset + i0], flat[offset + i1]
+    if lead_v0:
+        return xm.fma_f32(v0, 1.0 - frac, v1 * frac)
+    return xm.fma_f32(v1, frac, v0 * (1.0 - frac))
 
 
 def kernel_heights(profiles, field, resolution, z_scale, patch_px, s, i, j):
     """The crater block kernel's float32 arithmetic over ``(slot, row, col)``
-    triples of patch pixels (csrc/crater_block.cu, op by op): what a thread
-    block stages per slot, over all slots as ``_render_patches`` computes
-    it, then each pixel's height; 0 outside the slot's square or for a
-    masked slot (where the kernel adds nothing)."""
+    triples of patch pixels (csrc/crater_block.cu, op by op, its device
+    functions those of ``core/xla_math.py``): what a thread block stages per
+    slot, over all slots as ``_render_patches`` computes it, then each
+    pixel's height; 0 outside the slot's square or for a masked slot (where
+    the kernel adds nothing)."""
     n = s.shape[0]
     pad = -n % 64
     s, i, j = (torch.cat([t, t[:1].expand(pad)]) for t in (s, i, j))
@@ -96,7 +98,7 @@ def kernel_heights(profiles, field, resolution, z_scale, patch_px, s, i, j):
     res = torch.full((), resolution, dtype=torch.float32)
     half_all = torch.floor(field.radius / res)
     ang = field.rotation * DEG2RAD
-    ca_all, sa_all = torch.cos(ang), torch.sin(ang)
+    ca_all, sa_all = xm.cos_f32(ang), xm.sin_f32(ang)
     half, ca, sa = half_all[s], ca_all[s], sa_all[s]
     mu1, mu2 = half * 0.15, half * 0.45
     std = torch.clamp(half * 0.05, min=1e-6)
@@ -109,18 +111,23 @@ def kernel_heights(profiles, field, resolution, z_scale, patch_px, s, i, j):
     u = (i - patch_px // 2).to(torch.float32)
     v = (j - patch_px // 2).to(torch.float32)
     in_square = (u.abs() <= half) & (v.abs() <= half)
-    ur = ca * u + sa * v
-    vr = (-sa) * u + ca * v
+    cau, sau = ca * u, sa * u
+    ur = xm.fma_f32(sa, v, cau)
+    vr = xm.fma_f32(ca, v, -sau)
     in_rot = torch.maximum(ur.abs(), vr.abs()) <= half
-    theta = torch.atan2(ur, vr) * INV_2PI + 0.5
+    if patch_px > tcr.ATAN2_UNFUSED_MAX_PX:
+        angle = xm.atan2_f32(ur, vr)
+    else:
+        angle = xm.atan2_f32(cau + sa * v, ca * v - sau)
+    theta = xm.fma_f32(angle, INV_2PI, 0.5)
     fac = _lookup(profiles.deformation, d_off, theta)
-    marks = _lookup(profiles.marks, m_off, theta) * half * field.marks_intensity[s]
+    marks = _lookup(profiles.marks, m_off, theta, lead_v0=True) * half * field.marks_intensity[s]
     q = vr / field.xy_factor[s]
-    m = torch.sqrt(q * q + ur * ur) * fac
+    m = xm.sqrt_f32(xm.fma_f32(ur, ur, q * q)) * fac
     d1, d2 = (m - mu1) / std, (m - mu2) / std
-    sat = torch.where(m < mu1, torch.exp(-0.5 * (d1 * d1)),
-                      torch.where(m > mu2, torch.exp(-0.5 * (d2 * d2)), torch.ones_like(m)))
-    m = torch.where(in_rot, torch.minimum(m + marks * sat, half), half)
+    sat = torch.where(m < mu1, xm.exp_f32((d1 * d1) * -0.5),
+                      torch.where(m > mu2, xm.exp_f32((d2 * d2) * -0.5), torch.ones_like(m)))
+    m = torch.where(in_rot, torch.minimum(xm.fma_f32(marks, sat, m), half), half)
     h = _lookup(profiles.height, p_off, m / hclamp) * field.radius[s] * z_scale
     h = torch.where(in_square & field.mask[s], h, torch.zeros_like(h))
     return h[:n]
@@ -205,20 +212,25 @@ def test_binned_accumulation_equals_the_cpu_route(case):
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_kernel_arithmetic_and_binned_block_match_jax(case):
-    """The per-pixel arithmetic against JAX's ``_render_patches`` and the
-    binned block against JAX's ``render_crater_block``, both within
-    ``CRATER_ATOL``."""
+    """The per-pixel arithmetic against JAX's jitted ``_render_patches`` (on
+    the field padded to 64 slots, as ``render_crater_block`` pads a small
+    field to its chunk) and the binned block against JAX's
+    ``render_crater_block``, bit for bit."""
     patch_px, jprof, jfield, prof, field = _case(case)
     s, i, j = _triples(field, patch_px, count=2000, seed=1)
     got = kernel_heights(prof, field, RES, Z_SCALE, patch_px, s, i, j)
-    jpatches = np.asarray(jcr._render_patches(jprof, jfield, RES, Z_SCALE, patch_px))
-    np.testing.assert_allclose(got.numpy(), jpatches[s.numpy(), i.numpy(), j.numpy()],
-                               rtol=0, atol=CRATER_ATOL)
+    slots = jfield.mask.shape[0]
+    padded = jcr.CraterField(*[jnp.concatenate([f, jnp.zeros((max(64 - slots, 0),) + f.shape[1:],
+                                                               f.dtype)]) for f in jfield])
+    render = jax.jit(jcr._render_patches, static_argnums=(4,))
+    jpatches = np.asarray(render(jprof, padded, jnp.float32(RES), jnp.float32(Z_SCALE),
+                                 patch_px))
+    np.testing.assert_array_equal(got.numpy(), jpatches[s.numpy(), i.numpy(), j.numpy()])
     block = binned_block(prof, field, patch_px)
     jblock = np.asarray(jcr.render_crater_block(jprof, jfield, jnp.asarray(ORIGIN, jnp.float32),
                                                 RES, Z_SCALE, block_px=BLOCK_PX, pad_px=PAD_PX,
                                                 patch_px=patch_px))
-    np.testing.assert_allclose(block.numpy(), jblock, rtol=0, atol=CRATER_ATOL)
+    np.testing.assert_array_equal(block.numpy(), jblock)
 
 
 def test_tile_bins_list_every_overlap_in_slot_order():

@@ -8,8 +8,7 @@ and against the port's earlier route (live craters only, patches rendered
 Tolerances: the stamp of a padded tier is ``torch.equal`` to the live-only
 loop (the same float32 adds in the same order; one intra-op thread, so that
 no transcendental lands on another vector lane when the batch grows); the
-rendered heights are held to JAX's at ``CRATER_ATOL`` of
-``tests/test_torch_smallscale.py`` (float32 ``atan2``/``exp`` last bits).
+rendered heights are JAX's bit for bit (``core/xla_math.py``).
 The tiers' metadata and capacities equal JAX's.
 """
 
@@ -29,7 +28,6 @@ from husky_rover_mppi_isaacsim_tpu.terrain import craters as jcr
 from husky_rover_mppi_isaacsim_tpu.terrain import streaming as jstream
 from husky_rover_mppi_isaacsim_tpu.terrain.craters import CraterSamplerConf as JCraterConf
 from husky_rover_mppi_isaacsim_tpu.terrain.orchestrator import LargeScaleConf as JLargeScaleConf
-from test_torch_smallscale import CRATER_ATOL
 
 torch.set_num_threads(1)
 
@@ -69,7 +67,7 @@ def test_padded_tier_stamp_equals_the_live_only_loop_and_jax(patch_px, r_range, 
     call and stamped in one call of the crater block wrapper (the CPU's
     plain version: render, then stamp):
     ``torch.equal`` to the live-only loop, and JAX's block renderer on the
-    same padded field within ``CRATER_ATOL``; some craters overhang the
+    same padded field bit for bit; some craters overhang the
     block and its pad."""
     rng = np.random.default_rng(patch_px)
     block_px, pad_px, res = 200, 24, 0.05
@@ -94,7 +92,7 @@ def test_padded_tier_stamp_equals_the_live_only_loop_and_jax(patch_px, r_range, 
     jwant = np.asarray(jcr.render_crater_block(jprof, jfield, jnp.asarray(origin, jnp.float32),
                                                res, 1.1, block_px=block_px, pad_px=pad_px,
                                                patch_px=patch_px))
-    np.testing.assert_allclose(got.numpy(), jwant, rtol=0, atol=CRATER_ATOL)
+    np.testing.assert_array_equal(got.numpy(), jwant)
 
 
 def test_stamp_adds_live_slots_in_slot_order():

@@ -44,9 +44,9 @@ def test_r05_names_an_nvidia_card_and_its_power_limit(r05):
 
 
 @pytest.mark.parametrize("name", ["EVAL_torch_r05.json", "EVAL_torch_R05_CALIB.json",
-                                  "EVAL_torch_r04.json"])
+                                  "EVAL_torch_r04.json", "EVAL_torch.json"])
 def test_tables_draw_jax_control_noise(name):
-    """The three thesis tables were run with JAX's noise streams: each run's
+    """The four thesis tables were run with JAX's noise streams: each run's
     control noise drawn from ``key(seed * 1000 + run)``."""
     config = json.loads((REPO / name).read_text())["config"]
     assert config["control_noise"] == "jax"
@@ -162,3 +162,22 @@ def test_compare_eval_counts_and_fisher_p():
     assert sorted((r["K"], r["arm"]) for r in rows) == sorted(
         (k, a) for k in (350, 500, 1000) for a in ("3d", "2d"))
     assert all(r["runs"] == [RUNS, RUNS] and 0.0 < r["fisher_p"] <= 1.0 for r in rows)
+
+
+def test_compare_eval_episode_experiment_on_reached_runs():
+    """The episode experiment's table (``EVAL_torch.json`` against the JAX
+    package's ``EVAL.json``): one row per K and arm with both tables'
+    collision points and reached runs, Fisher's p on the reached runs."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_compare_eval", REPO / "scripts" / "torch_compare_eval.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    port = json.loads((REPO / "EVAL_torch.json").read_text())
+    rows = mod.compare(port, json.loads((REPO / "EVAL.json").read_text()))
+    assert sorted((r["K"], r["arm"]) for r in rows) == sorted(
+        (k, a) for k in (350, 500, 1000) for a in ("3d", "2d"))
+    for r in rows:
+        assert r["runs"] == [RUNS, RUNS] and 0.0 < r["fisher_p_reached"] <= 1.0
+        assert r["reached"][0] == port["per_k"][str(r["K"])]["reached"][r["arm"]]

@@ -16,8 +16,10 @@ loops against their eager runs (bench_torch.py's K=16384 x H=64 control
 loops and its 4096-rover vec env among them); the crater block kernel
 (csrc/crater_block.cu) bit-equal to its plain version (render, then the
 slice-add stamp) at the streamed tiers' shapes, for overlapping craters,
-in a streamed window and on an SDG yard field, its libdevice functions
-against torch's, and its wrapper's refusals; the SDG frame's two graphs
+in a streamed window and on an SDG yard field, its device copies of XLA's
+and glibc's functions (csrc/xla_math.cuh) against their plain versions on
+the card and the CPU, and its wrapper's refusals; the upsample's 4-tap
+kernel (csrc/upsample_taps.cu) against its plain version; the SDG frame's two graphs
 against the eager labeler, and a graph's in-place argument; the planar
 rollout kernel (csrc/rollout_2d.cu) bit-equal to the plain ``rollout_2d``
 (one rover and N rovers, on and off the thesis DEM, K from 1 to 1000 by
@@ -1087,7 +1089,8 @@ def test_graphed_capture_failure_raises_on_card(cuda):
         h(torch.ones(5, device=cuda))
 
 
-STAMP_TIERS = [(192, 208, 40), (256, 128, 120), (1600, 48, 1000)]
+STAMP_TIERS = [(192, 208, 40), (256, 128, 120), (1600, 48, 1000), (512, 56, 300),
+               (256, 104, 100)]
 
 
 def _crater_tier(device, capacity, patch_px, live, seed, side):
@@ -1116,7 +1119,8 @@ def _crater_tier(device, capacity, patch_px, live, seed, side):
             torch.from_numpy(row0).to(device), torch.from_numpy(col0).to(device))
 
 
-@pytest.mark.parametrize("capacity,patch_px,live", STAMP_TIERS, ids=["208", "128", "48"])
+@pytest.mark.parametrize("capacity,patch_px,live", STAMP_TIERS,
+                         ids=["208", "128", "48", "56", "104"])
 def test_crater_stamp_kernel_matches_plain_on_card(cuda, capacity, patch_px, live):
     """The crater block kernel against its plain version (every slot
     rendered as a patch, the live ones added by the slice-add stamp) at the
@@ -1163,28 +1167,71 @@ def test_crater_block_overlapping_craters_on_card(cuda):
     assert torch.equal(got, want) and float(got.abs().max()) > 0.1
 
 
-def test_crater_block_libm_matches_torch_on_card(cuda):
-    """The kernel's atan2f, expf, cosf and sinf (its -fmad=true build) give
-    torch's bits on the arguments a crater render produces: atan2 over
-    rotated pixel offsets, exp over the envelope's -0.5 d^2, cos and sin
-    over whole-degree rotations."""
-    import math
+@pytest.mark.parametrize("op", ["atan2", "exp", "cos", "sin", "atan"])
+def test_crater_block_xla_math_matches_plain_on_card(cuda, op):
+    """Each device function of the crater block kernel (csrc/xla_math.cuh:
+    XLA's exp, glibc's atan2f / atanf, sinf and cosf) ``torch.equal`` to
+    its plain version (core/xla_math.py) on the card, and that plain
+    version on the card to the CPU's, on 2^22 probes: random bit patterns,
+    a dense range, magnitudes to 1e30, and +-0, +-inf, NaN and subnormals
+    (compared as bit patterns; a NaN result is the canonical NaN)."""
+    import numpy as np
 
+    from husky_rover_mppi_isaacsim_torch.core import xla_math as xm
     from husky_rover_mppi_isaacsim_torch.ops.crater_block_cuda import crater_block_cuda
 
-    g = torch.Generator(device=cuda).manual_seed(0)
-    ang = torch.arange(360, dtype=torch.float32, device=cuda) * 0.017453292519943295
-    off = torch.arange(-104, 104, dtype=torch.float32, device=cuda)
-    ca, sa = torch.cos(ang)[:, None, None], torch.sin(ang)[:, None, None]
-    ur = (ca * off[None, :, None] + sa * off[None, None, :]).flatten()
-    vr = ((-sa) * off[None, :, None] + ca * off[None, None, :]).flatten()
-    d = torch.rand((1 << 20,), generator=g, device=cuda) * 40.0
-    e = -0.5 * (d * d)
-    assert torch.equal(crater_block_cuda.libm("atan2", ur, vr), torch.atan2(ur, vr))
-    assert torch.equal(crater_block_cuda.libm("exp", e), torch.exp(e))
-    assert torch.equal(crater_block_cuda.libm("cos", ang), torch.cos(ang))
-    assert torch.equal(crater_block_cuda.libm("sin", ang), torch.sin(ang))
-    assert math.isfinite(float(ur.abs().max()))
+    rng = np.random.default_rng(len(op))
+    n = 1 << 20
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, -1e-40, 1.17549435e-38,
+                        1.0, -1.0, 120.0, 88.8, -87.8, 1e30, -1e30], np.float32)
+    a = np.concatenate([rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32)
+                        .view(np.float32), rng.uniform(-130, 130, n).astype(np.float32),
+                        (rng.choice([-1.0, 1.0], n) * 10.0 ** rng.uniform(-40, 30, n))
+                        .astype(np.float32), rng.uniform(-4, 4, n - special.size)
+                        .astype(np.float32), special])
+    b = rng.permutation(a)
+    fn = {"atan2": xm.atan2_f32, "exp": xm.exp_f32, "cos": xm.cos_f32, "sin": xm.sin_f32,
+          "atan": xm.atan_f32}[op]
+    args_cpu = (torch.from_numpy(a), torch.from_numpy(b))[:2 if op == "atan2" else 1]
+    args = tuple(t.to(cuda) for t in args_cpu)
+    got, card = crater_block_cuda.xla_math(op, *args), fn(*args)
+    assert torch.equal(got.view(torch.int32), card.view(torch.int32))
+    assert torch.equal(card.cpu().view(torch.int32), fn(*args_cpu).view(torch.int32))
+
+
+@pytest.mark.parametrize("factor,shape", [(200, (9, 9)), (20, (9, 9)), (3, (7, 12)),
+                                          (8, (5, 5)), (2, (3, 17))])
+def test_upsample_taps_kernel_matches_plain_on_card(cuda, factor, shape):
+    """The 4-tap kernel (csrc/upsample_taps.cu) ``torch.equal`` to its
+    plain version (``upsample._tap_sum``) on both axis passes of an
+    upsample, the tiles' columns and a tail of one, several or every
+    column among them; one launch a pass; the whole upsample on the card
+    ``torch.equal`` to the CPU's."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.ops.upsample_cuda import upsample_taps_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain import upsample as tup
+
+    lr = torch.from_numpy(np.random.default_rng(factor).normal(0, 50, shape).astype(np.float32))
+    before = upsample_taps_cuda.launches
+    got = tup.upsample_bicubic(lr.to(cuda), factor)
+    assert upsample_taps_cuda.launches == before + 2
+    assert torch.equal(got.cpu(), tup.upsample_bicubic(lr, factor))
+    img = lr.to(cuda)
+    for _ in range(2):  # each pass on the card: the kernel against the plain taps
+        n = img.shape[0]
+        src = (np.arange(n * factor) + 0.5) / factor - 0.5
+        i0 = np.floor(src).astype(np.int64)
+        offs = np.arange(-1, 3)
+        kw = tup.cubic_kernel(offs[None, :] - (src - i0)[:, None])
+        kw = torch.as_tensor(kw / kw.sum(axis=1, keepdims=True), dtype=torch.float32,
+                             device=cuda)
+        idx = torch.as_tensor(np.clip(i0[:, None] + offs[None, :], 0, n - 1), device=cuda)
+        out = upsample_taps_cuda(img, kw, idx)
+        assert torch.equal(out, tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)]))
+        img = out.T.contiguous()
+    with pytest.raises(TypeError):
+        upsample_taps_cuda(img.double(), kw, idx)
 
 
 def test_crater_block_wrapper_raises_on_card(cuda):

@@ -15,8 +15,6 @@ import graft_entry_torch as tentry
 from husky_rover_mppi_isaacsim_torch import convert
 from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
 
-from test_torch_smallscale import CRATER_ATOL
-
 # float32 over a 100-step horizon: a sample whose rollout differs in the
 # last bits may read another nearest cell for a wheel height, so a few
 # costs move while the rest agree to float32 rounding; the optimal inputs
@@ -28,8 +26,7 @@ COSTS_SHARE_RTOL, COSTS_SHARE, U_ATOL = 1e-5, 0.95, 1e-6
 
 
 def test_entry_step_matches_the_jax_entry():
-    """The port's world is JAX's within the crater surface's float32 bound
-    and its noise is the JAX entry's ``key(0)`` draw bit for bit; on JAX's
+    """The port's world is JAX's bit for bit and its noise is the JAX entry's ``key(0)`` draw bit for bit; on JAX's
     world and that noise the port's step gives JAX's costs, weights and
     optimal inputs within the tolerances above: every cost but at most
     ``COSTS_OUTLIERS`` within ``COSTS_RTOL``, those within
@@ -47,8 +44,7 @@ def test_entry_step_matches_the_jax_entry():
     jfn, jargs = jentry.entry()
     jhf, jcm, jgoal, jrobot, jctrl, jnoise = jargs
     np.testing.assert_array_equal(noise.numpy(), np.asarray(jnoise))
-    # the crater surface's float32 exp differs from XLA's in the last bits
-    np.testing.assert_allclose(hf.z.numpy(), np.asarray(jhf.z), rtol=0, atol=CRATER_ATOL)
+    np.testing.assert_array_equal(hf.z.numpy(), np.asarray(jhf.z))  # XLA's float32 terrain
     np.testing.assert_array_equal(cm.cost.numpy(), np.asarray(jcm.cost))
     thf = convert.heightfield_from_numpy(*(np.asarray(a) for a in jhf))
     jctrl_new, jout = jax.jit(jfn)(*jargs)

@@ -117,7 +117,7 @@ def test_thesis_terrain_matches_jax():
     got = tss.thesis_statistics_terrain(seed=42, size_m=20.0, device="cpu")
     assert want.dtype == np.float32 and got.dtype == torch.float32
     assert got.shape == want.shape == (200, 200)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=CRATER_ATOL)
+    np.testing.assert_array_equal(got.numpy(), want)
     want = np.asarray(jss.thesis_statistics_terrain(seed=42, size_m=20.0))
     got = tss.thesis_statistics_terrain(seed=42, size_m=20.0, dtype=torch.float64, device="cpu")
     assert want.dtype == np.float64
@@ -140,7 +140,7 @@ def test_moonyard_generator_matches_jax(kind):
     assert not np.array_equal(want[0], want[1])
     for a, b in zip(got, want):
         assert a.dtype == torch.float32 and a.shape == b.shape == (200, 150)
-        np.testing.assert_allclose(a.numpy(), b, rtol=0, atol=CRATER_ATOL)
+        np.testing.assert_array_equal(a.numpy(), b)
 
 
 def test_thesis_terrain_statistics_are_eval_r05s():

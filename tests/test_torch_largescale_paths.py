@@ -83,6 +83,30 @@ def test_prestage_hits_verify_and_changes_no_path():
     assert torch.equal(staged.hf.z, plain.hf.z)
 
 
+def test_costmap_predictor_names_the_next_center_block():
+    """The costmap's crossing predictor (the port's; the window is staged on
+    JAX's), on a 0.3 m update grid that does not divide the 10 m blocks.
+    With the rover in the window's center block and the lookahead 0.1 m
+    past the x = 10 m border, it names block (10, 0) and takes its rocks at
+    the block's first grid line (quantizing left the lookahead at 9.9 m);
+    with the rover's quantized position past the border and the window not
+    yet shifted, the rover's block, wherever the lookahead points (a corner
+    crossed one border at a time); with both in the center block, none."""
+    loop = tls.LargeScaleClosedLoop(conf(terrain=tiny_terrain(
+        LargeScaleConf, RockDistConf, native_pool="never", update_every_n_meters=0.3)),
+        device="cpu")
+    streamer = loop.lstm.map_manager.streamer
+    n = streamer.conf.num_blocks + 1
+    assert (streamer.anchor[0] + n, streamer.anchor[1] + n) == (0, 0)
+    key, rocks_pos = loop._predict_center(8.1, 1.0, 1.0, 0.0)  # lookahead (10.1, 1.0)
+    assert key == (10.0, 0.0) and streamer.block_index(rocks_pos) == (1, 0)
+    assert math.isclose(rocks_pos[0], 10.2) and loop._rock_keys(rocks_pos) == ((1, 0),)
+    assert loop._quantized_update_pos(10.1, 1.0)[0] < 10.0
+    key, rocks_pos = loop._predict_center(10.3, 1.0, 0.0, -1.0)  # lookahead in (10, -10)
+    assert key == (10.0, 0.0) and rocks_pos == loop._quantized_update_pos(10.3, 1.0)
+    assert loop._predict_center(5.0, 5.0, 1.0, 0.0) is None
+
+
 def test_pipelined_loop_reaches_the_goal_with_rebuilt_costmaps():
     """``pipeline_depth=2``: the rover reaches the goal across the shift,
     the terrain worker staged it, and every costmap the main thread seated

@@ -3,9 +3,9 @@ upsample and the point samplers against the JAX package, float32, on the JAX
 tests' tiny geometry (10 m blocks at 0.1 m/px, a 5-block window).
 
 Crater metadata must be EQUAL after the same visit sequence: it comes from one
-numpy generator consumed in build order. Heights agree to 1e-4 m: the
-upsample's four float32 products of ~100 m heights are summed in another
-order (<= 6e-5 m seen), the crater stamps differ by <= 1e-6 m.
+numpy generator consumed in build order. Heights are EQUAL too: the port's
+float32 upsample and crater render evaluate each operation as XLA's CPU code
+does (``core/xla_math.py``; both streamers take the device route here).
 """
 
 import jax.numpy as jnp
@@ -25,7 +25,6 @@ from husky_rover_mppi_isaacsim_tpu.terrain.craters import CraterSamplerConf as J
 
 torch.set_num_threads(1)
 
-HEIGHT_ATOL = 1e-4
 
 
 def _confs(craters=True, prefetch=True):
@@ -56,7 +55,7 @@ def test_upsample_bicubic_matches_jax(rng, factor, shape):
     got = tup.upsample_bicubic(torch.from_numpy(lr), factor)
     want = np.asarray(jup.upsample_bicubic(jnp.asarray(lr), factor))
     assert tuple(got.shape) == want.shape == (shape[0] * factor, shape[1] * factor)
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=5e-5)
+    np.testing.assert_array_equal(got.numpy(), want)  # XLA's dot: JAX's bits
     # float64: the same weights, so only the order of four sums differs
     got64 = tup.upsample_bicubic(torch.from_numpy(lr.astype(np.float64)), factor)
     want64 = np.asarray(jup.upsample_bicubic(jnp.asarray(lr, jnp.float64), factor))
@@ -95,7 +94,7 @@ def test_built_block_matches_jax(craters):
         want = np.asarray(js.build_block(*key))
         got = ts.build_block(*key)
         assert got.is_contiguous() and tuple(got.shape) == want.shape == (100, 100)
-        np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=HEIGHT_ATOL)
+        np.testing.assert_array_equal(got.numpy(), want)
         assert ts.build_block(*key) is got  # cached
     _assert_same_craters(ts, js)
     if craters:
@@ -126,8 +125,7 @@ def test_windows_and_crater_metadata_after_the_same_visits(prefetch):
         assert ts.anchor == js.anchor and ts.window_origin() == js.window_origin()
         _assert_same_craters(ts, js)
         assert list(ts.block_cache) == list(js.block_cache)
-        np.testing.assert_allclose(ts.window.numpy(), np.asarray(js.window), rtol=0,
-                                   atol=HEIGHT_ATOL, err_msg=str(pos))
+        np.testing.assert_array_equal(ts.window.numpy(), np.asarray(js.window), err_msg=str(pos))
     assert ts.shift_count == js.shift_count == 5
     # a rolled window is the window a full rebuild at the same anchor gives
     fresh = tstream.TerrainStreamer(ts.conf, ts.lr_dem.numpy(), device="cpu")
@@ -163,8 +161,7 @@ def test_jax_streamer_continues_in_the_port():
     for pos in ((15.0, 5.0), (25.0, 15.0)):
         assert ts.update(pos) and js.update(pos)
         _assert_same_craters(ts, js)
-        np.testing.assert_allclose(ts.window.numpy(), np.asarray(js.window), rtol=0,
-                                   atol=HEIGHT_ATOL)
+        np.testing.assert_array_equal(ts.window.numpy(), np.asarray(js.window))
     # what was carried over was not rebuilt: the kept part of the window is
     # the JAX package's bits
     kept = np.asarray(js.window)[:300, :400]
@@ -195,7 +192,7 @@ def test_prestaged_shift_matches_jax(stage, move):
     the entering blocks' craters when it is made, in the shift's order, so
     crater metadata and the generator's state stay EQUAL after the stage
     and after the shift; the staged window is swapped in where the anchor
-    is the one staged (a hit in both), and the window agrees to 1e-4 m."""
+    is the one staged (a hit in both), and the window is JAX's."""
     js, ts = _streamers(True)
     start = (5.0, 5.0)
     js.update(start)
@@ -212,8 +209,7 @@ def test_prestaged_shift_matches_jax(stage, move):
     assert ts.update(target) and js.update(target)
     assert ts.staged_shift_hits == js.staged_shift_hits == int(stage == move)
     _assert_same_craters(ts, js)
-    np.testing.assert_allclose(ts.window.numpy(), np.asarray(js.window), rtol=0,
-                               atol=HEIGHT_ATOL)
+    np.testing.assert_array_equal(ts.window.numpy(), np.asarray(js.window))
     # the swapped-in window is the one the shift composes
     fresh = tstream.TerrainStreamer(ts.conf, ts.lr_dem.numpy(), device="cpu")
     fresh.crater_blocks = dict(ts.crater_blocks)

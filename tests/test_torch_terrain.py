@@ -26,11 +26,30 @@ def test_crater_surface_matches_jax(dtype):
     want = np.asarray(jsurf.crater_surface(300, 75.0, jsurf.STANDALONE_CRATER_BUMPS,
                                            dtype=dtype[1]))
     assert got.dtype == dtype[0]
-    # float32: the two packages' grid points differ by an ulp and the rim
-    # and bowl terms cancel near z = 0, so hold absolute heights to 10 um
-    atol = 0.0 if dtype[0] == torch.float64 else 1e-5
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=atol)
+    if dtype[0] == torch.float32:  # XLA's linspace, exp and rounding: JAX's bits
+        np.testing.assert_array_equal(got.numpy(), want)
+    else:
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0.0)
     assert tsurf.STANDALONE_CRATER_BUMPS == jsurf.STANDALONE_CRATER_BUMPS
+
+
+def test_flagship_crater_map_is_jaxs():
+    """The main path's 150 m map (``cli.build_standalone_world``, JAX
+    ``cli.py:99``): ``crater_surface(1500, 75.0, STANDALONE_CRATER_BUMPS)``
+    in float32, bit for bit."""
+    got = tsurf.crater_surface(1500, 75.0, tsurf.STANDALONE_CRATER_BUMPS)
+    want = np.asarray(jsurf.crater_surface(1500, 75.0, jsurf.STANDALONE_CRATER_BUMPS))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("size", [128, 353, 700])
+def test_float32_bump_surface_is_jaxs(size):
+    """``bump_surface`` in float32 (XLA's ``exp`` and ``atan2f(x, 1)``) on
+    both sides of the grid size where XLA's linspace stops folding its
+    constants."""
+    got = tsurf.bump_surface(size, 20.0, no.REFERENCE_BUMPS)
+    want = np.asarray(jsurf.bump_surface(size, 20.0, no.REFERENCE_BUMPS))
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_bump_surface_matches_jax():
@@ -69,7 +88,7 @@ def test_distance_costmap_matches_jax():
     occ = _occupancy()
     got = tedt.distance_costmap(torch.from_numpy(occ))
     want = np.asarray(jedt.distance_costmap(jnp.asarray(occ)))
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy(), want)
     np.testing.assert_allclose(tedt.normalize_minmax(torch.arange(5.0)).numpy(),
                                np.asarray(jedt.normalize_minmax(jnp.arange(5.0))))
     empty = tedt.distance_costmap(torch.zeros((40, 40), dtype=torch.bool))
@@ -80,7 +99,9 @@ def test_distance_costmap_matches_jax():
 def test_costmap_750_matches_jax_at_reduced_size():
     got = tcost.costmap_750(size=150, use_exact_edt=True)
     want = jcost.costmap_750(size=150, use_exact_edt=True)
-    np.testing.assert_allclose(got.cost.numpy(), np.asarray(want.cost), rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(got.cost.numpy(), np.asarray(want.cost))
+    chamfer = tcost.costmap_750(size=150)
+    np.testing.assert_array_equal(chamfer.cost.numpy(), np.asarray(jcost.costmap_750(size=150).cost))
     assert float(got.half_width) == float(want.half_width) == 75.0
     assert float(got.resolution) == float(want.resolution)
     assert got.cost.dtype == torch.float32
