@@ -6,8 +6,9 @@ Builds kernels K1 (husky_rover_mppi_isaacsim_torch/csrc/rollout.cu), K2
 (csrc/edt_minplus.cu), K3 (csrc/gather_probe.cu), the port's own crater
 block kernel (csrc/crater_block.cu) and its planar rollout kernel
 (csrc/rollout_2d.cu, the 2D arm's sample rollout) and the jax_normal kernel
-(csrc/jax_normal.cu, JAX's normals for every control and slip draw) from
-the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
+(csrc/jax_normal.cu, JAX's normals for every control and slip draw) and
+the block upsample kernel (csrc/upsample_taps.cu, both bicubic passes of a
+streamed block's kept base in one launch) from the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
 with g++, all started together; holds the crater block kernel's device
 copies of XLA's exp and glibc's atan2f, atanf, sinf and cosf
 (csrc/xla_math.cuh) against their plain versions (core/xla_math.py) on 2^24
@@ -100,9 +101,13 @@ both again at bench_torch.py's 48-step chunks (the bound, counted in sim
 steps, is 8 chunks at 12 steps and 6 at 48). The streamed
 chunk's graph reads the window and costmap in place (graph_chunk times it
 against a graph that copies them).
-K3 is timed
-beside an empty kernel of its grid and block (the launch floor of its
-restated bound). The CLI's paths through its composed cfg/ tree: mode=sdg
+K3, jax_normal and the block upsample are timed
+beside an empty kernel of their grid and block (the launch floor); the
+jax_normal kernel's bound counts the function's own operations a value
+by pipe (JAX_NORMAL_OPS, each data-dependent side weighed by the draw's
+values that take it), and the block upsample is held to its plain version
+at the streamed block's crop, one launch a block, beside the one library
+call that computes it (torch.linalg.multi_dot). The CLI's paths through its composed cfg/ tree: mode=sdg
 (cfg/mode/sdg.yaml with its camera block on: 10 frames of the 500^2 yard
 with rocks, a 640 x 480 camera marched in 128 steps with cast shadows)
 under both rendering files, timed by phase (each frame's top-down and
@@ -267,12 +272,39 @@ DEPENDENT_OP_CYCLES = 4
 # products 3, the accumulation 1 (patches of 56 pixels or fewer add the
 # unfused atan2 arguments' two products and two sums)
 CRATER_OPS_PER_PAIR = 71
-# instructions of one jax_normal value's threefry hash, counted from
-# csrc/jax_normal.cu: 20 rounds of an add, a rotate (one funnel shift) and a
-# xor, five key injections of three adds, two adds to start, and the
-# uniform's xor, shift and or (the float erf_inv not counted)
-JAX_NORMAL_OPS_PER_VALUE = 80
-
+# operations of one jax_normal value, counted once from the function (JAX's
+# float32 jax.random.normal as XLA's CPU program computes it,
+# core/jax_random.py), not from a build: each data-dependent side counted
+# only for the values that take it, a select as a branch (no operation)
+# unless the value needs it, per-key constants not counted, a division
+# or square root as one. By the pipe each issues on, per SM and clock on an
+# H100 (NVIDIA's H100 data sheet: 64 INT32 lanes, 128 FP32 lanes, 16
+# special-function lanes; four schedulers issuing 128 lanes' instructions):
+# "alu" integer add, logic, shift, funnel shift, compare and float
+# min / max / compare at 64; "fma" float add, multiply, FMA (and integer
+# multiplies, none here) at 128; "xu" divisions, square roots and
+# conversions at 16; and every one against the issue rate of 128.
+#   common: the hash 72 alu (20 rounds of an add, a funnel shift and a
+#     xor; 6 key injections of two adds), the output word's xor 1, the
+#     uniform's shift and or 2, its sub and FMA 2 fma, its max 1; -x^2 1
+#     fma; log1p's side test 1; erf_inv's side test 1, its 9-term
+#     polynomial 8 FMAs, the |x| == 1 test 1, the products by x and
+#     sqrt(2) 2 fma: 79 alu, 13 fma
+#   log1p's rational side (|x^2| < sqrt(2) - 1): y^2, y * 0, two 7-op
+#     polynomials, y * y^2, its product by the quotient, an FMA, the sum:
+#     20 fma; the quotient 1 xu
+#   its log side: y + 1, the exponent's add, the mantissa's sub and add,
+#     the exponent's correction, z, x^3, three 2-FMA polynomials, q 2, r 2,
+#     s 2, the result's FMA: 20 fma; the max, the exponent's shift and sub,
+#     the mantissa's and-or (one LOP3), its test and select, the three
+#     special-value tests: 9 alu; the exponent's conversion 1 xu
+#   erf_inv's w < 5 side: w = -2.5 - l, 1 fma; its w >= 5 side: the square
+#     root 1 xu, its add 1 fma
+JAX_NORMAL_OPS = {"common": {"alu": 79, "fma": 13},
+                  "rational": {"fma": 20, "xu": 1}, "log": {"alu": 9, "fma": 20, "xu": 1},
+                  "w_lt5": {"fma": 1}, "w_ge5": {"fma": 1, "xu": 1}}
+SM_LANES = {"alu": 64, "fma": 128, "xu": 16, "issue": 128}
+H100_SMS = 132
 
 def bound(bytes_moved, ops, op_rate):
     """The least time in ms for ``bytes_moved`` bytes and ``ops`` operations
@@ -355,7 +387,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.mppi.critics import costmap_cells
     from husky_rover_mppi_isaacsim_torch.mppi.evaluation import run_thesis_protocol_experiment
     from husky_rover_mppi_isaacsim_torch.mppi.rollout import rollout_2d, rollout_25d
-    from husky_rover_mppi_isaacsim_torch.core.xla_math import pow_f32, sqrt_f32
+    from husky_rover_mppi_isaacsim_torch.core.xla_math import f32, pow_f32, sqrt_f32
     from husky_rover_mppi_isaacsim_torch.ops.edt import (
         distance_costmap,
         edt_exact_sq,
@@ -482,6 +514,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
+    max_sm_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
+        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
     use_full_fp32_matmul()
     phase("device", name=torch.cuda.get_device_name(0), count=torch.cuda.device_count(),
           torch=torch.__version__, cuda=torch.version.cuda,
@@ -490,7 +525,7 @@ def main(argv=None) -> int:
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
     # 2. build K1, K2, K3, the crater block kernel, the planar rollout
-    #    kernel, the jax_normal kernel and the upsample's 4-tap kernel from
+    #    kernel, the jax_normal kernel and the block upsample kernel from
     #    the sources, one nvcc each, and the host runtime
     #    (csrc/husky_native.cpp) with g++, all started together
     t0 = time.perf_counter()
@@ -503,7 +538,7 @@ def main(argv=None) -> int:
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
                             "crater_block_f32", "rollout2d_f32", "jax_normal_f32",
-                            "upsample_taps_f32"), builds):
+                            "upsample_block_f32"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -568,6 +603,9 @@ def main(argv=None) -> int:
         phase("jax_normal", cases=rows, ok=equal_all)
         if not equal_all:
             raise RuntimeError("the jax_normal kernel differs from its plain version")
+        # the bound: the function's operations a value (JAX_NORMAL_OPS) by
+        # pipe, each side weighed by the share of this draw's values that
+        # take it; the bytes; the empty kernel of its grid
         timing = {}
         for name in ("goal_seek_k1000_h100", "bench_k16384_h64", "closed_loop_2x4000x100",
                      "slip_n4"):
@@ -576,17 +614,43 @@ def main(argv=None) -> int:
             buf = torch.empty(shape, device=cuda)
             n = buf.numel()
             t_kernel = graph_ms(lambda: jax_normal(key_d, shape, path=path))
+            t_floor = graph_ms(lambda: jax_normal.launch_floor(n))
             t_plain = cuda_ms(lambda: jr.normal(jr.derive(key_d, path), shape))
             t_randn = graph_ms(lambda: buf.normal_())
-            b_ms, b_by = bound(4 * n + 16, JAX_NORMAL_OPS_PER_VALUE * n, PEAK_FP32_INSTR_S)
-            timing[name] = {"ms": t_kernel, "plain_ms": t_plain, "randn_ms": t_randn,
-                            "bound_ms": b_ms, "bound_by": b_by, "n": n}
+            u = jr.uniform(jr.derive(key_d, path), (n,), torch.float32,
+                           f32(jr.NORMAL_LO_F32), 1.0)
+            y = u * -u
+            log_share = (y.abs() >= f32(jr.LOG1P_SMALL)).double().mean().item()
+            ge5_share = (~(jr.log1p_f32(y) > -5.0)).double().mean().item()
+            shares = {"common": 1.0, "rational": 1.0 - log_share, "log": log_share,
+                      "w_lt5": 1.0 - ge5_share, "w_ge5": ge5_share}
+            per_value = {p_: sum(shares[side] * ops.get(p_, 0)
+                                 for side, ops in JAX_NORMAL_OPS.items())
+                         for p_ in ("alu", "fma", "xu")}
+            per_value["issue"] = sum(per_value.values())
+            pipes = {p_: 1e3 * n * c / (SM_LANES[p_] * H100_SMS * max_sm_hz)
+                     for p_, c in per_value.items()}
+            bytes_ms = 1e3 * (4 * n + 16) / PEAK_BYTES_S
+            ops_by = max(pipes, key=pipes.get)
+            b_ms = max(bytes_ms, pipes[ops_by])
+            b_by = "bytes" if bytes_ms >= pipes[ops_by] else "operations"
+            timing[name] = {
+                "ms": t_kernel, "plain_ms": t_plain, "randn_ms": t_randn, "n": n,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes_ms": bytes_ms,
+                "operations_ms_by_pipe": pipes, "operations_set_by_pipe": ops_by,
+                "operations_per_value": per_value, "value_shares": shares,
+                "empty_kernel_ms": t_floor, "bound_with_floor_ms": max(b_ms, t_floor),
+                "bound_with_floor_set_by": (b_by if b_ms >= t_floor
+                                            else "launch floor (empty kernel)"),
+                "share_of_bound_with_floor": max(b_ms, t_floor) / t_kernel}
         phase("jax_normal_times", per="launch (CUDA-graph replay, median of 7); plain eager",
-              **timing)
+              sm_clock_hz=max_sm_hz, lanes_per_sm_clock=SM_LANES, **timing)
         main = timing["goal_seek_k1000_h100"]
-        return {"ms": main["ms"], "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                "bound_by": main["bound_by"], "max_abs_err": 0.0, "randn_ms": main["randn_ms"],
-                "shapes": timing, "cases": rows}
+        return {k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "randn_ms",
+                                     "empty_kernel_ms", "bound_with_floor_ms",
+                                     "bound_with_floor_set_by", "operations_ms_by_pipe",
+                                     "operations_per_value")} | {
+            "max_abs_err": 0.0, "shapes": timing, "cases": rows}
 
     # 2b. jax_normal against its plain version (core/jax_random.py: normal
     #     of derive, torch ops on the card) and against the same plain
@@ -598,7 +662,7 @@ def main(argv=None) -> int:
     #     draws JAX's stream)
     jax_normal_row = jax_normal_phase()
     draws_by_path = {}  # jax_normal launches of each main path
-    taps_by_path = {}  # the upsample's 4-tap launches per streamed path
+    taps_by_path = {}  # the block upsample's launches per streamed path
 
     def dem_cells(hf, got, start):
         """DEM cells a rollout read: the start cell's and every step's quad
@@ -815,58 +879,89 @@ def main(argv=None) -> int:
                 "launches_per_block": first["launches"]}
 
     def upsample_taps_phase(streamer):
-        """The upsample's 4-tap kernel at the main path's shapes: a streamed
-        block's two axis passes (its 9 x 9 LR patch by the factor 200: (9,
-        9) -> (1800, 9), then (9, 1800) -> (1800, 1800)), each against its
-        plain version (the gather and ``_tap_sum``) on the same inputs,
-        torch.equal; the kernel timed one launch at a time out of L2
-        (cold_ms), the plain pass and a dense ``W @ img`` (the one torch
-        call that computes the same sums, W the rows' four weights on their
-        taps) beside it; the bound from the bytes and FMAs of each pass.
-        Returns the kernel table's row (the second pass)."""
+        """The block upsample kernel at the main path's shape: a streamed
+        block's 9 x 9 LR patch by the factor 200, its kept base (the crop
+        [400:1400]^2 of the 1800^2 upsample) and the full upsample, each
+        ``torch.equal`` to its plain version on the card (both passes of
+        ``_tap_sum`` in full, then the slice: the design the kernel
+        replaced, as a plain route) and to the CPU's, one launch a call.
+        Timed one launch at a time out of L2 (cold_ms) and by graph replay,
+        beside the empty kernel of its grid (the launch floor), the plain
+        version and the one library call that computes the same crop,
+        ``torch.linalg.multi_dot([Wr[r0:r0+R], lr, Wc[c0:c0+C].T])`` on the
+        passes' dense matrices (float32, no TF32). The bound from the crop's
+        bytes and FMAs. Returns the kernel table's row (the block)."""
         from husky_rover_mppi_isaacsim_torch.terrain import upsample as tup
 
-        factor = streamer.conf.upscale_factor
-        img = streamer._lr_patch(0, 0).to(cuda, torch.float32)
-        passes, equal, err = [], True, 0.0
-        for _ in range(2):
-            n, m = img.shape
-            src = (np.arange(n * factor) + 0.5) / factor - 0.5
-            i0 = np.floor(src).astype(np.int64)
-            offs = np.arange(-1, 3)
-            kw_np = tup.cubic_kernel(offs[None, :] - (src - i0)[:, None])
-            kw_np = kw_np / kw_np.sum(axis=1, keepdims=True)
-            idx_np = np.clip(i0[:, None] + offs[None, :], 0, n - 1)
-            kw = torch.as_tensor(kw_np, dtype=torch.float32, device=cuda)
-            idx = torch.as_tensor(idx_np, device=cuda)
-            idx32 = idx.to(torch.int32)
-            dense = np.zeros((n * factor, n), np.float32)
-            np.add.at(dense, (np.repeat(np.arange(n * factor), 4), idx_np.ravel()),
-                      kw_np.astype(np.float32).ravel())
-            w = torch.from_numpy(dense).to(cuda)
-            got = upsample_taps_cuda(img, kw, idx)
-            want = tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)])
+        conf = streamer.conf
+        factor, m, bpx = conf.upscale_factor, 2 * conf.upscale_factor, conf.block_px
+        lr = streamer._lr_patch(0, 0).to(cuda, torch.float32)
+        tables = [tup.axis_tables(n, factor, torch.float32, lr.device) for n in lr.shape]
+
+        def dense(table, first, count):  # the pass as a matrix: W[h, idx[h, f]] += kw[h, f]
+            kw, idx = (t[first:first + count].cpu().numpy() for t in table)
+            w = np.zeros((count, int(table[1].max()) + 1), np.float32)
+            np.add.at(w, (np.repeat(np.arange(count), 4), idx.ravel()), kw.ravel())
+            return torch.from_numpy(w).to(cuda)
+
+        crops = {"block": ((m, m), (bpx, bpx)),
+                 "full": ((0, 0), (lr.shape[0] * factor, lr.shape[1] * factor))}
+        rows_out, equal, err = {}, True, 0.0
+        for name, (start, size) in crops.items():
+            before = upsample_taps_cuda.launches
+            got = tup.upsample_block(lr, factor, start, size)
+            launches = upsample_taps_cuda.launches - before
+            want = tup.upsample_block_plain(lr, *tables, start, size)
+            on_cpu = tup.upsample_block(lr.cpu(), factor, start, size)
             torch.cuda.synchronize()
-            eq, e = torch.equal(got, want), (got - want).abs().max().item()
-            out = torch.empty_like(got)
-            k_ms = cold_ms(lambda: upsample_taps_cuda.launch(img, kw, idx32, out))
-            p_ms = cuda_ms(lambda: tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)]), reps=3)
-            lib_ms = cuda_ms(lambda: w @ img, reps=5)
-            moved = 4 * (img.numel() + got.numel()) + 4 * kw.numel() + 4 * idx32.numel()
-            b_ms, b_by = bound(moved, 4 * got.numel(), PEAK_FP32_INSTR_S)
-            passes.append({"in": list(img.shape), "out": list(got.shape), "bit_equal": eq,
-                           "max_abs_err": e, "ms": k_ms, "plain_ms": p_ms, "library_ms": lib_ms,
-                           "bound_ms": b_ms, "bound_by": b_by, "bytes": moved})
+            eq = torch.equal(got, want) and torch.equal(got.cpu(), on_cpu) and launches == 1
+            e = (got - want).abs().max().item()
+            out = torch.empty(size, device=cuda)
+
+            def launch(start=start, out=out):
+                upsample_taps_cuda.launch(lr, *tables, start, out)
+
+            k_ms, g_ms = cold_ms(launch), graph_ms(launch)
+            floor_ms = graph_ms(lambda size=size: upsample_taps_cuda.launch_floor(size))
+            p_ms = cuda_ms(lambda start=start, size=size: tup.upsample_block_plain(
+                lr, *tables, start, size), reps=3)
+            w_r = dense(tables[0], start[0], size[0])
+            w_c = dense(tables[1], start[1], size[1]).T.contiguous()
+            lib_ms = cuda_ms(lambda w_r=w_r, w_c=w_c: torch.linalg.multi_dot([w_r, lr, w_c]),
+                             reps=7)
+            # bytes: the crop written once, the patch and the crop's table
+            # rows (weights and indices, 32 B a row or column) read once;
+            # FMAs: 4 a row-pass value (the crop's rows by the LR columns its
+            # columns read) and 4 an output
+            span = (int(tables[1][1][start[1] + size[1] - 1, 3])
+                    - int(tables[1][1][start[1], 0]) + 1)
+            moved = 4 * size[0] * size[1] + 4 * lr.numel() + 32 * (size[0] + size[1])
+            b_ms, b_by = bound(moved, 4 * size[0] * (span + size[1]), PEAK_FP32_INSTR_S)
+            rows_out[name] = {
+                "start": list(start), "size": list(size), "bit_equal": eq, "max_abs_err": e,
+                "launches_per_call": launches, "ms": k_ms, "graph_ms": g_ms,
+                "empty_kernel_ms": floor_ms, "plain_ms": p_ms, "library_ms": lib_ms,
+                "bound_ms": b_ms, "bound_by": b_by, "bytes": moved,
+                "bound_with_floor_ms": max(b_ms, floor_ms),
+                "bound_with_floor_set_by": b_by if b_ms >= floor_ms else
+                "launch floor (empty kernel)"}
             equal, err = equal and eq, max(err, e)
-            img = got.T.contiguous()
-        phase("upsample_taps", factor=factor, passes=passes, ok=equal)
+        phase("upsample_taps", factor=factor, lr=list(lr.shape), crops=rows_out,
+              per="launch; ms one at a time out of L2, graph_ms by replay", ok=equal)
         if not equal:
-            raise RuntimeError("the upsample's 4-tap kernel disagrees with its plain version")
-        last = passes[-1]
-        return {"ms": last["ms"], "plain_ms": last["plain_ms"], "bound_ms": last["bound_ms"],
-                "bound_by": last["bound_by"], "library_ms": last["library_ms"],
-                "max_abs_err": err, "per": "axis pass (9, 1800) -> (1800, 1800)",
-                "first_pass": passes[0]}
+            raise RuntimeError("the block upsample kernel disagrees with its plain version or "
+                               "the CPU's, or a call launched it other than once")
+        block = rows_out["block"]
+        return {"ms": block["ms"], "plain_ms": block["plain_ms"], "bound_ms": block["bound_ms"],
+                "bound_by": block["bound_by"], "library_ms": block["library_ms"],
+                "library_note": "torch.linalg.multi_dot([Wr[r0:r0+R], lr, Wc[c0:c0+C].T]) "
+                                "on the passes' dense float32 matrices, no TF32",
+                "max_abs_err": err, "graph_ms": block["graph_ms"],
+                "empty_kernel_ms": block["empty_kernel_ms"],
+                "bound_with_floor_ms": block["bound_with_floor_ms"],
+                "bound_with_floor_set_by": block["bound_with_floor_set_by"],
+                "per": "block: (9, 9) by 200, the kept [400:1400]^2 base, one launch",
+                "full_1800": rows_out["full"]}
 
     def largescale_timed():
         """The streamed-terrain slice at the LargeScaleConf defaults (7000^2
@@ -914,10 +1009,11 @@ def main(argv=None) -> int:
               peak_memory_bytes_three_worlds=torch.cuda.max_memory_allocated())
         if (not equal or not plain_equal or tuple(window.shape) != (7000, 7000)
                 or stamps[1] != 0 or not stamps[0] == stamps[2] > 0
-                or not taps[0] == taps[1] == taps[2] > 0):
+                or not taps[0] == taps[1] == taps[2] == len(streamer.block_cache)):
             raise RuntimeError("two builds of the streamed world differ, the kernel's and the "
                                "plain version's differ, the crater block kernel did not run, "
-                               "or the window is not 7000 x 7000")
+                               "a block's upsample launched other than once, or the window "
+                               "is not 7000 x 7000")
         # the first streamed window built on the CPU (the device route, as
         # on the card): torch.equal to the card's, rocks equal
         t0 = time.perf_counter()
@@ -1255,6 +1351,9 @@ def main(argv=None) -> int:
         seated, seated_equal = seated_costmaps_equal(loop)
         streamer = loop.lstm.map_manager.streamer
         pool = streamer.tile_pool()  # None on the card unless native_pool="always"
+        # one block upsample launch per block the streamer built (none when
+        # the pool's threads upsample on the host)
+        taps_expected = 0 if pool is not None else streamer.blocks_built
         builds = dict(loop.costmap_builds)
         k2_expected = builds["first"] + builds["staged"] + builds["miss"] + builds["verify"]
         k1_expected = 2 * loop.dispatched_steps
@@ -1265,7 +1364,8 @@ def main(argv=None) -> int:
             K=K, H=H, window=list(loop.hf.z.shape), costmap=list(loop.costmap.cost.shape),
             dispatched_steps=loop.dispatched_steps, k1_launches=k1, k1_expected=k1_expected,
             k2_launches=k2, k2_expected=k2_expected, crater_block_launches=stamp,
-            upsample_taps_launches=taps,
+            upsample_taps_launches=taps, upsample_taps_expected=taps_expected,
+            blocks_built=streamer.blocks_built,
             worker_blocking_waits=loop.worker_blocking_waits, costmap_builds=builds,
             staged_windows_swapped=streamer.staged_shift_hits,
             staged_windows_verified=streamer.staged_shift_verified,
@@ -1287,7 +1387,7 @@ def main(argv=None) -> int:
             pool_collect_all_s=pool.collect_s if pool else 0.0,
             costmap_first_path_points=[entry[0] for entry in loop.costmap_log])
         ok = (k1 == k1_expected and k2 == k2_expected and seated_equal and stamp > 0
-              and (taps > 0 or pool is not None)  # the pool's threads upsample on the host
+              and streamer.blocks_built > 0 and taps == taps_expected
               and res.costmap_rebuilds == res.block_shifts
               and streamer.staged_shift_verified == (streamer.staged_shift_hits
                                                      if loop.conf.verify_prestage else 0))
@@ -2086,10 +2186,6 @@ def main(argv=None) -> int:
                                         for di, dj in ((0, 0), (1, 0), (0, 1), (1, 1))]))
         moved = (2 + 6) * n * k * h * 4 + 4 * int(cells.numel()) + 4 * n * 5
         return bound(moved, ROLLOUT_2D_OPS_PER_STEP * n * k * h, PEAK_FP32_INSTR_S)
-
-    max_sm_hz = 1e6 * float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits", "-i", "0"],
-        capture_output=True, text=True, check=True, timeout=60).stdout.strip())
 
     def r2_chain_floor(h):
         """A lower bound in ms of one sample's H dependent heading steps."""
@@ -3445,10 +3541,11 @@ def main(argv=None) -> int:
         "name": "upsample_taps", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/upsample_taps.cu",
         "replaces": None,
-        "replaces_note": ("the port's own kernel for the dot (einsum nf,nfw->nw) of the JAX "
-                          "package's jitted upsample_bicubic, husky_rover_mppi_isaacsim_tpu/"
-                          "terrain/upsample.py:36-58, in XLA's CPU order; no Pallas kernel "
-                          "there"),
+        "replaces_note": ("the port's own kernel for the two dots (einsum nf,nfw->nw) of the "
+                          "JAX package's jitted upsample_bicubic, husky_rover_mppi_isaacsim_tpu/"
+                          "terrain/upsample.py:36-58, and the block's slice of it "
+                          "(terrain/streaming.py build_block), in XLA's CPU order; no Pallas "
+                          "kernel there"),
         "launches": taps_by_path["largescale_pipelined"], **taps_row,
         "launches_by_path": taps_by_path,
     }, {

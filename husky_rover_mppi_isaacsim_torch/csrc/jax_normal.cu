@@ -22,7 +22,7 @@
 //      uniform on [nextafter(-1, 0), 1) as jax.random.uniform does, and maps
 //      it through XLA's erf_inv and the multiply by sqrt(2);
 //   3. where asked, writes the key the caller's loop carries on (block 0,
-//      thread 0, into a buffer of its own: `key, sub = split(key)`).
+//      warp 0, at its end, into a buffer of its own: `key, sub = split(key)`).
 //
 // Numerics: every float operation is an _rn intrinsic in the order XLA's CPU
 // backend evaluates it (core/jax_random.py's module note): erf_inv is Giles'
@@ -32,13 +32,21 @@
 // (round to odd in float64) and its square root correctly rounded, so it and
 // __fmaf_rn / __fsqrt_rn give the same bits. Built with -fmad=false.
 //
-// What bounds it: operations. A draw of n values writes 4n bytes (0.8 MB at
-// K=1000 x H=100, 8.4 MB at K=16384 x H=64) and issues ~80 instructions per
-// value for the 20-round hash alone (an add, a rotate and a xor a round; the
-// key injections), ~40 more for the erf_inv; at the card's 3.35e13
-// instructions/s (128 lanes per SM per clock) the hash is 2.4 us for 10^6
-// values against 1.2 us to write them. One thread per value in a
-// grid-stride loop; the key is derived once per block into shared memory.
+// What bounds it: integer operations, or the launch. A draw of n values
+// writes 4n bytes (0.8 MB at K=1000 x H=100, 8.4 MB at K=16384 x H=64).
+// The function itself needs ~82 integer operations a value (the 20-round
+// hash: an add, a funnel shift and a xor a round, 12 key injections; the
+// uniform's bits; the log side's exponent bits; the tests) and 34 float
+// ones (chip_smoke.py's JAX_NORMAL_OPS), which H100's 64 INT32 lanes per SM
+// per clock take 1.0 us for 2 x 10^5 values and 10 us for 2.1 x 10^6; the
+// small draw's launch (an empty kernel of its grid) takes longer than that.
+// Design: two values a thread a trip (at t and t + 256), their hashes
+// interleaved: two independent chains a thread, half the blocks and half
+// the loop overhead of one value a thread (one value, or four, ran slower:
+// scripts/kernel_steps/jax_normal_steps.cu); the draw's key derived once a
+// block by warp 0 into shared memory behind one barrier (each warp deriving
+// its own key ran slower: eight hashes a block instead of one). The
+// division of a slice's counts is 32-bit below 2^31 values.
 // Nothing is staged: no value is read twice.
 
 #include <cuda_runtime.h>
@@ -62,22 +70,33 @@ __device__ __forceinline__ unsigned rotl(unsigned x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-// Threefry-2x32, 20 rounds (jax/_src/prng.py::_threefry2x32_lowering).
-__device__ __forceinline__ void threefry2x32(unsigned k1, unsigned k2, unsigned& x1,
-                                             unsigned& x2) {
+// Threefry-2x32, 20 rounds (jax/_src/prng.py::_threefry2x32_lowering), on
+// V count pairs at once: their rounds interleave (V independent chains).
+template <int V>
+__device__ __forceinline__ void threefry2x32(unsigned k1, unsigned k2, unsigned (&x1)[V],
+                                             unsigned (&x2)[V]) {
   const unsigned ks[3] = {k1, k2, k1 ^ k2 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  x1 += ks[0];
-  x2 += ks[1];
+#pragma unroll
+  for (int v = 0; v < V; ++v) {
+    x1[v] += ks[0];
+    x2[v] += ks[1];
+  }
 #pragma unroll
   for (int i = 0; i < 5; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      x1 += x2;
-      x2 = rotl(x2, rot[i % 2][j]) ^ x1;
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        x1[v] += x2[v];
+        x2[v] = rotl(x2[v], rot[i % 2][j]) ^ x1[v];
+      }
     }
-    x1 += ks[(i + 1) % 3];
-    x2 += ks[(i + 2) % 3] + (unsigned)(i + 1);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      x1[v] += ks[(i + 1) % 3];
+      x2[v] += ks[(i + 2) % 3] + (unsigned)(i + 1);
+    }
   }
 }
 
@@ -86,11 +105,11 @@ __device__ void derive(const long long* key, const KeyPath& path, const long lon
   k1 = (unsigned)key[0];
   k2 = (unsigned)key[1];
   for (int i = 0; i < path.len; ++i) {
-    unsigned x1 = 0u;
-    unsigned x2 = i == path.device_step ? (unsigned)(*data) : path.v[i];
-    threefry2x32(k1, k2, x1, x2);
-    k1 = x1;
-    k2 = x2;
+    unsigned x1[1] = {0u};
+    unsigned x2[1] = {i == path.device_step ? (unsigned)(*data) : path.v[i]};
+    threefry2x32<1>(k1, k2, x1, x2);
+    k1 = x1[0];
+    k2 = x2[0];
   }
 }
 
@@ -164,38 +183,75 @@ __device__ __forceinline__ float normal_of_uniform(float x) {
   return __fmul_rn(__fmul_rn(x, p), __int_as_float(0x3FB504F3));
 }
 
+// One launch of the draw, kValues values a thread a trip (at t, t + 256,
+// interleaved). Warp 0 derives the draw's key into shared memory behind one
+// barrier; block 0's warp 0 derives the next key at its end.
+constexpr int kValues = 2;
+
 __global__ void __launch_bounds__(kThreads) jax_normal_kernel(
     const long long* __restrict__ key, KeyPath path, KeyPath next_path,
     const long long* __restrict__ data, long long offset, long long outer_stride,
     long long inner, long long n, float* __restrict__ out, long long* __restrict__ next_key) {
+  constexpr int V = kValues;
   __shared__ unsigned sub[2];
-  if (threadIdx.x == 0) {
-    unsigned k1, k2;
+  unsigned k1, k2;
+  if (threadIdx.x < 32) {
     derive(key, path, data, k1, k2);
-    sub[0] = k1;
-    sub[1] = k2;
-    if (next_key != nullptr && blockIdx.x == 0) {
-      derive(key, next_path, data, k1, k2);
+    if (threadIdx.x == 0) {
+      sub[0] = k1;
+      sub[1] = k2;
+    }
+  }
+  __syncthreads();
+  k1 = sub[0];
+  k2 = sub[1];
+  // the uniform's bounds: lo = nextafter(-1, 0), hi - lo = 2 in float32
+  const float lo = __int_as_float(0xBF7FFFFF);
+  const bool one_run = inner == n;          // one run of counts: no division
+  const bool narrow = n < (1ll << 31) - kThreads * V;  // 32-bit division
+  const long long trip = (long long)gridDim.x * kThreads * V;
+  for (long long base = (long long)blockIdx.x * kThreads * V + threadIdx.x; base < n;
+       base += trip) {
+    unsigned x1[V], x2[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const long long t = base + v * kThreads;
+      long long o = 0;
+      if (!one_run) o = narrow ? (long long)((unsigned)t / (unsigned)inner) : t / inner;
+      const unsigned long long count =
+          (unsigned long long)(offset + o * outer_stride + (t - o * inner));
+      x1[v] = (unsigned)(count >> 32);
+      x2[v] = (unsigned)count;
+    }
+    threefry2x32<V>(k1, k2, x1, x2);
+#pragma unroll
+    for (int v = 0; v < V; ++v) {
+      const long long t = base + v * kThreads;
+      if (t < n) {
+        const unsigned bits = x1[v] ^ x2[v];
+        const float floats = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+        const float u = fmaxf(__fmaf_rn(floats, 2.0f, lo), lo);
+        out[t] = normal_of_uniform(u);
+      }
+    }
+  }
+  if (next_key != nullptr && blockIdx.x == 0 && threadIdx.x < 32) {
+    derive(key, next_path, data, k1, k2);
+    if (threadIdx.x == 0) {
       next_key[0] = (long long)k1;
       next_key[1] = (long long)k2;
     }
   }
-  __syncthreads();
-  const unsigned k1 = sub[0], k2 = sub[1];
-  // the uniform's bounds: lo = nextafter(-1, 0), hi - lo = 2 in float32
-  const float lo = __int_as_float(0xBF7FFFFF);
-  for (long long t = (long long)blockIdx.x * kThreads + threadIdx.x; t < n;
-       t += (long long)gridDim.x * kThreads) {
-    const long long o = inner == n ? 0 : t / inner;  // one run of counts: no division
-    const unsigned long long count =
-        (unsigned long long)(offset + o * outer_stride + (t - o * inner));
-    unsigned x1 = (unsigned)(count >> 32), x2 = (unsigned)count;
-    threefry2x32(k1, k2, x1, x2);
-    const unsigned bits = x1 ^ x2;
-    const float floats = __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
-    const float u = fmaxf(__fmaf_rn(floats, 2.0f, lo), lo);
-    out[t] = normal_of_uniform(u);
-  }
+}
+
+// The launch floor: the kernel's grid and block, no loads, no stores.
+__global__ void __launch_bounds__(kThreads) jax_normal_floor_kernel() {}
+
+unsigned grid_of(long long n, int values = kValues) {
+  long long blocks = (n + kThreads * values - 1) / (kThreads * values);
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks of 256 on each of 132 SMs
+  return (unsigned)blocks;
 }
 
 }  // namespace
@@ -221,11 +277,14 @@ extern "C" int jax_normal_f32(const long long* key, int path_len, int path_dev, 
     return (int)cudaErrorInvalidValue;
   const KeyPath path = {path_len, path_dev, {p0, p1, p2, p3}};
   const KeyPath next_path = {next_len, next_dev, {n0, n1, n2, n3}};
-  long long blocks = (n + kThreads - 1) / kThreads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > 132 * 16) blocks = 132 * 16;  // 16 blocks of 256 on each of 132 SMs
-  jax_normal_kernel<<<(unsigned)blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  jax_normal_kernel<<<grid_of(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       key, path, next_path, data, offset, outer_stride, inner > 0 ? inner : 1, n, out,
       next_key);
+  return (int)cudaGetLastError();
+}
+
+// The empty kernel at the launch shape of an n-value draw, on `stream`.
+extern "C" int jax_normal_floor(long long n, void* stream) {
+  jax_normal_floor_kernel<<<grid_of(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

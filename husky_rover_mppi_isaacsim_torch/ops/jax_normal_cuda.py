@@ -92,6 +92,8 @@ class CudaJaxNormal:
             built = cuda_build.build(self.source)
             built.lib.jax_normal_f32.argtypes = ARGTYPES
             built.lib.jax_normal_f32.restype = ctypes.c_int
+            built.lib.jax_normal_floor.argtypes = [_L, _P]
+            built.lib.jax_normal_floor.restype = ctypes.c_int
             self.built = built
         return self.built
 
@@ -135,6 +137,14 @@ class CudaJaxNormal:
         else:
             self.launches += 1
         return out if nxt is None else (out, nxt)
+
+    def launch_floor(self, n: int) -> None:
+        """Launch the empty kernel of the grid and block of an ``n``-value
+        draw on the current stream: the launch floor the kernel's time is
+        held against. Not a draw: it is not counted."""
+        rc = self.load().lib.jax_normal_floor(int(n), torch.cuda.current_stream().cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"jax_normal_floor launch failed: cudaError {rc}")
 
 
 jax_normal = CudaJaxNormal()

@@ -56,7 +56,7 @@ from .craters import (
     render_crater_block,
 )
 from .point_process import BoundingBox, hardcore_poisson
-from .upsample import _take2d, bilinear_point_sample, upsample_bicubic
+from .upsample import _take2d, bilinear_point_sample, upsample_block
 
 
 def window_normal(window: Tensor, px: Tensor, py: Tensor, res: Tensor) -> Tensor:
@@ -173,6 +173,7 @@ class TerrainStreamer:
             conf.crater.num_profiles, conf.crater.seed, device=self.device)
         self.crater_blocks: Dict[Tuple[int, int], tuple] = {}
         self.block_cache: Dict[Tuple[int, int], Tensor] = {}
+        self.blocks_built = 0  # blocks finished (either route), cache hits not counted
         self.anchor: Tuple[int, int] | None = None  # SW block index of window
         self.window: Tensor | None = None
         self.shift_count = 0
@@ -469,8 +470,9 @@ class TerrainStreamer:
             return cached
         conf = self.conf
         m = 2 * conf.upscale_factor
-        hr = upsample_bicubic(self._lr_patch(bx, by), conf.upscale_factor)
-        return self._finish_block(bx, by, hr[m:m + conf.block_px, m:m + conf.block_px])
+        base = upsample_block(self._lr_patch(bx, by), conf.upscale_factor, (m, m),
+                              (conf.block_px, conf.block_px))
+        return self._finish_block(bx, by, base)
 
     def _finish_block(self, bx: int, by: int, hr: Tensor) -> Tensor:
         """Crater stamp + cache insert for an upsampled block base."""
@@ -483,6 +485,7 @@ class TerrainStreamer:
                         self.profiles, field, origin, conf.resolution, conf.z_scale,
                         conf.block_px, conf.pad_px, patch_px=patch_px, upload=self._upload)
         hr = hr.contiguous()
+        self.blocks_built += 1
         if len(self.block_cache) >= conf.max_cached_blocks:
             self.block_cache.pop(next(iter(self.block_cache)))
         self.block_cache[(bx, by)] = hr

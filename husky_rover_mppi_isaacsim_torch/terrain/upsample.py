@@ -12,8 +12,9 @@ bits: XLA's CPU code contracts the Catmull-Rom weights' ``a * b + c`` into
 fused multiply-adds and emits each einsum as a column-major GEMV (per
 output row, its columns in 8-wide tiles), whose order of products, sums
 and FMAs is copied here (:func:`..core.xla_math.xla_fma`: fused in float32,
-rounded twice in float64; on the card the upsample's pass is the 4-tap
-kernel, :mod:`..ops.upsample_cuda`).
+rounded twice in float64; on the card both passes of a block are one
+kernel, :mod:`..ops.upsample_cuda`, which computes only the crop a caller
+keeps: :func:`upsample_block`).
 """
 
 from __future__ import annotations
@@ -98,29 +99,75 @@ def _tap_sum(kw: Tensor, taps: list) -> Tensor:
     return torch.cat(parts, dim=1) if len(parts) > 1 else parts[0]
 
 
+_TABLES: dict = {}
+
+
+def axis_tables(n: int, factor: int, dtype, device) -> tuple[Tensor, Tensor]:
+    """One axis pass's table for ``n`` source rows: the Catmull-Rom weights
+    ``(n·factor, 4)`` in ``dtype`` (formed in float64, normalized, then
+    rounded) and the clamped source row indices ``(n·factor, 4)`` int32.
+    Built once per ``(n, factor, dtype, device)`` and kept: the same tensors
+    for the same key."""
+    key = (n, factor, dtype, torch.device(device))
+    hit = _TABLES.get(key)
+    if hit is None:
+        src = (np.arange(n * factor) + 0.5) / factor - 0.5
+        i0 = np.floor(src).astype(np.int64)
+        offs = np.arange(-1, 3)
+        kw = cubic_kernel(offs[None, :] - (src - i0)[:, None])
+        kw = torch.as_tensor(kw / kw.sum(axis=1, keepdims=True), dtype=dtype, device=device)
+        idx = torch.as_tensor(np.clip(i0[:, None] + offs[None, :], 0, n - 1).astype(np.int32),
+                              device=device)
+        hit = _TABLES.setdefault(key, (kw, idx))
+    return hit
+
+
+def _axis_pass(img: Tensor, table: tuple) -> Tensor:
+    """Upsample the leading axis of ``img`` by the table's four taps a row."""
+    kw, idx = table
+    idx = idx.long()
+    return _tap_sum(kw, [img[idx[:, f]] for f in range(4)])
+
+
+def upsample_block_plain(lr: Tensor, rows: tuple, cols: tuple, start: tuple,
+                         size: tuple) -> Tensor:
+    """The block upsample's plain version: both axis passes in full (rows by
+    the table ``rows``, then columns by ``cols``, each :func:`_tap_sum`),
+    then the crop of ``size`` at ``start``, contiguous."""
+    (r0, c0), (n_rows, n_cols) = start, size
+    full = _axis_pass(_axis_pass(lr, rows).T.contiguous(), cols).T
+    return full[r0:r0 + n_rows, c0:c0 + n_cols].contiguous()
+
+
+def upsample_block(lr: Tensor, factor: int, start: tuple = (0, 0),
+                   size: tuple | None = None) -> Tensor:
+    """``upsample_bicubic(lr, factor)[r0:r0+R, c0:c0+C]`` for ``start = (r0,
+    c0)`` and ``size = (R, C)`` (default: the rest of the upsample),
+    contiguous. On the card one launch of the block kernel
+    (:mod:`..ops.upsample_cuda`, float32), which computes the crop alone; on
+    the CPU its plain version :func:`upsample_block_plain`. The same bits
+    either way, and in float32 the JAX package's."""
+    n_r, n_c = lr.shape
+    if size is None:
+        size = (n_r * factor - start[0], n_c * factor - start[1])
+    if not (factor >= 1 and all(0 <= s0 and 0 < s and s0 + s <= n * factor
+                                for s0, s, n in zip(start, size, (n_r, n_c)))):
+        raise ValueError(f"the crop {tuple(size)} at {tuple(start)} leaves the "
+                         f"{n_r * factor} x {n_c * factor} upsample (factor {factor})")
+    rows = axis_tables(n_r, factor, lr.dtype, lr.device)
+    cols = axis_tables(n_c, factor, lr.dtype, lr.device)
+    return upsample_taps_cuda(lr, rows, cols, tuple(start), tuple(size))
+
+
 def upsample_bicubic(lr: Tensor, factor: int) -> Tensor:
     """Upsample ``(H, W)`` by an integer factor with Catmull-Rom bicubic.
 
     Output pixel ``o`` samples source coordinate ``(o + 0.5)/f - 0.5``;
     edges clamp. Each axis pass gathers four taps per output row and
     contracts them with the row's weights (in the image's dtype) in a fixed
-    order: on the card one launch of the 4-tap kernel
-    (:mod:`..ops.upsample_cuda`, float32), on the CPU its plain version
-    :func:`_tap_sum`; the same bits either way, and in float32 the JAX
-    package's."""
-
-    def axis_pass(img: Tensor) -> Tensor:  # upsample the leading axis
-        n = img.shape[0]
-        src = (np.arange(n * factor) + 0.5) / factor - 0.5
-        i0 = np.floor(src).astype(np.int64)
-        offs = np.arange(-1, 3)
-        kw = cubic_kernel(offs[None, :] - (src - i0)[:, None])
-        kw = torch.as_tensor(kw / kw.sum(axis=1, keepdims=True), dtype=img.dtype,
-                             device=img.device)
-        idx = torch.as_tensor(np.clip(i0[:, None] + offs[None, :], 0, n - 1), device=img.device)
-        return upsample_taps_cuda(img, kw, idx)
-
-    return axis_pass(axis_pass(lr).T.contiguous()).T
+    order: :func:`upsample_block` with the crop set to everything (on the
+    card one launch, float32). In float32 the JAX package's bits."""
+    return upsample_block(lr, factor)
 
 
 def _take2d(z: Tensor, rows: Tensor, cols: Tensor) -> Tensor:

@@ -26,6 +26,13 @@ the ``LargeScaleConf`` defaults instead (after one warm-up build):
 * ``crater_ms_per_block``: the crater block kernel on each of the first
   three blocks, the sum of its radius tiers' launches, each timed alone on
   a zeroed raster out of L2 (``ops.measure.cold_ms``);
+* ``base_ms_per_block``: each of those blocks' upsampled base as the
+  checkout builds it (``upsample_block`` of the kept crop, or an earlier
+  checkout's full ``upsample_bicubic`` and its slice), one at a time out of
+  L2 (CUDA events around the call: its host work included);
+* ``block_build_ms``: ``build_block`` of each of them again (taken out of
+  the block cache first; its craters come from the streamer's crater
+  cache), CUDA events around the call, median of 7;
 * the pipelined traverse (0, 0) -> (65, 65) (the CLI's default loop):
   ``shift_latency_ms`` of each block shift, with their mean and maximum.
 
@@ -99,7 +106,7 @@ import torch
 from husky_rover_mppi_isaacsim_torch.cli import (
     largescale_conf, largescale_episode, use_full_fp32_matmul)
 from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as cbc
-from husky_rover_mppi_isaacsim_torch.ops.measure import cold_ms
+from husky_rover_mppi_isaacsim_torch.ops.measure import cold_ms, cuda_ms
 from husky_rover_mppi_isaacsim_torch.terrain import craters as tcr
 from husky_rover_mppi_isaacsim_torch.terrain.orchestrator import LargeScaleTerrainManager
 
@@ -134,6 +141,23 @@ for bx, by in list(streamer.block_cache)[:3]:
                 torch.from_numpy(col0).to(cuda), sc.resolution, sc.z_scale, patch_px)
         ms += cold_ms(lambda: cbc.crater_block_cuda.launch(buf, *args, bins), reset=buf.zero_)
     per_block.append(ms)
+m, bpx = 2 * sc.upscale_factor, sc.block_px
+try:  # a checkout with the block upsample: the kept crop alone
+    from husky_rover_mppi_isaacsim_torch.terrain.upsample import upsample_block
+    base = lambda lr: upsample_block(lr, sc.upscale_factor, (m, m), (bpx, bpx))
+except ImportError:  # an earlier one: the full upsample, then the slice
+    from husky_rover_mppi_isaacsim_torch.terrain.upsample import upsample_bicubic
+    base = lambda lr: upsample_bicubic(lr, sc.upscale_factor)[m:m + bpx, m:m + bpx]
+base_ms, build_ms = [], []
+for bx, by in list(streamer.block_cache)[:3]:
+    lr = streamer._lr_patch(bx, by)
+    base_ms.append(cold_ms(lambda: base(lr)))
+
+    def rebuild(bx=bx, by=by):
+        streamer.block_cache.pop((bx, by))
+        streamer.build_block(bx, by)
+
+    build_ms.append(cuda_ms(rebuild))
 del lstm, streamer
 run = largescale_episode({})
 lat = [1e3 * t for t in run.result.shift_latencies_s]
@@ -141,6 +165,7 @@ smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=cs
                      capture_output=True, text=True, timeout=60).stdout.strip()
 print(json.dumps({
     "card": smi, "world_build_s": build_s, "crater_ms_per_block": per_block,
+    "base_ms_per_block": base_ms, "block_build_ms": build_ms,
     "traverse_reached": bool(run.result.reached), "block_shifts": run.result.block_shifts,
     "shift_latency_ms": lat, "shift_latency_mean_ms": sum(lat) / max(len(lat), 1),
     "shift_latency_max_ms": max(lat, default=0.0)}))

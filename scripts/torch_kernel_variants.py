@@ -5,6 +5,7 @@ K3's two block shapes, on one NVIDIA GPU.
     python3 scripts/torch_kernel_variants.py --parent DIR [--out FILE]
     python3 scripts/torch_kernel_variants.py --only k3 [--out FILE]
     python3 scripts/torch_kernel_variants.py --only planar --parent DIR [--out FILE]
+    python3 scripts/torch_kernel_variants.py --only jax_normal --parent DIR [--out FILE]
 
 ``DIR`` holds an earlier checkout of the repository (for example a
 ``git archive`` of the parent commit unpacked under ``build/``); its
@@ -47,8 +48,15 @@ position warp) and this checkout's kernel, each held bit-equal to the last,
 and that one to the plain ``rollout_2d``; then
 this kernel alone by graph replay at K = 1000 over horizons from 1 to 256
 (the slope is a step's cost). ``--only planar`` runs that part alone. The
-register report of each build and a summary of each kernel's SASS
-(``cuobjdump -sass``) are printed too. Each result is one JSON line; all of
+``jax_normal`` kernel (``csrc/jax_normal.cu``) is timed by graph replay at
+the loops' draws ((2, 1000, 100), (2, 16384, 64), (2, 4000, 100), (4,)),
+in turns: the parent's kernel, the variants of
+``scripts/kernel_steps/jax_normal_steps.cu`` (1, 2 or 4 values a thread a
+trip; the key derived by warp 0 behind a barrier or by every warp) and this
+checkout's kernel, beside the empty kernel of this one's grid, each held
+``torch.equal`` to the plain ``jax_random.normal``. ``--only jax_normal``
+runs that part alone. The register report of each build and a summary of
+each kernel's SASS (``cuobjdump -sass``) are printed too. Each result is one JSON line; all of
 them also go to ``FILE`` (default ``build/kernel_variants.json``). A variant
 (the parent included) that is not bit-equal to what it is held to stops the
 run with an error, after its line is printed: a parent called with the
@@ -137,7 +145,7 @@ def sass_summary(lib: Path) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path)
-    ap.add_argument("--only", choices=["k3", "planar"])
+    ap.add_argument("--only", choices=["k3", "planar", "jax_normal"])
     ap.add_argument("--out", type=Path, default=ROOT / "build" / "kernel_variants.json")
     args = ap.parse_args(argv)
     if args.only != "k3" and args.parent is None:
@@ -185,6 +193,10 @@ def main(argv=None) -> int:
         planar_variants(args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc",
                         emit, cuda, stream)
         return finish()
+    if args.only == "jax_normal":
+        jax_normal_variants(args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc",
+                            emit, cuda, stream)
+        return finish()
 
     # K3: 8 blocks of 128 threads (production) against one block of 1024,
     # each beside its empty kernel and the one-call table[j, i]
@@ -221,6 +233,7 @@ def main(argv=None) -> int:
 
     parent_src = args.parent.resolve() / "husky_rover_mppi_isaacsim_torch" / "csrc"
     planar_variants(parent_src, emit, cuda, stream)
+    jax_normal_variants(parent_src, emit, cuda, stream)
     new_k1, new_k2 = rollout_25d_cuda.load(), edt_minplus_cuda.load()
     steps_k1 = build_steps(cuda_build, "rollout.cu", "rollout_steps.cu")
     steps_k2 = build_steps(cuda_build, "edt_minplus.cu", "edt_fmin.cu")
@@ -395,6 +408,77 @@ def planar_variants(parent_src: Path, emit, cuda, stream) -> None:
         out = torch.empty((2, 1000, h, 3), device=cuda)
         sweep[h] = graph_ms(lambda: rollout_2d_cuda.launch(hf, pos, head, lin, ang, out, DT))
     emit(phase="planar_horizons", K=1000, graph_ms=sweep)
+
+
+# the jax_normal draws timed: the goal-seek's, bench_torch.py's, the
+# closed loop's (4 rovers) and the slip's; the variants of
+# scripts/kernel_steps/jax_normal_steps.cu as (values a trip, warp key)
+NORMAL_SHAPES = ((2, 1000, 100), (2, 16384, 64), (2, 4000, 100), (4,))
+NORMAL_VARIANTS = {"v1_barrier": (1, 0), "v1_warp_key": (1, 1), "v2_barrier": (2, 0),
+                   "v2_warp_key": (2, 1), "v4_barrier": (4, 0), "v4_warp_key": (4, 1)}
+
+
+def jax_normal_variants(parent_src: Path, emit, cuda, stream) -> None:
+    """The jax_normal kernel: each build's registers and SASS summary, then
+    each draw of NORMAL_SHAPES timed in turns (parent, variants, this
+    kernel, its empty kernel, and back), each held to the plain draw."""
+    import numpy as np
+    import torch
+
+    from husky_rover_mppi_isaacsim_torch.core import jax_random as jr
+    from husky_rover_mppi_isaacsim_torch.ops import cuda_build
+    from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import (
+        ARGTYPES, SPLIT_SUB, jax_normal, key_path)
+    from husky_rover_mppi_isaacsim_torch.ops.measure import graph_ms
+
+    new = jax_normal.load()
+    steps = build_steps(cuda_build, "jax_normal.cu", "jax_normal_steps.cu")
+    steps.lib.jax_normal_variant_f32.argtypes = [_I, _I, _P, _I, ctypes.c_uint32,
+                                                 ctypes.c_longlong, _P, _P]
+    steps.lib.jax_normal_variant_f32.restype = _I
+    old = cuda_build.build(parent_src / "jax_normal.cu")
+    old.lib.jax_normal_f32.argtypes = ARGTYPES
+    old.lib.jax_normal_f32.restype = _I
+    key = jr.key(42, cuda)
+    sub = jr.derive(key, SPLIT_SUB)
+    kp, _ = key_path(SPLIT_SUB, cuda)
+    for name, built in (("jax_normal", new), ("jax_normal_steps", steps),
+                        ("jax_normal_parent", old)):
+        emit(phase="build", kernel=name, nvcc_seconds=built.seconds,
+             ptxas=[ln.strip() for ln in built.log.splitlines()
+                    if "registers" in ln or "spill" in ln or "smem" in ln],
+             sass=sass_summary(built.path))
+    names = ("parent", *NORMAL_VARIANTS, "this", "floor")
+    for shape in NORMAL_SHAPES:
+        n = int(np.prod(shape))
+        outs = {v: torch.empty(shape, device=cuda) for v in names}
+
+        def call(v):
+            def run():
+                if v == "parent":
+                    _ok(old.lib.jax_normal_f32(key.data_ptr(), kp.len, kp.device_step, *kp.v, 0,
+                                               -1, 0, 0, 0, 0, None, 0, 1, 0, n,
+                                               outs[v].data_ptr(), None, stream()))
+                elif v == "this":
+                    jax_normal(key, shape, path=SPLIT_SUB)
+                elif v == "floor":
+                    jax_normal.launch_floor(n)
+                else:
+                    _ok(steps.lib.jax_normal_variant_f32(*NORMAL_VARIANTS[v], key.data_ptr(),
+                                                         kp.len, kp.v[0], n, outs[v].data_ptr(),
+                                                         stream()))
+            return run
+
+        times = {v: [] for v in names}
+        for v in names + names[::-1] + names:
+            times[v].append(graph_ms(call(v)))
+        outs["this"] = jax_normal(key, shape, path=SPLIT_SUB)
+        want = jr.normal(sub, shape)
+        torch.cuda.synchronize()
+        equal = {v: torch.equal(outs[v], want) for v in names if v != "floor"}
+        emit(phase="jax_normal_variants", shape=list(shape), n=n, graph_ms=times,
+             bit_equal_to_plain=equal)
+        require_equal("jax_normal_variants", equal)
 
 
 if __name__ == "__main__":

@@ -18,8 +18,10 @@ loops and its 4096-rover vec env among them); the crater block kernel
 slice-add stamp) at the streamed tiers' shapes, for overlapping craters,
 in a streamed window and on an SDG yard field, its device copies of XLA's
 and glibc's functions (csrc/xla_math.cuh) against their plain versions on
-the card and the CPU, and its wrapper's refusals; the upsample's 4-tap
-kernel (csrc/upsample_taps.cu) against its plain version; the SDG frame's two graphs
+the card and the CPU, and its wrapper's refusals; the block upsample
+kernel (csrc/upsample_taps.cu: both passes, only the crop) against its
+plain version at the streamed block's crop, crops inside a GEMV tile and
+across its tails, one launch a block, and its refusals; the SDG frame's two graphs
 against the eager labeler, and a graph's in-place argument; the planar
 rollout kernel (csrc/rollout_2d.cu) bit-equal to the plain ``rollout_2d``
 (one rover and N rovers, on and off the thesis DEM, K from 1 to 1000 by
@@ -1199,39 +1201,72 @@ def test_crater_block_xla_math_matches_plain_on_card(cuda, op):
     assert torch.equal(card.cpu().view(torch.int32), fn(*args_cpu).view(torch.int32))
 
 
-@pytest.mark.parametrize("factor,shape", [(200, (9, 9)), (20, (9, 9)), (3, (7, 12)),
-                                          (8, (5, 5)), (2, (3, 17))])
-def test_upsample_taps_kernel_matches_plain_on_card(cuda, factor, shape):
-    """The 4-tap kernel (csrc/upsample_taps.cu) ``torch.equal`` to its
-    plain version (``upsample._tap_sum``) on both axis passes of an
-    upsample, the tiles' columns and a tail of one, several or every
-    column among them; one launch a pass; the whole upsample on the card
-    ``torch.equal`` to the CPU's."""
+# (LR shape, factor, crop start, crop size or None for the rest): the crops
+# of tests/test_torch_upsample_block.py (the streamed block, crops inside
+# a GEMV tile, the tails of one and of several columns in both passes),
+# then full upsamples
+UPSAMPLE_BLOCK_CASES = [
+    ((9, 9), 200, (400, 400), (1000, 1000)), ((9, 9), 20, (3, 5), (45, 91)),
+    ((7, 12), 3, (13, 20), (8, 16)), ((5, 9), 5, (17, 30), (8, 15)),
+    ((6, 17), 7, (5, 100), (37, 19)), ((9, 12), 3, (1, 2), (25, 33)), ((4, 6), 1, (1, 2), (3, 3)),
+    ((9, 9), 200, (1799, 1799), (1, 1)), ((3, 17), 2, (0, 0), None), ((9, 9), 20, (0, 0), None),
+    ((9, 9), 200, (0, 0), None), ((7, 12), 3, (0, 0), None), ((5, 5), 8, (0, 0), None),
+    ((9, 9), 200, (0, 0), (1800, 1799)), ((9, 9), 200, (1, 0), (1799, 1800)),
+]
+
+
+@pytest.mark.parametrize("shape,factor,start,size", UPSAMPLE_BLOCK_CASES)
+def test_upsample_taps_kernel_matches_plain_on_card(cuda, shape, factor, start, size):
+    """The block upsample kernel (csrc/upsample_taps.cu) ``torch.equal`` to
+    its plain version (``upsample.upsample_block_plain``: both passes of
+    ``_tap_sum``, then the slice) on the same tables, one launch a call
+    (``upsample_block`` and the full ``upsample_bicubic``), and the card's
+    crop ``torch.equal`` to the CPU's."""
     import numpy as np
 
     from husky_rover_mppi_isaacsim_torch.ops.upsample_cuda import upsample_taps_cuda
     from husky_rover_mppi_isaacsim_torch.terrain import upsample as tup
 
-    lr = torch.from_numpy(np.random.default_rng(factor).normal(0, 50, shape).astype(np.float32))
+    lr = torch.from_numpy(np.random.default_rng(factor + shape[1]).normal(0, 50, shape)
+                          .astype(np.float32))
+    lr_d = lr.to(cuda)
     before = upsample_taps_cuda.launches
-    got = tup.upsample_bicubic(lr.to(cuda), factor)
-    assert upsample_taps_cuda.launches == before + 2
-    assert torch.equal(got.cpu(), tup.upsample_bicubic(lr, factor))
-    img = lr.to(cuda)
-    for _ in range(2):  # each pass on the card: the kernel against the plain taps
-        n = img.shape[0]
-        src = (np.arange(n * factor) + 0.5) / factor - 0.5
-        i0 = np.floor(src).astype(np.int64)
-        offs = np.arange(-1, 3)
-        kw = tup.cubic_kernel(offs[None, :] - (src - i0)[:, None])
-        kw = torch.as_tensor(kw / kw.sum(axis=1, keepdims=True), dtype=torch.float32,
-                             device=cuda)
-        idx = torch.as_tensor(np.clip(i0[:, None] + offs[None, :], 0, n - 1), device=cuda)
-        out = upsample_taps_cuda(img, kw, idx)
-        assert torch.equal(out, tup._tap_sum(kw, [img[idx[:, f]] for f in range(4)]))
-        img = out.T.contiguous()
-    with pytest.raises(TypeError):
-        upsample_taps_cuda(img.double(), kw, idx)
+    got = tup.upsample_block(lr_d, factor, start, size)
+    assert upsample_taps_cuda.launches == before + 1
+    assert got.is_contiguous()
+    tables = [tup.axis_tables(n, factor, torch.float32, lr_d.device) for n in shape]
+    want = tup.upsample_block_plain(lr_d, *tables, start, tuple(got.shape))
+    assert torch.equal(got, want)
+    assert torch.equal(got.cpu(), tup.upsample_block(lr, factor, start, size))
+    if size is None:
+        full = tup.upsample_bicubic(lr_d, factor)
+        assert upsample_taps_cuda.launches == before + 2
+        assert torch.equal(full, got)
+
+
+def test_upsample_block_wrapper_raises_on_card(cuda):
+    """On the card the block upsample launches or raises: a float64 patch,
+    a patch or a table of another rank, inputs on two devices and a crop
+    off the upsample are refused, and nothing launches."""
+    from husky_rover_mppi_isaacsim_torch.ops.upsample_cuda import upsample_taps_cuda
+    from husky_rover_mppi_isaacsim_torch.terrain import upsample as tup
+
+    lr = torch.ones((9, 9), device=cuda)
+    rows = cols = tup.axis_tables(9, 20, torch.float32, lr.device)
+    before = upsample_taps_cuda.launches
+    with pytest.raises(TypeError, match="float32"):
+        upsample_taps_cuda(lr.double(), rows, cols, (0, 0), (10, 10))
+    with pytest.raises(ValueError, match="patch"):
+        upsample_taps_cuda(lr[None], rows, cols, (0, 0), (10, 10))
+    with pytest.raises(ValueError, match="patch"):
+        upsample_taps_cuda(lr, (rows[0][:, :2], rows[1][:, :2]), cols, (0, 0), (10, 10))
+    with pytest.raises(ValueError, match="devices"):
+        upsample_taps_cuda(lr, tuple(t.cpu() for t in rows), cols, (0, 0), (10, 10))
+    with pytest.raises(ValueError, match="leaves"):
+        upsample_taps_cuda(lr, rows, cols, (175, 0), (10, 10))
+    with pytest.raises(ValueError, match="leaves"):
+        tup.upsample_block(lr, 20, (0, 0), (181, 10))
+    assert upsample_taps_cuda.launches == before
 
 
 def test_crater_block_wrapper_raises_on_card(cuda):
