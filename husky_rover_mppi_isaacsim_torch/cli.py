@@ -23,6 +23,9 @@ standalone and closed-loop world a procedural yard with a free costmap.
 ``device=`` names the torch device, ``cuda`` by default: a run that asks for
 the card where there is none raises; the CPU runs only with ``device=cpu``.
 Each mode prints one JSON line with the JAX run's keys and ``device``.
+``trace.out=PATH`` (modes standalone, evaluation and closed_loop) runs the
+mode with the port's tracer on (:mod:`.core.trace`) and writes its spans
+and counters to ``PATH`` at exit, as Chrome trace JSON.
 """
 
 from __future__ import annotations
@@ -49,6 +52,7 @@ from .aux.render_fx import (
     apply_motion_blur,
 )
 from .core import jax_random as jr
+from .core import trace
 from .core.device import run_device
 from .core.heightfield import HeightField
 from .env import (
@@ -559,13 +563,31 @@ def compose(argv) -> dict:
     return instantiate_configs(tree)
 
 
+# the modes that take ``trace.out=PATH``
+TRACED_MODES = ("standalone", "evaluation", "closed_loop")
+
+
 def main(argv=None) -> int:
     tree = compose(sys.argv[1:] if argv is None else argv)
     mode = tree.get("mode", "standalone")
     if mode not in MODES:
         print(f"unknown mode {mode!r}; choose from {sorted(MODES)}", file=sys.stderr)
         return 2
-    print(json.dumps(MODES[mode](tree)))
+    out = (tree.get("trace") or {}).get("out")
+    if out is None:
+        print(json.dumps(MODES[mode](tree)))
+        return 0
+    if mode not in TRACED_MODES:
+        print(f"trace.out is taken by the modes {list(TRACED_MODES)}, not {mode!r}",
+              file=sys.stderr)
+        return 2
+    trace.enable()
+    try:
+        result = MODES[mode](tree)
+    finally:
+        trace.disable()
+        trace.dump(out)
+    print(json.dumps(result))
     return 0
 
 

@@ -40,6 +40,12 @@ calls clones it. And whatever the function reads from Python (a float, a
 frame origin, the shape of a tensor) is frozen at capture: a value that
 changes between calls must come in as a tensor.
 
+With the tracer on (:mod:`.trace`), a call records the spans
+``graphed.copy_in``, ``graphed.eager``, ``graphed.capture`` and
+``graphed.replay``, times the warm-up call and each replay on the card, and
+a capture turns the traced function's phase marks into event nodes of the
+graph. While it is off a call checks :data:`.trace.ON` and nothing else.
+
 Kernel launch counts: a kernel wrapper counts only the launches it issues
 outside a capture (``ops/rollout_cuda.py``, ``ops/rollout_2d_cuda.py``,
 ``ops/jax_normal_cuda.py``; the
@@ -56,6 +62,8 @@ from typing import Any, Callable
 
 import torch
 import torch.utils._pytree as pytree
+
+from . import trace
 
 
 def _counted() -> tuple:
@@ -88,13 +96,61 @@ class Graphed:
         self.replays = 0
         self.capture_ms: float | None = None
         self._spec = None          # (tree structure, signature) of the first call
-        self._calls = 0
+        self._warm = False         # the warm-up call ran
         self._graph: torch.cuda.CUDAGraph | None = None
         self._static_in: list = []
         self._static_out = None
         self._launches: dict = {}  # wrapper -> launches one replay holds
+        self._marks: tuple = ()    # the trace's phase marks the graph records
 
     def __call__(self, *args):
+        if trace.ON:
+            return self._call_traced(args)
+        leaves, tree, on_card = self._take(args)
+        if not on_card:
+            return self.fn(*args)
+        if not self._warm:  # the warm-up, eager on the caller's stream
+            self._warm = True
+            return self.fn(*args)
+        if self._graph is None:
+            self._capture(leaves, tree)
+        self._copy_in(leaves)
+        self._graph.replay()
+        self._replayed()
+        return self._static_out
+
+    def _call_traced(self, args):
+        """:meth:`__call__` while the tracer is on (:mod:`.trace`): the
+        spans ``graphed.copy_in`` (the arguments checked and copied into the
+        static inputs), ``graphed.eager``, ``graphed.capture`` and
+        ``graphed.replay`` of one request, the warm-up call and each replay
+        timed on the card as well."""
+        trace.watch(self)
+        rid = trace.request()
+        with trace.span("graphed.copy_in", rid):
+            leaves, tree, on_card = self._take(args)
+            ready = on_card and self._graph is not None
+            if ready:
+                self._copy_in(leaves)
+        if not on_card:
+            return self.fn(*args)
+        if not self._warm:
+            self._warm = True
+            trace.count("graphed.eager_calls")
+            with trace.span(trace.EAGER, rid) as s, trace.device_run(s, trace.EAGER, None):
+                return self.fn(*args)
+        if not ready:
+            self._capture(leaves, tree)
+            with trace.span("graphed.copy_in", rid):
+                self._copy_in(leaves)
+        with trace.span(trace.REPLAY, rid) as s, trace.device_run(s, trace.REPLAY, self._marks):
+            self._graph.replay()
+        self._replayed()
+        return self._static_out
+
+    def _take(self, args) -> tuple:
+        """The call's leaves and tree structure, checked against the graph's
+        signature, and whether its tensors are on the card."""
         leaves, tree = pytree.tree_flatten(args)
         spec = (tree, _signature(leaves))
         in_place = [t for i, a in enumerate(args) if i in self.in_place_args
@@ -110,22 +166,20 @@ class Graphed:
                              "is another tensor than the first call's; update it in place")
         tensors = [t for t in leaves if isinstance(t, torch.Tensor)]
         if not any(t.is_cuda for t in tensors):
-            return self.fn(*args)
+            return leaves, tree, False
         if not all(t.is_cuda for t in tensors):
             raise ValueError(f"{self.name}: tensors on the card and on the CPU in one call")
-        self._calls += 1
-        if self._calls == 1:  # the warm-up, eager on the caller's stream
-            return self.fn(*args)
-        if self._graph is None:
-            self._capture(leaves, tree)
+        return leaves, tree, True
+
+    def _copy_in(self, leaves: list) -> None:
         for buf, t in zip(self._static_in, leaves):
             if buf is not None and t is not buf:
                 buf.copy_(t)
-        self._graph.replay()
+
+    def _replayed(self) -> None:
         self.replays += 1
         for wrapper, n in self._launches.items():
             wrapper.launches += n
-        return self._static_out
 
     @property
     def name(self) -> str:
@@ -134,8 +188,9 @@ class Graphed:
     def _capture(self, leaves: list, tree) -> None:
         """Allocate the static inputs (each in its first argument's layout;
         the in-place arguments' tensors are used as they are) and capture one
-        call of ``fn`` on them on a side stream."""
-        t0 = time.perf_counter()
+        call of ``fn`` on them on a side stream (with the tracer on, its
+        phase marks become event nodes of the graph)."""
+        t0 = time.perf_counter_ns()
         device = next(t.device for t in leaves if isinstance(t, torch.Tensor))
         in_place = {id(t) for t in self._in_place}
         self._static_in = [torch.empty_like(t)
@@ -149,6 +204,7 @@ class Graphed:
         graph = torch.cuda.CUDAGraph()
         counted = _counted()
         before = {w: w.captured for w in counted}
+        traced = trace.ON
         # no cyclic garbage collection while capturing: a collected graph
         # frees its memory pool, a call that invalidates the capture
         collecting = gc.isenabled()
@@ -159,7 +215,12 @@ class Graphed:
                 # loop's terrain worker) stay legal while this one captures
                 graph.capture_begin(capture_error_mode="thread_local")
                 try:
-                    out = self.fn(*args)
+                    if traced:
+                        with trace.capturing() as marks:
+                            out = self.fn(*args)
+                        self._marks = tuple(marks)
+                    else:
+                        out = self.fn(*args)
                 except BaseException as exc:
                     _abandon(graph)
                     raise RuntimeError(f"{self.name}: CUDA graph capture failed: {exc!r}") from exc
@@ -173,7 +234,10 @@ class Graphed:
         current.wait_stream(side)
         self._launches = {w: w.captured - before[w] for w in counted}
         self._graph, self._static_out = graph, out
-        self.capture_ms = 1e3 * (time.perf_counter() - t0)
+        t1 = time.perf_counter_ns()
+        self.capture_ms = 1e-6 * (t1 - t0)
+        trace.add("graphed.capture", t0, t1)
+        trace.count("graphed.captures")
 
 
 def _abandon(graph: torch.cuda.CUDAGraph) -> None:

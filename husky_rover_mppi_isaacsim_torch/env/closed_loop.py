@@ -34,6 +34,7 @@ import torch
 from torch import Tensor
 
 from ..core import jax_random as jr
+from ..core import trace
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
 from ..mppi.controller import ControllerState, MPPIConfig, RobotState, mppi_step
@@ -125,12 +126,14 @@ def closed_loop_step(
     ``k_phys`` when ``config.rover.slip_std > 0``."""
     mcfg = config.mppi
     n = state.rovers.position.shape[0]
+    trace.mark("noise")
     noise = step_noise(key, mcfg, n, state.rovers.position.dtype, key_path)
 
     robot_view = RobotState(position=state.rovers.position, z=state.rovers.z,
                             heading=state.rovers.heading, left_wheel_speed=state.stored_left,
                             right_wheel_speed=state.stored_right)
     new_ctrl, out = mppi_step(mcfg, hf, costmap, goals, robot_view, state.ctrl, noise)
+    trace.mark("physics")
 
     # wheel commands from the optimal (v, w) (:474-475)
     lin_cmd, ang_cmd = out.linear_velocity, out.angular_velocity

@@ -30,6 +30,7 @@ import torch
 from torch import Tensor
 
 from ..core import jax_random as jr
+from ..core import trace
 from ..core.device import run_device
 from ..core.graphs import Graphed
 from ..core.heightfield import HeightField
@@ -186,6 +187,7 @@ def mppi_step(
     horizon_m = torch.full((), config.horizon_m, dtype=dtype, device=dev)
 
     # 1. receding-horizon input perturbation (sampling_warp.py:54-92)
+    trace.mark("sampling")
     u1, u2 = perturb(ctrl.optimal_u1, ctrl.optimal_u2, noise,
                      ctrl.std_u1, ctrl.std_u2, config.inputs)
 
@@ -195,6 +197,7 @@ def mppi_step(
                          track, config.limits, k_r, a_r)
 
     # 3. K rollouts (projection_warp.py:284-350)
+    trace.mark("rollout")
     if config.projection == "2d":
         traj, _ = rollout_2d_cuda.rollout_2d_cuda(hf, robot.position, robot.heading, lin, ang,
                                                   config.dt)
@@ -207,6 +210,7 @@ def mppi_step(
             wheels=config.slope_critic == "wheels")
 
     # 4. critic stack (critics_warp.py:302-329)
+    trace.mark("critics")
     costs = crit.evaluate_trajectories(
         robot.position[..., 0], robot.position[..., 1], goal, traj, lw, rw, lin,
         torch.full((), config.limits.v_max, dtype=dtype, device=dev), costmap,
@@ -224,6 +228,7 @@ def mppi_step(
     opt_u1, opt_u2 = sum1 / total, sum2 / total
 
     # 6. optimal-sequence conversion, softer lag (MPPI_isaac.py:672-692)
+    trace.mark("optimal_lag")
     k_o, a_o = config.optimal_lag
     opt_lin, opt_ang = wheel_lag(opt_u1[..., None, :], opt_u2[..., None, :],
                                  robot.left_wheel_speed, robot.right_wheel_speed, track,
@@ -232,6 +237,7 @@ def mppi_step(
 
     # 7. optimal rollout: always 3D, wheel tracks never read
     #    (MPPI_isaac.py:696-720)
+    trace.mark("optimal_rollout")
     opt = rollout_cuda.rollout_25d_cuda(hf, robot.position, robot.heading,
                                         opt_lin[..., None, :], opt_ang[..., None, :],
                                         config.dt, wheels=False)
@@ -358,10 +364,12 @@ def masked_steps(config: MPPIConfig, max_loops: int, hf: HeightField, costmap: C
     record = positions.shape[0] > 0
     dtype = robot.position.dtype
     for _ in range(n):
+        trace.mark("noise")
         noise, key = jax_normal(key, (2, config.num_samples, config.horizon), dtype,
                                 path=SPLIT_SUB, next_path=SPLIT_NEXT)
         active = ~halt & (loop < max_loops)
         ctrl2, out = mppi_step(config, hf, costmap, goal, robot, ctrl, noise)
+        trace.mark("advance")
         robot2 = kinematic_advance(config, robot, out)
         robot = RobotState(*(torch.where(active, n, o) for n, o in zip(robot2, robot)))
         ctrl = ControllerState(*(torch.where(active, n, o) for n, o in zip(ctrl2, ctrl)))
@@ -390,13 +398,27 @@ def _goal_seek_loop(config, hf, costmap, goal, robot, ctrl, key,
     loop = torch.zeros((), dtype=torch.int64, device=dev)
     halt = goal_reached(robot.position, goal)
     steps = 0
-    while not bool(halt | (loop >= max_loops)):
-        robot, ctrl, loop, halt, bp, bv, key = steps_fn(config, max_loops, hf, costmap, goal,
-                                                        robot, ctrl, loop, halt, bp, bv, key,
-                                                        unroll)
-        steps += unroll
+    with trace.span("goal_seek.episode", trace.NEW, profiled=False):
+        while not _stop(halt, loop, max_loops):
+            robot, ctrl, loop, halt, bp, bv, key = steps_fn(config, max_loops, hf, costmap,
+                                                            goal, robot, ctrl, loop, halt, bp,
+                                                            bv, key, unroll)
+            steps += unroll
     clone = lambda nt: type(nt)(*(t.clone() for t in nt))  # noqa: E731
     return clone(robot), clone(ctrl), loop.clone(), halt.clone(), steps, bp.clone(), bv.clone()
+
+
+def _stop(halt: Tensor, loop: Tensor, max_loops: int) -> bool:
+    """The goal-seek loop's stop flag, read on the host: its one sync a
+    replay (with the tracer on, the span ``goal_seek.stop_flag``, the host's
+    wait included, and the counter ``goal_seek.host_syncs``)."""
+    if not trace.ON:
+        return bool(halt | (loop >= max_loops))
+    with trace.span("goal_seek.stop_flag"):
+        stop = bool(halt | (loop >= max_loops))
+    trace.count("goal_seek.host_syncs")
+    trace.synced()
+    return stop
 
 
 class MPPIController:

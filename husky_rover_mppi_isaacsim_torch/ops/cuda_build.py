@@ -23,6 +23,8 @@ import time
 from dataclasses import dataclass
 from pathlib import Path
 
+from ..core import trace
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 
@@ -89,9 +91,11 @@ def _build_cached(src: Path, compiler, flags) -> BuiltLibrary:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         t0 = time.perf_counter()
-        proc = subprocess.run([exe, *flags, "-o", str(tmp), str(src)],
-                              capture_output=True, text=True, check=False)
+        with trace.span("cuda_build.build"):
+            proc = subprocess.run([exe, *flags, "-o", str(tmp), str(src)],
+                                  capture_output=True, text=True, check=False)
         seconds = time.perf_counter() - t0
+        trace.count("cuda_build.builds")
         log = proc.stdout + proc.stderr
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)

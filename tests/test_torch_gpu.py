@@ -44,6 +44,7 @@ imports no jax, so it also runs where jax is not installed:
 
 import contextlib
 
+import numpy as np
 import pytest
 import torch
 
@@ -229,6 +230,110 @@ def test_step_runs_about_200_kernels_on_card(cuda):
     assert rollout_25d_cuda.launches == before + 2
     kernels = measure.device_kernels(step)  # calls step once per profiler session
     assert 2 <= kernels <= 210
+
+
+# -- the tracer (core/trace.py) on the card; the kernel count reads the
+# profiler, so it runs before the tests that drive threads and side streams
+
+
+def _traced_goal_seek(cuda, traced, k=256, h=40, loops=40):
+    """A goal-seek of ``loops`` loops through a graph of 4 masked steps,
+    captured and replayed with the tracer on or off; its result, graph and
+    the recording (``None`` when off)."""
+    from husky_rover_mppi_isaacsim_torch.core import trace
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+    from husky_rover_mppi_isaacsim_torch.mppi import goal_seek_recorded, masked_steps
+
+    hf, cm = _graph_world(cuda)
+    cfg = MPPIConfig(num_samples=k, horizon=h)
+    goal = torch.tensor([15.0, 12.0], device=cuda)
+    robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
+    ctrl = ControllerState.create(cfg, device=cuda)
+    graph = Graphed(masked_steps)
+    if traced:
+        trace.enable()
+    try:
+        res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, jr.key(5, cuda),
+                                 max_loops=loops, steps_fn=graph)
+    finally:
+        trace.disable()
+    return res, graph, trace.collect() if traced else None
+
+
+def test_tracer_leaves_a_graph_s_kernels_as_they_were_on_card(cuda):
+    """A replay of a graph captured with the tracer off runs the kernels
+    of the eager steps, and so does one captured with it on (its marks are
+    event nodes, no kernels)."""
+    from husky_rover_mppi_isaacsim_torch.core import trace
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+    from husky_rover_mppi_isaacsim_torch.mppi import masked_steps
+    from husky_rover_mppi_isaacsim_torch.mppi.controller import goal_reached
+
+    hf, cm = _graph_world(cuda)
+    cfg = MPPIConfig(num_samples=256, horizon=40)
+    goal = torch.tensor([15.0, 12.0], device=cuda)
+    robot = RobotState.create(-10.0, -8.0, [1.0, 0.4, 0.0], device=cuda)
+    args = (cfg, 40, hf, cm, goal, robot, ControllerState.create(cfg, device=cuda),
+            torch.zeros((), dtype=torch.int64, device=cuda), goal_reached(robot.position, goal),
+            torch.zeros((0, 3), device=cuda), torch.zeros((0,), device=cuda), jr.key(5, cuda), 4)
+    eager = measure.device_kernels(lambda: masked_steps(*args))
+    counts = []
+    for traced in (False, True):
+        graph = Graphed(masked_steps)
+        if traced:
+            trace.enable()
+        try:
+            graph(*args)  # the warm-up
+            graph(*args)  # the capture and a replay
+        finally:
+            trace.disable()
+        counts.append(measure.device_kernels(lambda: graph(*args)))
+    assert counts == [eager, eager] and eager > 4 * 150
+
+
+def test_graph_captured_with_the_tracer_on_equals_the_untraced_on_card(cuda):
+    """The same goal-seek through a graph captured and replayed with the
+    tracer on and through one with it off: the same trace and state bit for
+    bit."""
+    got, _, rec = _traced_goal_seek(cuda, True)
+    want, _, _ = _traced_goal_seek(cuda, False)
+    assert got.steps == want.steps == 40 and _all_equal(got, want)
+    assert len(rec.named("phase.rollout")) > 0
+
+
+def test_in_graph_marks_time_each_replay_on_card(cuda, monkeypatch):
+    """At K=1000 x H=100 every replay's phase spans (each replay's read
+    here), read from the event nodes of the graph, are positive, 7 a step
+    plus the head, in the order of the marks, and sum to the replay's
+    device span within 5%; the
+    counters count one warm-up, one capture and the replays; a window
+    after the capture holds no build, and its replays lie on the host's
+    clock inside it."""
+    from husky_rover_mppi_isaacsim_torch.core import trace
+
+    monkeypatch.setattr(trace, "MARK_EVERY", 1)
+    res, graph, rec = _traced_goal_seek(cuda, True, k=1000, h=100, loops=48)
+    order = ["phase.head"] + ["phase." + n for n in (
+        "noise", "sampling", "rollout", "critics", "optimal_lag", "optimal_rollout",
+        "advance")] * 4
+    replays = rec.spans[rec.spans["device"]
+                        & (rec.spans["name"] == rec.names.index(trace.REPLAY))]
+    assert len(replays) == graph.replays == res.steps // 4 - 1
+    for r in replays:
+        kids = rec.spans[rec.spans["parent"] == r["id"]]
+        kids = kids[np.argsort(kids["start_ns"], kind="stable")]
+        assert [rec.names[n] for n in kids["name"]] == order
+        dur = kids["end_ns"] - kids["start_ns"]
+        assert (dur > 0).all(), dict(zip(order, dur.tolist()))
+        whole = int(r["end_ns"] - r["start_ns"])
+        assert abs(int(dur.sum()) - whole) <= 0.05 * whole
+    c = rec.counters
+    assert (c["graphed.eager_calls"], c["graphed.captures"]) == (1, 1)
+    assert c["graphed.replays"] == graph.replays and c.get("trace.device_reads_missed", 0) == 0
+    t0 = int(rec.named("graphed.capture")["end_ns"][0])
+    w = trace.window(rec, t0, int(rec.spans["end_ns"].max()) + 1)
+    assert w["builds"] == 0 and w["replays"] == len(replays)
+    assert 0 < w["busy_s"] <= w["window_s"] and w["idle_in_program_s"] <= w["idle_s"]
 
 
 def test_k1_kernel_refuses_what_it_does_not_take(cuda):
