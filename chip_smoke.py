@@ -8,7 +8,8 @@ block kernel (csrc/crater_block.cu) and its planar rollout kernel
 (csrc/rollout_2d.cu, the 2D arm's sample rollout) and the jax_normal kernel
 (csrc/jax_normal.cu, JAX's normals for every control and slip draw) and
 the block upsample kernel (csrc/upsample_taps.cu, both bicubic passes of a
-streamed block's kept base in one launch) from the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
+streamed block's kept base in one launch) and the batched copy
+(csrc/batched_copy.cu, a graph replay's copy-in in one launch) from the sources, one nvcc each, and the host runtime (csrc/husky_native.cpp)
 with g++, all started together; holds the crater block kernel's device
 copies of XLA's exp and glibc's atan2f, atanf, sinf and cosf
 (csrc/xla_math.cuh) against their plain versions (core/xla_math.py) on 2^24
@@ -101,8 +102,12 @@ both again at bench_torch.py's 48-step chunks (the bound, counted in sim
 steps, is 8 chunks at 12 steps and 6 at 48). The streamed
 chunk's graph reads the window and costmap in place (graph_chunk times it
 against a graph that copies them).
-K3, jax_normal and the block upsample are timed
+K3, jax_normal, the block upsample and the batched copy are timed
 beside an empty kernel of their grid and block (the launch floor); the
+batched copy is held to one copy_ a leaf at the benchmark cells' copy-in
+plans (goal-seek's masked steps, 64 rovers' closed-loop step), beside
+torch._foreach_copy_ of the same leaves, at every path's own plan (the
+first copy-ins of each graphed function, CopyInHold), and counted by path; the
 jax_normal kernel's bound counts the function's own operations a value
 by pipe (JAX_NORMAL_OPS, each data-dependent side weighed by the draw's
 values that take it), and the block upsample is held to its plain version
@@ -139,6 +144,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import weakref
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from unittest import mock
@@ -306,6 +312,79 @@ JAX_NORMAL_OPS = {"common": {"alu": 79, "fma": 13},
 SM_LANES = {"alu": 64, "fma": 128, "xu": 16, "issue": 128}
 H100_SMS = 132
 
+class CopyInHold:
+    """Holds every path's graph copy-in against ``copy_`` a leaf at that
+    path's own plan: the first HELD copy-ins of the first HELD_GRAPHS
+    ``Graphed`` of each function, while no profiler, sync check or capture
+    is on. Before such a copy-in the static inputs are filled by ``copy_``
+    in leaf order (what ``Graphed`` did before the batched copy), kept and
+    put back; after it, what it wrote is kept. Nothing syncs: :meth:`read`
+    compares them after the paths have run."""
+
+    HELD, HELD_GRAPHS = 2, 3
+
+    def __init__(self):
+        from husky_rover_mppi_isaacsim_torch.core import graphs
+
+        self.plain = graphs.Graphed._copy_in
+        self.calls = weakref.WeakKeyDictionary()
+        self.graphs: dict = {}   # function name -> Graphed held
+        self.pending: list = []  # (name, wanted, written)
+        self.rows: dict = {}     # function name -> {"copy_ins", "equal"}
+        hold = self
+
+        def copy_in(g, leaves):
+            if not hold.holds(g):
+                return hold.plain(g, leaves)
+            bufs = [(j, b) for j, b in enumerate(g._static_in) if b is not None]
+            saved = [b.clone() for _, b in bufs]
+            for j, b in bufs:
+                if leaves[j] is not b:
+                    b.copy_(leaves[j])
+            wanted = [b.clone() for _, b in bufs]
+            for (_, b), s in zip(bufs, saved):
+                b.copy_(s)
+            hold.plain(g, leaves)
+            hold.pending.append((g.name, wanted, [b.clone() for _, b in bufs]))
+
+        graphs.Graphed._copy_in = copy_in
+
+    def holds(self, g) -> bool:
+        import torch
+
+        n = self.calls.get(g)
+        if n is None:
+            held = self.graphs.setdefault(g.name, 0)
+            if held >= self.HELD_GRAPHS:
+                return False
+            self.graphs[g.name], n = held + 1, 0
+        if (n >= self.HELD or torch.autograd._profiler_enabled()
+                or torch.cuda.get_sync_debug_mode() != 0
+                or torch.cuda.is_current_stream_capturing()):
+            return False
+        self.calls[g] = n + 1
+        return True
+
+    def read(self) -> dict:
+        """Each function's held copy-ins and whether every one wrote what
+        ``copy_`` a leaf writes (NaN where NaN)."""
+        import torch
+
+        def same(a, b):
+            if a.is_floating_point():
+                na, nb = a.isnan(), b.isnan()
+                return torch.equal(na, nb) and torch.equal(a.masked_fill(na, 0),
+                                                           b.masked_fill(nb, 0))
+            return torch.equal(a, b)
+
+        for name, wanted, written in self.pending:
+            row = self.rows.setdefault(name, {"copy_ins": 0, "equal": True})
+            row["copy_ins"] += 1
+            row["equal"] = row["equal"] and all(same(w, x) for w, x in zip(wanted, written))
+        self.pending.clear()
+        return self.rows
+
+
 def bound(bytes_moved, ops, op_rate):
     """The least time in ms for ``bytes_moved`` bytes and ``ops`` operations
     at ``op_rate`` per second, and which of the two sets it."""
@@ -405,6 +484,7 @@ def main(argv=None) -> int:
         device_kernels,
         device_time,
         graph_ms,
+        issue_ms,
         launch_calls,
     )
     from husky_rover_mppi_isaacsim_torch.ops import crater_block_cuda as block_module
@@ -413,6 +493,7 @@ def main(argv=None) -> int:
     from husky_rover_mppi_isaacsim_torch.ops.rollout_2d_cuda import rollout_2d_cuda
     from husky_rover_mppi_isaacsim_torch.ops.rollout_cuda import rollout_25d_cuda
     from husky_rover_mppi_isaacsim_torch.ops.upsample_cuda import upsample_taps_cuda
+    from husky_rover_mppi_isaacsim_torch.ops.batched_copy_cuda import batched_copy
     from husky_rover_mppi_isaacsim_torch.ops.jax_normal_cuda import (
         SPLIT_NEXT,
         SPLIT_SUB,
@@ -525,12 +606,12 @@ def main(argv=None) -> int:
           float32_matmul_precision=torch.get_float32_matmul_precision())
 
     # 2. build K1, K2, K3, the crater block kernel, the planar rollout
-    #    kernel, the jax_normal kernel and the block upsample kernel from
-    #    the sources, one nvcc each, and the host runtime
+    #    kernel, the jax_normal kernel, the block upsample kernel and the
+    #    batched copy from the sources, one nvcc each, and the host runtime
     #    (csrc/husky_native.cpp) with g++, all started together
     t0 = time.perf_counter()
     wrappers = (rollout_25d_cuda, edt_minplus_cuda, gp.gather_probe_cuda, crater_block_cuda,
-                rollout_2d_cuda, jax_normal, upsample_taps_cuda)
+                rollout_2d_cuda, jax_normal, upsample_taps_cuda, batched_copy)
     with ThreadPoolExecutor(len(wrappers) + 1) as pool:
         host_build = pool.submit(native.available)
         builds = list(pool.map(lambda w: w.load(), wrappers))
@@ -538,7 +619,7 @@ def main(argv=None) -> int:
     seconds = round(time.perf_counter() - t0, 3)
     for name, built in zip(("rollout25d_f32", "edt_minplus_f32", "gather_probe_f32",
                             "crater_block_f32", "rollout2d_f32", "jax_normal_f32",
-                            "upsample_block_f32"), builds):
+                            "upsample_block_f32", "batched_copy"), builds):
         phase("build", kernel=name, seconds=seconds, nvcc_seconds=round(built.seconds, 3),
               library=built.path.name, ptxas=ptxas_lines(built))
     phase("native_build", source="husky_rover_mppi_isaacsim_torch/csrc/husky_native.cpp",
@@ -546,6 +627,8 @@ def main(argv=None) -> int:
           library=native.library_path.name if native_ok else None, ok=native_ok)
     if not native_ok:
         raise RuntimeError(f"the native host runtime did not build:\n{native.build_error()}")
+    # every path's graph copy-ins held against copy_ a leaf from here on
+    copy_in_hold = CopyInHold()
 
     # 2b. the crater block kernel's device functions (csrc/xla_math.cuh:
     #     XLA's exp, glibc's atan2f / atanf, sinf and cosf) against their
@@ -662,6 +745,7 @@ def main(argv=None) -> int:
     #     draws JAX's stream)
     jax_normal_row = jax_normal_phase()
     draws_by_path = {}  # jax_normal launches of each main path
+    copies_by_path = {}  # the batched copy's launches of each path, a graph replay's copy-in
     taps_by_path = {}  # the block upsample's launches per streamed path
 
     def dem_cells(hf, got, start):
@@ -1206,10 +1290,12 @@ def main(argv=None) -> int:
         def buffer_bytes(g):
             return sum(b.nbytes for b in g._static_in if b is not None)
 
+        window_leaf = graph._in_place_of[min(graph._in_place_of)][0]  # its first in-place tensor
+
         # the first graph call is the eager warm-up, the second captures
         ok = (equal and shift == (25.0, 25.0) and graph.replays == GRAPH_CHUNKS - 1
               and copying.replays == GRAPH_CHUNKS - 1 and all(np.isfinite(pose))
-              and streamer.window is loop.hf.z is graph._in_place[0]
+              and streamer.window is loop.hf.z is window_leaf
               and buffer_bytes(copying) - buffer_bytes(graph) >= streamer.window.nbytes)
         phase("graph_chunk", window=list(loop.hf.z.shape), K=K, H=H,
               steps=conf.terrain_check_every, chunks=GRAPH_CHUNKS, seat_after=GRAPH_CHUNKS // 2,
@@ -1222,7 +1308,7 @@ def main(argv=None) -> int:
               ms_per_chunk_graph_copying_all=times["graph_copying"],
               graph_input_buffer_bytes=buffer_bytes(graph),
               graph_copying_input_buffer_bytes=buffer_bytes(copying),
-              window_is_the_graph_leaf=streamer.window is graph._in_place[0],
+              window_is_the_graph_leaf=streamer.window is window_leaf,
               capture_ms=graph.capture_ms, capture_ms_copying=copying.capture_ms,
               replays=graph.replays, final_world_pose=pose, ok=ok)
         if not ok:
@@ -1338,10 +1424,11 @@ def main(argv=None) -> int:
         held = torch.cuda.memory_allocated()  # by the earlier phases' objects
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
         gp.gather_probe_cuda.launches = crater_block_cuda.launches = jax_normal.launches = 0
-        upsample_taps_cuda.launches = 0
+        upsample_taps_cuda.launches = batched_copy.launches = 0
         run = largescale_episode(tree, conf=conf)
         torch.cuda.synchronize()
         draws_by_path[name] = jax_normal.launches
+        copies_by_path[name] = batched_copy.launches
         taps_by_path[name] = upsample_taps_cuda.launches
         k1, k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
         stamp, taps = crater_block_cuda.launches, upsample_taps_cuda.launches
@@ -1709,12 +1796,12 @@ def main(argv=None) -> int:
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
             gp.gather_probe_cuda.launches = crater_block_cuda.launches = 0
-            jax_normal.launches = 0
+            jax_normal.launches = batched_copy.launches = 0
 
         def counts():
             return {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
                     "k3": gp.gather_probe_cuda.launches, "stamp": crater_block_cuda.launches,
-                    "draws": jax_normal.launches}
+                    "draws": jax_normal.launches, "copies": batched_copy.launches}
 
         sdg_shapes = {"rgb": (500, 500, 3), "depth": (500, 500), "semantic": (500, 500),
                       "cam_depth": (480, 640), "cam_rgb": (480, 640), "cam_semantic": (480, 640),
@@ -2501,9 +2588,11 @@ def main(argv=None) -> int:
     gs_key = jr.key(42, cuda)
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = jax_normal.launches = 0
+    batched_copy.launches = 0
     t0 = time.perf_counter()
     res = goal_seek_recorded(cfg, hf, cm, goal, robot, ctrl, gs_key, max_loops=3500,
                              steps_fn=gs_graph)
+    copies_by_path["goal_seek"] = batched_copy.launches
     loops = int(res.loops)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2553,10 +2642,11 @@ def main(argv=None) -> int:
     #     two K1 launches per step
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
-    jax_normal.launches = 0
+    jax_normal.launches = batched_copy.launches = 0
     run = closed_loop_episode({})
     cl_k1, cl_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
     draws_by_path["closed_loop"] = jax_normal.launches
+    copies_by_path["closed_loop"] = batched_copy.launches
     cl_finite = bool(torch.isfinite(run.path).all())
     mean_progress = float(run.progress.mean())
     phase("closed_loop", N=len(run.progress), K=K, H=H, steps=SIM_STEPS,
@@ -2777,7 +2867,7 @@ def main(argv=None) -> int:
         try:
             torch.cuda.synchronize()
             rollout_25d_cuda.launches = edt_minplus_cuda.launches = 0
-            gp.gather_probe_cuda.launches = jax_normal.launches = 0
+            gp.gather_probe_cuda.launches = jax_normal.launches = batched_copy.launches = 0
             for w0 in range(0, SIM_TICKS, SIM_WINDOW):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -2806,10 +2896,11 @@ def main(argv=None) -> int:
         finally:
             sm.close()
         draws_by_path["sim_manager"] = jax_normal.launches
+        copies_by_path["sim_manager"] = batched_copy.launches
         return sm, windows, flushed, seen, rollout_25d_cuda.launches, edt_minplus_cuda.launches
 
     sm, windows, flushed, seen, sim_k1, sim_k2 = drive_sim_manager()
-    sim_draws = draws_by_path["sim_manager"]
+    sim_draws, sim_copies = draws_by_path["sim_manager"], copies_by_path["sim_manager"]
     teleported = sm.robots.pose(flushed[100].rovers, "husky_1")
     reset = sm.robots.pose(flushed[200].rovers, "husky_0")
     sim_finite = all(bool(torch.isfinite(t).all()) for t in sm.state.rovers + sm.state.ctrl)
@@ -2847,6 +2938,7 @@ def main(argv=None) -> int:
     if sim_k1 != 2 * SIM_TICKS:
         raise RuntimeError(f"K1 ran {sim_k1} times in {SIM_TICKS} simulation-manager ticks")
     draws_by_path["sim_manager"] = sim_draws  # the graphed run's: a draw and a split a tick
+    copies_by_path["sim_manager"] = sim_copies
     if sim_draws != 2 * SIM_TICKS:
         raise RuntimeError(f"jax_normal ran {sim_draws} times in {SIM_TICKS} ticks")
 
@@ -2864,13 +2956,14 @@ def main(argv=None) -> int:
     ctl = MPPIController(cfg, hf, cm, GOAL, seed=42)
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = gp.gather_probe_cuda.launches = 0
-    jax_normal.launches = 0
+    jax_normal.launches = batched_copy.launches = 0
     t0 = time.perf_counter()
     final, _, ctl_path = ctl.run(r0, max_loops=3500)
     torch.cuda.synchronize()
     ctl_wall = time.perf_counter() - t0
     ctl_k1 = rollout_25d_cuda.launches
     draws_by_path["mppi_controller"] = jax_normal.launches
+    copies_by_path["mppi_controller"] = batched_copy.launches
     ix, iy = costmap_cells(ctl_path, cm)
     ctl_cost = grid_lookup(cm.cost, ix, iy)
     ctl_reached = bool((torch.abs(final.position - goal) <= 0.5).all())
@@ -3137,7 +3230,7 @@ def main(argv=None) -> int:
 
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
-    jax_normal.launches = 0
+    jax_normal.launches = batched_copy.launches = 0
     t0 = time.perf_counter()
     with mock.patch.object(evaluation, "_run_episode", logged(eval_logs["graph"])):
         table = run_thesis_protocol_experiment(ks=(K,), runs_per_arm=1, horizon=H,
@@ -3146,6 +3239,7 @@ def main(argv=None) -> int:
     eval_s = time.perf_counter() - t0
     eval_k1, eval_k2 = rollout_25d_cuda.launches, edt_minplus_cuda.launches
     draws_by_path["evaluation"] = jax_normal.launches
+    copies_by_path["evaluation"] = batched_copy.launches
     eval_r2 = rollout_2d_cuda.launches
     arms = table["per_k"][K]["arms"]
     for proj, arm in arms.items():
@@ -3290,11 +3384,12 @@ def main(argv=None) -> int:
     for name, driver in drivers.items():
         torch.cuda.synchronize()
         rollout_25d_cuda.launches = edt_minplus_cuda.launches = rollout_2d_cuda.launches = 0
-        jax_normal.launches = 0
+        jax_normal.launches = batched_copy.launches = 0
         t0 = time.perf_counter()
         table_d = driver()
         wall = time.perf_counter() - t0
         draws_by_path[f"thesis_drivers_{name}"] = jax_normal.launches
+        copies_by_path[f"thesis_drivers_{name}"] = batched_copy.launches
         counts = {"k1": rollout_25d_cuda.launches, "rollout_2d": rollout_2d_cuda.launches,
                   "k2": edt_minplus_cuda.launches}
         rows, summary = driver_arms(name, table_d)
@@ -3340,13 +3435,14 @@ def main(argv=None) -> int:
     #      launches_by_path
     torch.cuda.synchronize()
     rollout_25d_cuda.launches = edt_minplus_cuda.launches = crater_block_cuda.launches = 0
-    jax_normal.launches = 0
+    jax_normal.launches = batched_copy.launches = 0
     t0 = time.perf_counter()
     bench_line = bench_torch.measure(cuda)
     torch.cuda.synchronize()
     bench_s = time.perf_counter() - t0
     bench_counts = {"k1": rollout_25d_cuda.launches, "k2": edt_minplus_cuda.launches,
-                    "stamp": crater_block_cuda.launches, "draws": jax_normal.launches}
+                    "stamp": crater_block_cuda.launches, "draws": jax_normal.launches,
+                    "copies": batched_copy.launches}
     print(json.dumps(bench_line), flush=True)
     detail = bench_line["detail"]
     keys_ok = (set(detail) == bench_torch.DETAIL_KEYS
@@ -3467,6 +3563,86 @@ def main(argv=None) -> int:
         raise RuntimeError("a graph replay launched no graph, or the profiler saw none of "
                            "its kernels")
 
+    # 12c. batched_copy: a replay's copy-in at the benchmark cells' plans
+    #      (goal-seek's 4 masked steps, the world read in place, its outputs
+    #      fed back; 64 rovers' closed-loop step with its fold-in index), held
+    #      against one copy_ a leaf (the static inputs overwritten with 0x00,
+    #      then 0xFF bytes first); the kernel timed by graph replay beside the
+    #      empty kernel of its grid, the bytes at PEAK_BYTES_S,
+    #      torch._foreach_copy_ of the same leaves (the one-call library) and
+    #      one copy_ a leaf; the host's time of a copy-in each way
+    def copy_in_row(g, args):
+        leaves, _ = g._take(args)
+        slots = [s for s in g._slots if leaves[s.j] is not s.buf]
+        want = {s.j: leaves[s.j].clone() for s in g._slots}
+        before, fallbacks = batched_copy.launches, g.copy_fallbacks
+        equal = True
+        for byte in (0x00, 0xFF):
+            for s in slots:
+                torch.empty(0, dtype=torch.uint8, device=cuda).set_(
+                    s.buf.untyped_storage()).fill_(byte)
+            g._copy_in(leaves)
+            equal = equal and all(torch.equal(s.buf, want[s.j]) for s in g._slots)
+        torch.cuda.synchronize()
+        launches = (batched_copy.launches - before) / 2
+        batches = [(len(js), bytes(p)) for kind, js, p in g._plan if kind == "batch"]
+        blocks = [batched_copy.blocks(p, n) for n, p in batches]
+        dev = torch.cuda.current_device()
+
+        def foreach():
+            torch._foreach_copy_([s.buf for s in slots], [leaves[s.j] for s in slots])
+
+        def per_leaf():
+            for s in slots:
+                s.buf.copy_(leaves[s.j])
+
+        nbytes = sum(leaves[s.j].numel() * leaves[s.j].element_size() for s in slots)
+        ms = graph_ms(lambda: [batched_copy.launch(p, n, dev) for n, p in batches])
+        floor_ms = graph_ms(lambda: [batched_copy.launch_floor(b, dev) for b in blocks])
+        bytes_ms = 1e3 * 2 * nbytes / PEAK_BYTES_S
+        host_us = {k: 1e3 * issue_ms(f, 2000, cuda) for k, f in (
+            ("batched", lambda: g._copy_in(leaves)), ("foreach_copy", foreach),
+            ("per_leaf", per_leaf))}
+        return {"ms": ms, "bound_ms": max(bytes_ms, floor_ms),
+                "bound_set_by": "bytes" if bytes_ms > floor_ms else "launch floor",
+                "bytes_bound_ms": bytes_ms, "empty_kernel_ms": floor_ms,
+                "library_ms": graph_ms(foreach), "per_leaf_copy_ms": graph_ms(per_leaf),
+                "host_us": host_us, "static_inputs": len(g._slots), "copies": len(slots),
+                "batched": sum(n for n, _ in batches), "blocks": blocks, "bytes": nbytes,
+                "launches_per_copy_in": launches,
+                "copy_fallbacks": g.copy_fallbacks - fallbacks, "equal_copy_": equal}
+
+    from husky_rover_mppi_isaacsim_torch.mppi.controller import goal_reached
+
+    gs_cell = Graphed(masked_steps, in_place_args=(2, 3))
+    gs_cell_args = [cfg, 3500, hf, cm, goal, robot, ControllerState.create(cfg, device=cuda),
+                    torch.zeros((), dtype=torch.int64, device=cuda),
+                    goal_reached(robot.position, goal), torch.zeros((0, 3), device=cuda),
+                    torch.zeros((0,), device=cuda), jr.key(42, cuda), 4]
+    for _ in range(4):  # warm-up, capture, then the outputs fed back
+        gs_cell_args[5:12] = gs_cell(*gs_cell_args)
+    starts64, goals64 = spawn_points(7, 64, hw)
+    fleet = Graphed(tenv.closed_loop_step, in_place_args=(1, 2))
+    fleet_state = tenv.init_loop_state(cl_cfg, tenv.RoverState.create(starts64, [1.0, 0.0, 0.0],
+                                                                      hf))
+    fleet_goals = torch.tensor(goals64, dtype=torch.float32, device=cuda)
+    for i in range(4):
+        fleet_args = (cl_cfg, hf, cm, fleet_goals, fleet_state, jr.key(0, cuda),
+                      (("fold_in", torch.full((), i, dtype=torch.int64, device=cuda)),))
+        fleet_state = fleet(*fleet_args)
+    fleet_args = fleet_args[:4] + (fleet_state,) + fleet_args[5:]
+    copy_rows = {"goal_seek_cell": copy_in_row(gs_cell, gs_cell_args),
+                 "fleet64_cell": copy_in_row(fleet, fleet_args)}
+    del gs_cell, fleet, fleet_state
+    held = copy_in_hold.read()
+    ok = all(r["equal_copy_"] and r["copy_fallbacks"] == 0 and r["launches_per_copy_in"] == 1
+             and r["ms"] > 0 for r in copy_rows.values()) and all(
+        r["equal"] for r in held.values())
+    phase("batched_copy", **copy_rows, held_by_graph=held, ok=ok)
+    if not ok:
+        raise RuntimeError("the batched copy's copy-in differs from copy_ a leaf, fell back "
+                           "or took another number of launches")
+
     # 13-14. the streamed slice's chunk under the profiler, and a shift
     ls_k1_edge = largescale_profiled(ls_loop)
 
@@ -3480,6 +3656,9 @@ def main(argv=None) -> int:
     ls_k1_err = max(max_err, ls_k1_row.pop("max_abs_err"), ls_k1_edge.pop("max_abs_err"),
                     yard_k1_row.pop("max_abs_err"))
     ls_k2_err = max(k2_err, ls_k2_row.pop("max_abs_err"))
+    held = copy_in_hold.read()  # the paths after the batched_copy phase too
+    if not all(r["equal"] for r in held.values()):
+        raise RuntimeError(f"a graph's copy-in differs from copy_ a leaf: {held}")
     print(json.dumps({"kernels": [{
         "name": "rollout_25d", "route": "cuda",
         "source": "husky_rover_mppi_isaacsim_torch/csrc/rollout.cu",
@@ -3565,6 +3744,24 @@ def main(argv=None) -> int:
                              "moonyard_standalone": yard_counts["draws"],
                              "moonyard_closed_loop": lab_counts["draws"],
                              "bench": bench_counts["draws"]},
+    }, {
+        "name": "batched_copy", "route": "cuda",
+        "source": "husky_rover_mppi_isaacsim_torch/csrc/batched_copy.cu",
+        "replaces": None,
+        "replaces_note": ("the port's own kernel for core/graphs.py Graphed's copy-in of a "
+                          "call's arguments into a CUDA graph's static inputs; the JAX "
+                          "package's jitted loops take their arguments as the program's own "
+                          "buffers; no Pallas kernel there"),
+        "launches": copies_by_path["goal_seek"], **copy_rows["goal_seek_cell"],
+        "shape": "goal-seek cell's plan: 4 masked steps, the world in place",
+        "fleet64_cell": copy_rows["fleet64_cell"],
+        "library_note": "torch._foreach_copy_ of the same leaves",
+        "held_by_graph": held,
+        "launches_by_path": {**copies_by_path,
+                             **{f"sdg_{r}": c["copies"] for r, c in sdg_counts.items()},
+                             "moonyard_standalone": yard_counts["copies"],
+                             "moonyard_closed_loop": lab_counts["copies"],
+                             "bench": bench_counts["copies"]},
     }]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -34,7 +34,11 @@ graft_entry_torch.py's entry step and dry run on the card, and the
 jax_normal kernel (csrc/jax_normal.cu) ``torch.equal`` to its plain version
 (core/jax_random.py's ``normal`` of ``derive``) at the loops' shapes, with
 a split, a fold-in from a device scalar and a count offset, its key
-sequence in a graph, and its wrapper's refusals.
+sequence in a graph, and its wrapper's refusals; the batched copy kernel
+(csrc/batched_copy.cu) ``torch.equal`` to ``copy_`` over mixed dtypes,
+empty and strided sources and more copies than a launch takes, a graph's
+argument written in place between replays, and an output that views a
+static input (the copy-in's fallback).
 
 Every test here is marked ``gpu`` and skips without a CUDA card. The file
 imports no jax, so it also runs where jax is not installed:
@@ -263,7 +267,8 @@ def _traced_goal_seek(cuda, traced, k=256, h=40, loops=40):
 def test_tracer_leaves_a_graph_s_kernels_as_they_were_on_card(cuda):
     """A replay of a graph captured with the tracer off runs the kernels
     of the eager steps, and so does one captured with it on (its marks are
-    event nodes, no kernels)."""
+    event nodes, no kernels). The replay alone is counted: a call's copy-in
+    before it is one launch of the batched copy, outside the graph."""
     from husky_rover_mppi_isaacsim_torch.core import trace
     from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
     from husky_rover_mppi_isaacsim_torch.mppi import masked_steps
@@ -287,7 +292,7 @@ def test_tracer_leaves_a_graph_s_kernels_as_they_were_on_card(cuda):
             graph(*args)  # the capture and a replay
         finally:
             trace.disable()
-        counts.append(measure.device_kernels(lambda: graph(*args)))
+        counts.append(measure.device_kernels(graph._graph.replay))
     assert counts == [eager, eager] and eager > 4 * 150
 
 
@@ -1048,6 +1053,110 @@ def test_graphed_closed_loop_equals_eager_on_card(cuda):
         assert rollout_25d_cuda.launches - before[0] == 24
         assert jax_normal.launches - before[1] == 36
     assert _all_equal(*runs) and int(runs[0][0].step_index) == 12
+
+
+def _copy_pairs(device, n):
+    """``n`` (destination, source) pairs: float32, int64, bool and uint32
+    elements, empty ones, and sources strided at ranks 0 to 4."""
+    g = torch.Generator(device=device).manual_seed(n)
+
+    def full(shape, dtype):
+        x = torch.randint(-2 ** 20, 2 ** 20, shape, generator=g, device=device)
+        if dtype is torch.uint32:
+            return x.to(torch.int32).view(torch.uint32)
+        return x.to(dtype) if dtype is not torch.float32 else x.float() / 7.0
+
+    makes = [lambda d: full((), d), lambda d: full((37,), d)[::3],
+             lambda d: full((6, 5), d).t(), lambda d: full((4, 3, 5), d).permute(2, 0, 1)[1:],
+             lambda d: full((3, 4, 5, 6), d)[:, ::2, 1:, ::3], lambda d: full((0, 4), d),
+             lambda d: full((5, 1, 3), d).expand(5, 2, 3), lambda d: full((1000, 64), d)]
+    dtypes = [torch.float32, torch.int64, torch.bool, torch.uint32]
+    pairs = []
+    for i in range(n):
+        src = makes[i % len(makes)](dtypes[i % len(dtypes)])
+        pairs.append((torch.empty(src.shape, dtype=src.dtype, device=device), src))
+    return pairs
+
+
+def _bits(t):
+    return t.view(torch.int32) if t.dtype is torch.uint32 else t
+
+
+@pytest.mark.parametrize("n", [13, 2 * 48 + 5], ids=["one launch", "three launches"])
+def test_batched_copy_equals_copy_on_card(cuda, n):
+    """The batched copy kernel (csrc/batched_copy.cu) against ``copy_`` a
+    pair: float32, int64, bool and uint32 elements, empty ones, strided
+    sources of rank 0 to 4, and more copies than one launch takes (three
+    launches for 101): ``torch.equal``, and one launch per 48 copies."""
+    from husky_rover_mppi_isaacsim_torch.ops.batched_copy_cuda import (
+        CAPACITY,
+        batched_copy,
+        row,
+    )
+
+    pairs = _copy_pairs(cuda, n)
+    want = [_bits(src).clone() for _, src in pairs]
+    before = batched_copy.launches
+    batched_copy.launch(b"".join(row(d, s) for d, s in pairs), n, torch.cuda.current_device())
+    torch.cuda.synchronize()
+    assert batched_copy.launches - before == -(-n // CAPACITY)
+    for (dst, _), w in zip(pairs, want):
+        assert torch.equal(_bits(dst), w)
+
+
+def test_graphed_reads_a_goal_written_in_place_between_replays_on_card(cuda):
+    """A fleet's closed-loop steps through one graph, its state fed back
+    (every argument but the fold-in index reused), its goals written in
+    place by ``index_copy_`` between two calls as fleet64's arrivals do:
+    each replay equals the eager step, one batched copy launch a replay and
+    no fallback."""
+    import numpy as np
+
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+    from husky_rover_mppi_isaacsim_torch.ops.batched_copy_cuda import batched_copy
+
+    hf, cm = _graph_world(cuda)
+    cfg = tenv.ClosedLoopConfig(mppi=MPPIConfig(num_samples=256, horizon=40),
+                                rover=tenv.RoverParams(slip_std=0.05))
+    starts = np.array([[-10.0, -8.0], [5.0, -12.0], [-12.0, 6.0]])
+    goals = torch.tensor([[15.0, 12.0], [-15.0, 10.0], [10.0, -15.0]], device=cuda)
+    state = tenv.init_loop_state(cfg, tenv.RoverState.create(starts, [1.0, 0.0, 0.0], hf))
+    key, graph = jr.key(3, cuda), Graphed(tenv.closed_loop_step, in_place_args=(1, 2))
+    launches = None
+    for i in range(8):
+        if i == 5:
+            goals.index_copy_(0, torch.tensor([1], device=cuda),
+                              torch.tensor([[3.0, -4.0]], device=cuda))
+        if i == 2:
+            launches, replays = batched_copy.launches, graph.replays
+        path = (("fold_in", torch.full((), i, dtype=torch.int64, device=cuda)),)
+        want = tenv.closed_loop_step(cfg, hf, cm, goals, tenv.clone_state(state), key, path)
+        state = graph(cfg, hf, cm, goals, state, key, path)
+        assert _all_equal(state, want), f"step {i}"
+    assert batched_copy.launches - launches == graph.replays - replays == 6
+    assert graph.copy_fallbacks == 0 and graph.batched_copies > 0
+    assert graph.args_reused >= 5 * 5  # the config, the world, the goals, the key, the state
+
+
+def test_graphed_output_viewing_an_input_falls_back_on_card(cuda):
+    """A graph that returns a view of one of its static inputs, fed back
+    into another argument: that leaf overlaps a static input and is copied
+    by ``copy_`` before the batched copy writes over what it reads, so the
+    replays equal the eager calls."""
+    from husky_rover_mppi_isaacsim_torch.core.graphs import Graphed
+
+    def fn(a, b):
+        return b.view(b.shape), a + 2.0 * b
+
+    graph = Graphed(fn)
+    a, b = torch.arange(5.0, device=cuda), torch.ones(5, device=cuda)
+    ea, eb = a.clone(), b.clone()
+    for _ in range(6):
+        a, b = graph(a, b)
+        ea, eb = fn(ea, eb)
+        ea, eb = ea.clone(), eb.clone()
+        assert torch.equal(a, ea) and torch.equal(b, eb)
+    assert graph.replays == 5 and graph.copy_fallbacks == 4 and graph.batched_copies == 6
 
 
 @pytest.mark.parametrize("slope_critic", ["wheels", "body"])

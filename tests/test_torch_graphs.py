@@ -3,7 +3,9 @@ what graphing the hot loops changed in the eager code, against the JAX
 package: the closed-loop latch keyed on a device step counter (seven steps,
 every latch phase, noise and wheel slip drawn from the step's key), a streamed chunk
 started at a step index that is not a multiple of 3 (as after a resume),
-and the step index through a checkpoint.
+and the step index through a checkpoint; the copy-in between replays:
+arguments reused by identity and the ``ValueError`` of every call that a
+whole check refuses, the copy plan, and the batched copy's records.
 
 On CPU tensors a :class:`Graphed` function is the eager function, so these
 tests run the code the graphs are held against on the card
@@ -316,3 +318,254 @@ def test_pipelined_loop_counts_its_blocking_waits(monkeypatch):
                           loop.dispatched_steps // conf.terrain_check_every)
     assert counts[False][0] == 0
     assert counts[True][0] == counts[True][1] > 0
+
+
+# -- the copy-in between replays: arguments reused by identity, the plan --
+
+
+class _Mutable:
+    """A constant compared by value, which can change in place."""
+
+    def __init__(self, v):
+        self.v = v
+
+    def __eq__(self, other):
+        return isinstance(other, _Mutable) and self.v == other.v
+
+    __hash__ = None
+
+
+def _reuse_fn(x, pair, const, box, window):
+    return x + pair[0] * pair.b + window.sum()
+
+
+_Pair = __import__("collections").namedtuple("_Pair", "a b")
+
+
+def _reuse_args():
+    return [torch.ones(3), _Pair(torch.ones(3), torch.full((), 2.0)), 7, [torch.zeros(3)],
+            torch.arange(4.0)]
+
+
+@pytest.mark.parametrize("case", ["same objects", "new tensor", "new tuple", "graph outputs"])
+def test_graphed_reuses_an_argument_that_is_the_last_call_s_object(case):
+    """A call with the very objects of the last call reuses every argument
+    but a list (``args_reused``); a new object of the same signature is
+    checked and accepted (``args_checked``); either way the call returns
+    what the function does."""
+    step = Graphed(_reuse_fn, in_place_args=(4,))
+    args = _reuse_args()
+    step(*args)
+    assert (step.args_reused, step.args_checked) == (0, 5)
+    if case == "new tensor":
+        args[0] = torch.full((3,), 5.0)
+    elif case == "new tuple":
+        args[1] = _Pair(torch.ones(3), torch.full((), 3.0))
+    elif case == "graph outputs":
+        args[0] = step(*args)
+    before = step.args_reused, step.args_checked
+    got = step(*args)
+    assert torch.equal(got, _reuse_fn(*args))
+    fresh = case in ("new tensor", "new tuple", "graph outputs")
+    # the list in argument 3 is never reused, the fresh argument is checked
+    assert (step.args_reused - before[0], step.args_checked - before[1]) == \
+        ((3, 2) if fresh else (4, 1))
+    step(*args)  # the same objects again: all but the list reused
+    assert (step.args_reused - before[0], step.args_checked - before[1]) == \
+        ((7, 3) if fresh else (8, 2))
+
+
+def _resized(args):
+    args[0].resize_(4)
+
+
+def _constant(args):
+    args[2] = 8
+
+
+def _listed(args):
+    args[3].append(torch.zeros(3))
+
+
+def _in_place(args):
+    args[4] = args[4].clone()
+
+
+def _boxed(args):
+    args[1] = _Pair(args[1].a, args[1].b)
+    args[2] = _Mutable(1)
+
+
+@pytest.mark.parametrize("change,match", [
+    (_resized, "built for"), (_constant, "built for"), (_listed, "built for"),
+    (_in_place, "in-place")], ids=["resize_", "constant", "list", "in-place"])
+def test_graphed_reuse_raises_what_a_check_raises(change, match):
+    """A reused tensor ``resize_``d in place, another constant, a list
+    argument changed in place (the same object: never reused) and another
+    tensor in an in-place argument each raise the ``ValueError`` of a whole
+    check, message for message."""
+    step = Graphed(_reuse_fn, in_place_args=(4,))
+    args = _reuse_args()
+    step(*args)
+    step(*args)  # every argument that may be is now reused
+    change(args)
+    with pytest.raises(ValueError, match=match) as got:
+        step(*args)
+    fresh = Graphed(_reuse_fn, in_place_args=(4,))
+    fresh._check(tuple(_reuse_args()))
+    if match == "in-place":
+        fresh._in_place_of = step._in_place_of
+    with pytest.raises(ValueError) as want:
+        fresh._check(tuple(args))
+    assert str(got.value).replace(step.name, "") == str(want.value).replace(fresh.name, "")
+
+
+def test_graphed_compares_a_mutable_constant_by_value_at_every_call():
+    """A constant that is not the first call's object and can change in
+    place keeps its argument from being reused: once it no longer equals
+    the first call's, the call raises, as a check of the whole call does."""
+    step = Graphed(lambda x, box: x * box[0].v)
+    box = (_Mutable(2),)
+    step(torch.ones(2), (_Mutable(2),))
+    x = torch.ones(2)
+    for _ in range(2):
+        assert torch.equal(step(x, box), torch.full((2,), 2.0))
+    assert step.args_reused == 1  # x, the second time; never the box
+    box[0].v = 3
+    with pytest.raises(ValueError, match="built for"):
+        step(x, box)
+
+
+def _plan_case(kind):
+    """Static inputs, a call's leaves and the plan :func:`copy_plan` should
+    give them."""
+    bufs = [torch.empty(4), None, torch.empty((2, 3), dtype=torch.int64), torch.empty(0),
+            torch.empty((2, 2, 2, 2, 2)), torch.empty(3, dtype=torch.bool)]
+    leaves = [torch.ones(4), 5, torch.ones((3, 2), dtype=torch.int64).t(), torch.empty(0),
+              torch.ones((2, 2, 2, 2, 2)), torch.ones(3, dtype=torch.bool)]
+    want = [("batch", [0, 2, 3]), ("copy", [4]), ("batch", [5])]
+    if kind == "skip":
+        leaves[0] = bufs[0]
+        want = [("batch", [2, 3]), ("copy", [4]), ("batch", [5])]
+    elif kind == "overlap":
+        leaves[3] = bufs[0][1:1]   # empty: overlaps nothing
+        leaves[5] = torch.empty(4, dtype=torch.bool)
+        leaves[2] = bufs[2].view(3, 2).t()  # a view of its own static input
+        want = [("batch", [0]), ("copy", [2]), ("batch", [3]), ("copy", [4]), ("batch", [5])]
+    elif kind == "other view":
+        leaves[0] = bufs[2].view(torch.float64)[0, :].repeat(2).float()  # a copy: no overlap
+        leaves[5] = bufs[0].view(torch.bool)[:3]   # reads another static input
+        want = [("batch", [0, 2, 3]), ("copy", [4]), ("copy", [5])]
+    return bufs, leaves, want
+
+
+@pytest.mark.parametrize("kind", ["plain", "skip", "overlap", "other view"])
+def test_copy_plan_batches_skips_and_falls_back(kind):
+    """:func:`copy_plan` on the CPU: leaves with a static input are batched
+    in runs; one that is its own static input is skipped; one of more than
+    four dims, or one that overlaps any static input, falls back to
+    ``copy_`` in leaf order."""
+    from husky_rover_mppi_isaacsim_torch.core.graphs import copy_plan
+    from husky_rover_mppi_isaacsim_torch.ops import batched_copy_cuda as bc
+
+    bufs, leaves, want = _plan_case(kind)
+    plan = copy_plan(bufs, leaves)
+    assert [(k, js) for k, js, _ in plan] == want
+    for k, js, packed in plan:  # a record a batched leaf, none for copy_
+        assert (len(packed) == len(js) * bc.RECORD.size) if k == "batch" else packed is None
+
+
+def _emulated_launch(tensors):
+    """A stand-in for the batched copy's launch on the CPU: each record
+    read back and copied by the walk it names, from the source's memory."""
+    from husky_rover_mppi_isaacsim_torch.ops import batched_copy_cuda as bc
+
+    launches = []
+
+    def launch(packed, n, device):
+        by_ptr = {(t.data_ptr(), t.numel(), t.element_size()): t for t in tensors}
+        launches.append(n)
+        for k in range(n):
+            f = bc.RECORD.unpack_from(packed, k * bc.RECORD.size)
+            numel, esize, rank = f[2], f[3], f[4]
+            if numel == 0:
+                continue
+            dst, src = by_ptr[f[0], numel, esize], by_ptr[f[1], numel, esize]
+            sizes, strides = f[5:5 + rank], f[5 + bc.MAX_RANK:5 + bc.MAX_RANK + rank]
+            got = torch.as_strided(src, sizes, strides).reshape(-1)
+            order = sorted(range(dst.dim()), key=lambda d: -dst.stride()[d])
+            torch.as_strided(dst, (dst.numel(),), (1,)).copy_(
+                src.permute(order).reshape(-1) if dst.dim() else src.reshape(-1))
+            assert torch.equal(got, src.permute(order).reshape(-1) if dst.dim()
+                               else src.reshape(-1))
+    return launch, launches
+
+
+def test_copy_in_follows_the_plan_and_keeps_it_while_sources_stay(monkeypatch):
+    """``Graphed._copy_in`` with the kernel's launch emulated on the CPU:
+    the static inputs end up as ``copy_`` in leaf order leaves them; the
+    plan is made once and kept while the sources keep their addresses and
+    strides; a source that only moved has its record pointed at it, the
+    plan kept; a source of other strides makes the plan again; the
+    counters count the leaves each way."""
+    from husky_rover_mppi_isaacsim_torch.ops import batched_copy_cuda as bc
+
+    def world():
+        bufs, leaves, _ = _plan_case("other view")
+        bufs[2] = torch.empty((3, 2), dtype=torch.int64).t()   # a permuted dense static input
+        for b in bufs:
+            if b is not None:
+                b.copy_(torch.arange(b.numel()).reshape(b.shape) % 2)
+        leaves[0] = torch.arange(4.0) + 2.0
+        return bufs, leaves
+
+    ref, ref_leaves = world()
+    for b, t in zip(ref, ref_leaves):   # copy_ in leaf order
+        if b is not None:
+            b.copy_(t)
+    bufs, leaves = world()
+    step = Graphed(lambda *a: a)
+    step._seat(bufs, None)
+    known = [t for t in bufs + leaves if isinstance(t, torch.Tensor)]
+    launch, launches = _emulated_launch(known)
+    monkeypatch.setattr(bc.batched_copy, "launch", launch)
+    step._copy_in(leaves)
+    assert all(b is None or torch.equal(b, r) for b, r in zip(bufs, ref))
+    assert launches == [3] and (step.batched_copies, step.copy_fallbacks) == (3, 2)
+    plan = step._plan
+    step._copy_in(leaves)
+    assert step._plan is plan and launches == [3, 3]
+    leaves[0] = torch.arange(4.0) * 2   # moved: its record rewritten
+    known.append(leaves[0])
+    step._copy_in(leaves)
+    assert step._plan is plan and torch.equal(bufs[0], leaves[0])
+    leaves[0] = (torch.arange(8.0) * 3)[::2]   # other strides: the plan is made again
+    known.append(leaves[0])
+    step._copy_in(leaves)
+    assert step._plan is not plan and torch.equal(bufs[0], leaves[0])
+    assert launches == [3] * 4 and (step.batched_copies, step.copy_fallbacks) == (12, 8)
+
+
+@pytest.mark.parametrize("shape,make", [
+    ((), lambda t: t), ((5,), lambda t: t[::2]), ((3, 4), lambda t: t.t()),
+    ((2, 3, 4), lambda t: t.permute(2, 0, 1)), ((2, 3, 4, 5), lambda t: t[:, 1:, ::2, :3]),
+    ((4, 1, 3), lambda t: t.expand(4, 2, 3)), ((0, 3), lambda t: t)],
+    ids=["0-d", "step", "transposed", "permuted", "rank-4 slice", "expanded", "empty"])
+def test_batched_copy_record_walks_the_source_as_copy_reads_it(shape, make):
+    """A record (:func:`batched_copy_cuda.row`) names the destination's
+    elements in its memory order and the source's element at each, as
+    ``dst.copy_(src)`` pairs them: strided sources of rank 0 to 4, dims of
+    size 1 and of stride 0, and no element."""
+    from husky_rover_mppi_isaacsim_torch.ops import batched_copy_cuda as bc
+
+    src = make(torch.arange(float(np.prod(shape) or 1)).reshape(shape) if np.prod(shape)
+               else torch.empty(shape))
+    dst = torch.empty(src.shape)
+    f = bc.RECORD.unpack(bc.row(dst, src))
+    assert f[0] == dst.data_ptr() and f[1] == src.data_ptr() and f[2] == src.numel()
+    rank = f[4]
+    assert 1 <= rank <= bc.MAX_RANK
+    if src.numel():
+        got = torch.as_strided(src, f[5:5 + rank], f[9:9 + rank]).reshape(-1)
+        assert torch.equal(got, src.reshape(-1))
+    assert bc.walk(torch.empty((4, 4))[:, :2], torch.empty((4, 2))) is None  # not dense

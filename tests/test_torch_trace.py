@@ -197,6 +197,31 @@ def test_goal_seek_counts_its_host_syncs_under_its_episode(tracer):
     assert "graphed.captures" not in rec.counters and "graphed.eager_calls" not in rec.counters
 
 
+@pytest.mark.parametrize("on", [True, False], ids=["on", "off"])
+def test_graphed_counts_its_arguments_and_copies_only_with_the_tracer_on(on):
+    """With the tracer on, the four ``graphed.*`` counters of the copy-in
+    appear in ``collect()``, the arguments counted as ``Graphed`` counts
+    them (nothing is copied on the CPU); with it off nothing is counted,
+    while ``Graphed``'s own counters count either way."""
+    cfg, hf, cm, goal, robot, ctrl = _step_inputs()
+    graph = Graphed(tc.mppi_step)
+    noise = torch.zeros((2, cfg.num_samples, cfg.horizon), dtype=torch.float64)
+    trace.enable()
+    if not on:
+        trace.disable()
+    try:
+        for _ in range(3):
+            graph(cfg, hf, cm, goal, robot, ctrl, noise)
+        rec = trace.collect()
+    finally:
+        trace.disable()
+    assert (graph.args_reused, graph.args_checked) == (14, 7)
+    assert graph.batched_copies == graph.copy_fallbacks == 0
+    names = ("args_reused", "args_checked", "batched_copies", "copy_fallbacks")
+    got = {n: rec.counters.get("graphed." + n) for n in names}
+    assert got == (dict(zip(names, (14, 7, 0, 0))) if on else dict.fromkeys(names))
+
+
 class _FakeEvent:
     """A timing event on a fake card clock: recorded at the card time the
     test sets, done once the test says so."""
